@@ -1,26 +1,54 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: build its kernels, hold
-each against its plain PyTorch version, and serve Llama-3-8B.
+each against its plain PyTorch version, train GPT-2-medium and serve
+Llama-3-8B.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which raises (and so exits non-zero) on a failed check:
 
-1. build: ``nvcc`` compiles ``pytorch_distributed_tpu_torch/csrc/*.cu``
-   into ``pytorch_distributed_tpu_torch/_build/`` (ignored by git).
-2. kernels: the paged-attention kernel at the decode tick's shapes
+1. build: ``nvcc`` compiles ``pytorch_distributed_tpu_torch/csrc/*.cu``,
+   one process per source, all at once, into
+   ``pytorch_distributed_tpu_torch/_build/`` (ignored by git).
+2. paged kernel: the paged-attention kernel at the decode tick's shapes
    (Llama-3-8B attention: 32 query / 8 kv heads, head_dim 128, 32-token
    pages, 8 rows of seeded lengths up to 2000), plus a W=5 verify block,
    a 256-token window and garbage in the null page, in bf16 and f32,
    against the plain ``stream`` and ``gather`` versions; then its time
    beside the plain version's, a bytes bound, and
    ``scaled_dot_product_attention`` over the same K/V gathered dense.
-3. serve: ``ServeEngine`` on Llama-3-8B at full width and depth, weights
+3. flash kernels: the forward, dq and dkv kernels against their plain
+   versions (the backward ones fed the same dO, lse and delta), in bf16
+   and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
+   head_dim 64, causal), on packed rows from ``pack_documents``, with a
+   ragged ``kv_mask``, at Llama-3-8B's GQA shapes (32/8 heads, head_dim
+   128, S=2048, full), with ``sm_scale=1.0`` and at S=T=1000; then each
+   kernel's time at the training shapes beside its plain version's, a
+   bound, and ``scaled_dot_product_attention``'s flash backend: its
+   forward for the forward kernel, its backward alone (one call that
+   computes dq, dk and dv, so the dq and dkv kernels share it) for the
+   backward kernels, each replayed from a CUDA graph (so the yardsticks
+   time the card, not the host's dispatch).
+4. serve: ``ServeEngine`` on Llama-3-8B at full width and depth, weights
    drawn from a seeded generator: 8 requests (6 greedy, 2 sampled, two
    sharing a 256-token prefix). Every request must finish with its full
    token count, the kernel must have launched once per layer per decode
    tick, and every greedy token must be, within a stated bf16 margin,
-   the argmax of a dense teacher-forced forward of the same model.
+   the argmax of a dense teacher-forced forward of the same model on the
+   plain einsum attention (``attn_impl="xla"``: the reference runs no
+   kernel).
+5. train: GPT-2-medium at full width and depth under ``Policy.train()``,
+   seeded weights, clip(1.0) then adamw(3e-4) (weight decay 1e-4) through
+   ``DataLoader``/``Trainer``/``build_train_step``: 10 steps on one
+   repeated batch of 8 x 1024 tokens, then 3 steps of 2 microbatches on
+   packed rows. Every loss must be finite, the repeated batch's loss must
+   fall by ``LOSS_DROP``, each flash kernel must have launched 24 times
+   per microbatch, and one step's loss, gradient norm and q/k/v weight
+   gradients with the flash kernels must match the einsum attention's
+   within bf16 tolerances.
+   Step time, tokens/s, peak memory and the kernels' share of the step
+   (from their timed ms, and from ``torch.profiler`` over two more
+   steps, which is why this phase runs last).
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line, then the card's name and power limit as
@@ -52,10 +80,47 @@ BF16_RTOL = 2e-2
 # activations, other matmul shapes and another attention path move the
 # logits (themselves bf16 values of magnitude 4-8, ulp 2^-5) by a few
 # ulps; on an H100 the worst gap measured 0.156 for the paged tick and
-# 0.1875 for the dense tick without the kernel (the A/B below), so the
-# margin is 8 such ulps. A wrong token sits several units below the max
-# (the logits' spread is about 1.3 at std-0.02 weights).
+# 0.1875 for the dense tick without the kernel (the A/B below), against
+# a reference on the einsum attention, so the margin is 8 such ulps. A
+# wrong token sits several units below the max (the logits' spread is
+# about 1.3 at std-0.02 weights).
 GREEDY_MARGIN = 0.25
+# flash kernels vs plain versions (as in tests/test_torch_kernels_cuda.py),
+# two limits per tensor: "norm" on ||got - ref|| / ||ref||, which a kernel
+# wrong on any sizeable share of rows or keys fails, and "max" on
+# max|got - ref| / max|ref|, which one wrong entry near the top fails.
+# f32 sums in another order: a few ulp, 5x for the gradients' longer
+# sums. bf16: the outputs are bf16, and an entry can land one bf16 step
+# apart, at most 2^-7 of itself, where the two round from f32 values a
+# few ulp apart; the forward rounds P against its running maximum, which
+# differs with the tiling, while the backward recomputes P from the same
+# lse on both sides, so its entries differ far more rarely. H100 readings
+# over the six cases: max 3.6e-3 (out, sm_scale=1.0) and 3.4e-3 (dv, GQA);
+# norm 1.4e-3 (out) and 8.2e-5 (grads) in bf16, 8.4e-7 and 1.7e-6 in f32.
+FLASH_TOL = {
+    "float32": {"out": dict(max=1e-5, norm=1e-5),
+                "grad": dict(max=5e-5, norm=1e-5)},
+    "bfloat16": {"out": dict(max=1e-2, norm=5e-3),
+                 "grad": dict(max=1e-2, norm=1e-3)},
+}
+LSE_TOL = dict(max=1e-5, norm=1e-5)   # f32 in both dtypes
+# the repeated batch's loss must fall at least this far (nats) over the
+# 10 timed steps: Adam moves each tied-embedding row by ~lr per step, so
+# the logits of the batch's tokens rise by roughly lr * sum|h| ~ 0.25 a
+# step; a broken gradient leaves the loss where it was
+LOSS_DROP = 0.25
+# flash vs einsum attention on one bf16 step (dropout off, same weights
+# and batch), relative. The loss and global gradient norm read 1.3e-6 and
+# 4.6e-5 on an H100; q and k carry only ~18% each of the gradient norm,
+# so those two catch a wrong output, not a wrong dq or dk. The q, k and v
+# slices of every layer's qkv weight gradient (||flash - einsum|| over
+# ||einsum||) do: the kernels round dS to bf16 where the einsum path
+# keeps f32, and dq = sum dS K cancels, so they differ by a few 1e-3
+# (H100 readings: q 3.5e-3, k 3.7e-3, v 2.3e-3); a zero or wrong dq
+# reads ~1.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-3
+TRAIN_QKV_RTOL = 2e-2
 
 
 def _time_ms(fn, iters):
@@ -72,6 +137,28 @@ def _time_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _graph_ms(fn, iters):
+    """``_time_ms`` of ``fn`` captured once in a CUDA graph and replayed:
+    the device's time alone. The library calls timed as yardsticks
+    (SDPA, its backward op) spend longer on the host per call than
+    on the card when the shared host is loaded, so eager timing of them
+    measures the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = _time_ms(graph.replay, iters)
+    del graph
+    return ms
 
 
 def _paged_case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, max_len, device):
@@ -187,7 +274,7 @@ def kernel_phase(device, seed):
         enable_gqa=True,
     ).transpose(1, 2)
     garbage_err = (garbage_out.float() - ours).abs().max().item()
-    library_ms = _time_ms(
+    library_ms = _graph_ms(
         lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask, enable_gqa=True
         ), 200,
@@ -222,6 +309,453 @@ def kernel_phase(device, seed):
                    live_keys=live, sdpa_max_abs_diff=lib_err,
                    sdpa_max_abs_diff_null_page_garbage=garbage_err)
     return record, details
+
+
+# --------------------------------------------------------------------------
+# flash attention kernels (csrc/flash_attention.cu)
+# --------------------------------------------------------------------------
+
+_TRAIN_SHAPE = dict(B=8, S=1024, T=1024, Hq=16, Hkv=16, D=64)
+FLASH_CASES = (
+    # name, shape, causal, extras
+    ("train", _TRAIN_SHAPE, True, {}),
+    ("packed", _TRAIN_SHAPE, True, {"packed": True}),
+    ("kv_mask", dict(_TRAIN_SHAPE, B=4), False, {"kv_mask": True}),
+    ("gqa_llama", dict(B=2, S=2048, T=2048, Hq=32, Hkv=8, D=128), False, {}),
+    ("sm_scale_1", dict(_TRAIN_SHAPE, B=2, S=512, T=512), True,
+     {"sm_scale": 1.0}),
+    ("ragged_1000", dict(_TRAIN_SHAPE, B=4, S=1000, T=1000), True, {}),
+)
+_REPLACES = {
+    "flash_fwd": "pytorch_distributed_tpu/ops/flash_attention.py:80",
+    "flash_dq": "pytorch_distributed_tpu/ops/flash_attention.py:234",
+    "flash_dkv": "pytorch_distributed_tpu/ops/flash_attention.py:288",
+}
+
+
+def _packed_rows(seed, rows, S, vocab):
+    """``rows`` packed rows of S tokens from documents of seeded lengths
+    64-900 (``pack_documents``'s first-fit)."""
+    import numpy as np
+
+    from pytorch_distributed_tpu_torch import pack_documents
+
+    rng = np.random.default_rng(seed)
+    docs = []
+    while True:
+        docs.append(rng.integers(1, vocab, size=int(rng.integers(64, 901))))
+        packed = pack_documents(docs, S)
+        if len(packed["input_ids"]) > rows:
+            return {k: v[:rows] for k, v in packed.items()}
+
+
+def _flash_inputs(gen, seed, shape, dtype, device, extras):
+    import torch
+
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    B, S, T, Hq, Hkv, D = (shape[k] for k in ("B", "S", "T", "Hq", "Hkv",
+                                              "D"))
+    q = torch.randn(B, S, Hq, D, generator=gen)
+    k = torch.randn(B, T, Hkv, D, generator=gen)
+    v = torch.randn(B, T, Hkv, D, generator=gen)
+    bias = seg = None
+    if extras.get("kv_mask"):   # a ragged padded tail per row
+        lengths = torch.randint(T // 2, T + 1, (B,), generator=gen)
+        keep = torch.arange(T)[None, :] < lengths[:, None]
+        bias = torch.zeros(B, T).masked_fill(~keep, fa._NEG_INF).to(device)
+    if extras.get("packed"):
+        seg = torch.from_numpy(
+            _packed_rows(seed, B, S, 50257)["segment_ids"]
+        ).to(device)
+    to = lambda t: t.to(device=device, dtype=dtype)  # noqa: E731
+    return to(q), to(k), to(v), bias, seg
+
+
+def _live_pairs(B, S, T, Hq, causal, bias, seg):
+    """(query, key) pairs the masks leave live, over every head: the
+    work this run's data needs."""
+    import torch
+
+    dev = bias.device if bias is not None else (
+        seg.device if seg is not None else "cpu")
+    keep = torch.ones(B, S, T, dtype=torch.bool, device=dev)
+    if causal:
+        keep &= (torch.arange(S, device=dev)[:, None]
+                 >= torch.arange(T, device=dev)[None, :])
+    if bias is not None:
+        keep &= (bias == 0)[:, None, :]
+    if seg is not None:
+        keep &= seg[:, :, None] == seg[:, None, :]
+    return int(keep.sum().item()) * Hq
+
+
+def flash_phase(device, seed):
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    checks = []
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        tol = FLASH_TOL[dname]
+        for name, shape, causal, extras in FLASH_CASES:
+            q, k, v, bias, seg = _flash_inputs(gen, seed, shape, dtype,
+                                               device, extras)
+            kw = dict(sm_scale=extras.get("sm_scale",
+                                          shape["D"] ** -0.5),
+                      causal=causal)
+            out, lse = fa.flash_fwd(q, k, v, bias, seg, **kw)
+            ref, ref_lse = fa._flash_fwd_plain(q, k, v, bias, seg, **kw)
+            dout = torch.randn(out.shape, generator=gen).to(device, dtype)
+            delta = fa._delta(dout, out)
+            args = (q, k, v, dout, lse, delta, bias, seg)
+            dq = fa.flash_dq(*args, **kw)
+            dk, dv = fa.flash_dkv(*args, **kw)
+            ref_dk, ref_dv = fa._flash_dkv_plain(*args, **kw)
+            pairs = (
+                ("out", out, ref, tol["out"]),
+                ("lse", lse, ref_lse, LSE_TOL),
+                ("dq", dq, fa._flash_dq_plain(*args, **kw), tol["grad"]),
+                ("dk", dk, ref_dk, tol["grad"]),
+                ("dv", dv, ref_dv, tol["grad"]),
+            )
+            torch.cuda.synchronize()
+            for what, got, want, lim in pairs:
+                want = want.float()
+                diff = got.float() - want
+                err = diff.abs().max().item()
+                scale = want.abs().max().item()
+                norm = (diff.norm() / want.norm()).item()
+                ok = (math.isfinite(err) and err <= lim["max"] * scale
+                      and norm <= lim["norm"])
+                checks.append(dict(case=name, dtype=dname, what=what,
+                                   max_abs_err=err, max_abs_ref=scale,
+                                   tol=lim["max"] * scale, norm_rel_err=norm,
+                                   norm_tol=lim["norm"], ok=ok))
+                print(f"flash {name} {dname} {what}: max|err| {err:.3e} <= "
+                      f"{lim['max']:g} * max|ref| {scale:.4f}, norm "
+                      f"{norm:.3e} <= {lim['norm']:g} -> "
+                      f"{'ok' if ok else 'FAIL'}")
+                if name == "train" and dname == "bfloat16":
+                    worst[what] = err
+            del q, k, v, out, ref, dout, dq, dk, dv, ref_dk, ref_dv, pairs
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernels disagree with plain: {bad}")
+
+    # time at the training shapes (bf16, causal)
+    shape = _TRAIN_SHAPE
+    B, S, T, Hq, Hkv, D = (shape[k] for k in ("B", "S", "T", "Hq", "Hkv",
+                                              "D"))
+    q, k, v, _, _ = _flash_inputs(gen, seed, shape, torch.bfloat16, device,
+                                  {})
+    kw = dict(sm_scale=D ** -0.5, causal=True)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen).to(device, out.dtype)
+    delta = fa._delta(dout, out)
+    bargs = (q, k, v, dout, lse, delta)
+    ms = {
+        "flash_fwd": _time_ms(lambda: fa.flash_fwd(q, k, v, **kw), 20),
+        "flash_dq": _time_ms(lambda: fa.flash_dq(*bargs, **kw), 20),
+        "flash_dkv": _time_ms(lambda: fa.flash_dkv(*bargs, **kw), 20),
+    }
+    plain_ms = {
+        "flash_fwd": _time_ms(
+            lambda: fa._flash_fwd_plain(q, k, v, None, None, **kw), 3),
+        "flash_dq": _time_ms(
+            lambda: fa._flash_dq_plain(*bargs, None, None, **kw), 3),
+        "flash_dkv": _time_ms(
+            lambda: fa._flash_dkv_plain(*bargs, None, None, **kw), 3),
+    }
+    # the library yardsticks (never called by the port): SDPA's flash
+    # backend on the same tensors in its [B, H, S, D] layout. The backward
+    # is its aten op alone, fed the out and logsumexp of a forward made
+    # outside the graph: one call for dq, dk and dv, so the dq and dkv
+    # kernels share it (hold dq_ms + dkv_ms against it)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    aten = torch.ops.aten
+    lib = aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False, scale=kw["sm_scale"]
+    )
+    lo, llse, cum_q, cum_k, max_q, max_k, seed_t, offset_t = lib[:8]
+    gout = torch.empty_like(lo).copy_(dout.transpose(1, 2))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_bwd():
+        return aten._scaled_dot_product_flash_attention_backward(
+            gout, qt, kt, vt, lo, llse, cum_q, cum_k, max_q, max_k, 0.0,
+            True, seed_t, offset_t, scale=kw["sm_scale"],
+        )
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        lib_fwd = _graph_ms(sdpa_fwd, 20)
+        lib_err = (sdpa_fwd().transpose(1, 2).float()
+                   - out.float()).abs().max().item()
+    lib_bwd = _graph_ms(sdpa_bwd, 20)
+    lib_dq = sdpa_bwd()[0].transpose(1, 2).float()
+    lib_dq_err = (lib_dq - fa.flash_dq(*bargs, **kw).float()).abs().max()
+    lib_dq_err = lib_dq_err.item()
+    pairs = _live_pairs(B, S, T, Hq, True, None, None)
+    n_q, n_kv, rows = B * S * Hq * D, B * T * Hkv * D, B * Hq * S
+    item = q.element_size()
+    work = {   # (bytes: each input read once, each output written once; flops)
+        "flash_fwd": ((2 * n_q + 2 * n_kv) * item + 4 * rows,
+                      4 * D * pairs),
+        "flash_dq": ((3 * n_q + 2 * n_kv) * item + 8 * rows, 6 * D * pairs),
+        "flash_dkv": ((2 * n_q + 4 * n_kv) * item + 8 * rows,
+                      8 * D * pairs),
+    }
+    records = []
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS * 1e3
+        err = {"flash_fwd": worst["out"], "flash_dq": worst["dq"],
+               "flash_dkv": max(worst["dk"], worst["dv"])}[name]
+        records.append(dict(
+            name=name, route="cuda",
+            source="pytorch_distributed_tpu_torch/csrc/flash_attention.cu",
+            replaces=_REPLACES[name], launches=None, max_abs_err=err,
+            ms=ms[name], plain_ms=plain_ms[name],
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+        ))
+        print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
+              f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, "
+              f"{flops} flops)")
+    print(f"sdpa (flash backend): forward {lib_fwd:.4f} ms (max|diff| vs "
+          f"the forward kernel {lib_err:.3e}), backward {lib_bwd:.4f} ms "
+          f"(dq max|diff| vs the dq kernel {lib_dq_err:.3e}) against dq + "
+          f"dkv {ms['flash_dq'] + ms['flash_dkv']:.4f} ms")
+    details = dict(checks=checks, live_pairs=pairs, sdpa_fwd_ms=lib_fwd,
+                   sdpa_bwd_ms=lib_bwd, sdpa_max_abs_diff=lib_err,
+                   sdpa_bwd_dq_max_abs_diff=lib_dq_err,
+                   work={k: dict(bytes=b, flops=f)
+                         for k, (b, f) in work.items()})
+    return records, details
+
+
+# --------------------------------------------------------------------------
+# train GPT-2-medium
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 10     # timed steps on one repeated batch
+PACKED_STEPS = 3     # then steps of 2 microbatches on packed rows
+
+
+def _profile_step(step, state, batch):
+    """Device time by kernel over two steps, from torch.profiler:
+    (total busy us, flash kernels' us, top items)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): host-side records
+        # carry their children's device time too and would count it twice,
+        # and so do the device-timeline copies of annotated host ranges
+        # (the optimizer's "Optimizer.step#AdamW.step")
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            rows.append((e.key, float(us), int(e.count)))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    flash = sum(r[1] for r in rows if "flash_" in r[0] and "kernel" in r[0])
+    return total, flash, rows[:12]
+
+
+def train_phase(device, seed, flash_records):
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch import (
+        ArrayDataset,
+        DataLoader,
+        GPT2Config,
+        GPT2LMHead,
+        Policy,
+        SyntheticTextDataset,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        build_train_step,
+        causal_lm_loss_fn,
+        optim,
+    )
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.runtime import tracing
+
+    cfg = GPT2Config.medium()
+    policy = Policy.train()
+    B, S = 8, 1024
+    t0 = time.perf_counter()
+    model = GPT2LMHead(cfg, device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: GPT-2-medium, {n_params} params in f32, bf16 products, "
+          f"seeded init {time.perf_counter() - t0:.1f} s")
+    opt = optim.clip_grad_norm(
+        optim.AdamW(model, lr=3e-4, weight_decay=1e-4), 1.0
+    )
+    state = TrainState(model, opt, policy=policy)
+    loss_fn = causal_lm_loss_fn(model)
+    step1 = build_train_step(loss_fn, accum_steps=1)
+    step2 = build_train_step(loss_fn, accum_steps=2)
+    rows = SyntheticTextDataset(n=B, seq_len=S, vocab_size=cfg.vocab_size,
+                                seed=seed)
+    batch = np.stack([rows[i]["input_ids"] for i in range(B)])
+    repeated = DataLoader(
+        ArrayDataset(input_ids=np.tile(batch, (TRAIN_STEPS, 1))), B,
+        shuffle=False,
+    )
+    packed = DataLoader(
+        ArrayDataset(**_packed_rows(seed, PACKED_STEPS * B, S,
+                                    cfg.vocab_size)), B, shuffle=False,
+    )
+    dev_batch = {"input_ids": torch.from_numpy(batch).to(device)}
+
+    # warm-up (cuBLAS handles, allocator) on the same batch
+    for _ in range(2):
+        state, metrics = step1(state, dev_batch)
+    first_loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+
+    for fn in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    with tracing.enabled() as tracer:   # the main path
+        t0 = time.perf_counter()
+        main = Trainer(state, step1, repeated,
+                       config=TrainerConfig(log_every=1))
+        main.fit()
+        pk = Trainer(main.state, step2, packed,
+                     config=TrainerConfig(log_every=1))
+        pk.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    state = pk.state
+    launches = {fn.__name__: fn.launches
+                for fn in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+    microbatches = TRAIN_STEPS * 1 + PACKED_STEPS * 2
+    want = cfg.num_layers * microbatches
+    print(f"train: {TRAIN_STEPS} steps x 1 + {PACKED_STEPS} packed steps x 2"
+          f" microbatches in {wall:.2f} s; launches {launches} (want "
+          f"{want} each = {cfg.num_layers} layers x {microbatches} "
+          f"microbatches)")
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != {want} each")
+    losses = [r["loss"] for r in main.history]
+    packed_losses = [r["loss"] for r in pk.history]
+    if len(losses) != TRAIN_STEPS or len(packed_losses) != PACKED_STEPS:
+        raise AssertionError(f"logged {len(losses)} + {len(packed_losses)} "
+                             "steps")
+    if not all(math.isfinite(x) for x in losses + packed_losses):
+        raise AssertionError(f"non-finite loss: {losses} {packed_losses}")
+    print(f"losses on the repeated batch: {first_loss:.4f} (warm-up) then "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + "; packed: " + " ".join(f"{x:.4f}" for x in packed_losses))
+    if losses[-1] > losses[0] - LOSS_DROP:
+        raise AssertionError(
+            f"the repeated batch's loss went {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, less than the {LOSS_DROP} drop required"
+        )
+    step_s = sorted(r["step_time_s"] for r in main.history)
+    step_ms = 1e3 * step_s[len(step_s) // 2]
+    tokens_s = B * S / (step_ms / 1e3)
+    kernel_ms = {r["name"]: r["ms"] for r in flash_records}
+    est_share = cfg.num_layers * sum(kernel_ms.values()) / step_ms
+    roll = tracer.rollups()
+    total_us, flash_us, top = _profile_step(step1, state, dev_batch)
+    print(f"train step (batch {B} x {S}, median of {TRAIN_STEPS}): "
+          f"{step_ms:.2f} ms, {tokens_s:.0f} tokens/s, peak memory "
+          f"{peak_mem:.2f} GiB; flash kernels ~{100 * est_share:.1f}% of "
+          f"the step (24 x their timed ms)")
+    if total_us:
+        print(f"profiler, 2 steps: device busy {total_us / 2e3:.2f} ms/step "
+              f"(idle {100 * (1 - total_us / 2e3 / step_ms):.1f}% of the "
+              f"unprofiled step), flash kernels {flash_us / 2e3:.2f} ms/step "
+              f"({100 * flash_us / total_us:.1f}% of device time)")
+        for key, us, count in top:
+            print(f"  {us / 2e3:9.3f} ms/step  x{count // 2:<5d} {key[:90]}")
+    else:
+        print("profiler: no device time recorded (not measured)")
+
+    # flash vs the einsum attention on one step's loss and gradients,
+    # dropout off, same weights and batch (not counted: read above)
+    ids = dev_batch["input_ids"].long()
+    D = cfg.hidden_size
+    ab = {}
+    for impl in (None, "xla"):
+        model.zero_grad(set_to_none=True)
+        logits = model(ids, attn_impl=impl)
+        loss = F.cross_entropy(
+            logits[:, :-1].float().reshape(-1, cfg.vocab_size),
+            ids[:, 1:].reshape(-1),
+        )
+        loss.backward()
+        gnorm = optim.global_norm([p.grad for p in model.parameters()])
+        qkv = torch.stack([b.attn_qkv.weight.grad for b in model.blocks])
+        ab[impl or "flash"] = (loss.item(), gnorm.item(), qkv)
+        del logits, loss
+    (lf, gf, qkv_f), (lx, gx, qkv_x) = ab["flash"], ab["xla"]
+    qkv_rel = {}
+    for i, part in enumerate("qkv"):   # [L, 3D, D] rows: q, k, v
+        f, x = qkv_f[:, i * D:(i + 1) * D], qkv_x[:, i * D:(i + 1) * D]
+        qkv_rel[part] = ((f - x).norm() / x.norm()).item()
+    del ab, qkv_f, qkv_x
+    rel = dict(loss=abs(lf - lx) / abs(lx), grad_norm=abs(gf - gx) / gx)
+    print(f"flash vs einsum attention: loss {lf:.6f} vs {lx:.6f} (rel "
+          f"{rel['loss']:.2e} <= {TRAIN_LOSS_RTOL:g}), grad norm {gf:.6f} vs "
+          f"{gx:.6f} (rel {rel['grad_norm']:.2e} <= {TRAIN_GNORM_RTOL:g}), "
+          "qkv weight gradients "
+          + ", ".join(f"{k} {v:.2e}" for k, v in qkv_rel.items())
+          + f" (<= {TRAIN_QKV_RTOL:g})")
+    if (rel["loss"] > TRAIN_LOSS_RTOL or rel["grad_norm"] > TRAIN_GNORM_RTOL
+            or max(qkv_rel.values()) > TRAIN_QKV_RTOL):
+        raise AssertionError("flash and einsum attention disagree on a step")
+    stats = dict(
+        params=n_params, batch=B, seq=S, steps=TRAIN_STEPS,
+        packed_steps=PACKED_STEPS, launches=launches, wall_s=wall,
+        warmup_loss=first_loss, losses=losses, packed_losses=packed_losses,
+        step_ms_median=step_ms, step_ms=[1e3 * x for x in step_s],
+        tokens_per_s=tokens_s, peak_mem_gib=peak_mem,
+        flash_share_from_kernel_ms=est_share,
+        profile_device_ms_per_step=total_us / 2e3,
+        profile_flash_ms_per_step=flash_us / 2e3,
+        profile_top=[dict(name=k, ms_per_step=us / 2e3, count=c // 2)
+                     for k, us, c in top],
+        spans={k: roll[k]["mean_ms"] for k in roll},
+        flash_vs_einsum=dict(loss=[lf, lx], grad_norm=[gf, gx],
+                             rel=rel, qkv_grad_rel=qkv_rel),
+    )
+    del model, opt, state, main, pk, step1, step2, loss_fn, dev_batch, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
 
 
 def _requests(seed, vocab):
@@ -291,7 +825,8 @@ def _drive(model, ecfg, reqs):
 
 def _teacher_gaps(model, reqs, handles, device):
     """For every greedy token: the dense teacher-forced forward's max
-    logit minus the logit of the token the engine chose."""
+    logit minus the logit of the token the engine chose. The forward
+    takes the einsum attention, so the reference runs no kernel."""
     import torch
 
     gaps, exact = [], 0
@@ -302,7 +837,7 @@ def _teacher_gaps(model, reqs, handles, device):
             seq = torch.tensor(
                 list(r.prompt_ids) + h.tokens, device=device
             )[None].long()
-            logits = model(seq)[0, r.prompt_len - 1:-1]   # [new, V]
+            logits = model(seq, attn_impl="xla")[0, r.prompt_len - 1:-1]
             if not torch.isfinite(logits).all():
                 raise AssertionError(f"{r.request_id}: non-finite logits")
             toks = torch.tensor(h.tokens, device=device)
@@ -414,9 +949,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from pytorch_distributed_tpu_torch.ops.paged_attention import (
-            build_kernel,
-        )
+        from pytorch_distributed_tpu_torch.ops import kernel_build
         from pytorch_distributed_tpu_torch.runtime.device import device_info
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -426,20 +959,31 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = build_kernel()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log = lib.parent / "paged_attention.log"
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    libs = kernel_build.build(["paged_attention", "flash_attention"])
+    print(f"build: {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in libs:
+        log = kernel_build.BUILD_DIR / f"{name}.log"
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     record, kdetails = kernel_phase(device, args.seed)
+    flash_records, fdetails = flash_phase(device, args.seed)
+    # serve before train: the train phase ends with torch.profiler, whose
+    # tracing of the host would slow the host-bound decode ticks after it
     launches, stats = serve_phase(device, args.seed)
+    torch.cuda.empty_cache()
+    flash_launches, tstats = train_phase(device, args.seed,
+                                         flash_records)
     record["launches"] = launches
+    for rec in flash_records:
+        rec["launches"] = flash_launches[rec["name"]]
 
     card = device_info()
-    print(json.dumps({"details": dict(kernel=kdetails, serve=stats)}))
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
+                                      train=tstats, serve=stats)}))
+    print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

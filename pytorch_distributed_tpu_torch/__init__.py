@@ -1,9 +1,11 @@
 """pytorch_distributed_tpu_torch — the PyTorch/CUDA port of
 ``pytorch_distributed_tpu``, slice by slice.
 
-This slice serves Llama-3 through the continuous-batching engine, with
-decode attention in a hand-written CUDA kernel for Hopper
-(``csrc/paged_attention.cu``). Entry points run on the CUDA card unless
+Two slices so far: serving Llama-3 through the continuous-batching
+engine, with decode attention in a hand-written CUDA kernel for Hopper
+(``csrc/paged_attention.cu``), and training GPT-2 on one card, with
+attention forward and backward in hand-written flash kernels
+(``csrc/flash_attention.cu``). Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``. The package imports ``torch`` and
 ``numpy``, never ``jax`` or the JAX package.
 
@@ -15,29 +17,60 @@ the caller passes ``device="cpu"``. The package imports ``torch`` and
     model = LlamaForCausalLM(LlamaConfig.llama3_8b())
     model.init_weights(torch.Generator("cuda").manual_seed(0))
     engine = ServeEngine(model, EngineConfig(num_slots=8, max_len=2048))
+
+    python -m pytorch_distributed_tpu_torch.recipes.gpt2 --size medium \
+        --batch-size 8 --accum-steps 1 --seq-len 1024 --steps-per-epoch 20
 """
 
+from pytorch_distributed_tpu_torch import optim
+from pytorch_distributed_tpu_torch.data import (
+    ArrayDataset,
+    DataLoader,
+    SyntheticTextDataset,
+    pack_documents,
+    packed_loss_mask,
+)
 from pytorch_distributed_tpu_torch.generation import generate
-from pytorch_distributed_tpu_torch.interop import llama_params_from_jax
+from pytorch_distributed_tpu_torch.interop import (
+    gpt2_params_from_jax,
+    llama_params_from_jax,
+)
+from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
 )
+from pytorch_distributed_tpu_torch.ops.attention import attention
+from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import paged_attention
 from pytorch_distributed_tpu_torch.runtime.device import (
     default_device,
     device_info,
 )
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
+from pytorch_distributed_tpu_torch.runtime.prng import generator_for, seed_all
 from pytorch_distributed_tpu_torch.serve import (
     EngineConfig,
     Request,
     RequestStatus,
     ServeEngine,
 )
+from pytorch_distributed_tpu_torch.train import (
+    Trainer,
+    TrainerConfig,
+    TrainingDiverged,
+    TrainState,
+    build_train_step,
+    causal_lm_loss_fn,
+)
 
 __all__ = [
-    "generate", "llama_params_from_jax", "LlamaConfig", "LlamaForCausalLM",
-    "paged_attention", "default_device", "device_info", "Policy",
-    "EngineConfig", "Request", "RequestStatus", "ServeEngine",
+    "optim", "ArrayDataset", "DataLoader", "SyntheticTextDataset",
+    "pack_documents", "packed_loss_mask", "generate", "gpt2_params_from_jax",
+    "llama_params_from_jax", "GPT2Config", "GPT2LMHead", "LlamaConfig",
+    "LlamaForCausalLM", "attention", "flash_attention", "paged_attention",
+    "default_device", "device_info", "Policy", "generator_for", "seed_all",
+    "EngineConfig", "Request", "RequestStatus", "ServeEngine", "Trainer",
+    "TrainerConfig", "TrainingDiverged", "TrainState", "build_train_step",
+    "causal_lm_loss_fn",
 ]

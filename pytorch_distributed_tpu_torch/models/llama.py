@@ -118,7 +118,7 @@ class LlamaBlock(nn.Module):
         self.down = lin(cfg.intermediate_size, D)
 
     def forward(self, x, cos, sin, positions, layer_cache, write_pos,
-                paged: Optional[PagedView]):
+                paged: Optional[PagedView], attn_impl: Optional[str] = None):
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.head_dim
@@ -135,7 +135,7 @@ class LlamaBlock(nn.Module):
             )
         attn = attention(
             q, k, v, causal=True, q_offset=offset,
-            window=cfg.sliding_window, paged=paged,
+            window=cfg.sliding_window, paged=paged, impl=attn_impl,
         )
         x = x + self.o(attn.reshape(B, S, cfg.num_heads * hd))
         h = self.mlp_norm(x)
@@ -230,6 +230,7 @@ class LlamaForCausalLM(nn.Module):
         decode: bool = False,
         cache_len: Optional[int] = None,
         paged: Optional[PagedView] = None,
+        attn_impl: Optional[str] = None,
     ):
         """``decode=False``: a plain causal pass, returns logits.
 
@@ -238,6 +239,10 @@ class LlamaForCausalLM(nn.Module):
         are required; ``cache`` defaults to zeroed ``[B, cache_len]``
         buffers; with ``paged`` the cache is the page pool and attention
         streams it through the paged-attention kernel.
+
+        ``attn_impl`` is passed to every layer's ``attention`` call
+        (``None``: flash on the card where it applies, ``"flash"`` or
+        ``"xla"`` to force one).
         """
         cfg = self.config
         B, S = input_ids.shape
@@ -264,6 +269,7 @@ class LlamaForCausalLM(nn.Module):
             x = layer(
                 x, cos, sin, positions,
                 cache[i] if decode else None, write_pos, paged,
+                attn_impl=attn_impl,
             )
         logits = self.lm_head(self.final_norm(x)).to(self.policy.output_dtype)
         return (logits, cache) if decode else logits

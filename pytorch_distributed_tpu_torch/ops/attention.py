@@ -4,6 +4,10 @@
 * Grouped-query attention keeps the KV-head group as an einsum
   dimension: K/V are never repeated to the query heads.
 * Logits and softmax are f32 while inputs stay in the compute dtype.
+* ``attention`` sends every call the flash kernels take to
+  ``ops/flash_attention.py`` on the card: the JAX package keeps its
+  Pallas kernel opt-in for a TPU compile-time reason that does not carry
+  over. The choice is per call (``impl=``); there is no global switch.
 * The KV cache is an explicit argument: ``decode_cache`` writes into the
   tensors it is given (in place) and returns them, where the JAX version
   threads flax's ``cache`` collection.
@@ -16,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import (
     PagedView,
     paged_attention,
@@ -86,6 +91,8 @@ def dot_product_attention(
     v: torch.Tensor,  # [B, T, Hkv, D]
     *,
     causal: bool = False,
+    mask: Optional[torch.Tensor] = None,         # [B, T] key padding
+    segment_ids: Optional[torch.Tensor] = None,  # [B, S] packing ids
     q_offset=0,
     scale: Optional[float] = None,
     window: Optional[int] = None,
@@ -93,10 +100,13 @@ def dot_product_attention(
     """Grouped attention with f32 logits; returns [B, S, Hq, D] in
     q.dtype.
 
-    ``q_offset`` shifts query positions for the causal mask; a ``[B]``
-    tensor gives every row its own offset (the serving engine's slots,
-    each at its own length). ``window`` is sliding-window attention:
-    position ``i`` sees keys in ``(i - window, i]``.
+    ``mask`` is a ``[B, T]`` boolean keep-mask over the keys (padding).
+    ``segment_ids`` restricts attention to pairs within one packed
+    document (self-attention only). ``q_offset`` shifts
+    query positions for the causal mask; a ``[B]`` tensor gives every row
+    its own offset (the serving engine's slots, each at its own length).
+    ``window`` is sliding-window attention: position ``i`` sees keys in
+    ``(i - window, i]``.
     """
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -107,6 +117,12 @@ def dot_product_attention(
         scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, S, Hkv, G, D)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    neg = torch.finfo(torch.float32).min
+    if segment_ids is not None:
+        if S != T:
+            raise ValueError("segment_ids requires self-attention (S == T)")
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]  # [B, S, T]
+        logits = logits.masked_fill(~same[:, None, None], neg)
     if causal or window is not None:
         if window is not None and window <= 0:
             raise ValueError(f"window must be positive, got {window}")
@@ -120,7 +136,14 @@ def dot_product_attention(
         if window is not None:
             keep = keep & (qpos[..., :, None] - kpos < window)
         keep = keep[:, None, None] if keep.dim() == 3 else keep
-        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+        logits = logits.masked_fill(~keep, neg)
+    if mask is not None:
+        if tuple(mask.shape) != (B, T):
+            raise ValueError(
+                f"mask must be [B, T] = {(B, T)}, got {tuple(mask.shape)}"
+            )
+        keep = mask.to(torch.bool)[:, None, None, None, :]
+        logits = logits.masked_fill(~keep, neg)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", weights.to(q.dtype), v)
     return out.reshape(B, S, Hq, D)
@@ -177,25 +200,34 @@ def decode_cache(layer_cache, k, v, *, write_pos, paged: Optional[PagedView]):
     return k_buf, v_buf, write_pos
 
 
-def attention(q, k, v, *, causal=False, q_offset=0, scale=None,
-              window=None, paged: Optional[PagedView] = None,
-              impl: Optional[str] = None):
+def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
+              q_offset=0, scale=None, window=None,
+              paged: Optional[PagedView] = None, impl: Optional[str] = None):
     """Dispatching attention: models call this instead of an impl.
 
     With ``paged`` (the serving engine's decode tick), ``k``/``v`` are
     the page pool buffers ``decode_cache`` just wrote, and the call goes
     to :func:`~pytorch_distributed_tpu_torch.ops.paged_attention.
-    paged_attention` with ``lengths = q_offset``. Otherwise the plain
-    ``dot_product_attention`` runs. ``impl="flash"`` (the blocked
-    flash-attention kernel) is not ported yet.
+    paged_attention` with ``lengths = q_offset``.
+
+    Otherwise a call the flash kernels take goes to
+    :func:`~pytorch_distributed_tpu_torch.ops.flash_attention.
+    flash_attention`: a plain ``0`` offset, no window, more than one
+    query (the gate of the JAX
+    package's dispatcher). ``impl`` picks per call: ``None`` takes flash
+    for every such call on a CUDA card and the plain einsum path
+    (:func:`dot_product_attention`) everywhere else; ``"flash"`` forces
+    flash (its plain blocked version on the CPU) and raises for a call
+    it cannot take; ``"xla"`` forces the einsum path.
     """
-    if impl == "flash":
-        raise NotImplementedError(
-            "flash attention is not ported yet (ROADMAP item B1)"
-        )
-    if impl is not None:
+    if impl not in (None, "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if paged is not None:
+        if mask is not None or segment_ids is not None:
+            raise NotImplementedError(
+                "paged decode supports plain causal attention only (no "
+                "mask or segment_ids: the serving engine's decode contract)"
+            )
         if not (isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1):
             raise ValueError(
                 "paged decode requires the per-row q_offset form "
@@ -205,7 +237,26 @@ def attention(q, k, v, *, causal=False, q_offset=0, scale=None,
             q, k, v, page_tables=paged.page_tables,
             lengths=q_offset.to(torch.int32), scale=scale, window=window,
         )
+    if mask is not None and mask.dim() != 2:
+        raise ValueError(
+            f"mask must be a [B, T] key mask, got {tuple(mask.shape)}"
+        )
+    flash_ok = (
+        isinstance(q_offset, int) and q_offset == 0
+        and window is None
+        and q.shape[1] > 1
+    )
+    if impl == "flash" and not flash_ok:
+        raise ValueError(
+            "impl='flash' takes no offset, window or single-query call; "
+            "use impl=None or 'xla'"
+        )
+    if impl == "flash" or (impl is None and flash_ok and q.is_cuda):
+        return flash_attention(
+            q, k, v, causal=causal, kv_mask=mask, segment_ids=segment_ids,
+            sm_scale=scale,
+        )
     return dot_product_attention(
-        q, k, v, causal=causal, q_offset=q_offset, scale=scale,
-        window=window,
+        q, k, v, causal=causal, mask=mask, segment_ids=segment_ids,
+        q_offset=q_offset, scale=scale, window=window,
     )

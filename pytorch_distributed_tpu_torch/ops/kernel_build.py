@@ -1,0 +1,92 @@
+"""Build the port's CUDA kernels (``csrc/*.cu``) with ``nvcc`` at first use.
+
+Each source compiles on its own into a shared library with a plain C
+interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+        -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library's name carries a hash of the source and the flags, so an
+edited source is rebuilt; ``ptxas``'s register and shared-memory report
+goes to ``_build/<name>.log``. :func:`build` starts one ``nvcc`` per
+missing library and waits for all of them, so the sources compile in
+parallel. Nothing here runs at import: the CPU tests import every module
+on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE_DIR = _PKG / "csrc"
+#: where the kernel libraries are built (listed in .gitignore)
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the port's CUDA kernels are built from source at first use"
+        )
+    return path
+
+
+def source(name: str) -> Path:
+    return SOURCE_DIR / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library lives once built."""
+    digest = hashlib.sha256(
+        source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source whose library is missing, all at once,
+    and return ``{name: library path}``. Raises naming the first source
+    that failed, with the end of the compiler's output."""
+    names = list(names)
+    libs = {n: library_path(n) for n in names}
+    running = []
+    for n, lib in libs.items():
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(n))]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((n, lib, tmp, cmd, proc))
+    failed = []
+    for n, lib, tmp, cmd, proc in running:
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"{n}.log").write_text(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(
+                f"nvcc failed ({proc.returncode}) building {source(n)}:\n"
+                f"{out[-4000:]}"
+            )
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs

@@ -36,26 +36,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from pytorch_distributed_tpu_torch.ops import kernel_build
+
 _NEG_INF = -1e30  # finite, like the Pallas kernel: no (-inf) - (-inf) NaN
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "paged_attention.cu"
-#: where the kernel library is built (listed in .gitignore)
-BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,51 +294,10 @@ _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the paged-attention kernel is built from source at first use"
-        )
-    return path
-
-
-def kernel_library_path() -> Path:
-    """Where the built library lives; its name carries a hash of the
-    source and the flags, so an edited source is rebuilt."""
-    digest = hashlib.sha256(
-        _SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libpaged_attention-{digest}.so"
-
-
-def build_kernel() -> Path:
-    """Compile ``csrc/paged_attention.cu`` into :data:`BUILD_DIR` unless
-    an up-to-date library is there; returns its path. The compiler's
-    register and shared-memory report goes to ``paged_attention.log``
-    beside it."""
-    lib = kernel_library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "paged_attention.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {_SOURCE}:\n"
-            f"{res.stderr[-4000:]}"
-        )
-    os.replace(tmp, lib)
-    return lib
+def build_kernel():
+    """Compile ``csrc/paged_attention.cu`` unless it is built; returns the
+    library's path (see :mod:`.kernel_build`)."""
+    return kernel_build.build(["paged_attention"])["paged_attention"]
 
 
 def _library():

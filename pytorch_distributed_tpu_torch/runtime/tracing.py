@@ -1,6 +1,14 @@
 """Runtime tracing: the port's own copy of the part of
-``pytorch_distributed_tpu/runtime/tracing.py`` that the serve engine
-calls.
+``pytorch_distributed_tpu/runtime/tracing.py`` that the serve engine and
+the train step call.
+
+Spans the port emits: ``serve.*`` (engine admit, prefill chunk, decode
+tick, token fetch) and, per training step, ``train.step`` (the whole
+step), ``train.fwd_bwd`` (its microbatch forward and backward passes),
+``train.optim`` (clip and optimizer update) and ``train.data_wait``
+(the batch's copy to the card). They time the host: a span around work
+the card runs asynchronously ends when the work is queued, unless
+something inside it waits for the card.
 
 * :func:`span` — ``with span("serve.decode_tick"):`` around a host-side
   phase; Chrome ``trace_event`` complete events, loadable in Perfetto.

@@ -1,0 +1,180 @@
+"""The PyTorch port's flash attention (its plain blocked versions, which
+CPU tensors get) held against the JAX package's ``flash_attention`` (the
+Pallas kernels, in interpret mode on the CPU) and against the port's own
+einsum ``dot_product_attention``.
+
+Inputs and output cotangents are drawn with numpy from a seed and handed
+to both frameworks. Everything is f32. Tolerances are relative to the
+largest reference magnitude: 2e-5 for outputs and 1e-4 for gradients,
+the bounds the JAX package's own flash-vs-einsum tests use. The two
+sides sum in different orders and block the keys differently (the JAX
+kernel picks divisor blocks, the port masks a ragged last block), so they
+agree to a few f32 ulps of the largest term, not bitwise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_distributed_tpu.ops.flash_attention import (
+    flash_attention as jax_flash_attention,
+)
+from pytorch_distributed_tpu_torch.ops import attention as attn_mod
+from pytorch_distributed_tpu_torch.ops.attention import (
+    attention,
+    dot_product_attention,
+)
+from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
+
+OUT_RTOL = 2e-5
+GRAD_RTOL = 1e-4
+
+# name: (B, S, T, Hq, Hkv, D, causal, extras)
+CASES = {
+    "causal": (2, 48, 48, 4, 4, 16, True, {}),
+    "full": (2, 48, 48, 4, 4, 16, False, {}),
+    "gqa_4_2": (2, 32, 32, 4, 2, 16, True, {}),
+    "gqa_4_1": (1, 32, 32, 4, 1, 32, False, {}),
+    "kv_mask": (3, 32, 32, 2, 2, 16, True, {"kv_mask": True}),
+    "segment_ids": (2, 48, 48, 2, 1, 16, True, {"segments": True}),
+    "sm_scale_1": (2, 32, 32, 2, 2, 16, False, {"sm_scale": 1.0}),
+    "s_ne_t": (2, 24, 40, 2, 2, 16, False, {}),
+    "s_ne_t_causal": (2, 40, 24, 2, 2, 16, True, {}),
+    "ragged_block": (1, 40, 40, 2, 2, 16, True, {"block": 16}),
+}
+
+
+def _inputs(case):
+    B, S, T, Hq, Hkv, D, causal, extras = CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, T, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, Hkv, D)).astype(np.float32)
+    dout = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    kw = dict(causal=causal)
+    valid = np.ones((B, S), bool)
+    if extras.get("kv_mask"):
+        # a ragged padded tail per row; batch row 0 has no key at all,
+        # so its outputs are undefined (finite) and go ungraded
+        lengths = np.array([0] + list(rng.integers(1, T + 1, size=B - 1)))
+        kw["kv_mask"] = np.arange(T)[None, :] < lengths[:, None]
+        valid[0] = False
+    if extras.get("segments"):
+        seg = np.zeros((B, S), np.int32)
+        for b in range(B):
+            cuts = sorted(rng.choice(np.arange(3, S - 3), 2, replace=False))
+            seg[b, cuts[0]:cuts[1]] = 1
+            seg[b, cuts[1]:] = 2
+        kw["segment_ids"] = seg + 1
+    if "sm_scale" in extras:
+        kw["sm_scale"] = extras["sm_scale"]
+    block = extras.get("block", 16)
+    return (q, k, v, dout), kw, valid, block
+
+
+def _close(got, want, rtol, what, valid=None):
+    got, want = np.asarray(got), np.asarray(want)
+    if valid is not None:
+        got, want = got[valid], want[valid]
+    tol = rtol * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=what)
+
+
+def _port(arrays, kw, block, fn=flash_attention):
+    q, k, v, dout = (torch.from_numpy(a) for a in arrays)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    tkw = {key: (torch.from_numpy(val) if isinstance(val, np.ndarray)
+                 else val) for key, val in kw.items()}
+    if fn is flash_attention:
+        out = fn(q, k, v, block_q=block, block_k=block, **tkw)
+    else:  # dot_product_attention's names for the masks
+        tkw["mask"] = tkw.pop("kv_mask", None)
+        tkw["scale"] = tkw.pop("sm_scale", None)
+        out = fn(q, k, v, **tkw)
+    out.backward(dout)
+    return out.detach().numpy(), [t.grad.numpy() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_matches_jax_flash_fwd_and_vjp(case):
+    arrays, kw, valid, block = _inputs(case)
+    q, k, v, dout = (jnp.asarray(a) for a in arrays)
+    jkw = {key: (jnp.asarray(val) if isinstance(val, np.ndarray) else val)
+           for key, val in kw.items()}
+    # the JAX kernel shrinks its blocks to divisors of S and T itself
+    want, vjp = jax.vjp(
+        lambda q, k, v: jax_flash_attention(
+            q, k, v, block_q=16, block_k=16, **jkw
+        ), q, k, v,
+    )
+    # ungraded rows get a zero cotangent on both sides
+    cot = np.where(valid[:, :, None, None], arrays[3], 0.0)
+    want_grads = vjp(jnp.asarray(cot))
+    got, grads = _port(arrays[:3] + (cot,), kw, block)
+    assert np.isfinite(got).all()
+    _close(got, want, OUT_RTOL, "out", valid)
+    for name, g, w in zip("qkv", grads, want_grads):
+        _close(g, w, GRAD_RTOL, f"d{name}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_matches_port_einsum_attention(case):
+    arrays, kw, valid, block = _inputs(case)
+    cot = np.where(valid[:, :, None, None], arrays[3], 0.0)
+    arrays = arrays[:3] + (cot,)
+    got, grads = _port(arrays, kw, block)
+    want, want_grads = _port(arrays, kw, block, fn=dot_product_attention)
+    _close(got, want, OUT_RTOL, "out", valid)
+    for name, g, w in zip("qkv", grads, want_grads):
+        _close(g, w, GRAD_RTOL, f"d{name}")
+
+
+def test_dispatch_is_per_call(monkeypatch):
+    """On the CPU ``impl=None`` takes the einsum path and ``"flash"`` the
+    plain flash version; a call flash cannot take refuses ``"flash"``."""
+    calls = []
+    real = attn_mod.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attn_mod, "flash_attention", spy)
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(1, 16, 2, 16)).astype(np.float32))
+    seg = torch.ones(1, 16, dtype=torch.int32)
+    ref = attention(q, q, q, causal=True, segment_ids=seg)
+    assert calls == []
+    out = attention(q, q, q, causal=True, segment_ids=seg, scale=1.0,
+                    impl="flash")
+    assert len(calls) == 1 and calls[0]["sm_scale"] == 1.0
+    _close(out, attention(q, q, q, causal=True, scale=1.0, impl="xla"),
+           OUT_RTOL, "flash vs xla")
+    assert torch.isfinite(ref).all()
+    for bad in (dict(q_offset=3), dict(window=4)):
+        with pytest.raises(ValueError, match="impl='flash'"):
+            attention(q, q, q, causal=True, impl="flash", **bad)
+    for impl in (None, "flash", "xla"):   # only a [B, T] key mask
+        with pytest.raises(ValueError, match=r"\[B, T\] key mask"):
+            attention(q, q, q, impl=impl,
+                      mask=torch.ones(1, 2, 16, 16, dtype=torch.bool))
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attention(q, q, q, impl="pallas")
+
+
+def test_flash_validates_like_jax():
+    q = torch.zeros(2, 8, 4, 16)
+    k = torch.zeros(2, 8, 3, 16)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="kv_mask must be"):
+        flash_attention(q, q, q, kv_mask=torch.ones(2, 7, dtype=torch.bool))
+    with pytest.raises(ValueError, match="self-attention"):
+        kk = torch.zeros(2, 9, 4, 16)
+        flash_attention(q, kk, kk, segment_ids=torch.ones(2, 8))
+    with pytest.raises(ValueError, match="segment_ids must be"):
+        flash_attention(q, q, q, segment_ids=torch.ones(2, 9))
+    with pytest.raises(ValueError, match="impl must be"):
+        flash_attention(q, q, q, impl="kernel")

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone and runs on the card unless told not to.
 
-* ``pytorch_distributed_tpu_torch`` imports, and serves a tiny model on
-  the CPU, in a fresh interpreter where ``jax``, ``flax`` and the JAX
-  package ``pytorch_distributed_tpu`` cannot be imported at all (the
-  meta-path blocker idiom of tests/test_ckpt_shard.py).
+* ``pytorch_distributed_tpu_torch`` imports (every module of it,
+  the training slice's included), serves a tiny model and trains a tiny
+  GPT-2 on the CPU, in a fresh interpreter where ``jax``, ``flax`` and
+  the JAX package ``pytorch_distributed_tpu`` cannot be imported at all
+  (the meta-path blocker idiom of tests/test_ckpt_shard.py).
 * Its entry points default to the CUDA card and raise without one,
   instead of carrying on quietly on the CPU.
 * ``chip_smoke.py`` fails, and prints no result, without a card or
@@ -21,11 +22,15 @@ import torch
 
 from pytorch_distributed_tpu_torch import (
     EngineConfig,
+    GPT2Config,
+    GPT2LMHead,
     LlamaConfig,
     LlamaForCausalLM,
     ServeEngine,
     generate,
+    generator_for,
 )
+from pytorch_distributed_tpu_torch.recipes import gpt2 as gpt2_recipe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,8 +45,15 @@ class _Block:
 sys.meta_path.insert(0, _Block())
 import numpy as np, torch
 import pytorch_distributed_tpu_torch as ptt
+names = set()
 for m in pkgutil.walk_packages(ptt.__path__, ptt.__name__ + "."):
     importlib.import_module(m.name)
+    names.add(m.name)
+for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
+            "data.packing", "data.datasets", "data.sampler", "data.loader",
+            "optim", "runtime.prng", "train.train_state", "train.losses",
+            "train.trainer", "recipes.gpt2"):
+    assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
 engine = ptt.ServeEngine(model, ptt.EngineConfig(num_slots=2, max_len=32,
@@ -49,6 +61,11 @@ engine = ptt.ServeEngine(model, ptt.EngineConfig(num_slots=2, max_len=32,
 h = engine.submit(ptt.Request(np.arange(1, 11), 4))
 engine.run_until_drained()
 assert len(h.tokens) == 4, h
+from pytorch_distributed_tpu_torch.recipes import gpt2
+trainer = gpt2.main(["--size", "tiny", "--device", "cpu", "--batch-size", "2",
+                     "--accum-steps", "2", "--seq-len", "16",
+                     "--steps-per-epoch", "1", "--log-every", "1"])
+assert trainer.state.step == 1, trainer.state.step
 bad = [m for m in sys.modules
        if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not bad, bad
@@ -71,6 +88,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPT2LMHead(GPT2Config.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generator_for(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt2_recipe.main(["--size", "tiny", "--steps-per-epoch", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cpu_model, EngineConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):

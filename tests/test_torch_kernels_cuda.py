@@ -120,3 +120,180 @@ def test_engine_on_cuda_matches_generate(cuda):
         ref = generate(model, r.prompt_ids[None],
                        max_new_tokens=r.max_new_tokens)
         assert h.tokens == ref[0, r.prompt_len:].tolist()
+
+
+# --------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu) against its plain versions
+# --------------------------------------------------------------------------
+
+from pytorch_distributed_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+# kernel vs plain, two limits per tensor (as in chip_smoke.py): "norm" on
+# ||got - ref|| / ||ref||, which a kernel wrong on any sizeable share of
+# rows or keys fails, and "max" on max|got - ref| / max|ref|, which one
+# wrong entry near the top fails. f32: the sums run in another order
+# (64-key tiles, one FMA chain per dot product) than the plain einsums, a
+# few ulp of the largest term; the gradients sum up to 2 * S products
+# with cancellation, so they get 5x that. bf16: both round P (forward)
+# or dS (backward) to bf16 at the same points, but from f32 values that
+# already differ by those ulps, so an entry can land one bf16 step apart
+# (at most 2^-7 of itself) while most agree; the backward recomputes P
+# from the same lse on both sides, so its entries differ more rarely
+# than the forward's (readings on an H100 in chip_smoke.py's FLASH_TOL).
+FLASH_TOL = {
+    "float32": {"out": dict(max=1e-5, norm=1e-5),
+                "grad": dict(max=5e-5, norm=1e-5)},
+    "bfloat16": {"out": dict(max=1e-2, norm=5e-3),
+                 "grad": dict(max=1e-2, norm=1e-3)},
+}
+
+FLASH_CASES = {
+    # name: (B, S, T, Hq, Hkv, D, causal, extras)
+    "causal_ragged": (2, 200, 200, 4, 2, 64, True, {}),
+    "full_gqa4": (2, 130, 130, 8, 2, 128, False, {}),
+    "kv_mask": (3, 96, 96, 2, 2, 32, True, {"kv_mask": True}),
+    "segments": (2, 256, 256, 4, 4, 64, True, {"segments": True}),
+    "scale_one": (1, 64, 64, 2, 1, 16, False, {"sm_scale": 1.0}),
+    "s_lt_t": (2, 100, 160, 4, 2, 64, True, {}),
+    "s_gt_t": (2, 160, 100, 4, 2, 64, True, {}),
+}
+
+
+def _flash_inputs(gen, B, S, T, Hq, Hkv, D, dtype, device, extras):
+    kw = dict(generator=gen)
+    q = torch.randn(B, S, Hq, D, **kw)
+    k = torch.randn(B, T, Hkv, D, **kw)
+    v = torch.randn(B, T, Hkv, D, **kw)
+    bias = seg = None
+    if extras.get("kv_mask"):
+        lengths = torch.randint(T // 3, T + 1, (B,), generator=gen)
+        mask = torch.arange(T)[None, :] < lengths[:, None]
+        bias = torch.zeros(B, T).masked_fill(~mask, fa._NEG_INF).to(device)
+    if extras.get("segments"):
+        seg = torch.zeros(B, S, dtype=torch.int32)
+        for b in range(B):
+            cuts = sorted(torch.randperm(S - 2, generator=gen)[:3].add(1)
+                          .tolist())
+            for i, (lo, hi) in enumerate(zip([0] + cuts, cuts + [S])):
+                seg[b, lo:hi] = i + 1
+        seg = seg.to(device)
+    to = lambda t: t.to(device=device, dtype=dtype)  # noqa: E731
+    return to(q), to(k), to(v), bias, seg
+
+
+def _assert_close(out, ref, tol, what):
+    """``tol``: a FLASH_TOL entry, or one number for both limits."""
+    if not isinstance(tol, dict):
+        tol = dict(max=tol, norm=tol)
+    ref = ref.float()
+    diff = out.float() - ref
+    err = diff.abs().max().item()
+    assert err <= tol["max"] * ref.abs().max().item(), (what, err)
+    norm = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
+    assert norm <= tol["norm"], (what, norm)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain_versions(cuda, dtype, case):
+    B, S, T, Hq, Hkv, D, causal, extras = FLASH_CASES[case]
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    q, k, v, bias, seg = _flash_inputs(
+        gen, B, S, T, Hq, Hkv, D, getattr(torch, dtype), cuda, extras
+    )
+    scale = extras.get("sm_scale", 1.0 / D ** 0.5)
+    kw = dict(sm_scale=scale, causal=causal)
+    tol = FLASH_TOL[dtype]
+    counts = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, bias, seg, **kw)
+    ref, ref_lse = fa._flash_fwd_plain(q, k, v, bias, seg, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, ref, tol["out"], "out")
+    _assert_close(lse, ref_lse, 1e-5, "lse")
+    dout = torch.randn(out.shape, generator=gen).to(cuda, out.dtype)
+    delta = fa._delta(dout, out)
+    args = (q, k, v, dout, lse, delta, bias, seg)
+    dq = fa.flash_dq(*args, **kw)
+    dk, dv = fa.flash_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(dq, fa._flash_dq_plain(*args, **kw), tol["grad"], "dq")
+    rdk, rdv = fa._flash_dkv_plain(*args, **kw)
+    _assert_close(dk, rdk, tol["grad"], "dk")
+    _assert_close(dv, rdv, tol["grad"], "dv")
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(c + 1 for c in counts)
+    for t in (out, lse, dq, dk, dv):
+        assert torch.isfinite(t).all()
+
+
+def test_flash_autograd_on_strided_qkv(cuda):
+    """q, k, v as strided views of one fused projection (GPT-2's layout)
+    through flash_attention's autograd: one launch of each kernel, and
+    the gradients of the plain path."""
+    gen = torch.Generator().manual_seed(5)
+    B, S, H, D = 2, 150, 4, 64
+    qkv = torch.randn(B, S, 3, H, D, generator=gen).to(cuda, torch.float32)
+    outs = {}
+    for impl in (None, "plain"):
+        x = qkv.clone().requires_grad_()
+        before = fa.flash_fwd.launches, fa.flash_dq.launches
+        out = fa.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                 causal=True, impl=impl)
+        (out.square().sum()).backward()
+        after = fa.flash_fwd.launches, fa.flash_dq.launches
+        assert after == (tuple(b + 1 for b in before) if impl is None
+                         else before)
+        outs[impl] = (out.detach(), x.grad)
+    _assert_close(outs[None][0], outs["plain"][0], 1e-5, "out")
+    _assert_close(outs[None][1], outs["plain"][1], 5e-5, "grad")
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q, q, q, sm_scale=1.0, causal=True)
+    h = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_fwd(h, h, h, sm_scale=1.0, causal=True)
+
+
+def test_gpt2_step_flash_matches_einsum_on_cuda(cuda):
+    """One f32 training step of a small GPT-2 (head_dim 64) with the
+    flash kernels and one with the einsum attention, dropout off: the
+    losses agree to 1e-5 and every parameter's (clipped) gradient to 1e-4
+    of its largest magnitude (sums in another order). The key bias is
+    left out: its gradient is zero in exact arithmetic, so both sides
+    hold rounding noise. Parameters after the Adam step are not compared:
+    Adam divides by |g| + 1e-8, so an entry whose gradient is near 1e-8
+    turns a 1e-12 rounding difference into a step difference of lr / 40
+    (measured on an H100: 2e-5 in ``wte`` at lr 1e-3)."""
+    from pytorch_distributed_tpu_torch import (
+        GPT2Config, GPT2LMHead, TrainState, build_train_step,
+        causal_lm_loss_fn, optim,
+    )
+
+    cfg = dataclasses.replace(GPT2Config.tiny(), hidden_size=128,
+                              num_heads=2, dropout_rate=0.0)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    results = []
+    for impl in (None, "xla"):
+        model = GPT2LMHead(cfg, device=cuda, policy=Policy.full())
+        model.init_weights(torch.Generator(device=cuda).manual_seed(0))
+        opt = optim.clip_grad_norm(optim.AdamW(model, lr=1e-3), 1.0)
+        step = build_train_step(causal_lm_loss_fn(model, attn_impl=impl),
+                                accum_steps=2)
+        fwd = fa.flash_fwd.launches
+        state, metrics = step(TrainState(model, opt), {"input_ids": ids})
+        launched = fa.flash_fwd.launches - fwd
+        assert launched == (cfg.num_layers * 2 if impl is None else 0)
+        D = cfg.hidden_size
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for n, g in grads.items():
+            if n.endswith("attn_qkv.bias"):
+                grads[n] = torch.cat([g[:D], g[2 * D:]])
+        results.append((float(metrics["loss"]), grads))
+    assert abs(results[0][0] - results[1][0]) <= 1e-5 * abs(results[1][0])
+    for n, g in results[0][1].items():
+        _assert_close(g, results[1][1][n], 1e-4, n)

@@ -79,6 +79,21 @@ def test_forward_logits_match_jax(pair):
     _close(out.numpy(), ref, "full forward")
 
 
+def test_forward_attn_impl_picks_flash_or_einsum(pair):
+    """``attn_impl`` reaches every layer: the plain flash version (GQA
+    4:2, causal) and the einsum path both give JAX's logits."""
+    jmodel, params, model = pair
+    ids = np.random.default_rng(1).integers(0, 512, size=(2, 40))
+    with use_policy(F32):
+        ref = jmodel.apply({"params": params}, jnp.asarray(ids, jnp.int32))
+    with torch.no_grad():
+        for impl in ("flash", "xla"):
+            out = model(torch.from_numpy(ids), attn_impl=impl)
+            _close(out.numpy(), ref, f"attn_impl={impl}")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        model(torch.from_numpy(ids), attn_impl="pallas")
+
+
 def test_chunked_prefill_and_decode_match_jax(pair):
     """Two 8-token prefill chunks at per-row write positions, then two
     single-token decode ticks, through both models' KV caches."""
