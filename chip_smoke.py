@@ -9,7 +9,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 1. build: ``nvcc`` compiles ``pytorch_distributed_tpu_torch/csrc/*.cu``,
    one process per source, all at once, into
-   ``pytorch_distributed_tpu_torch/_build/`` (ignored by git).
+   ``pytorch_distributed_tpu_torch/_build/`` (ignored by git); then each
+   kernel's registers and spills (``ptxas -v``) and, for the flash
+   kernels, their tensor-core instructions (``HMMA``/``HGMMA`` in
+   ``cuobjdump -sass``): the bf16 dq and dkv kernels must have some.
 2. paged kernel: the paged-attention kernel at the decode tick's shapes
    (Llama-3-8B attention: 32 query / 8 kv heads, head_dim 128, 32-token
    pages, 8 rows of seeded lengths up to 2000), plus a W=5 verify block,
@@ -22,13 +25,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
    head_dim 64, causal), on packed rows from ``pack_documents``, with a
    ragged ``kv_mask``, at Llama-3-8B's GQA shapes (32/8 heads, head_dim
-   128, S=2048, full), with ``sm_scale=1.0`` and at S=T=1000; then each
-   kernel's time at the training shapes beside its plain version's, a
-   bound, and ``scaled_dot_product_attention``'s flash backend: its
-   forward for the forward kernel, its backward alone (one call that
-   computes dq, dk and dv, so the dq and dkv kernels share it) for the
-   backward kernels, each replayed from a CUDA graph (so the yardsticks
-   time the card, not the host's dispatch).
+   128, S=2048, full), with ``sm_scale=1.0`` and at S=T=1000; dq and
+   dkv must give the same bits on two launches; then each kernel's time
+   at the training shapes beside its plain version's, a bound, and
+   ``scaled_dot_product_attention``'s flash backend: its forward for the
+   forward kernel, its backward alone (one call that computes dq, dk and
+   dv, so the dq and dkv kernels share it) for the backward kernels. The
+   kernels and the yardsticks are replayed from a CUDA graph, so they time
+   the card, not the host's dispatch (the kernels' eager time is printed
+   beside).
 4. serve: ``ServeEngine`` on Llama-3-8B at full width and depth, weights
    drawn from a seeded generator: 8 requests (6 greedy, 2 sampled, two
    sharing a 256-token prefix). Every request must finish with its full
@@ -62,6 +67,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import sys
 import time
 
@@ -194,6 +200,49 @@ def _live_keys(lengths, W, n, ps, window):
         start = max(0, L - window + 1) if window else 0
         out.append(max(end - start, 0))
     return out
+
+
+_FLASH_KERNEL = re.compile(
+    r"(flash_(?:fwd|dq|dkv)_kernel(?:_tc)?)I(f|13__nv_bfloat16)?Li(\d+)E"
+)
+
+
+def kernel_report(libs):
+    """Each kernel's registers and spills (``ptxas -v``), and for the flash
+    kernels the tensor-core instructions in their SASS (``cuobjdump``):
+    the bf16 dq and dkv kernels must have some at every head_dim."""
+    from pytorch_distributed_tpu_torch.ops import kernel_build
+
+    report = {}
+    for name in libs:
+        ptxas = kernel_build.ptxas_report(name)
+        sass = kernel_build.sass_counts(name) if name == "flash_attention" \
+            else {}
+        for fn, info in sorted(ptxas.items()):
+            m = _FLASH_KERNEL.search(fn)
+            if m:
+                dtype = "float32" if m.group(2) == "f" else "bfloat16"
+                label = f"{m.group(1)} {dtype} D={m.group(3)}"
+            else:
+                label = fn
+            tc = sass.get(fn, {})
+            report[label] = dict(info, **tc)
+            print(f"  {name}: {label}: {info.get('registers')} registers, "
+                  f"spill stores {info.get('spill_stores')} B, loads "
+                  f"{info.get('spill_loads')} B"
+                  + (f"; SASS HMMA {tc['HMMA']}, HGMMA {tc['HGMMA']}"
+                     if tc else ""))
+    missing = [k for k, v in report.items()
+               if k.startswith(("flash_dq_kernel_tc", "flash_dkv_kernel_tc"))
+               and v.get("HMMA", 0) + v.get("HGMMA", 0) == 0]
+    routes = [k for k in report if k.startswith(("flash_dq_kernel_tc",
+                                                 "flash_dkv_kernel_tc"))]
+    if missing or len(routes) != 8:
+        raise AssertionError(
+            f"bf16 dq/dkv kernels without tensor-core instructions: "
+            f"{missing}; found {routes}"
+        )
+    return report
 
 
 def kernel_phase(device, seed):
@@ -459,11 +508,25 @@ def flash_phase(device, seed):
     dout = torch.randn(out.shape, generator=gen).to(device, out.dtype)
     delta = fa._delta(dout, out)
     bargs = (q, k, v, dout, lse, delta)
-    ms = {
-        "flash_fwd": _time_ms(lambda: fa.flash_fwd(q, k, v, **kw), 20),
-        "flash_dq": _time_ms(lambda: fa.flash_dq(*bargs, **kw), 20),
-        "flash_dkv": _time_ms(lambda: fa.flash_dkv(*bargs, **kw), 20),
+    # two launches on the same inputs give the same bits (no atomics)
+    same = {
+        "flash_dq": torch.equal(fa.flash_dq(*bargs, **kw),
+                                fa.flash_dq(*bargs, **kw)),
+        "flash_dkv": all(torch.equal(a, b) for a, b in zip(
+            fa.flash_dkv(*bargs, **kw), fa.flash_dkv(*bargs, **kw))),
     }
+    print(f"bitwise equal over two launches: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"a backward kernel is not deterministic: {same}")
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+        "flash_dq": lambda: fa.flash_dq(*bargs, **kw),
+        "flash_dkv": lambda: fa.flash_dkv(*bargs, **kw),
+    }
+    # the kernels' device time, replayed from a CUDA graph as the library
+    # calls are; eager calls add the ctypes launch and the wrappers' checks
+    ms = {name: _graph_ms(fn, 50) for name, fn in calls.items()}
+    eager_ms = {name: _time_ms(fn, 20) for name, fn in calls.items()}
     plain_ms = {
         "flash_fwd": _time_ms(
             lambda: fa._flash_fwd_plain(q, k, v, None, None, **kw), 3),
@@ -528,14 +591,16 @@ def flash_phase(device, seed):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
         ))
-        print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
+        print(f"{name}: {ms[name]:.4f} ms (graph replay; eager "
+              f"{eager_ms[name]:.4f} ms), plain {plain_ms[name]:.4f} ms, "
               f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, "
-              f"{flops} flops)")
+              f"{flops} flops), {flops / ms[name] / 1e9:.1f} TFLOP/s")
     print(f"sdpa (flash backend): forward {lib_fwd:.4f} ms (max|diff| vs "
           f"the forward kernel {lib_err:.3e}), backward {lib_bwd:.4f} ms "
           f"(dq max|diff| vs the dq kernel {lib_dq_err:.3e}) against dq + "
           f"dkv {ms['flash_dq'] + ms['flash_dkv']:.4f} ms")
-    details = dict(checks=checks, live_pairs=pairs, sdpa_fwd_ms=lib_fwd,
+    details = dict(checks=checks, live_pairs=pairs, eager_ms=eager_ms,
+                   deterministic=same, sdpa_fwd_ms=lib_fwd,
                    sdpa_bwd_ms=lib_bwd, sdpa_max_abs_diff=lib_err,
                    sdpa_bwd_dq_max_abs_diff=lib_dq_err,
                    work={k: dict(bytes=b, flops=f)
@@ -962,14 +1027,11 @@ def main(argv=None) -> int:
     libs = kernel_build.build(["paged_attention", "flash_attention"])
     print(f"build: {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        log = kernel_build.BUILD_DIR / f"{name}.log"
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+    build_report = kernel_report(libs)
 
     record, kdetails = kernel_phase(device, args.seed)
     flash_records, fdetails = flash_phase(device, args.seed)
+    fdetails["build"] = build_report
     # serve before train: the train phase ends with torch.profiler, whose
     # tracing of the host would slow the host-bound decode ticks after it
     launches, stats = serve_phase(device, args.seed)

@@ -31,29 +31,55 @@
 //   dkv:  bytes  q, k, v, dO, dk, dv = 101 MB-> 30 us;  flops 34.4 G -> 35 us
 // so all three sit near the ridge: a fast version needs the tensor cores.
 //
-// What this design does (a simple, correct first version):
-//  * fwd and dq: one CTA per (batch, q head, 64-row q tile) walks the key
-//    tiles itself with the online-softmax carry (m, l, acc) in registers, in
-//    place of the TPU grid's sequential "arbitrary" key axis. With causal it
-//    stops at the tile that holds its last row's diagonal, so masked tiles
-//    are never loaded; q tiles are issued longest-first.
+// What the designs do:
+//  * fwd and dq: one CTA per (batch, q head, q tile) walks the key tiles
+//    itself, in place of the TPU grid's sequential "arbitrary" key axis
+//    (fwd with the online-softmax carry (m, l, acc) in registers). With
+//    causal it stops at the tile that holds its last row's diagonal, so
+//    masked tiles are never loaded; q tiles are issued longest-first.
 //  * dkv: one CTA per (batch, KV head, 64-row key tile) loops over the q
 //    heads of its GQA group and over the q tiles that can see its keys, and
 //    writes dK and dV straight in the [B, T, Hkv, D] shape. Each CTA owns its
-//    tile, so there are no atomics and no per-q-head output to sum outside.
-//  * Tiles are 64 x 64, staged in shared memory as f32 (rows padded to
-//    D + 1 floats, so the score loops read without bank conflicts) from
-//    16-byte global loads; 256 threads each own a 4 x 4 block of scores and
-//    4 rows x D/16 columns of the output accumulators. Products run on the
-//    CUDA cores in f32, which holds f32 inputs to f32 accuracy and bf16
-//    inputs to the TPU kernels' rounding points exactly.
-// Tensor-core products (mma / wgmma), TMA loads and double buffering are the
-// next redesign; this version is far from its bound (PERF.md).
+//    tile, so there are no atomics and no per-q-head output to sum outside,
+//    and two launches on the same inputs give the same bits.
+//  * bf16 dq and dkv (flash_dq_kernel_tc, flash_dkv_kernel_tc) run every
+//    product on the tensor cores: mma.sync m16n8k16, bf16 in, f32
+//    accumulate, operands read from shared memory with ldmatrix (.trans
+//    where a product needs K, Q or dO with the key or query axis as its
+//    depth). Tiles stay bf16 in shared memory, rows padded by 16 bytes so
+//    that the 8 rows one ldmatrix reads fall in 8 different bank groups,
+//    and stream through a two-stage ring of cp.async 16-byte copies, so the
+//    next tile's load overlaps this tile's products. Four warps own 16 rows
+//    each: query rows in dq (Q and dO kept as A fragments across the key
+//    loop), key rows in dkv (K and V resident in shared memory). Each
+//    64-row streamed tile is computed 32 (dq) or 16 (dkv) columns at a
+//    time, which keeps the kernels within 128 and 168 registers without
+//    spills at D <= 64: four and three CTAs per SM, whose extra warps hide
+//    the latency of the mma chains. Scores, P and dS stay in registers in
+//    f32; the accumulator layout of S = Q.K^T (or S^T = K.Q^T) is the
+//    A-fragment layout of the next product, so dS (rounded to bf16 there,
+//    the Pallas rounding point) and P^T feed dQ += dS.K, dK += dS^T.Q and
+//    dV += P^T.dO without a trip through shared memory. dV keeps P in f32
+//    as the Pallas kernel does: P = hi + lo with hi = bf16(P),
+//    lo = bf16(P - hi), two bf16 products, which holds P to about 2^-16 of
+//    itself (one more product per tile).
+//    Head dim 128 halves the streamed tile (32 rows) and runs at the
+//    occupancy its registers allow.
+//  * fwd, and dq and dkv for f32 inputs: the first version. 64 x 64 tiles
+//    staged in shared memory as f32 (rows padded to D + 1 floats, so the
+//    score loops read without bank conflicts) from 16-byte global loads;
+//    256 threads each own a 4 x 4 block of scores and 4 rows x D/16 columns
+//    of the output accumulators; products on the CUDA cores in f32, which
+//    holds f32 inputs to f32 accuracy (TF32 would not) and bf16 inputs to
+//    the forward's rounding point exactly. The forward on the tensor cores
+//    is the next redesign (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // the launch description, shared with Python (ops/flash_attention.py builds
 // the same layout with ctypes and checks flash_params_size())
@@ -161,12 +187,13 @@ __device__ __forceinline__ float masked_score(const FlashParams& p, float dot,
   return x;
 }
 
-// the key tiles a q tile starting at q0 must visit: all of them, or with
-// causal those up to its last row's diagonal
-__device__ __forceinline__ int key_end(const FlashParams& p, int q0) {
+// the keys a q tile of `rows` rows starting at q0 must visit: all of them,
+// or with causal those up to its last row's diagonal
+__device__ __forceinline__ int key_end(const FlashParams& p, int q0,
+                                       int rows = kTile) {
   int end = p.T;
   if (p.causal) {
-    const int last = min(q0 + kTile, p.S) - 1;
+    const int last = min(q0 + rows, p.S) - 1;
     end = min(end, last + 1);
   }
   return end;
@@ -551,7 +578,527 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 }
 
-// shared memory of each kernel, in floats
+// --------------------------------------------------------------------------
+// bf16 dq and dkv on the tensor cores
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;  // four warps, 16 rows each
+constexpr int kStages = 2;       // depth of the cp.async ring
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (src is
+// then never read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
+// row addresses of matrix i, register i holds matrix i (.trans: transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate. Fragments
+// (g = lane / 4, t = lane % 4): a = {(g, 2t..2t+1), (g+8, 2t..), (g,
+// 2t+8..), (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g), (k 2t+8.., n g)};
+// c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// two f32 -> one register of two bf16 (x0 in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return as_u32(__floats2bfloat162_rn(x0, x1));
+}
+// x = hi + lo to about 2^-16 of x: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+// The accumulator of an m16n8 product over columns 8j..8j+7 is, two
+// column tiles at a time, the A fragment of a product whose depth is
+// those columns: tile j fills registers 2 (j % 2) and 2 (j % 2) + 1 of
+// depth step j / 2.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], int j, float c0,
+                                         float c1, float c2, float c3) {
+  a[(j % 2) * 2] = pack_bf16(c0, c1);
+  a[(j % 2) * 2 + 1] = pack_bf16(c2, c3);
+}
+
+__device__ __forceinline__ const bf16* head_ptr(const void* base,
+                                                const int64_t* st, int b,
+                                                int h) {
+  return static_cast<const bf16*>(base) + (int64_t)b * st[0] +
+         (int64_t)h * st[2];
+}
+
+// Issue the copies of rows [row0, row0 + ROWS) of one head (row stride rs
+// elements) into dst[ROWS][D + 8]; rows at or past n are zero-filled. The
+// 16-byte pad per row puts the 8 rows of an ldmatrix in 8 bank groups.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows_async(bf16* dst, const bf16* base,
+                                                int64_t rs, int row0, int n) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = row0 + r < n;
+    cp_async16(dst + r * (D + 8) + c,
+               in ? base + (int64_t)(row0 + r) * rs + c : base, in);
+  }
+}
+// src[row0 .. row0 + rows) (4-byte entries) into dst, zero past n
+__device__ __forceinline__ void copy_words_async(void* dst, const void* src,
+                                                 int row0, int rows, int n) {
+  for (int i = threadIdx.x; i < rows; i += kTcThreads) {
+    const bool in = row0 + i < n;
+    cp_async4(static_cast<uint32_t*>(dst) + i,
+              in ? static_cast<const uint32_t*>(src) + row0 + i : src, in);
+  }
+}
+
+// P = exp(masked score - lse) of query qi and key kj, or 0 past S or T;
+// the masks in masked_score's order. Tile-wide flags skip tests that
+// cannot fire: `diag`, the tile may hold keys past some of its queries;
+// `edge`, it may hold rows past S or keys past T.
+__device__ __forceinline__ float tc_prob(const FlashParams& p, float dot,
+                                         float bias, int qseg, int kseg,
+                                         int qi, int kj, float lse,
+                                         bool diag, bool edge) {
+  if (edge && (kj >= p.T || qi >= p.S)) return 0.f;
+  float x = dot * p.scale;
+  if (p.bias) x += bias;
+  if (p.seg && qseg != kseg) x = kNegInf;
+  if (diag && qi < kj) x = kNegInf;
+  return __expf(x - lse);
+}
+
+// dq: one CTA per (q tile of 64 rows, batch x q head); warp w owns rows
+// 16w..16w+15. BN keys per streamed tile (32 at D = 128, for registers),
+// taken SUB keys at a time, so S and dP of 16 x SUB stay small. Up to
+// D = 64 that fits 128 registers without spills: four CTAs per SM (on an
+// H100 at the training shapes 0.18 ms, where 64-key steps took 242
+// registers, two CTAs and 0.29 ms; PERF.md).
+template <int D>
+struct DqTc {
+  static constexpr int BM = 64;
+  static constexpr int BN = D <= 64 ? 64 : 32;
+  static constexpr int SUB = 32;
+  static constexpr int CTAS = D <= 64 ? 4 : 1;  // per SM, for ptxas
+  static constexpr int LDS = D + 8;
+  static constexpr size_t smem =
+      (size_t)2 * BM * LDS * sizeof(bf16)             // Q, dO
+      + (size_t)kStages * 2 * BN * LDS * sizeof(bf16) // ring: K, V
+      + (size_t)kStages * 2 * BN * 4;                 // ring: bias, kseg
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
+    flash_dq_kernel_tc(FlashParams p) {
+  using C = DqTc<D>;
+  constexpr int BM = C::BM, BN = C::BN, SUB = C::SUB, LDS = C::LDS;
+  constexpr int KD = D / 16;   // depth steps over head_dim (S, dP)
+  constexpr int NB = SUB / 8;  // key column tiles of S and dP
+  constexpr int KB = SUB / 16; // depth steps over keys (dQ)
+  constexpr int ND = D / 8;    // head_dim column tiles of dQ
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);      // [BM][LDS]
+  bf16* do_s = q_s + BM * LDS;                       // [BM][LDS]
+  bf16* kv_s = do_s + BM * LDS;  // [stage][K, V][BN][LDS]
+  float* bias_s = reinterpret_cast<float*>(kv_s + kStages * 2 * BN * LDS);
+  int* kseg_s = reinterpret_cast<int*>(bias_s + kStages * BN);
+
+  const int n_qt = (p.S + BM - 1) / BM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;  // longest first
+  const int hq = blockIdx.x % p.Hq, b = blockIdx.x / p.Hq;
+  const int hk = hq / (p.Hq / p.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mi = lane / 8, r8 = lane % 8;  // ldmatrix: matrix, row
+
+  const bf16* kb = head_ptr(p.k, p.k_stride, b, hk);
+  const bf16* vb = head_ptr(p.v, p.v_stride, b, hk);
+  const float* bias_row = p.bias ? p.bias + (int64_t)b * p.T : nullptr;
+  const int* seg_row = p.seg ? p.seg + (int64_t)b * p.S : nullptr;
+  auto load_keys = [&](int stage, int k0) {
+    bf16* ks = kv_s + stage * 2 * BN * LDS;
+    copy_rows_async<D, BN>(ks, kb, p.k_stride[1], k0, p.T);
+    copy_rows_async<D, BN>(ks + BN * LDS, vb, p.v_stride[1], k0, p.T);
+    if (bias_row)
+      copy_words_async(bias_s + stage * BN, bias_row, k0, BN, p.T);
+    if (seg_row)
+      copy_words_async(kseg_s + stage * BN, seg_row, k0, BN, p.T);
+  };
+
+  const int n_kt = (key_end(p, q0, BM) + BN - 1) / BN;
+  copy_rows_async<D, BM>(q_s, head_ptr(p.q, p.q_stride, b, hq),
+                         p.q_stride[1], q0, p.S);
+  copy_rows_async<D, BM>(do_s, head_ptr(p.dout, p.do_stride, b, hq),
+                         p.do_stride[1], q0, p.S);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_keys(s, s * BN);
+    cp_async_commit();
+  }
+
+  // this thread's two query rows: qi[0] = g, qi[1] = g + 8 of its warp's
+  int qi[2], qseg[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + warp * 16 + g + 8 * h;
+    const bool in = qi[h] < p.S;
+    const int64_t row = ((int64_t)b * p.Hq + hq) * p.S + qi[h];
+    lse[h] = in ? p.lse[row] : 0.f;
+    delta[h] = in ? p.delta[row] : 0.f;
+    qseg[h] = (seg_row && in) ? seg_row[qi[h]] : 0;
+  }
+
+  cp_async_wait<kStages - 2>();  // Q, dO and the first key tile
+  __syncthreads();
+  uint32_t qf[KD][4], dof[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const int off =
+        (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(qf[kk], q_s + off);
+    ldsm_x4(dof[kk], do_s + off);
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    if (it > 0) {
+      cp_async_wait<kStages - 2>();  // key tile `it` has landed
+      __syncthreads();  // ... for every thread; tile it-1's stage is free
+    }
+    if (it + kStages - 1 < n_kt)
+      load_keys((it + kStages - 1) % kStages, (it + kStages - 1) * BN);
+    cp_async_commit();
+
+    const int st = it % kStages;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BN; c0 += SUB) {
+      const bf16* k_s = kv_s + st * 2 * BN * LDS + c0 * LDS;
+      const bf16* v_s = k_s + BN * LDS;
+      const float* bias_t = bias_s + st * BN + c0;
+      const int* kseg_t = kseg_s + st * BN + c0;
+      const int k0 = it * BN + c0;
+      const bool diag = p.causal && k0 + SUB - 1 > q0;
+      const bool edge = k0 + SUB > p.T || q0 + BM > p.S;
+
+      // S = Q K^T and dP = dO V^T, 16 rows x SUB keys per warp
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NB / 2; ++np) {
+          const int off = (np * 16 + r8 + (mi >> 1) * 8) * LDS + kk * 16 +
+                          (mi & 1) * 8;
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, k_s + off);
+          ldsm_x4(bv, v_s + off);
+          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma_bf16(dp[2 * np], dof[kk], bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
+        }
+      }
+
+      // dS = P (dP - delta) scale, rounded to bf16: the A fragments of dQ
+      uint32_t dsf[KB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, c = j * 8 + 2 * t + (e & 1);
+          const float pv = tc_prob(p, s[j][e], bias_row ? bias_t[c] : 0.f,
+                                   qseg[h], seg_row ? kseg_t[c] : 0, qi[h],
+                                   k0 + c, lse[h], diag, edge);
+          ds[e] = pv * (dp[j][e] - delta[h]) * p.scale;
+        }
+        acc_to_a(dsf[j / 2], j, ds[0], ds[1], ds[2], ds[3]);
+      }
+
+      // dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4_t(bk, k_s + (kk * 16 + r8 + (mi & 1) * 8) * LDS +
+                            np * 16 + (mi >> 1) * 8);
+          mma_bf16(acc[2 * np], dsf[kk], bk[0], bk[1]);
+          mma_bf16(acc[2 * np + 1], dsf[kk], bk[2], bk[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* dq = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qi[h] >= p.S) continue;
+    bf16* row = dq + (((int64_t)b * p.S + qi[h]) * p.Hq + hq) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// dkv: one CTA per (key tile of 64 rows, batch x kv head); warp w owns keys
+// 16w..16w+15. BM queries per streamed tile (32 at D = 128), taken SUB
+// queries at a time. dK and dV hold 2 x 16 x D f32 per warp, so SUB = 16
+// is what fits three CTAs per SM (<= 168 registers) without spills up to
+// D = 64 (H100, training shapes: 0.27 ms, where 64-query steps took 218
+// registers, two CTAs and 0.34 ms; four CTAs spill).
+template <int D>
+struct DkvTc {
+  static constexpr int BN = 64;
+  static constexpr int BM = D <= 64 ? 64 : 32;
+  static constexpr int SUB = 16;
+  static constexpr int CTAS = D <= 64 ? 3 : 1;  // per SM, for ptxas
+  static constexpr int LDS = D + 8;
+  static constexpr size_t smem =
+      (size_t)2 * BN * LDS * sizeof(bf16)             // K, V
+      + (size_t)kStages * 2 * BM * LDS * sizeof(bf16) // ring: Q, dO
+      + (size_t)kStages * 3 * BM * 4                  // ring: lse, delta, qseg
+      + (size_t)2 * BN * 4;                           // key bias, kseg
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
+    flash_dkv_kernel_tc(FlashParams p) {
+  using C = DkvTc<D>;
+  constexpr int BN = C::BN, BM = C::BM, SUB = C::SUB, LDS = C::LDS;
+  constexpr int KD = D / 16;   // depth steps over head_dim (S^T, dP^T)
+  constexpr int NQ = SUB / 8;  // query column tiles of S^T and dP^T
+  constexpr int KQ = SUB / 16; // depth steps over queries (dK, dV)
+  constexpr int ND = D / 8;    // head_dim column tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(tc_smem);  // [BN][LDS]
+  bf16* v_s = k_s + BN * LDS;                    // [BN][LDS]
+  bf16* qd_s = v_s + BN * LDS;                   // [stage][Q, dO][BM][LDS]
+  float* row_s = reinterpret_cast<float*>(qd_s + kStages * 2 * BM * LDS);
+  // row_s: [stage][lse, delta, qseg][BM]
+  float* kbias_s = row_s + kStages * 3 * BM;                // [BN]
+  int* kseg_s = reinterpret_cast<int*>(kbias_s + BN);       // [BN]
+
+  const int hk = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv;
+  const int k0 = blockIdx.y * BN;  // with causal, tile 0 has the most work
+  const int G = p.Hq / p.Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mi = lane / 8, r8 = lane % 8;
+
+  const int n_qt = (p.S + BM - 1) / BM;
+  // with causal, the first q tile whose rows reach this tile's keys
+  const int qt0 = p.causal ? min(k0 / BM, n_qt) : 0;
+  const int per_head = n_qt - qt0;
+  const int n_it = G * per_head;
+  const int* seg_row = p.seg ? p.seg + (int64_t)b * p.S : nullptr;
+  auto load_queries = [&](int stage, int i) {
+    const int hq = hk * G + i / per_head;
+    const int q0 = (qt0 + i % per_head) * BM;
+    bf16* qs = qd_s + stage * 2 * BM * LDS;
+    copy_rows_async<D, BM>(qs, head_ptr(p.q, p.q_stride, b, hq),
+                           p.q_stride[1], q0, p.S);
+    copy_rows_async<D, BM>(qs + BM * LDS,
+                           head_ptr(p.dout, p.do_stride, b, hq),
+                           p.do_stride[1], q0, p.S);
+    float* rs = row_s + stage * 3 * BM;
+    const int64_t row = ((int64_t)b * p.Hq + hq) * p.S;
+    copy_words_async(rs, p.lse + row, q0, BM, p.S);
+    copy_words_async(rs + BM, p.delta + row, q0, BM, p.S);
+    if (seg_row) copy_words_async(rs + 2 * BM, seg_row, q0, BM, p.S);
+  };
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  if (n_it > 0) {
+    copy_rows_async<D, BN>(k_s, head_ptr(p.k, p.k_stride, b, hk),
+                           p.k_stride[1], k0, p.T);
+    copy_rows_async<D, BN>(v_s, head_ptr(p.v, p.v_stride, b, hk),
+                           p.v_stride[1], k0, p.T);
+    if (p.bias) copy_words_async(kbias_s, p.bias + (int64_t)b * p.T, k0, BN,
+                                 p.T);
+    if (seg_row) copy_words_async(kseg_s, seg_row, k0, BN, p.T);
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_it) load_queries(s, s);
+      cp_async_commit();
+    }
+  }
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();  // q tile `it` (and K, V) has landed
+    __syncthreads();  // ... for every thread; tile it-1's stage is free
+    if (it + kStages - 1 < n_it)
+      load_queries((it + kStages - 1) % kStages, it + kStages - 1);
+    cp_async_commit();
+
+    const int st = it % kStages;
+    const int q_tile = (qt0 + it % per_head) * BM;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BM; c0 += SUB) {
+      const bf16* q_s = qd_s + st * 2 * BM * LDS + c0 * LDS;
+      const bf16* do_s = q_s + BM * LDS;
+      const float* lse_s = row_s + st * 3 * BM + c0;
+      const float* delta_s = lse_s + BM;
+      const int* qseg_s = reinterpret_cast<const int*>(delta_s + BM);
+      const int q0 = q_tile + c0;
+      const bool diag = p.causal && k0 + BN - 1 > q0;
+      const bool edge = k0 + BN > p.T || q0 + SUB > p.S;
+
+      // S^T = K Q^T and dP^T = V dO^T, 16 keys x SUB queries per warp
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        const int aoff =
+            (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(ka, k_s + aoff);
+        ldsm_x4(va, v_s + aoff);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          const int off = (np * 16 + r8 + (mi >> 1) * 8) * LDS + kk * 16 +
+                          (mi & 1) * 8;
+          uint32_t bq[4], bd[4];
+          ldsm_x4(bq, q_s + off);
+          ldsm_x4(bd, do_s + off);
+          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma_bf16(dp[2 * np], va, bd[0], bd[1]);
+          mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
+        }
+      }
+
+      // P^T (f32, as hi + lo) and dS^T (rounded to bf16): the A fragments
+      // of dV and dK
+      uint32_t ph[KQ][4], pl[KQ][4], dsf[KQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        float pv[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, c = j * 8 + 2 * t + (e & 1);
+          const int kj = k0 + warp * 16 + g + 8 * h;
+          pv[e] = tc_prob(p, s[j][e], p.bias ? kbias_s[kj - k0] : 0.f,
+                          seg_row ? qseg_s[c] : 0,
+                          seg_row ? kseg_s[kj - k0] : 0, q0 + c, kj,
+                          lse_s[c], diag, edge);
+          ds[e] = pv[e] * (dp[j][e] - delta_s[c]) * p.scale;
+        }
+        const int r = (j % 2) * 2;
+        split_bf16(pv[0], pv[1], ph[j / 2][r], pl[j / 2][r]);
+        split_bf16(pv[2], pv[3], ph[j / 2][r + 1], pl[j / 2][r + 1]);
+        acc_to_a(dsf[j / 2], j, ds[0], ds[1], ds[2], ds[3]);
+      }
+
+      // dV += P^T dO (hi, then lo) and dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          const int off = (kk * 16 + r8 + (mi & 1) * 8) * LDS + np * 16 +
+                          (mi >> 1) * 8;
+          uint32_t bd[4], bq[4];
+          ldsm_x4_t(bd, do_s + off);
+          mma_bf16(dv[2 * np], ph[kk], bd[0], bd[1]);
+          mma_bf16(dv[2 * np + 1], ph[kk], bd[2], bd[3]);
+          mma_bf16(dv[2 * np], pl[kk], bd[0], bd[1]);
+          mma_bf16(dv[2 * np + 1], pl[kk], bd[2], bd[3]);
+          ldsm_x4_t(bq, q_s + off);
+          mma_bf16(dk[2 * np], dsf[kk], bq[0], bq[1]);
+          mma_bf16(dk[2 * np + 1], dsf[kk], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kj = k0 + warp * 16 + g + 8 * h;
+    if (kj >= p.T) continue;
+    const int64_t off = (((int64_t)b * p.T + kj) * p.Hkv + hk) * D;
+    bf16* dkr = static_cast<bf16*>(p.dk) + off;
+    bf16* dvr = static_cast<bf16*>(p.dv) + off;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dkr + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(dk[j][2 * h], dk[j][2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvr + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(dv[j][2 * h], dv[j][2 * h + 1]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// launch
+// --------------------------------------------------------------------------
+
+// shared memory of each CUDA-core kernel, in floats
 constexpr size_t fwd_smem(int D) {
   return (size_t)3 * kTile * (D + 1) + (size_t)kTile * kLDP + 2 * kTile;
 }
@@ -563,29 +1110,47 @@ constexpr size_t dkv_smem(int D) {
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem_floats, dim3 grid, const FlashParams& p,
-           cudaStream_t stream) {
-  const int bytes = (int)(smem_floats * sizeof(float));
+int launch(Kernel kernel, int threads, size_t bytes, dim3 grid,
+           const FlashParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  kernel<<<grid, threads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// f32 inputs: the CUDA-core kernels; bf16: the forward on the CUDA cores,
+// dq and dkv on the tensor cores. No other route.
 template <typename T, int D>
 int run(Which which, const FlashParams& p, cudaStream_t s) {
+  constexpr bool tc = std::is_same<T, bf16>::value;
   const dim3 q_grid((p.S + kTile - 1) / kTile, p.Hq, p.B);
+  const dim3 kv_grid((p.T + kTile - 1) / kTile, p.Hkv, p.B);
+  constexpr size_t F = sizeof(float);
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<T, D>, fwd_smem(D), q_grid, p, s);
+      return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem(D) * F, q_grid,
+                    p, s);
     case kDq:
-      return launch(flash_dq_kernel<T, D>, dq_smem(D), q_grid, p, s);
+      if constexpr (tc) {
+        constexpr int BM = DqTc<D>::BM;
+        return launch(flash_dq_kernel_tc<D>, kTcThreads, DqTc<D>::smem,
+                      dim3(p.B * p.Hq, (p.S + BM - 1) / BM), p, s);
+      } else {
+        return launch(flash_dq_kernel<T, D>, kThreads, dq_smem(D) * F, q_grid,
+                      p, s);
+      }
     case kDkv:
-      return launch(flash_dkv_kernel<T, D>, dkv_smem(D),
-                    dim3((p.T + kTile - 1) / kTile, p.Hkv, p.B), p, s);
+      if constexpr (tc) {
+        constexpr int BN = DkvTc<D>::BN;
+        return launch(flash_dkv_kernel_tc<D>, kTcThreads, DkvTc<D>::smem,
+                      dim3(p.B * p.Hkv, (p.T + BN - 1) / BN), p, s);
+      } else {
+        return launch(flash_dkv_kernel<T, D>, kThreads, dkv_smem(D) * F,
+                      kv_grid, p, s);
+      }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -603,7 +1168,9 @@ int run_d(Which which, const FlashParams& p, cudaStream_t s) {
 
 int dispatch(Which which, const FlashParams* p, void* stream) {
   if (p->B < 1 || p->S < 1 || p->T < 1 || p->Hkv < 1 || p->Hq < p->Hkv ||
-      p->Hq % p->Hkv != 0 || p->Hq > 65535 || p->B > 65535)
+      p->Hq % p->Hkv != 0 || p->Hq > 65535 || p->B > 65535 ||
+      (int64_t)p->B * p->Hq > 0x7fffffff ||
+      (p->S + kTile - 1) / kTile > 65535 || (p->T + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   if (p->seg && p->S != p->T) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

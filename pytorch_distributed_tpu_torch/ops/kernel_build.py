@@ -10,14 +10,19 @@ The library's name carries a hash of the source and the flags, so an
 edited source is rebuilt; ``ptxas``'s register and shared-memory report
 goes to ``_build/<name>.log``. :func:`build` starts one ``nvcc`` per
 missing library and waits for all of them, so the sources compile in
-parallel. Nothing here runs at import: the CPU tests import every module
-on a machine without ``nvcc``.
+parallel. :func:`ptxas_report` reads that log back per kernel, and
+:func:`sass_counts` counts instructions in a built library's machine code
+(``cuobjdump -sass``, from the toolkit that holds ``nvcc``): how a run
+shows that a kernel issues tensor-core instructions (``HMMA`` for
+``mma.sync``, ``HGMMA`` for ``wgmma``). Nothing here runs at import: the
+CPU tests import every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -90,3 +95,68 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel (mangled): {"registers", "spill_stores", "spill_loads"}}``
+    from ``ptxas -v`` output."""
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = report.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return report
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptxas` of the build log of ``csrc/<name>.cu``."""
+    return parse_ptxas((BUILD_DIR / f"{name}.log").read_text())
+
+
+#: a SASS instruction line: address comment, optional predicate, opcode
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)")
+#: the tensor-core opcodes: HMMA from mma.sync, HGMMA from wgmma
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+
+
+def parse_sass(text: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel (mangled): {opcode: count}}`` over
+    :data:`TENSOR_CORE_OPS` from ``cuobjdump -sass`` output (an opcode
+    counts with any modifiers: ``HMMA.16816.F32.BF16`` is an ``HMMA``)."""
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = counts.setdefault(m.group(1),
+                                        dict.fromkeys(TENSOR_CORE_OPS, 0))
+            continue
+        m = _SASS_OP.search(line)
+        if current is not None and m and m.group(1) in current:
+            current[m.group(1)] += 1
+    return counts
+
+
+def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_sass` of ``csrc/<name>.cu``'s built library. Raises if
+    ``cuobjdump`` is not beside ``nvcc``."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    out = subprocess.run(
+        [str(tool), "-sass", str(library_path(name))], check=True,
+        capture_output=True, text=True,
+    ).stdout
+    return parse_sass(out)

@@ -4,7 +4,8 @@ Pallas kernels, in interpret mode on the CPU) and against the port's own
 einsum ``dot_product_attention``.
 
 Inputs and output cotangents are drawn with numpy from a seed and handed
-to both frameworks. Everything is f32. Tolerances are relative to the
+to both frameworks. Everything is f32, bar the model of the bf16 dkv
+kernel's rounding at the end. Tolerances are relative to the
 largest reference magnitude: 2e-5 for outputs and 1e-4 for gradients,
 the bounds the JAX package's own flash-vs-einsum tests use. The two
 sides sum in different orders and block the keys differently (the JAX
@@ -22,6 +23,7 @@ from pytorch_distributed_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
 )
 from pytorch_distributed_tpu_torch.ops import attention as attn_mod
+from pytorch_distributed_tpu_torch.ops import flash_attention as fa
 from pytorch_distributed_tpu_torch.ops.attention import (
     attention,
     dot_product_attention,
@@ -178,3 +180,74 @@ def test_flash_validates_like_jax():
         flash_attention(q, q, q, segment_ids=torch.ones(2, 9))
     with pytest.raises(ValueError, match="impl must be"):
         flash_attention(q, q, q, impl="kernel")
+
+
+# --------------------------------------------------------------------------
+# the bf16 dkv kernel's rounding, modelled in PyTorch
+# --------------------------------------------------------------------------
+
+# the bf16 gradient limits of the kernels against the plain versions
+# (tests/test_torch_kernels_cuda.py and chip_smoke.py, FLASH_TOL)
+BF16_GRAD_TOL = dict(max=1e-2, norm=1e-3)
+
+
+def _dkv_tensor_core_model(q, k, v, dout, lse, delta, bias, seg, *,
+                           sm_scale, causal, block_q=64):
+    """dK and dV as the bf16 tensor-core dkv kernel rounds them: products
+    of bf16 operands summed in f32, q tile by q tile; dS rounded to bf16
+    before dS^T.Q; P kept in f32 for P^T.dO as P = hi + lo, hi = bf16(P),
+    lo = bf16(P - hi), two bf16 products."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg, dog = fa._grouped(q, Hkv), fa._grouped(dout, Hkv)
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    lse_g = lse.reshape(B, Hkv, G, S, 1)
+    delta_g = delta.reshape(B, Hkv, G, S, 1)
+    dk = torch.zeros((B, Hkv, T, D))
+    dv = torch.zeros((B, Hkv, T, D))
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    for q0 in range(0, S, block_q):
+        rows = slice(q0, q0 + block_q)
+        qb, dob = qg[:, :, :, rows], dog[:, :, :, rows]
+        p = torch.exp(fa._scores(qb, kf, bias, seg, sm_scale, causal, q0, 0)
+                      - lse_g[:, :, :, rows])
+        hi = bf(p)
+        lo = bf(p - hi)
+        dv = dv + torch.einsum("bhgst,bhgsd->bhtd", hi, dob)
+        dv = dv + torch.einsum("bhgst,bhgsd->bhtd", lo, dob)
+        dp = torch.einsum("bhgsd,bhtd->bhgst", dob, vf)
+        ds = bf(p * (dp - delta_g[:, :, :, rows]) * sm_scale)
+        dk = dk + torch.einsum("bhgst,bhgsd->bhtd", ds, qb)
+    return (dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa_4_2", "kv_mask",
+                                  "segment_ids", "s_ne_t_causal"])
+def test_dkv_kernel_rounding_fits_bf16_limits(case):
+    """The bf16 dkv kernel's rounding (P split into bf16 hi + lo for dV,
+    dS in bf16 for dK) stays within the kernels' bf16 gradient limits of
+    the plain version, which keeps P in f32."""
+    arrays, kw, _, _ = _inputs(case)
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    B, S, _, _ = q.shape
+    T = k.shape[1]
+    bias = seg = None
+    if "kv_mask" in kw:
+        bias = torch.zeros(B, T).masked_fill(
+            ~torch.from_numpy(kw["kv_mask"]), fa._NEG_INF)
+    if "segment_ids" in kw:
+        seg = torch.from_numpy(kw["segment_ids"]).int()
+    scale = kw.get("sm_scale", q.shape[-1] ** -0.5)
+    fkw = dict(sm_scale=scale, causal=kw["causal"])
+    out, lse = fa._flash_fwd_plain(q, k, v, bias, seg, **fkw)
+    args = (q, k, v, dout, lse, fa._delta(dout, out), bias, seg)
+    want = fa._flash_dkv_plain(*args, **fkw)
+    got = _dkv_tensor_core_model(*args, **fkw)
+    for name, g, w in zip(("dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        diff = g - w
+        assert diff.abs().max() <= BF16_GRAD_TOL["max"] * w.abs().max(), name
+        assert diff.norm() <= BF16_GRAD_TOL["norm"] * w.norm(), name

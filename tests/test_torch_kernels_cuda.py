@@ -148,7 +148,10 @@ FLASH_TOL = {
 }
 
 FLASH_CASES = {
-    # name: (B, S, T, Hq, Hkv, D, causal, extras)
+    # name: (B, S, T, Hq, Hkv, D, causal, extras). bf16 dq and dkv run on
+    # the tensor cores: 64-row tiles, 64 rows streamed at a time (32 at
+    # D = 128) and computed 32 (dq) or 16 (dkv) at a time; the cases below
+    # cover their ragged edges.
     "causal_ragged": (2, 200, 200, 4, 2, 64, True, {}),
     "full_gqa4": (2, 130, 130, 8, 2, 128, False, {}),
     "kv_mask": (3, 96, 96, 2, 2, 32, True, {"kv_mask": True}),
@@ -156,6 +159,16 @@ FLASH_CASES = {
     "scale_one": (1, 64, 64, 2, 1, 16, False, {"sm_scale": 1.0}),
     "s_lt_t": (2, 100, 160, 4, 2, 64, True, {}),
     "s_gt_t": (2, 160, 100, 4, 2, 64, True, {}),
+    "s_one": (3, 1, 70, 4, 2, 64, False, {}),
+    "s_one_kv_mask": (2, 1, 40, 2, 1, 32, False, {"kv_mask": True}),
+    "st_65_causal": (2, 65, 65, 4, 4, 64, True, {}),
+    "d16_causal": (2, 77, 77, 4, 2, 16, True, {}),
+    "d32_full": (2, 90, 131, 2, 2, 32, False, {}),
+    "gqa4_causal": (2, 150, 150, 8, 2, 64, True, {}),
+    "gqa4_causal_d128": (1, 100, 100, 8, 2, 128, True, {}),
+    # segment boundaries just inside and across the 32- and 64-row tiles
+    "segments_straddle": (2, 200, 200, 4, 2, 128, True,
+                          {"cuts": (31, 63, 65, 130, 191)}),
 }
 
 
@@ -176,6 +189,12 @@ def _flash_inputs(gen, B, S, T, Hq, Hkv, D, dtype, device, extras):
                           .tolist())
             for i, (lo, hi) in enumerate(zip([0] + cuts, cuts + [S])):
                 seg[b, lo:hi] = i + 1
+        seg = seg.to(device)
+    if "cuts" in extras:
+        cuts = list(extras["cuts"])
+        seg = torch.zeros(B, S, dtype=torch.int32)
+        for i, (lo, hi) in enumerate(zip([0] + cuts, cuts + [S])):
+            seg[:, lo:hi] = i + 1
         seg = seg.to(device)
     to = lambda t: t.to(device=device, dtype=dtype)  # noqa: E731
     return to(q), to(k), to(v), bias, seg
@@ -225,6 +244,25 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, case):
             fa.flash_dkv.launches) == tuple(c + 1 for c in counts)
     for t in (out, lse, dq, dk, dv):
         assert torch.isfinite(t).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """Each CTA owns its output tile (no atomics), so two launches on the
+    same inputs give the same bits: GQA, causal, packed segments."""
+    B, S, T, Hq, Hkv, D = 2, 300, 300, 8, 2, 64
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, _, seg = _flash_inputs(gen, B, S, T, Hq, Hkv, D,
+                                    getattr(torch, dtype), cuda,
+                                    {"cuts": (40, 100, 170)})
+    kw = dict(sm_scale=D ** -0.5, causal=True)
+    out, lse = fa.flash_fwd(q, k, v, None, seg, **kw)
+    dout = torch.randn(out.shape, generator=gen).to(cuda, out.dtype)
+    args = (q, k, v, dout, lse, fa._delta(dout, out), None, seg)
+    first = (fa.flash_dq(*args, **kw),) + fa.flash_dkv(*args, **kw)
+    second = (fa.flash_dq(*args, **kw),) + fa.flash_dkv(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_autograd_on_strided_qkv(cuda):
