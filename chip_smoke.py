@@ -12,7 +12,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``pytorch_distributed_tpu_torch/_build/`` (ignored by git); then each
    kernel's registers and spills (``ptxas -v``) and, for the flash
    kernels, their tensor-core instructions (``HMMA``/``HGMMA`` in
-   ``cuobjdump -sass``): the bf16 dq and dkv kernels must have some.
+   ``cuobjdump -sass``): the bf16 forward, dq and dkv kernels must have
+   some at every head_dim and the f32 forward none, and the bf16 forward
+   must not spill up to head_dim 64.
 2. paged kernel: the paged-attention kernel at the decode tick's shapes
    (Llama-3-8B attention: 32 query / 8 kv heads, head_dim 128, 32-token
    pages, 8 rows of seeded lengths up to 2000), plus a W=5 verify block,
@@ -25,15 +27,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
    head_dim 64, causal), on packed rows from ``pack_documents``, with a
    ragged ``kv_mask``, at Llama-3-8B's GQA shapes (32/8 heads, head_dim
-   128, S=2048, full), with ``sm_scale=1.0`` and at S=T=1000; dq and
-   dkv must give the same bits on two launches; then each kernel's time
-   at the training shapes beside its plain version's, a bound, and
-   ``scaled_dot_product_attention``'s flash backend: its forward for the
-   forward kernel, its backward alone (one call that computes dq, dk and
-   dv, so the dq and dkv kernels share it) for the backward kernels. The
-   kernels and the yardsticks are replayed from a CUDA graph, so they time
-   the card, not the host's dispatch (the kernels' eager time is printed
-   beside).
+   128, S=2048, full), with ``sm_scale=1.0`` and at S=T=1000; the bf16
+   forward, dq and dkv must give the same bits on two launches; then each
+   kernel's time at the training shapes beside its plain version's, a
+   bound, and ``scaled_dot_product_attention``'s flash backend: its
+   forward for the forward kernel, its backward alone (one call that
+   computes dq, dk and dv, so the dq and dkv kernels share it) for the
+   backward kernels. The kernels and the yardsticks are replayed from a
+   CUDA graph, so they time the card, not the host's dispatch (the
+   kernels' eager time is printed beside).
 4. serve: ``ServeEngine`` on Llama-3-8B at full width and depth, weights
    drawn from a seeded generator: 8 requests (6 greedy, 2 sampled, two
    sharing a 256-token prefix). Every request must finish with its full
@@ -99,10 +101,12 @@ GREEDY_MARGIN = 0.25
 # sums. bf16: the outputs are bf16, and an entry can land one bf16 step
 # apart, at most 2^-7 of itself, where the two round from f32 values a
 # few ulp apart; the forward rounds P against its running maximum, which
-# differs with the tiling, while the backward recomputes P from the same
-# lse on both sides, so its entries differ far more rarely. H100 readings
-# over the six cases: max 3.6e-3 (out, sm_scale=1.0) and 3.4e-3 (dv, GQA);
-# norm 1.4e-3 (out) and 8.2e-5 (grads) in bf16, 8.4e-7 and 1.7e-6 in f32.
+# differs with the tiling (every 64 keys in the kernel, 128 in the plain
+# version), while the backward recomputes P from the same lse on both
+# sides, so its entries differ far more rarely. H100 readings over the
+# six cases, tensor-core kernels in bf16: max 3.6e-3 (out, sm_scale=1.0)
+# and 4.1e-3 (dk); norm 1.4e-3 (out, kv_mask) and 3.1e-4 (dv, GQA); f32:
+# norm 8.4e-7 (out) and 1.7e-6 (grads).
 FLASH_TOL = {
     "float32": {"out": dict(max=1e-5, norm=1e-5),
                 "grad": dict(max=5e-5, norm=1e-5)},
@@ -207,10 +211,55 @@ _FLASH_KERNEL = re.compile(
 )
 
 
+_TC_KERNELS = ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
+               "flash_dkv_kernel_tc")
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_label(fn):
+    """``"<kernel> <dtype> D=<head_dim>"`` of a mangled flash kernel name,
+    or None for any other kernel."""
+    m = _FLASH_KERNEL.search(fn)
+    if not m:
+        return None
+    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    return f"{m.group(1)} {dtype} D={m.group(3)}"
+
+
+def check_flash_routes(report):
+    """The flash routes the library must hold, from the build report
+    (``{label: ptxas fields and SASS counts}``): bf16 forward, dq and dkv
+    on the tensor cores (HMMA or HGMMA in their SASS) at every head_dim,
+    the bf16 forward without spills up to D = 64; f32 on the CUDA-core
+    kernels, the forward with no tensor-core instruction; and nothing
+    else, so no bf16 instantiation of a CUDA-core kernel. Raises naming
+    every departure."""
+    tc = {f"{k} bfloat16 D={d}" for k in _TC_KERNELS for d in _HEAD_DIMS}
+    f32 = {f"flash_{k}_kernel float32 D={d}" for k in ("fwd", "dq", "dkv")
+           for d in _HEAD_DIMS}
+    found = {k for k in report if k.startswith("flash_")}
+    wrong = [f"missing {k}" for k in sorted((tc | f32) - found)]
+    wrong += [f"unexpected {k}" for k in sorted(found - tc - f32)]
+    for k in sorted(tc & found):
+        if report[k].get("HMMA", 0) + report[k].get("HGMMA", 0) == 0:
+            wrong.append(f"{k}: no tensor-core instructions")
+    for d in _HEAD_DIMS[:3]:
+        info = report.get(f"flash_fwd_kernel_tc bfloat16 D={d}", {})
+        if info.get("spill_stores", 0) or info.get("spill_loads", 0):
+            wrong.append(f"flash_fwd_kernel_tc bfloat16 D={d} spills")
+    for d in _HEAD_DIMS:
+        info = report.get(f"flash_fwd_kernel float32 D={d}", {})
+        if info.get("HMMA", 0) + info.get("HGMMA", 0):
+            wrong.append(f"flash_fwd_kernel float32 D={d}: tensor-core "
+                         "instructions")
+    if wrong:
+        raise AssertionError("flash kernel routes: " + "; ".join(wrong))
+
+
 def kernel_report(libs):
     """Each kernel's registers and spills (``ptxas -v``), and for the flash
-    kernels the tensor-core instructions in their SASS (``cuobjdump``):
-    the bf16 dq and dkv kernels must have some at every head_dim."""
+    kernels the tensor-core instructions in their SASS (``cuobjdump``),
+    held to :func:`check_flash_routes`."""
     from pytorch_distributed_tpu_torch.ops import kernel_build
 
     report = {}
@@ -219,12 +268,7 @@ def kernel_report(libs):
         sass = kernel_build.sass_counts(name) if name == "flash_attention" \
             else {}
         for fn, info in sorted(ptxas.items()):
-            m = _FLASH_KERNEL.search(fn)
-            if m:
-                dtype = "float32" if m.group(2) == "f" else "bfloat16"
-                label = f"{m.group(1)} {dtype} D={m.group(3)}"
-            else:
-                label = fn
+            label = flash_label(fn) or fn
             tc = sass.get(fn, {})
             report[label] = dict(info, **tc)
             print(f"  {name}: {label}: {info.get('registers')} registers, "
@@ -232,16 +276,7 @@ def kernel_report(libs):
                   f"{info.get('spill_loads')} B"
                   + (f"; SASS HMMA {tc['HMMA']}, HGMMA {tc['HGMMA']}"
                      if tc else ""))
-    missing = [k for k, v in report.items()
-               if k.startswith(("flash_dq_kernel_tc", "flash_dkv_kernel_tc"))
-               and v.get("HMMA", 0) + v.get("HGMMA", 0) == 0]
-    routes = [k for k in report if k.startswith(("flash_dq_kernel_tc",
-                                                 "flash_dkv_kernel_tc"))]
-    if missing or len(routes) != 8:
-        raise AssertionError(
-            f"bf16 dq/dkv kernels without tensor-core instructions: "
-            f"{missing}; found {routes}"
-        )
+    check_flash_routes(report)
     return report
 
 
@@ -510,6 +545,8 @@ def flash_phase(device, seed):
     bargs = (q, k, v, dout, lse, delta)
     # two launches on the same inputs give the same bits (no atomics)
     same = {
+        "flash_fwd": all(torch.equal(a, b) for a, b in zip(
+            fa.flash_fwd(q, k, v, **kw), fa.flash_fwd(q, k, v, **kw))),
         "flash_dq": torch.equal(fa.flash_dq(*bargs, **kw),
                                 fa.flash_dq(*bargs, **kw)),
         "flash_dkv": all(torch.equal(a, b) for a, b in zip(
@@ -517,7 +554,7 @@ def flash_phase(device, seed):
     }
     print(f"bitwise equal over two launches: {same}")
     if not all(same.values()):
-        raise AssertionError(f"a backward kernel is not deterministic: {same}")
+        raise AssertionError(f"a flash kernel is not deterministic: {same}")
     calls = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
         "flash_dq": lambda: fa.flash_dq(*bargs, **kw),

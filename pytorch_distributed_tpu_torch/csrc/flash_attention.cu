@@ -42,37 +42,40 @@
 //    writes dK and dV straight in the [B, T, Hkv, D] shape. Each CTA owns its
 //    tile, so there are no atomics and no per-q-head output to sum outside,
 //    and two launches on the same inputs give the same bits.
-//  * bf16 dq and dkv (flash_dq_kernel_tc, flash_dkv_kernel_tc) run every
-//    product on the tensor cores: mma.sync m16n8k16, bf16 in, f32
-//    accumulate, operands read from shared memory with ldmatrix (.trans
-//    where a product needs K, Q or dO with the key or query axis as its
-//    depth). Tiles stay bf16 in shared memory, rows padded by 16 bytes so
-//    that the 8 rows one ldmatrix reads fall in 8 different bank groups,
-//    and stream through a two-stage ring of cp.async 16-byte copies, so the
-//    next tile's load overlaps this tile's products. Four warps own 16 rows
-//    each: query rows in dq (Q and dO kept as A fragments across the key
-//    loop), key rows in dkv (K and V resident in shared memory). Each
-//    64-row streamed tile is computed 32 (dq) or 16 (dkv) columns at a
-//    time, which keeps the kernels within 128 and 168 registers without
-//    spills at D <= 64: four and three CTAs per SM, whose extra warps hide
-//    the latency of the mma chains. Scores, P and dS stay in registers in
-//    f32; the accumulator layout of S = Q.K^T (or S^T = K.Q^T) is the
-//    A-fragment layout of the next product, so dS (rounded to bf16 there,
-//    the Pallas rounding point) and P^T feed dQ += dS.K, dK += dS^T.Q and
-//    dV += P^T.dO without a trip through shared memory. dV keeps P in f32
-//    as the Pallas kernel does: P = hi + lo with hi = bf16(P),
-//    lo = bf16(P - hi), two bf16 products, which holds P to about 2^-16 of
-//    itself (one more product per tile).
-//    Head dim 128 halves the streamed tile (32 rows) and runs at the
-//    occupancy its registers allow.
-//  * fwd, and dq and dkv for f32 inputs: the first version. 64 x 64 tiles
-//    staged in shared memory as f32 (rows padded to D + 1 floats, so the
-//    score loops read without bank conflicts) from 16-byte global loads;
-//    256 threads each own a 4 x 4 block of scores and 4 rows x D/16 columns
-//    of the output accumulators; products on the CUDA cores in f32, which
-//    holds f32 inputs to f32 accuracy (TF32 would not) and bf16 inputs to
-//    the forward's rounding point exactly. The forward on the tensor cores
-//    is the next redesign (PERF.md).
+//  * bf16 inputs (flash_fwd_kernel_tc, flash_dq_kernel_tc,
+//    flash_dkv_kernel_tc) run every product on the tensor cores: mma.sync
+//    m16n8k16, bf16 in, f32 accumulate, operands read from shared memory
+//    with ldmatrix (.trans where a product needs V, K, Q or dO with the key
+//    or query axis as its depth). Tiles stay bf16 in shared memory, rows
+//    padded by 16 bytes so that the 8 rows one ldmatrix reads fall in 8
+//    different bank groups, and stream through a two-stage ring of cp.async
+//    16-byte copies, so the next tile's load overlaps this tile's products.
+//    Four warps own 16 rows each: query rows in fwd and dq (Q, and dO in
+//    dq, kept as A fragments across the key loop), key rows in dkv (K and V
+//    resident in shared memory). Each 64-row streamed tile is computed 64
+//    (fwd), 32 (dq) or 16 (dkv) columns at a time, which keeps the kernels
+//    within 168, 128 and 168 registers without spills at D <= 64: three,
+//    four and three CTAs per SM, whose extra warps hide the latency of the
+//    mma chains. Scores, P and dS stay in registers in f32; the accumulator
+//    layout of S = Q.K^T (or S^T = K.Q^T) is the A-fragment layout of the
+//    next product, so P (fwd) and dS (dq, dkv), rounded to bf16 there (the
+//    Pallas rounding points), and P^T feed O += P.V, dQ += dS.K,
+//    dK += dS^T.Q and dV += P^T.dO without a trip through shared memory.
+//    The forward's online softmax runs on that fragment in log2 units
+//    (P = 2^(s log2(e) - m), one ex2 per score): a row's scores sit in the
+//    4 lanes of a quad, so its max and sum are two shuffles; key tiles no
+//    mask can reach are only scaled, and with causal a warp skips those
+//    wholly past its rows. dV keeps P in f32 as the Pallas kernel does:
+//    P = hi + lo with hi = bf16(P), lo = bf16(P - hi), two bf16 products,
+//    which holds P to about 2^-16 of itself (one more product per tile).
+//    Head dim 128 halves dq's and dkv's streamed tile (32 rows) and runs at
+//    the occupancy its registers allow (two CTAs per SM for the forward).
+//  * f32 inputs: the first version. 64 x 64 tiles staged in shared memory
+//    as f32 (rows padded to D + 1 floats, so the score loops read without
+//    bank conflicts) from 16-byte global loads; 256 threads each own a
+//    4 x 4 block of scores and 4 rows x D/16 columns of the output
+//    accumulators; products on the CUDA cores in f32, which holds f32
+//    inputs to f32 accuracy (TF32 would not).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,26 +121,7 @@ __device__ __forceinline__ void load16(const float* src, float* dst) {
   dst[2] = x.z;
   dst[3] = x.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-// round to the input type, as the Pallas kernels' .astype(dtype) does
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -285,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
       for (int j = 0; j < 4; ++j) {
         const float pv = expf(s[i][j] - m_new);
         sum += pv;
-        p_s[(4 * ty + i) * kLDP + tx + 16 * j] = round_to(pv, T());
+        p_s[(4 * ty + i) * kLDP + tx + 16 * j] = pv;
       }
       l[i] = l[i] * alpha + row_sum16(sum);
       m[i] = m_new;
@@ -408,7 +392,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
           pv = expf(masked_score(p, s[i][j], bias_s[c], qseg[i], kseg_s[c],
                                  qi, kj) - lse[i]);
         const float ds = pv * (dp[i][j] - delta[i]) * p.scale;
-        ds_s[(4 * ty + i) * kLDP + c] = round_to(ds, T());
+        ds_s[(4 * ty + i) * kLDP + c] = ds;
       }
     }
     __syncthreads();
@@ -534,7 +518,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
                                    qi, kj) - lse_s[r]);
           const float ds = pv * (dpt[i][j] - delta_s[r]) * p.scale;
           pt_s[(4 * ty + i) * kLDP + r] = pv;
-          dst_s[(4 * ty + i) * kLDP + r] = round_to(ds, T());
+          dst_s[(4 * ty + i) * kLDP + r] = ds;
         }
       }
       __syncthreads();
@@ -579,7 +563,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
 }
 
 // --------------------------------------------------------------------------
-// bf16 dq and dkv on the tensor cores
+// bf16 forward, dq and dkv on the tensor cores
 // --------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -615,19 +599,26 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
-// row addresses of matrix i, register i holds matrix i (.trans: transposed)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
+// row addresses of matrix i, register i holds matrix i (.trans: transposed);
+// the address is a shared-window byte address (smem_u32) or a pointer
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
+      : "r"(addr));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
+  ldsm_x4(r, smem_u32(ptr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
+  ldsm_x4_t(r, smem_u32(ptr));
 }
 
 // c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate. Fragments
@@ -714,6 +705,269 @@ __device__ __forceinline__ float tc_prob(const FlashParams& p, float dot,
   if (p.seg && qseg != kseg) x = kNegInf;
   if (diag && qi < kj) x = kNegInf;
   return __expf(x - lse);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// the forward's masked score of query qi and key kj in log2 units (s
+// log2(e), so that P = 2^(s - m) is one ex2): masked_score's masks with
+// the same finite -1e30 sentinel (a bias-masked score is clamped to it,
+// as -1e30 + s rounds to it in natural units), and -inf for keys past T
+// (they weigh exactly 0); `diag` and `edge` as above
+__device__ __forceinline__ float tc_score2(const FlashParams& p, float dot,
+                                           float bias, int qseg, int kseg,
+                                           int qi, int kj, bool diag,
+                                           bool edge) {
+  if (edge && kj >= p.T) return -INFINITY;
+  float x = dot * p.scale;
+  if (p.bias) x = fmaxf((x + bias) * kLog2e, kNegInf);
+  else x *= kLog2e;
+  if (p.seg && qseg != kseg) x = kNegInf;
+  if (diag && qi < kj) x = kNegInf;
+  return x;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// max and sum over the 4 lanes of a quad: the lanes that hold one row of
+// an m16n8 accumulator
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// forward: one CTA per (q tile of 64 rows, batch x q head); warp w owns
+// rows 16w..16w+15, loads them once as A fragments and keeps them across
+// the key loop. K, V and the key tile's bias and segment words stream
+// through the cp.async ring, BN keys per tile: S = Q K^T on the tensor
+// cores, masked (a tile that no mask can reach is only scaled), then the
+// online softmax on the 16 x BN score fragment in log2 units (each lane
+// holds two rows, g and g + 8, spread over its quad), and P rounded to
+// bf16 straight into the A fragments of O += P V. l sums the unrounded P.
+// With causal, a warp skips a tile whose keys all lie past its rows.
+// ldmatrix addresses are 32-bit shared-window offsets with the lane's part
+// computed once. Up to D = 64 this fits 168 registers without spills,
+// three CTAs per SM (on an H100 at the training shapes 0.117 ms; 32-key
+// steps at four CTAs spill, at three they took 0.121 ms; PERF.md).
+template <int D>
+struct FwdTc {
+  static constexpr int BM = 64;
+  static constexpr int BN = 64;
+  static constexpr int CTAS = D <= 64 ? 3 : 2;  // per SM, for ptxas
+  static constexpr int LDS = D + 8;
+  static constexpr size_t smem =
+      (size_t)BM * LDS * sizeof(bf16)                 // Q
+      + (size_t)kStages * 2 * BN * LDS * sizeof(bf16) // ring: K, V
+      + (size_t)kStages * 2 * BN * 4;                 // ring: bias, kseg
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
+    flash_fwd_kernel_tc(FlashParams p) {
+  using C = FwdTc<D>;
+  constexpr int BM = C::BM, BN = C::BN, LDS = C::LDS;
+  constexpr int KD = D / 16;   // depth steps over head_dim (S)
+  constexpr int NB = BN / 8;   // key column tiles of S
+  constexpr int KB = BN / 16;  // depth steps over keys (O)
+  constexpr int ND = D / 8;    // head_dim column tiles of O
+  constexpr int ROW = LDS * 2; // bytes per shared row
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);  // [BM][LDS]
+  bf16* kv_s = q_s + BM * LDS;                   // [stage][K, V][BN][LDS]
+  float* bias_s = reinterpret_cast<float*>(kv_s + kStages * 2 * BN * LDS);
+  int* kseg_s = reinterpret_cast<int*>(bias_s + kStages * BN);
+
+  const int n_qt = (p.S + BM - 1) / BM;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;  // longest first
+  const int hq = blockIdx.x % p.Hq, b = blockIdx.x / p.Hq;
+  const int hk = hq / (p.Hq / p.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mi = lane / 8, r8 = lane % 8;  // ldmatrix: matrix, row
+  // this lane's ldmatrix row address within a K tile (two 8-key blocks
+  // by two 8-column blocks) and within a V tile read transposed
+  const uint32_t k_lane = (r8 + (mi >> 1) * 8) * ROW + (mi & 1) * 16;
+  const uint32_t v_lane = (r8 + (mi & 1) * 8) * ROW + (mi >> 1) * 16;
+  const uint32_t kv_u32 = smem_u32(kv_s);
+
+  const bf16* kb = head_ptr(p.k, p.k_stride, b, hk);
+  const bf16* vb = head_ptr(p.v, p.v_stride, b, hk);
+  const float* bias_row = p.bias ? p.bias + (int64_t)b * p.T : nullptr;
+  const int* seg_row = p.seg ? p.seg + (int64_t)b * p.S : nullptr;
+  auto load_keys = [&](int stage, int k0) {
+    bf16* ks = kv_s + stage * 2 * BN * LDS;
+    copy_rows_async<D, BN>(ks, kb, p.k_stride[1], k0, p.T);
+    copy_rows_async<D, BN>(ks + BN * LDS, vb, p.v_stride[1], k0, p.T);
+    if (bias_row)
+      copy_words_async(bias_s + stage * BN, bias_row, k0, BN, p.T);
+    if (seg_row)
+      copy_words_async(kseg_s + stage * BN, seg_row, k0, BN, p.T);
+  };
+
+  const int n_kt = (key_end(p, q0, BM) + BN - 1) / BN;
+  copy_rows_async<D, BM>(q_s, head_ptr(p.q, p.q_stride, b, hq),
+                         p.q_stride[1], q0, p.S);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_keys(s, s * BN);
+    cp_async_commit();
+  }
+
+  // this thread's two query rows: qi[0] = g, qi[1] = g + 8 of its warp's
+  int qi[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + warp * 16 + g + 8 * h;
+    qseg[h] = (seg_row && qi[h] < p.S) ? seg_row[qi[h]] : 0;
+  }
+  const int warp_last = q0 + warp * 16 + 15;  // the warp's last row
+  const float scale2 = p.scale * kLog2e;
+
+  cp_async_wait<kStages - 2>();  // Q and the first key tile
+  __syncthreads();
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * LDS + kk * 16 +
+                        (lane >> 4) * 8);
+  // the online-softmax carry of rows g and g + 8, m in log2 units; l is
+  // this lane's share of the row sum (its quad's columns), summed over the
+  // quad at the end
+  float acc[ND][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    if (it > 0) {
+      cp_async_wait<kStages - 2>();  // key tile `it` has landed
+      __syncthreads();  // ... for every thread; tile it-1's stage is free
+    }
+    if (it + kStages - 1 < n_kt)
+      load_keys((it + kStages - 1) % kStages, (it + kStages - 1) * BN);
+    cp_async_commit();
+
+    const int st = it % kStages;
+    const int k0 = it * BN;
+    const bool diag = p.causal && k0 + BN - 1 > q0;
+    if (diag && k0 > warp_last) continue;  // every score masked
+    const bool edge = k0 + BN > p.T;
+    const uint32_t k_addr = kv_u32 + st * 2 * BN * ROW;
+    const uint32_t v_addr = k_addr + BN * ROW;
+    const float* bias_t = bias_s + st * BN;
+    const int* kseg_t = kseg_s + st * BN;
+
+    // S = Q K^T, 16 rows x BN keys per warp
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, k_addr + k_lane + np * 16 * ROW + kk * 32);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    // scores in log2 units, masked where a mask can reach
+    if (diag || edge || bias_row || seg_row) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, c = j * 8 + 2 * t + (e & 1);
+          s[j][e] = tc_score2(p, s[j][e], bias_row ? bias_t[c] : 0.f,
+                              qseg[h], seg_row ? kseg_t[c] : 0, qi[h],
+                              k0 + c, diag, edge);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+    }
+
+    // the new running max of each row; alpha rescales what came before
+    float m_new[2] = {m[0], m[1]}, alpha[2];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m_new[e / 2] = fmaxf(m_new[e / 2], s[j][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = quad_max(m_new[h]);
+      alpha[h] = ex2(m[h] - m_new[h]);
+      m[h] = m_new[h];
+      l[h] *= alpha[h];
+    }
+
+    // P = 2^(s - m): summed unrounded into l, rounded to bf16 as the A
+    // fragments of O += P V (the Pallas kernel's p.astype(v.dtype))
+    uint32_t pf[KB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pv[e] = ex2(s[j][e] - m[e / 2]);
+        l[e / 2] += pv[e];
+      }
+      acc_to_a(pf[j / 2], j, pv[0], pv[1], pv[2], pv[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, v_addr + v_lane + kk * 16 * ROW + np * 32);
+        mma_bf16(acc[2 * np], pf[kk], bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], pf[kk], bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]);  // every lane: the shuffle is warp-wide
+    if (qi[h] >= p.S) continue;
+    const float safe = sum > 0.f ? sum : 1.f;
+    bf16* row = out + (((int64_t)b * p.S + qi[h]) * p.Hq + hq) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * h] / safe,
+                                acc[j][2 * h + 1] / safe);
+    // lse = m + log(l) in natural units; the -1e30 sentinel of a row
+    // without a visible key stays itself, as in the Pallas kernel
+    if (t == 0)
+      p.lse[((int64_t)b * p.Hq + hq) * p.S + qi[h]] =
+          (m[h] > kNegInf ? m[h] * kLn2 : kNegInf) + logf(safe);
+  }
 }
 
 // dq: one CTA per (q tile of 64 rows, batch x q head); warp w owns rows
@@ -1121,8 +1375,8 @@ int launch(Kernel kernel, int threads, size_t bytes, dim3 grid,
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// f32 inputs: the CUDA-core kernels; bf16: the forward on the CUDA cores,
-// dq and dkv on the tensor cores. No other route.
+// f32 inputs: the CUDA-core kernels; bf16: the tensor-core kernels. No
+// other route.
 template <typename T, int D>
 int run(Which which, const FlashParams& p, cudaStream_t s) {
   constexpr bool tc = std::is_same<T, bf16>::value;
@@ -1131,8 +1385,14 @@ int run(Which which, const FlashParams& p, cudaStream_t s) {
   constexpr size_t F = sizeof(float);
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem(D) * F, q_grid,
-                    p, s);
+      if constexpr (tc) {
+        constexpr int BM = FwdTc<D>::BM;
+        return launch(flash_fwd_kernel_tc<D>, kTcThreads, FwdTc<D>::smem,
+                      dim3(p.B * p.Hq, (p.S + BM - 1) / BM), p, s);
+      } else {
+        return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem(D) * F,
+                      q_grid, p, s);
+      }
     case kDq:
       if constexpr (tc) {
         constexpr int BM = DqTc<D>::BM;

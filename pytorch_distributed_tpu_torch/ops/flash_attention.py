@@ -16,8 +16,8 @@ Two implementations of each of the three steps sit side by side:
   the Pallas ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``. CUDA
   tensors get them; each counts its launches in ``<fn>.launches`` and
   raises on anything it does not take. There is no fallback. The dtype
-  picks the kernel inside the library: bf16 dq and dkv run on the
-  tensor cores, f32 dq and dkv and the forward on the CUDA cores.
+  picks the kernel inside the library: bf16 runs all three on the
+  tensor cores, f32 all three on the CUDA cores.
 * the plain versions :func:`_flash_fwd_plain`, :func:`_flash_dq_plain`
   and :func:`_flash_dkv_plain`: the same blocked algorithm in PyTorch,
   recomputing from the saved logsumexp exactly as the kernels do. CPU

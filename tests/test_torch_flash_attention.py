@@ -4,14 +4,16 @@ Pallas kernels, in interpret mode on the CPU) and against the port's own
 einsum ``dot_product_attention``.
 
 Inputs and output cotangents are drawn with numpy from a seed and handed
-to both frameworks. Everything is f32, bar the model of the bf16 dkv
-kernel's rounding at the end. Tolerances are relative to the
+to both frameworks. Everything is f32, bar the models of the bf16
+kernels' rounding at the end. Tolerances are relative to the
 largest reference magnitude: 2e-5 for outputs and 1e-4 for gradients,
 the bounds the JAX package's own flash-vs-einsum tests use. The two
 sides sum in different orders and block the keys differently (the JAX
 kernel picks divisor blocks, the port masks a ragged last block), so they
 agree to a few f32 ulps of the largest term, not bitwise.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +32,8 @@ from pytorch_distributed_tpu_torch.ops.attention import (
 )
 from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 
+# the module (the package's ``ops.flash_attention`` is the function)
+jax_fa = importlib.import_module("pytorch_distributed_tpu.ops.flash_attention")
 OUT_RTOL = 2e-5
 GRAD_RTOL = 1e-4
 
@@ -48,8 +52,17 @@ CASES = {
 }
 
 
+# longer cases for the rounding models below only: the bf16 forward
+# kernel changes its running maximum every 64 keys, so these span several
+# such tiles (the JAX vjp in interpret mode is too slow for them)
+LONG_CASES = {
+    "long_causal_gqa": (1, 256, 256, 4, 2, 64, True, {}),
+    "long_segments": (1, 192, 192, 2, 2, 64, True, {"segments": True}),
+}
+
+
 def _inputs(case):
-    B, S, T, Hq, Hkv, D, causal, extras = CASES[case]
+    B, S, T, Hq, Hkv, D, causal, extras = {**CASES, **LONG_CASES}[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
     k = rng.normal(size=(B, T, Hkv, D)).astype(np.float32)
@@ -183,12 +196,71 @@ def test_flash_validates_like_jax():
 
 
 # --------------------------------------------------------------------------
-# the bf16 dkv kernel's rounding, modelled in PyTorch
+# the bf16 tensor-core kernels' rounding, modelled in PyTorch
 # --------------------------------------------------------------------------
 
-# the bf16 gradient limits of the kernels against the plain versions
-# (tests/test_torch_kernels_cuda.py and chip_smoke.py, FLASH_TOL)
+# the bf16 limits of the kernels against the plain versions
+# (tests/test_torch_kernels_cuda.py and chip_smoke.py, FLASH_TOL, LSE_TOL)
+BF16_OUT_TOL = dict(max=1e-2, norm=5e-3)
 BF16_GRAD_TOL = dict(max=1e-2, norm=1e-3)
+LSE_TOL = dict(max=1e-5, norm=1e-5)
+# the bf16 forward kernel's key tile (csrc/flash_attention.cu, FwdTc::BN):
+# it rounds P to bf16 against the running maximum of every FWD_BN keys
+FWD_BN = 64
+ROUNDING_CASES = ["causal", "gqa_4_2", "kv_mask", "segment_ids",
+                  "s_ne_t_causal", *LONG_CASES]
+
+
+def _bf16_case(case):
+    """The case's q, k, v and dout rounded to bf16, its bias and segment
+    ids as the kernels take them, and the forward's keywords."""
+    arrays, kw, valid, _ = _inputs(case)
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    B, T = k.shape[:2]
+    bias = seg = None
+    if "kv_mask" in kw:
+        bias = torch.zeros(B, T).masked_fill(
+            ~torch.from_numpy(kw["kv_mask"]), fa._NEG_INF)
+    if "segment_ids" in kw:
+        seg = torch.from_numpy(kw["segment_ids"]).int()
+    scale = kw.get("sm_scale", q.shape[-1] ** -0.5)
+    return (q, k, v, dout), bias, seg, dict(sm_scale=scale,
+                                            causal=kw["causal"]), valid
+
+
+def _assert_within(got, want, tol, what):
+    got, want = got.float(), want.float()
+    diff = got - want
+    assert diff.abs().max() <= tol["max"] * want.abs().max(), what
+    assert diff.norm() <= tol["norm"] * want.norm(), what
+
+
+@pytest.mark.parametrize("case", ROUNDING_CASES)
+def test_fwd_kernel_rounding_fits_bf16_limits(case):
+    """The bf16 forward kernel's rounding schedule (P rounded to bf16
+    against the running maximum of each FWD_BN-key tile, l summed from
+    the unrounded P: the plain version at ``block_k=FWD_BN``) holds
+    the kernels' bf16 output limit and the lse limit against the JAX
+    forward (the Pallas kernel in interpret mode, at its default blocks
+    of 128, which round P against another schedule) on the same bf16
+    inputs. Rows without a visible key are undefined and go ungraded."""
+    (q, k, v, _), bias, seg, fkw, valid = _bf16_case(case)
+    got, got_lse = fa._flash_fwd_plain(q, k, v, bias, seg, block_k=FWD_BN,
+                                       **fkw)
+    j = lambda t: None if t is None else jnp.asarray(  # noqa: E731
+        t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy())
+    want, want_lse = jax_fa._fwd(
+        *(j(t).astype(jnp.bfloat16) for t in (q, k, v)), j(bias), j(seg),
+        fkw["sm_scale"], fkw["causal"], 128, 128,
+    )
+    B, S, Hq, _ = q.shape
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    want_lse = torch.from_numpy(
+        np.array(want_lse)[:, :, 0].reshape(B, Hq, S))
+    rows = torch.from_numpy(valid)
+    _assert_within(got.float()[rows], want[rows], BF16_OUT_TOL, "out")
+    _assert_within(got_lse.transpose(1, 2)[rows],
+                   want_lse.transpose(1, 2)[rows], LSE_TOL, "lse")
 
 
 def _dkv_tensor_core_model(q, k, v, dout, lse, delta, bias, seg, *,
@@ -224,30 +296,15 @@ def _dkv_tensor_core_model(q, k, v, dout, lse, delta, bias, seg, *,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
-@pytest.mark.parametrize("case", ["causal", "gqa_4_2", "kv_mask",
-                                  "segment_ids", "s_ne_t_causal"])
+@pytest.mark.parametrize("case", ROUNDING_CASES)
 def test_dkv_kernel_rounding_fits_bf16_limits(case):
     """The bf16 dkv kernel's rounding (P split into bf16 hi + lo for dV,
     dS in bf16 for dK) stays within the kernels' bf16 gradient limits of
     the plain version, which keeps P in f32."""
-    arrays, kw, _, _ = _inputs(case)
-    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
-    B, S, _, _ = q.shape
-    T = k.shape[1]
-    bias = seg = None
-    if "kv_mask" in kw:
-        bias = torch.zeros(B, T).masked_fill(
-            ~torch.from_numpy(kw["kv_mask"]), fa._NEG_INF)
-    if "segment_ids" in kw:
-        seg = torch.from_numpy(kw["segment_ids"]).int()
-    scale = kw.get("sm_scale", q.shape[-1] ** -0.5)
-    fkw = dict(sm_scale=scale, causal=kw["causal"])
+    (q, k, v, dout), bias, seg, fkw, _ = _bf16_case(case)
     out, lse = fa._flash_fwd_plain(q, k, v, bias, seg, **fkw)
     args = (q, k, v, dout, lse, fa._delta(dout, out), bias, seg)
     want = fa._flash_dkv_plain(*args, **fkw)
     got = _dkv_tensor_core_model(*args, **fkw)
     for name, g, w in zip(("dk", "dv"), got, want):
-        g, w = g.float(), w.float()
-        diff = g - w
-        assert diff.abs().max() <= BF16_GRAD_TOL["max"] * w.abs().max(), name
-        assert diff.norm() <= BF16_GRAD_TOL["norm"] * w.norm(), name
+        _assert_within(g, w, BF16_GRAD_TOL, name)

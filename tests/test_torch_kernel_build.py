@@ -1,7 +1,13 @@
 """The port's kernel-build reports, read from sample compiler output: the
 ``ptxas -v`` register and spill lines and the ``cuobjdump -sass`` opcode
 counts that ``chip_smoke.py`` prints for every kernel (the tools
-themselves run only where ``nvcc`` is)."""
+themselves run only where ``nvcc`` is), and ``chip_smoke.py``'s check
+of the flash routes over such a report."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
 
 from pytorch_distributed_tpu_torch.ops import kernel_build
 
@@ -52,3 +58,84 @@ def test_parse_sass_counts_tensor_core_opcodes_per_kernel():
         DQ_F32: dict(HMMA=0, HGMMA=0),
     }
     assert kernel_build.parse_sass("no functions here") == {}
+
+
+# --------------------------------------------------------------------------
+# chip_smoke.py's route check over the flash kernels' build report
+# --------------------------------------------------------------------------
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+FWD_TC = "_ZN12_GLOBAL__N_119flash_fwd_kernel_tcILi64EEEv11FlashParams"
+FWD_BF16 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEv"
+            "11FlashParams")
+
+
+def test_flash_label_names_kernel_dtype_and_head_dim():
+    assert chip_smoke.flash_label(DQ_TC) == "flash_dq_kernel_tc bfloat16 D=64"
+    assert chip_smoke.flash_label(DQ_F32) == "flash_dq_kernel float32 D=64"
+    assert chip_smoke.flash_label(FWD_TC) == (
+        "flash_fwd_kernel_tc bfloat16 D=64")
+    assert chip_smoke.flash_label(FWD_BF16) == (
+        "flash_fwd_kernel bfloat16 D=64")
+    assert chip_smoke.flash_label("_Z12paged_kernelv") is None
+
+
+def _good_report():
+    """What the library must hold: the three bf16 kernels on the tensor
+    cores and the three f32 ones on the CUDA cores, at each head_dim."""
+    report = {}
+    for d in (16, 32, 64, 128):
+        for k in ("fwd", "dq", "dkv"):
+            report[f"flash_{k}_kernel_tc bfloat16 D={d}"] = dict(
+                registers=128, spill_stores=0, spill_loads=0, HMMA=8,
+                HGMMA=0)
+            report[f"flash_{k}_kernel float32 D={d}"] = dict(
+                registers=128, spill_stores=0, spill_loads=0, HMMA=0,
+                HGMMA=0)
+    report["_Z12paged_kernelv"] = dict(registers=64)
+    return report
+
+
+def _no_tc(r):
+    r["flash_fwd_kernel_tc bfloat16 D=128"].update(HMMA=0)
+
+
+def _spills(r):
+    r["flash_fwd_kernel_tc bfloat16 D=32"].update(spill_stores=8)
+
+
+def _bf16_cuda_cores(r):
+    r["flash_fwd_kernel bfloat16 D=64"] = dict(HMMA=0, HGMMA=0)
+
+
+def _f32_on_tensor_cores(r):
+    r["flash_fwd_kernel float32 D=16"].update(HMMA=4)
+
+
+def _missing(r):
+    del r["flash_fwd_kernel_tc bfloat16 D=16"]
+
+
+@pytest.mark.parametrize("spoil,what", [
+    (_no_tc, "D=128: no tensor-core instructions"),
+    (_spills, "D=32 spills"),
+    (_bf16_cuda_cores, "unexpected flash_fwd_kernel bfloat16 D=64"),
+    (_f32_on_tensor_cores, "float32 D=16: tensor-core instructions"),
+    (_missing, "missing flash_fwd_kernel_tc bfloat16 D=16"),
+])
+def test_check_flash_routes_refuses_a_wrong_build(spoil, what):
+    report = _good_report()
+    chip_smoke.check_flash_routes(report)   # the right build passes
+    spoil(report)
+    with pytest.raises(AssertionError, match=what):
+        chip_smoke.check_flash_routes(report)
+
+
+def test_check_flash_routes_allows_spills_at_head_dim_128():
+    report = _good_report()
+    report["flash_fwd_kernel_tc bfloat16 D=128"].update(spill_stores=8)
+    chip_smoke.check_flash_routes(report)

@@ -137,9 +137,11 @@ from pytorch_distributed_tpu_torch.ops import flash_attention as fa  # noqa: E40
 # with cancellation, so they get 5x that. bf16: both round P (forward)
 # or dS (backward) to bf16 at the same points, but from f32 values that
 # already differ by those ulps, so an entry can land one bf16 step apart
-# (at most 2^-7 of itself) while most agree; the backward recomputes P
-# from the same lse on both sides, so its entries differ more rarely
-# than the forward's (readings on an H100 in chip_smoke.py's FLASH_TOL).
+# (at most 2^-7 of itself) while most agree; the forward rounds P against
+# a running maximum that the kernel updates every 64 keys and the plain
+# version every 128, while the backward recomputes P from the same lse on
+# both sides, so its entries differ more rarely than the forward's
+# (readings on an H100 in chip_smoke.py's FLASH_TOL).
 FLASH_TOL = {
     "float32": {"out": dict(max=1e-5, norm=1e-5),
                 "grad": dict(max=5e-5, norm=1e-5)},
@@ -148,10 +150,12 @@ FLASH_TOL = {
 }
 
 FLASH_CASES = {
-    # name: (B, S, T, Hq, Hkv, D, causal, extras). bf16 dq and dkv run on
-    # the tensor cores: 64-row tiles, 64 rows streamed at a time (32 at
-    # D = 128) and computed 32 (dq) or 16 (dkv) at a time; the cases below
-    # cover their ragged edges.
+    # name: (B, S, T, Hq, Hkv, D, causal, extras). bf16 runs on the tensor
+    # cores: 64-row tiles of queries (fwd, dq) or keys (dkv) per CTA, 64
+    # rows of the other axis streamed at a time (32 in dq and dkv at
+    # D = 128) and computed 32 (fwd, dq) or 16 (dkv) at a time; f32 runs
+    # on the CUDA cores in 64 x 64 tiles. The cases below cover their
+    # ragged edges.
     "causal_ragged": (2, 200, 200, 4, 2, 64, True, {}),
     "full_gqa4": (2, 130, 130, 8, 2, 128, False, {}),
     "kv_mask": (3, 96, 96, 2, 2, 32, True, {"kv_mask": True}),
@@ -263,6 +267,46 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype):
     second = (fa.flash_dq(*args, **kw),) + fa.flash_dkv(*args, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_kernel_is_deterministic(cuda, dtype):
+    """Each CTA owns its q tile, so two forward launches on the same
+    inputs give the same bits: GQA, causal, packed segments."""
+    B, S, T, Hq, Hkv, D = 2, 300, 300, 8, 2, 64
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, _, seg = _flash_inputs(gen, B, S, T, Hq, Hkv, D,
+                                    getattr(torch, dtype), cuda,
+                                    {"cuts": (40, 100, 170)})
+    kw = dict(sm_scale=D ** -0.5, causal=True)
+    first = fa.flash_fwd(q, k, v, None, seg, **kw)
+    second = fa.flash_fwd(q, k, v, None, seg, **kw)
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_with_a_fully_masked_row(cuda, dtype, causal):
+    """A kv_mask that hides every key of one batch row: that row's
+    output is undefined (as in the JAX package) but finite, and so is its
+    lse (-1e30 + log l); the other rows match the plain version."""
+    B, S, T, Hq, Hkv, D = 3, 100, 100, 4, 2, 64
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, _, _ = _flash_inputs(gen, B, S, T, Hq, Hkv, D,
+                                  getattr(torch, dtype), cuda, {})
+    keep = torch.ones(B, T, dtype=torch.bool)
+    keep[1] = False
+    keep[2, 70:] = False
+    bias = torch.zeros(B, T).masked_fill(~keep, fa._NEG_INF).to(cuda)
+    kw = dict(sm_scale=D ** -0.5, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, bias, None, **kw)
+    ref, ref_lse = fa._flash_fwd_plain(q, k, v, bias, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    rows = torch.tensor([0, 2])
+    _assert_close(out[rows], ref[rows], FLASH_TOL[dtype]["out"], "out")
+    _assert_close(lse[rows], ref_lse[rows], 1e-5, "lse")
 
 
 def test_flash_autograd_on_strided_qkv(cuda):
