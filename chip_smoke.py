@@ -10,18 +10,23 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 1. build: ``nvcc`` compiles ``pytorch_distributed_tpu_torch/csrc/*.cu``,
    one process per source, all at once, into
    ``pytorch_distributed_tpu_torch/_build/`` (ignored by git); then each
-   kernel's registers and spills (``ptxas -v``) and, for the flash
-   kernels, their tensor-core instructions (``HMMA``/``HGMMA`` in
-   ``cuobjdump -sass``): the bf16 forward, dq and dkv kernels must have
-   some at every head_dim and the f32 forward none, and the bf16 forward
-   must not spill up to head_dim 64.
+   kernel's registers and spills (``ptxas -v``) and its tensor-core
+   instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``): the bf16
+   flash forward, dq and dkv kernels and the bf16 paged kernel must have
+   some at every head_dim and the f32 flash forward and f32 paged kernel
+   none; the bf16 flash forward must not spill up to head_dim 64, the
+   bf16 paged kernel up to 128.
 2. paged kernel: the paged-attention kernel at the decode tick's shapes
    (Llama-3-8B attention: 32 query / 8 kv heads, head_dim 128, 32-token
    pages, 8 rows of seeded lengths up to 2000), plus a W=5 verify block,
-   a 256-token window and garbage in the null page, in bf16 and f32,
-   against the plain ``stream`` and ``gather`` versions; then its time
-   beside the plain version's, a bytes bound, and
-   ``scaled_dot_product_attention`` over the same K/V gathered dense.
+   a 256-token window, a row through every split of the key axis, W=5
+   rows with a split boundary just past their length, a window that
+   empties the leading splits, buckets of 1 and 2 pages, and garbage in
+   the null page, in bf16 and f32, against the plain ``stream`` and
+   ``gather`` versions, and bitwise equal over two launches; then its
+   time (replayed from a CUDA graph, eager beside) next to the plain
+   version's, a bytes bound, and ``scaled_dot_product_attention`` over
+   the same K/V gathered dense.
 3. flash kernels: the forward, dq and dkv kernels against their plain
    versions (the backward ones fed the same dO, lse and delta), in bf16
    and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
@@ -171,13 +176,18 @@ def _graph_ms(fn, iters):
     return ms
 
 
-def _paged_case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, max_len, device):
-    """A page pool with seeded ragged lengths; each row owns distinct
-    random pages for its live keys, the rest of its table is null page
-    0, which holds large garbage that must stay unobservable."""
+def _paged_case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, max_len, device,
+                lengths=None):
+    """A page pool with seeded ragged lengths (or the ``lengths`` given);
+    each row owns distinct random pages for its live keys, the rest of its
+    table is null page 0, which holds large garbage that must stay
+    unobservable."""
     import torch
 
-    lengths = torch.randint(1, max_len + 1, (B,), generator=gen)
+    if lengths is None:
+        lengths = torch.randint(1, max_len + 1, (B,), generator=gen)
+    else:
+        lengths = torch.tensor(lengths)
     live = [-(-(int(L) + W) // ps) for L in lengths]
     P1 = sum(live) + 1
     perm = torch.randperm(P1 - 1, generator=gen) + 1
@@ -256,19 +266,63 @@ def check_flash_routes(report):
         raise AssertionError("flash kernel routes: " + "; ".join(wrong))
 
 
+_PAGED_KERNEL = re.compile(
+    r"(paged_(?:decode_kernel(?:_tc)?|combine_kernel))"
+    r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?"
+)
+_PAGED_HEAD_DIMS = (64, 128, 256)
+
+
+def paged_label(fn):
+    """``"<kernel> <dtype>[ D=<head_dim>]"`` of a mangled paged-attention
+    kernel name (the tensor-core kernel is bf16 only), or None."""
+    m = _PAGED_KERNEL.search(fn)
+    if not m:
+        return None
+    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    return f"{m.group(1)} {dtype}" + (f" D={m.group(3)}" if m.group(3)
+                                      else "")
+
+
+def check_paged_routes(report):
+    """The paged-attention routes the library must hold: the bf16 split
+    kernel on the tensor cores (HMMA or HGMMA) at every head_dim, without
+    spills up to D = 128; the f32 split kernel on the CUDA cores, with no
+    tensor-core instruction; a combine kernel for each dtype; and nothing
+    else. Raises naming every departure."""
+    tc = {f"paged_decode_kernel_tc bfloat16 D={d}" for d in _PAGED_HEAD_DIMS}
+    f32 = {f"paged_decode_kernel float32 D={d}" for d in _PAGED_HEAD_DIMS}
+    combine = {f"paged_combine_kernel {t}" for t in ("bfloat16", "float32")}
+    want = tc | f32 | combine
+    found = {k for k in report if k.startswith("paged_")}
+    wrong = [f"missing {k}" for k in sorted(want - found)]
+    wrong += [f"unexpected {k}" for k in sorted(found - want)]
+    for k in sorted(tc & found):
+        info = report[k]
+        if info.get("HMMA", 0) + info.get("HGMMA", 0) == 0:
+            wrong.append(f"{k}: no tensor-core instructions")
+        if not k.endswith("D=256") and (info.get("spill_stores", 0)
+                                        or info.get("spill_loads", 0)):
+            wrong.append(f"{k} spills")
+    for k in sorted(f32 & found):
+        if report[k].get("HMMA", 0) + report[k].get("HGMMA", 0):
+            wrong.append(f"{k}: tensor-core instructions")
+    if wrong:
+        raise AssertionError("paged kernel routes: " + "; ".join(wrong))
+
+
 def kernel_report(libs):
-    """Each kernel's registers and spills (``ptxas -v``), and for the flash
-    kernels the tensor-core instructions in their SASS (``cuobjdump``),
-    held to :func:`check_flash_routes`."""
+    """Each kernel's registers and spills (``ptxas -v``) and the
+    tensor-core instructions in its SASS (``cuobjdump``), held to
+    :func:`check_flash_routes` and :func:`check_paged_routes`."""
     from pytorch_distributed_tpu_torch.ops import kernel_build
 
     report = {}
     for name in libs:
         ptxas = kernel_build.ptxas_report(name)
-        sass = kernel_build.sass_counts(name) if name == "flash_attention" \
-            else {}
+        sass = kernel_build.sass_counts(name)
         for fn, info in sorted(ptxas.items()):
-            label = flash_label(fn) or fn
+            label = flash_label(fn) or paged_label(fn) or fn
             tc = sass.get(fn, {})
             report[label] = dict(info, **tc)
             print(f"  {name}: {label}: {info.get('registers')} registers, "
@@ -277,7 +331,37 @@ def kernel_report(libs):
                   + (f"; SASS HMMA {tc['HMMA']}, HGMMA {tc['HGMMA']}"
                      if tc else ""))
     check_flash_routes(report)
+    check_paged_routes(report)
     return report
+
+
+def paged_cases(shape):
+    """The paged checks: (name, W, window, n, lengths or None for seeded
+    ragged ones). With the wrapper's split (``pages_per_split``: 8 pages,
+    256 keys a CTA at the decode tick), they take a row through every
+    split, W = 5 rows whose next split starts just past lengths[b] (there
+    query 0 sees none of that split's keys: its carry ends at the -1e30
+    sentinel with l > 0, which only the merge's weight wipes), a window
+    that leaves the leading splits empty, and buckets of 1 and 2 pages."""
+    from pytorch_distributed_tpu_torch.ops.paged_attention import (
+        pages_per_split,
+    )
+
+    B, n, ps = shape["B"], shape["n"], shape["ps"]
+    split_keys = pages_per_split(B, shape["Hkv"], n) * ps
+    return (
+        ("decode W=1", 1, None, n, None),
+        ("verify W=5", 5, None, n, None),
+        ("window 256", 1, 256, n, None),
+        ("every split", 1, None, n, [n * ps - 1] + [700] * (B - 1)),
+        ("split sentinel W=5", 5, None, n,
+         [split_keys * (i % (n * ps // split_keys - 1) + 1) - 1
+          for i in range(B)]),
+        ("window empties leading splits", 1, 256, n,
+         [2000 - 250 * i for i in range(B)]),
+        ("bucket n=1", 1, None, 1, None),
+        ("bucket n=2 W=5", 5, None, 2, None),
+    )
 
 
 def kernel_phase(device, seed):
@@ -287,25 +371,29 @@ def kernel_phase(device, seed):
     from pytorch_distributed_tpu_torch.ops.paged_attention import (
         gather_dense,
         paged_attention,
+        pages_per_split,
     )
 
     gen = torch.Generator().manual_seed(seed)
     shape = dict(B=8, Hq=32, Hkv=8, D=128, ps=32, n=64, max_len=2000)
-    cases = [
-        ("decode W=1", dict(W=1), None),
-        ("verify W=5", dict(W=5), None),
-        ("window 256", dict(W=1), 256),
-    ]
     checks = []
+    same = {}
     main = None
     for dtype, rtol in ((torch.bfloat16, BF16_RTOL), (torch.float32,
                                                        F32_RTOL)):
-        for name, kw, window in cases:
+        dname = str(dtype).replace("torch.", "")
+        for name, W, window, n, lengths in paged_cases(shape):
+            max_len = min(shape["max_len"], n * shape["ps"] - W)
             q, kp, vp, tables, lengths = _paged_case(
-                gen, dtype=dtype, device=device, **shape, **kw
+                gen, dtype=dtype, device=device,
+                **dict(shape, n=n, max_len=max_len), W=W, lengths=lengths,
             )
             args = dict(page_tables=tables, lengths=lengths, window=window)
-            out = paged_attention(q, kp, vp, **args).float()
+            out = paged_attention(q, kp, vp, **args)
+            # two launches on the same inputs give the same bits
+            same[f"{name} {dname}"] = torch.equal(
+                out, paged_attention(q, kp, vp, **args))
+            out = out.float()
             torch.cuda.synchronize()
             for impl in ("stream", "gather"):
                 ref = paged_attention(q, kp, vp, impl=impl, **args).float()
@@ -313,11 +401,10 @@ def kernel_phase(device, seed):
                 scale = ref.abs().max().item()
                 ok = math.isfinite(err) and err <= rtol * scale
                 checks.append(dict(
-                    case=name, dtype=str(dtype).replace("torch.", ""),
-                    plain=impl, max_abs_err=err, max_abs_ref=scale,
-                    tol=rtol * scale, ok=ok,
+                    case=name, dtype=dname, plain=impl, max_abs_err=err,
+                    max_abs_ref=scale, tol=rtol * scale, ok=ok,
                 ))
-                print(f"kernel {name} {dtype} vs {impl}: max|err| "
+                print(f"kernel {name} {dname} vs {impl}: max|err| "
                       f"{err:.3e} <= {rtol:g} * max|ref| {scale:.4f} -> "
                       f"{'ok' if ok else 'FAIL'}")
             if dtype is torch.bfloat16 and name == "decode W=1":
@@ -325,14 +412,27 @@ def kernel_phase(device, seed):
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+    print(f"paged kernel bitwise equal over two launches: "
+          f"{all(same.values())}")
+    if not all(same.values()):
+        raise AssertionError(f"the paged kernel is not deterministic: {same}")
 
     # time at the decode tick's shapes (bf16, W=1)
     q, kp, vp, tables, lengths = main
     B, W, Hq, D = q.shape
     ps, Hkv = kp.shape[1], kp.shape[2]
     n = tables.shape[1]
+    pps = pages_per_split(B, Hkv, n)
+    ctas = Hkv * -(-(Hq // Hkv * W) // 16) * B * -(-n // pps)
+    print(f"split: {pps} pages ({pps * ps} keys) per CTA, grid of {ctas} "
+          f"CTAs (B x Hkv = {B * Hkv})")
+    if ctas <= B * Hkv:
+        raise AssertionError(f"the split leaves {ctas} CTAs <= B x Hkv")
     args = dict(page_tables=tables, lengths=lengths)
-    kernel_ms = _time_ms(lambda: paged_attention(q, kp, vp, **args), 200)
+    # the kernel's device time, replayed from a CUDA graph as the library
+    # call is; eager calls add the ctypes launches and the wrapper's checks
+    kernel_ms = _graph_ms(lambda: paged_attention(q, kp, vp, **args), 200)
+    eager_ms = _time_ms(lambda: paged_attention(q, kp, vp, **args), 200)
     plain_ms = _time_ms(
         lambda: paged_attention(q, kp, vp, impl="stream", **args), 5
     )
@@ -379,18 +479,20 @@ def kernel_phase(device, seed):
         max_abs_err=max(c["max_abs_err"] for c in checks
                         if c["case"] == "decode W=1"
                         and c["dtype"] == "bfloat16"),
-        ms=kernel_ms, plain_ms=plain_ms,
+        ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library_ms,
     )
-    print(f"kernel time {kernel_ms:.4f} ms, plain (stream) {plain_ms:.4f} "
-          f"ms, sdpa {library_ms:.4f} ms (max|diff| vs kernel "
-          f"{lib_err:.3e}; {garbage_err:.3e} with the null page's garbage "
-          f"left in), bound {record['bound_ms']:.4f} ms "
-          f"({nbytes} bytes, {flops} flops)")
-    details = dict(checks=checks, bytes=nbytes, flops=flops,
-                   live_keys=live, sdpa_max_abs_diff=lib_err,
+    print(f"kernel time {kernel_ms:.4f} ms (graph replay; eager "
+          f"{eager_ms:.4f} ms; {nbytes / kernel_ms / 1e6:.0f} GB/s), plain "
+          f"(stream) {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max|diff| "
+          f"vs kernel {lib_err:.3e}; {garbage_err:.3e} with the null page's "
+          f"garbage left in), bound {record['bound_ms']:.4f} ms ({nbytes} "
+          f"bytes, {flops} flops)")
+    details = dict(checks=checks, deterministic=same, bytes=nbytes,
+                   flops=flops, live_keys=live, pages_per_split=pps,
+                   ctas=ctas, sdpa_max_abs_diff=lib_err,
                    sdpa_max_abs_diff_null_page_garbage=garbage_err)
     return record, details
 

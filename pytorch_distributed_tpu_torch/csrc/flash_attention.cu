@@ -84,6 +84,8 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 // the launch description, shared with Python (ops/flash_attention.py builds
 // the same layout with ctypes and checks flash_params_size())
 struct FlashParams {
@@ -566,81 +568,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
 // bf16 forward, dq and dkv on the tensor cores
 // --------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTcThreads = 128;  // four warps, 16 rows each
 constexpr int kStages = 2;       // depth of the cp.async ring
+// cp.async, ldmatrix, mma.sync, acc_to_a, ex2, quad_max/sum: mma_sm90.cuh
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in (src is
-// then never read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
-// row addresses of matrix i, register i holds matrix i (.trans: transposed);
-// the address is a shared-window byte address (smem_u32) or a pointer
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
-  ldsm_x4(r, smem_u32(ptr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
-  ldsm_x4_t(r, smem_u32(ptr));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate. Fragments
-// (g = lane / 4, t = lane % 4): a = {(g, 2t..2t+1), (g+8, 2t..), (g,
-// 2t+8..), (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g), (k 2t+8.., n g)};
-// c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// two f32 -> one register of two bf16 (x0 in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  return as_u32(__floats2bfloat162_rn(x0, x1));
-}
 // x = hi + lo to about 2^-16 of x: hi = bf16(x), lo = bf16(x - hi)
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
@@ -648,16 +579,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const float2 f = __bfloat1622float2(h);
   hi = as_u32(h);
   lo = pack_bf16(x0 - f.x, x1 - f.y);
-}
-
-// The accumulator of an m16n8 product over columns 8j..8j+7 is, two
-// column tiles at a time, the A fragment of a product whose depth is
-// those columns: tile j fills registers 2 (j % 2) and 2 (j % 2) + 1 of
-// depth step j / 2.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], int j, float c0,
-                                         float c1, float c2, float c3) {
-  a[(j % 2) * 2] = pack_bf16(c0, c1);
-  a[(j % 2) * 2 + 1] = pack_bf16(c2, c3);
 }
 
 __device__ __forceinline__ const bf16* head_ptr(const void* base,
@@ -707,7 +628,6 @@ __device__ __forceinline__ float tc_prob(const FlashParams& p, float dot,
   return __expf(x - lse);
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // the forward's masked score of query qi and key kj in log2 units (s
@@ -728,22 +648,6 @@ __device__ __forceinline__ float tc_score2(const FlashParams& p, float dot,
   return x;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// max and sum over the 4 lanes of a quad: the lanes that hold one row of
-// an m16n8 accumulator
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // forward: one CTA per (q tile of 64 rows, batch x q head); warp w owns
 // rows 16w..16w+15, loads them once as A fragments and keeps them across

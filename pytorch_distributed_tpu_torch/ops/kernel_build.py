@@ -6,8 +6,8 @@ interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library's name carries a hash of the source and the flags, so an
-edited source is rebuilt; ``ptxas``'s register and shared-memory report
+The library's name carries a hash of the source, the headers in ``csrc/``
+and the flags, so an edited source or header is rebuilt; ``ptxas``'s register and shared-memory report
 goes to ``_build/<name>.log``. :func:`build` starts one ``nvcc`` per
 missing library and waits for all of them, so the sources compile in
 parallel. :func:`ptxas_report` reads that log back per kernel, and
@@ -57,11 +57,14 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu``'s library lives once built."""
-    digest = hashlib.sha256(
-        source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library lives once built. Its name hashes
+    the source, every header in ``csrc/`` (``*.cuh``, which the sources
+    include) and the flags, so an edit to any of them rebuilds it."""
+    digest = hashlib.sha256(source(name).read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

@@ -19,7 +19,10 @@ Three implementations:
 * the kernel (``csrc/paged_attention.cu``, CUDA C++ for ``sm_90a``,
   built with ``nvcc`` at first use and loaded with ``ctypes``): what a
   CUDA tensor gets. It launches the kernel or raises; there is no
-  fallback.
+  fallback. The kernel splits each row's keys over several CTAs
+  (:func:`pages_per_split`) and merges their partial softmax carries in
+  a second launch; :func:`paged_attention_split_reference` is that split
+  and merge in plain PyTorch, for the tests.
 * ``"stream"``: the plain PyTorch page loop with an online-softmax
   carry, the documented semantics of the kernel. A CPU tensor gets it.
 * ``"gather"``: materialize the pages into a per-row dense slab and run
@@ -44,7 +47,13 @@ import torch
 from pytorch_distributed_tpu_torch.ops import kernel_build
 
 _NEG_INF = -1e30  # finite, like the Pallas kernel: no (-inf) - (-inf) NaN
-
+#: CTAs the kernel's split over the key axis aims for: about four per SM
+#: of an H100 (132 SMs), so that two per SM still have keys to read when
+#: the rows fill half of their table
+_TARGET_CTAS = 512
+#: pages one CTA may walk (csrc/paged_attention.cu's kMaxPagesPerSplit:
+#: its page-table entries sit in shared memory)
+_MAX_PAGES_PER_SPLIT = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,8 +215,9 @@ def paged_attention(
     raise ValueError(f"paged_attention has no path for {q.device}")
 
 
-#: kernel launches since the count was last set to 0 (plain versions and
-#: CPU calls never count)
+#: calls that launched the kernel since the count was last set to 0 (its
+#: split and merge launches count once; plain versions and CPU calls never
+#: count)
 paged_attention.launches = 0
 
 
@@ -240,6 +250,51 @@ def _paged_gather(q, k_pages, v_pages, tables, lengths, scale, window):
 # --------------------------------------------------------------------------
 
 
+def _carry_over_pages(qg, k_pages, v_pages, tables, qpos, scale, window,
+                      pages, lo=None, hi=None):
+    """The online-softmax carry (m, l, acc) in f32 over ``pages`` of every
+    row's table, one page per step: logits in f32, keys a query cannot see
+    at ``-1e30``, keys outside ``[lo, hi)`` (per row, when given) at
+    ``-inf``, probabilities rounded to the pool's dtype before P.V."""
+    B, W, Hkv, G, D = qg.shape
+    ps = k_pages.shape[1]
+    dev = qg.device
+    m = torch.full((B, W, Hkv, G), _NEG_INF, device=dev)
+    l = torch.zeros((B, W, Hkv, G), device=dev)
+    acc = torch.zeros((B, W, Hkv, G, D), device=dev)
+    for i in pages:
+        frames = tables[:, i]
+        k = k_pages.index_select(0, frames).float()   # [B, ps, Hkv, D]
+        v = v_pages.index_select(0, frames)
+        s = torch.einsum("bwkgd,bpkd->bwkgp", qg, k) * scale
+        kpos = i * ps + torch.arange(ps, device=dev)
+        keep = qpos[:, :, None] >= kpos                # [B, W, ps]
+        if window is not None:
+            keep = keep & (qpos[:, :, None] - kpos < window)
+        s = torch.where(keep[:, :, None, None, :], s, _NEG_INF)
+        if lo is not None:
+            inside = (kpos >= lo[:, None]) & (kpos < hi[:, None])
+            s = torch.where(inside[:, None, None, None, :], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bwkgp,bpkd->bwkgd", p.to(v.dtype).float(), v.float()
+        )
+        m = m_new
+    return m, l, acc
+
+
+def _grouped(q, k_pages, lengths):
+    """q as ``[B, W, Hkv, G, D]`` f32 and the queries' positions
+    ``[B, W]``."""
+    B, W, Hq, D = q.shape
+    Hkv = k_pages.shape[2]
+    qpos = lengths.long()[:, None] + torch.arange(W, device=q.device)
+    return q.reshape(B, W, Hkv, Hq // Hkv, D).float(), qpos
+
+
 def paged_attention_reference(
     q, k_pages, v_pages, *, page_tables, lengths,
     scale: Optional[float] = None, window: Optional[int] = None,
@@ -251,39 +306,108 @@ def paged_attention_reference(
     probabilities rounded to the pool's dtype before the P.V product.
     """
     B, W, Hq, D = q.shape
-    ps, Hkv = k_pages.shape[1], k_pages.shape[2]
-    G = Hq // Hkv
-    n = page_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    dev = q.device
-    qg = q.reshape(B, W, Hkv, G, D).float()
-    qpos = lengths.long()[:, None] + torch.arange(W, device=dev)  # [B, W]
-    tables = page_tables.long()
-    m = torch.full((B, W, Hkv, G), _NEG_INF, device=dev)
-    l = torch.zeros((B, W, Hkv, G), device=dev)
-    acc = torch.zeros((B, W, Hkv, G, D), device=dev)
-    for i in range(n):
-        frames = tables[:, i]
-        k = k_pages.index_select(0, frames).float()   # [B, ps, Hkv, D]
-        v = v_pages.index_select(0, frames)
-        s = torch.einsum("bwkgd,bpkd->bwkgp", qg, k) * scale
-        kpos = i * ps + torch.arange(ps, device=dev)
-        keep = qpos[:, :, None] >= kpos                # [B, W, ps]
-        if window is not None:
-            keep = keep & (qpos[:, :, None] - kpos < window)
-        s = torch.where(keep[:, :, None, None, :], s, _NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bwkgp,bpkd->bwkgd", p.to(v.dtype).float(), v.float()
-        )
-        m = m_new
+    qg, qpos = _grouped(q, k_pages, lengths)
+    m, l, acc = _carry_over_pages(
+        qg, k_pages, v_pages, page_tables.long(), qpos, scale, window,
+        range(page_tables.shape[1]),
+    )
     safe = torch.where(l > 0, l, torch.ones_like(l))
     out = (acc / safe[..., None]).to(q.dtype)
     return out.reshape(B, W, Hq, D)
+
+
+# --------------------------------------------------------------------------
+# the kernel's split over the key axis and its merge, in plain PyTorch
+# --------------------------------------------------------------------------
+
+
+def pages_per_split(batch: int, kv_heads: int, n_pages: int) -> int:
+    """Pages of the table each CTA of the kernel walks: enough splits of
+    every row that ``batch * kv_heads * splits`` reaches about
+    ``_TARGET_CTAS``, from the shapes alone. Never from the lengths:
+    reading them would sync with the card and break graph capture."""
+    splits = max(1, -(-_TARGET_CTAS // (batch * kv_heads)),
+                 -(-n_pages // _MAX_PAGES_PER_SPLIT))
+    return -(-n_pages // min(splits, n_pages))
+
+
+def split_key_ranges(lengths, W, n, ps, window, pps):
+    """``(lo, hi)``, each ``[B, splits]``: the keys split ``s`` of row
+    ``b`` walks, its pages ``[s * pps, (s + 1) * pps)`` cut to what the
+    row's queries can see, ``[window start, min(lengths + W, n * ps))``
+    (the clamp to the table keeps stale lengths of inactive rows in
+    bounds). A split with ``lo >= hi`` reads nothing."""
+    splits = -(-n // pps)
+    length = lengths.long()[:, None]
+    end = (length + W).clamp(max=n * ps)
+    start = ((length - window + 1).clamp(min=0) if window
+             else torch.zeros_like(length))
+    s = torch.arange(splits, device=lengths.device)
+    first = s * pps * ps
+    last = ((s + 1) * pps).clamp(max=n) * ps
+    return torch.maximum(first, start), torch.minimum(last, end)
+
+
+def paged_split_partials(q, k_pages, v_pages, *, page_tables, lengths,
+                         scale, window, pps):
+    """Each split's online-softmax carry over the keys it walks (``pps``
+    pages a split), in f32: ``m``, ``l`` ``[B, W, Hkv, G, splits]``,
+    ``acc`` ``[..., splits, D]`` and ``live`` ``[B, splits]`` (False: the
+    split reads nothing). Keys the row cannot see take the finite
+    ``-1e30``, keys outside the split's range ``-inf`` (they weigh exactly
+    0), as in the kernel; a split in which a query row sees no key so ends
+    with m = -1e30 and l > 0."""
+    n, ps = page_tables.shape[1], k_pages.shape[1]
+    lo, hi = split_key_ranges(lengths, q.shape[1], n, ps, window, pps)
+    qg, qpos = _grouped(q, k_pages, lengths)
+    tables = page_tables.long()
+    parts = [
+        _carry_over_pages(qg, k_pages, v_pages, tables, qpos, scale, window,
+                          range(sp * pps, min((sp + 1) * pps, n)),
+                          lo[:, sp], hi[:, sp])
+        for sp in range(lo.shape[1])
+    ]
+    ms, ls, accs = zip(*parts)
+    return (torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2),
+            lo < hi)
+
+
+def paged_combine(m, l, acc, live):
+    """The kernel's merge of :func:`paged_split_partials`: over the live
+    splits, ``sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s`` with
+    ``M = max_s m_s``; a row with no live split reads 0. The weight, not
+    ``l > 0``, is what wipes a split in which a row saw no key."""
+    live = live[:, None, None, None, :]
+    M = torch.where(live, m, -math.inf).amax(dim=-1, keepdim=True)
+    some = M > -math.inf
+    w = torch.where(live & some,
+                    torch.exp(m - torch.where(some, M, 0.0)), 0.0)
+    L = (w * l).sum(dim=-1)
+    out = (w[..., None] * acc).sum(dim=-2)
+    return out / torch.where(L > 0, L, 1.0)[..., None]
+
+
+def paged_attention_split_reference(
+    q, k_pages, v_pages, *, page_tables, lengths,
+    scale: Optional[float] = None, window: Optional[int] = None,
+    pps: Optional[int] = None,
+):
+    """The kernel's algorithm in plain PyTorch: the split over the key
+    axis (``pps`` pages per split, :func:`pages_per_split`'s choice by
+    default) and the merge of the splits' carries. f32 partials, so it
+    checks the split and the merge, not the kernel's bf16 rounding."""
+    B, W, Hq, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if pps is None:
+        pps = pages_per_split(B, k_pages.shape[2], page_tables.shape[1])
+    parts = paged_split_partials(
+        q, k_pages, v_pages, page_tables=page_tables, lengths=lengths,
+        scale=scale, window=window, pps=pps,
+    )
+    return paged_combine(*parts).to(q.dtype).reshape(B, W, Hq, D)
 
 
 # --------------------------------------------------------------------------
@@ -306,10 +430,13 @@ def _library():
         lib = ctypes.CDLL(str(build_kernel()))
         fn = lib.paged_attention_fwd
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        ws = lib.paged_attention_workspace_floats
+        ws.argtypes = [ctypes.c_int] * 7
+        ws.restype = ctypes.c_int64
         lib.paged_attention_max_rows.restype = ctypes.c_int
         lib.paged_attention_supports_head_dim.argtypes = [ctypes.c_int]
         lib.paged_attention_supports_head_dim.restype = ctypes.c_int
@@ -338,15 +465,22 @@ def _kernel_call(q, k_pages, v_pages, tables, lengths, scale, window):
             f"G * W = {(Hq // Hkv) * W} query rows per kv head exceed the "
             f"kernel's {lib.paged_attention_max_rows()}"
         )
+    n = tables.shape[1]
+    pps = pages_per_split(B, Hkv, n)
     out = torch.empty_like(q)
+    # the splits' partial carries, merged by the second launch
+    workspace = torch.empty(
+        lib.paged_attention_workspace_floats(B, W, Hq, Hkv, D, n, pps),
+        dtype=torch.float32, device=q.device,
+    )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, W, Hq, Hkv, D, ps, tables.shape[1], float(scale),
-            0 if window is None else int(window), _DTYPE_CODES[q.dtype],
-            stream,
+            workspace.data_ptr(), B, W, Hq, Hkv, D, ps, n, pps,
+            float(scale), 0 if window is None else int(window),
+            _DTYPE_CODES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(

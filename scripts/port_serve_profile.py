@@ -8,7 +8,7 @@ weights, admits chip_smoke.py's 8 requests (64 new tokens each), runs until
 every request decodes, then profiles ``--ticks`` decode ticks with ``torch.profiler``
 (CPU + CUDA activities). Prints the tick's wall time, the summed device
 time of the kernels it ran (so the device's idle share), and the top
-kernels by device time.
+kernels by device time, then each paged-attention kernel's time per tick.
 """
 
 from __future__ import annotations
@@ -83,6 +83,12 @@ def main(argv=None) -> int:
           f"(profiler on), device busy {busy_ms:.3f} ms/tick, idle share "
           f"{1 - busy_ms / tick_ms:.3f}")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
+    for e in events:   # the paged-attention kernels, wherever they rank
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "paged_" in e.key):
+            print(f"{e.key}: {e.self_device_time_total / args.ticks / 1e3:.3f}"
+                  f" ms/tick, {e.count / args.ticks:g} calls/tick, "
+                  f"{e.self_device_time_total / e.count:.3f} us each")
     return 0
 
 

@@ -139,3 +139,96 @@ def test_check_flash_routes_allows_spills_at_head_dim_128():
     report = _good_report()
     report["flash_fwd_kernel_tc bfloat16 D=128"].update(spill_stores=8)
     chip_smoke.check_flash_routes(report)
+
+
+# --------------------------------------------------------------------------
+# the paged-attention kernels' labels and routes
+# --------------------------------------------------------------------------
+
+PAGED_TC = ("_ZN12_GLOBAL__N_122paged_decode_kernel_tcILi128EEEvNS_"
+            "11PagedParamsE")
+PAGED_F32 = "_ZN12_GLOBAL__N_119paged_decode_kernelIfLi64EEEvNS_11PagedParamsE"
+COMBINE_BF16 = ("_ZN12_GLOBAL__N_120paged_combine_kernelI13__nv_bfloat16EEvNS_"
+                "11PagedParamsE")
+
+
+def test_paged_label_names_kernel_dtype_and_head_dim():
+    assert chip_smoke.paged_label(PAGED_TC) == (
+        "paged_decode_kernel_tc bfloat16 D=128")
+    assert chip_smoke.paged_label(PAGED_F32) == (
+        "paged_decode_kernel float32 D=64")
+    assert chip_smoke.paged_label(COMBINE_BF16) == (
+        "paged_combine_kernel bfloat16")
+    assert chip_smoke.paged_label(DQ_TC) is None
+
+
+def _good_paged_report():
+    """The bf16 split kernel on the tensor cores and the f32 one on the
+    CUDA cores at each head_dim, and a combine kernel per dtype."""
+    report = {"paged_combine_kernel bfloat16": dict(HMMA=0, HGMMA=0),
+              "paged_combine_kernel float32": dict(HMMA=0, HGMMA=0)}
+    for d in (64, 128, 256):
+        report[f"paged_decode_kernel_tc bfloat16 D={d}"] = dict(
+            registers=128, spill_stores=0, spill_loads=0, HMMA=16, HGMMA=0)
+        report[f"paged_decode_kernel float32 D={d}"] = dict(
+            registers=96, spill_stores=0, spill_loads=0, HMMA=0, HGMMA=0)
+    report.update(_good_report())
+    return report
+
+
+def _paged_no_tc(r):
+    r["paged_decode_kernel_tc bfloat16 D=256"].update(HMMA=0)
+
+
+def _paged_spills(r):
+    r["paged_decode_kernel_tc bfloat16 D=128"].update(spill_loads=4)
+
+
+def _paged_bf16_cuda_cores(r):
+    r["paged_decode_kernel bfloat16 D=128"] = dict(HMMA=0, HGMMA=0)
+
+
+def _paged_f32_on_tensor_cores(r):
+    r["paged_decode_kernel float32 D=64"].update(HGMMA=2)
+
+
+def _paged_no_combine(r):
+    del r["paged_combine_kernel float32"]
+
+
+@pytest.mark.parametrize("spoil,what", [
+    (_paged_no_tc, "D=256: no tensor-core instructions"),
+    (_paged_spills, "D=128 spills"),
+    (_paged_bf16_cuda_cores, "unexpected paged_decode_kernel bfloat16"),
+    (_paged_f32_on_tensor_cores, "float32 D=64: tensor-core instructions"),
+    (_paged_no_combine, "missing paged_combine_kernel float32"),
+])
+def test_check_paged_routes_refuses_a_wrong_build(spoil, what):
+    report = _good_paged_report()
+    chip_smoke.check_paged_routes(report)   # the right build passes
+    chip_smoke.check_flash_routes(report)   # ... and leaves flash alone
+    spoil(report)
+    with pytest.raises(AssertionError, match=what):
+        chip_smoke.check_paged_routes(report)
+
+
+def test_check_paged_routes_allows_spills_at_head_dim_256():
+    report = _good_paged_report()
+    report["paged_decode_kernel_tc bfloat16 D=256"].update(spill_stores=8)
+    chip_smoke.check_paged_routes(report)
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """Both sources include csrc/mma_sm90.cuh: an edit to a header, like
+    one to the source, names a new library, so a stale one never loads."""
+    monkeypatch.setattr(kernel_build, "SOURCE_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = kernel_build.library_path("k")
+    assert kernel_build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = kernel_build.library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert kernel_build.library_path("k") not in (first, second)
+    assert first.name.startswith("libk-") and first.suffix == ".so"

@@ -39,11 +39,14 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, device):
-    """Ragged lengths (one zero), distinct live pages per row, null-page
-    tails holding garbage."""
-    lengths = torch.randint(0, n * ps - W + 1, (B,), generator=gen)
-    lengths[0] = 0
+def _case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, device, lengths=None):
+    """Ragged lengths (one zero) or the ``lengths`` given, distinct live
+    pages per row, null-page tails holding garbage."""
+    if lengths is None:
+        lengths = torch.randint(0, n * ps - W + 1, (B,), generator=gen)
+        lengths[0] = 0
+    else:
+        lengths = torch.tensor(lengths)
     P1 = B * n + 1
     tables = torch.zeros(B, n, dtype=torch.int32)
     for b in range(B):
@@ -59,15 +62,23 @@ def _case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("W,G,D,window", [
-    (1, 4, 128, None), (5, 4, 128, None), (1, 2, 64, 7), (3, 8, 256, None),
+@pytest.mark.parametrize("W,G,D,window,n,lengths", [
+    (1, 4, 128, None, 5, None), (5, 4, 128, None, 5, None),
+    (1, 2, 64, 7, 5, None), (3, 8, 256, None, 5, None),
+    # a longer pool: at B = 3, Hkv = 2 the split walks one 16-key page
+    # per CTA, 64 splits; rows through every split, a window
+    (1, 4, 128, None, 64, None), (5, 4, 64, 100, 64, [1019, 0, 600]),
+    # W = 5 with the next split starting just past lengths[b]: query 0
+    # sees none of its keys (its carry ends at the -1e30 sentinel, l > 0)
+    (5, 4, 128, None, 64, [15, 47, 1007]), (5, 1, 256, None, 64, [31, 0, 15]),
 ])
-def test_kernel_matches_plain_versions(cuda, dtype, W, G, D, window):
-    gen = torch.Generator().manual_seed(W * 100 + G * 10 + D)
+def test_kernel_matches_plain_versions(cuda, dtype, W, G, D, window, n,
+                                       lengths):
+    gen = torch.Generator().manual_seed(W * 100 + G * 10 + D + n)
     Hkv = 2
     q, kp, vp, tables, lengths = _case(
-        gen, B=3, W=W, Hq=G * Hkv, Hkv=Hkv, D=D, ps=16, n=5,
-        dtype=getattr(torch, dtype), device=cuda,
+        gen, B=3, W=W, Hq=G * Hkv, Hkv=Hkv, D=D, ps=16, n=n,
+        dtype=getattr(torch, dtype), device=cuda, lengths=lengths,
     )
     args = dict(page_tables=tables, lengths=lengths, window=window)
     before = paged_attention.launches
@@ -79,6 +90,22 @@ def test_kernel_matches_plain_versions(cuda, dtype, W, G, D, window):
         assert paged_attention.launches == before + 1  # plain: not counted
         tol = RTOL[dtype] * ref.abs().max().item()
         assert (out.float() - ref).abs().max().item() <= tol, impl
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_is_deterministic(cuda, dtype):
+    """The splits' carries merge in split order (no atomics), so two
+    launches on the same inputs give the same bits: GQA, W = 5, many
+    splits, a window."""
+    gen = torch.Generator().manual_seed(14)
+    q, kp, vp, tables, lengths = _case(
+        gen, B=4, W=5, Hq=8, Hkv=2, D=128, ps=16, n=64,
+        dtype=getattr(torch, dtype), device=cuda,
+    )
+    args = dict(page_tables=tables, lengths=lengths, window=300)
+    first = paged_attention(q, kp, vp, **args)
+    second = paged_attention(q, kp, vp, **args)
+    assert torch.equal(first, second)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
