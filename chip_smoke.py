@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: build its kernels, hold
-each against its plain PyTorch version, train GPT-2-medium and serve
-Llama-3-8B.
+each against its plain PyTorch version, serve Llama-3-8B, train
+ResNet-50 data-parallel and train GPT-2-medium.
 
     python3 chip_smoke.py [--seed N]
 
@@ -61,6 +61,31 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    Step time, tokens/s, peak memory and the kernels' share of the step
    (from their timed ms, and from ``torch.profiler`` over two more
    steps, which is why this phase runs last).
+
+6. ResNet-50 data-parallel (before train, whose profiler would slow the
+   host after it): (a) bench.py's primary shape, ResNet-50 at batch 128
+   x 224^2 under ``Policy.train()``, SGD(0.1, momentum 0.9), in
+   ``DataParallel`` at world size 1 over NCCL on a localhost store torn
+   down after the phase, one placed f32 batch fed again every step, 5
+   warm-up and 50 timed steps ending in a value fetch:
+   ``resnet50_imagenet_images_per_sec_per_chip``, step ms, peak memory,
+   and the loss, which must be finite and fall; (d) on the trained
+   weights, the bf16-product logits against an f32 copy's (TF32 off),
+   one DDP backward's gradients against a plain copy's (at world 1 that
+   checks DDP's wrapping; the global statistics across ranks are
+   ``scripts/port_dp_scale.py``'s check on four cards), and the port's
+   BatchNorm (SyncBatchNorm's ATen kernels) against ``F.batch_norm`` on
+   a ResNet-50 activation, forward, backward and statistics; (b)
+   ``dp_step_overhead_ms`` at bench.py's shape (ResNet [2, 2]
+   BasicBlock, width 32, CIFAR stem, 100 classes, 64^2, batch 64): the
+   DDP step minus the plain step on the same weights, in turns; (c)
+   ``recipes/resnet50_imagenet.main`` at batch 128, uint8 data through
+   the prefetching loader, normalize and flip on the card: its images/s
+   over the whole training loop and the share of the loop spent in
+   ``train.data_wait``. None of the four kernels runs on this path
+   (their counts are read; a launch fails the run).
+   Last of all, (e) ``torch.profiler`` over two steps of (a): device
+   busy ms, idle share, and the time by kernel family.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line, then the card's name and power limit as
@@ -755,9 +780,9 @@ TRAIN_STEPS = 10     # timed steps on one repeated batch
 PACKED_STEPS = 3     # then steps of 2 microbatches on packed rows
 
 
-def _profile_step(step, state, batch):
+def profile_step(step, state, batch):
     """Device time by kernel over two steps, from torch.profiler:
-    (total busy us, flash kernels' us, top items)."""
+    (total busy us, [(kernel, us, count)] largest first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -781,9 +806,7 @@ def _profile_step(step, state, batch):
         if us:
             rows.append((e.key, float(us), int(e.count)))
     rows.sort(key=lambda r: -r[1])
-    total = sum(r[1] for r in rows)
-    flash = sum(r[1] for r in rows if "flash_" in r[0] and "kernel" in r[0])
-    return total, flash, rows[:12]
+    return sum(r[1] for r in rows), rows
 
 
 def train_phase(device, seed, flash_records):
@@ -892,7 +915,9 @@ def train_phase(device, seed, flash_records):
     kernel_ms = {r["name"]: r["ms"] for r in flash_records}
     est_share = cfg.num_layers * sum(kernel_ms.values()) / step_ms
     roll = tracer.rollups()
-    total_us, flash_us, top = _profile_step(step1, state, dev_batch)
+    total_us, rows = profile_step(step1, state, dev_batch)
+    flash_us = sum(r[1] for r in rows if "flash_" in r[0] and "kernel" in r[0])
+    top = rows[:12]
     print(f"train step (batch {B} x {S}, median of {TRAIN_STEPS}): "
           f"{step_ms:.2f} ms, {tokens_s:.0f} tokens/s, peak memory "
           f"{peak_mem:.2f} GiB; flash kernels ~{100 * est_share:.1f}% of "
@@ -1142,6 +1167,480 @@ def serve_phase(device, seed):
                           **dtiming)
     return launches, stats
 
+# --------------------------------------------------------------------------
+# ResNet-50 data-parallel training
+# --------------------------------------------------------------------------
+
+RESNET_BATCH, RESNET_IMAGE = 128, 224      # bench.py's primary shape
+RESNET_WARMUP, RESNET_STEPS = 5, 50
+DP_IMAGE, DP_BATCH = 64, 64                # bench_dp_step_overhead's
+DP_WARMUP, DP_STEPS = 5, 40
+RECIPE_STEPS, RECIPE_LOG_EVERY = 40, 5
+# DDP at world size 1 adds no arithmetic to the gradients (a sum over one
+# rank, divided by one), so they differ from the plain step's only where
+# cuDNN's backward sums in another order from call to call: per tensor,
+# ||ddp - plain|| over ||plain||
+DDP_GRAD_RTOL = 1e-3
+# bf16 products against f32 ones (TF32 off) on the same weights, through
+# 53 convs and norms: each bf16 rounding is 2^-9 of a value, and their
+# sum over the depth stays near 1e-2 of the logits; a wrong layout, pad or
+# norm reads ~1. ||bf16 - f32|| over ||f32||, eval mode.
+BF16_LOGITS_RTOL = 5e-2
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _World1:
+    """A one-rank NCCL process group on a localhost TCPStore, torn down
+    (group and store) on exit."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import datetime
+
+        import torch.distributed as tdist
+
+        from pytorch_distributed_tpu_torch import init_process_group
+
+        self.store = tdist.TCPStore("localhost", _free_port(), 1, True,
+                                    timeout=datetime.timedelta(seconds=60))
+        init_process_group("nccl", store=self.store, world_size=1, rank=0,
+                           device=self.device)
+        return self
+
+    def __exit__(self, *exc):
+        from pytorch_distributed_tpu_torch import destroy_process_group
+
+        destroy_process_group()
+        del self.store
+        return False
+
+
+def _resnet50_dp(device, seed):
+    """bench.py's ``_resnet50_train_setup`` on the port: ResNet-50 under
+    ``Policy.train()``, seeded init, SGD(0.1, momentum 0.9), in
+    ``DataParallel``, and one placed f32 batch of 128 images of 224^2
+    (re-fed every step). Returns (model, ddp, step, state, batch)."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataParallel,
+        Policy,
+        ResNet50,
+        TrainState,
+        build_train_step,
+        classification_loss_fn,
+        optim,
+    )
+
+    policy = Policy.train()
+    model = ResNet50(device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    strategy = DataParallel(device)
+    ddp = strategy.wrap(model)
+    rng = np.random.default_rng(seed)
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    batch = strategy.shard_batch({
+        "image": rng.normal(size=shape).astype(np.float32),
+        "label": rng.integers(1000, size=RESNET_BATCH).astype(np.int32),
+    })
+    state = TrainState(ddp, optim.SGD(model, lr=0.1, momentum=0.9),
+                       policy=policy)
+    step = build_train_step(classification_loss_fn(ddp))
+    return model, ddp, step, state, batch
+
+
+def _grad_agreement(model, ddp, batch):
+    """(d) one ResNet-50 backward through DDP and one through a plain
+    copy of the module, same (trained: no zero scale left to stop a
+    branch) weights and batch: the worst per-tensor gap."""
+    import copy
+
+    from pytorch_distributed_tpu_torch import cross_entropy
+
+    plain = copy.deepcopy(model)
+    grads = []
+    for net, params in ((ddp, model), (plain, plain)):
+        net.zero_grad(set_to_none=True)
+        cross_entropy(net(batch["image"], train=True),
+                      batch["label"]).backward()
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in params.named_parameters()})
+    worst, zero = 0.0, 0
+    for name, ref in grads[1].items():
+        diff = (grads[0][name] - ref).norm().item()
+        norm = ref.norm().item()
+        if norm == 0.0:     # the zero-scale last norms stop these
+            zero += 1
+            if diff != 0.0:
+                raise AssertionError(f"{name}: DDP grad {diff} where the "
+                                     "plain one is 0")
+            continue
+        worst = max(worst, diff / norm)
+    print(f"(d) DDP vs plain gradients, world 1 (DDP's wrapping only; "
+          f"global statistics: scripts/port_dp_scale.py): worst per-tensor "
+          f"||ddp - plain|| / ||plain|| {worst:.2e} (<= {DDP_GRAD_RTOL:g}) "
+          f"over {len(grads[1])} tensors ({zero} exactly zero in both)")
+    if worst > DDP_GRAD_RTOL:
+        raise AssertionError("DDP changed the gradients")
+    return dict(worst_rel=worst, tensors=len(grads[1]), zero_tensors=zero)
+
+
+def _bf16_vs_f32_logits(model, batch, device):
+    """(d) eval-mode logits of the trained bf16-product model against an
+    f32 copy of it, TF32 off for the reference."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import Policy, ResNet50
+
+    ref = ResNet50(device=device, policy=Policy.full())
+    ref.load_state_dict(model.state_dict())
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = ref(batch["image"], train=False)
+            got = model(batch["image"], train=False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rel = ((got - want).norm() / want.norm()).item()
+    rel_max = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"(d) bf16 vs f32 logits (eval, same weights): ||d|| / ||f32|| "
+          f"{rel:.2e} (<= {BF16_LOGITS_RTOL:g}), max|d| / max|f32| "
+          f"{rel_max:.2e}, top-1 agreement {agree:.4f}")
+    if not rel <= BF16_LOGITS_RTOL:
+        raise AssertionError("bf16 and f32 logits disagree")
+    del ref
+    return dict(rel=rel, rel_max=rel_max, top1_agreement=agree)
+
+
+# the port's BatchNorm against torch's on one bf16 activation: both
+# normalize in f32 and round to bf16 (<= 1 bf16 ulp, 2^-8 of a value,
+# apart); the statistics and the weight and bias gradients are f32 sums in
+# other orders. ||d|| / ||torch||, or max |d| / max |torch| for statistics
+NORM_RTOL = dict(y=1e-2, dx=1e-2, dw=1e-4, db=1e-4, mean=1e-5, var=1e-5,
+                 combined_mean=1e-5, combined_var=1e-5)
+
+
+def _norm_check(device, seed):
+    """(d) ``models.resnet.BatchNorm`` in train mode (batch_norm_stats,
+    batch_norm_elemt, backward_reduce, backward_elemt) against
+    ``F.batch_norm`` on a channels_last bf16 [128, 256, 56, 56]
+    activation of ResNet-50's first stage, f32 weights; and the combine
+    of four ranks' statistics (batch_norm_gather_stats_with_counts, which
+    a world of one skips) against the whole batch's."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch import Policy
+    from pytorch_distributed_tpu_torch.models.resnet import (
+        BatchNorm,
+        _combine,
+        _stats,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (RESNET_BATCH, 256, 56, 56)
+    x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm(256, policy=Policy.train(), device=device, momentum=0.0)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.normal_(generator=gen)
+    got, want = {}, {}
+    for out, fn in ((got, lambda xx: bn(xx, train=True)),
+                    (want, lambda xx: F.batch_norm(
+                        xx, None, None, bn.weight, bn.bias, True, 0.0,
+                        bn.eps))):
+        xx = x.detach().requires_grad_()
+        bn.zero_grad(set_to_none=True)
+        y = fn(xx)
+        y.backward(dy)
+        out.update(y=y.detach().float(), dx=xx.grad.float(),
+                   dw=bn.weight.grad.clone(), db=bn.bias.grad.clone())
+    var, mean = torch.var_mean(x.float(), (0, 2, 3), correction=0)
+    got.update(mean=bn.running_mean, var=bn.running_var)
+    want.update(mean=mean, var=var)
+    # the global statistics' combine (world > 1 only): four quarters'
+    # statistics combined on the card, against the whole batch's
+    parts = [_stats(q, bn.eps) for q in x.chunk(4)]
+    counts = torch.full((4,), x.numel() // 4 // 256, dtype=torch.float32,
+                        device=device)
+    g_mean, g_invstd = _combine(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts]), counts,
+                                bn.eps)
+    got.update(combined_mean=g_mean, combined_var=g_invstd.pow(-2) - bn.eps)
+    want.update(combined_mean=mean, combined_var=var)
+    errs = {}
+    for k, tol in NORM_RTOL.items():
+        d = got[k] - want[k]
+        errs[k] = ((d.abs().max() / want[k].abs().max()) if "mean" in k
+                   or "var" in k else d.norm() / want[k].norm()).item()
+    print("(d) BatchNorm vs F.batch_norm, bf16 [128, 256, 56, 56]: "
+          + ", ".join(f"{k} {e:.2e} (<= {NORM_RTOL[k]:g})"
+                      for k, e in errs.items()))
+    bad = [k for k, e in errs.items() if not e <= NORM_RTOL[k]]
+    if bad:
+        raise AssertionError(f"the port's BatchNorm disagrees in {bad}")
+    # the host's cost of one forward + backward, on a [2, 256, 4, 4]
+    # tensor whose device work is negligible
+    xs = x[:2, :, :4, :4].detach().contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    host_us = {}
+    for name, fn in (("port", lambda: bn(xs, train=True)),
+                     ("F.batch_norm", lambda: F.batch_norm(
+                         xs, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, True, 0.1, bn.eps))):
+        for n in (20, 200):       # warm-up, then timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn().sum().backward()
+            torch.cuda.synchronize()
+        host_us[name] = 1e6 * (time.perf_counter() - t0) / n
+    print("(d) host us per BatchNorm forward + backward (and a sum): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host_us.items()))
+    return dict(errs, host_us=host_us)
+
+
+def _timed_steps(step, state, batch, warmup, iters):
+    """bench.py's loop: warm-up steps, a value fetch, ``iters`` steps
+    ending in a value fetch. Returns (state, seconds, losses)."""
+    import torch
+
+    losses = []
+    for _ in range(warmup):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    float(metrics["loss"])
+    dt = time.perf_counter() - t0
+    return state, dt, torch.stack(losses).tolist()
+
+
+def _dp_step_overhead(device, seed):
+    """(b) bench_dp_step_overhead on the port: ResNet [2, 2] BasicBlock,
+    width 32, CIFAR stem, 100 classes, 64^2, batch 64: the DDP step and
+    the plain step on copies of the same weights, in turns (plain, DDP,
+    DDP, plain), SGD(0.1, momentum 0.9)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataParallel,
+        Policy,
+        ResNet,
+        TrainState,
+        build_train_step,
+        classification_loss_fn,
+        optim,
+    )
+    from pytorch_distributed_tpu_torch.models.resnet import BasicBlock
+
+    policy = Policy.train()
+    base = ResNet([2, 2], BasicBlock, 100, width=32, stem="cifar",
+                  device=device, policy=policy)
+    base.init_weights(torch.Generator(device=device).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    host = {"image": rng.normal(size=(DP_BATCH, DP_IMAGE, DP_IMAGE, 3))
+            .astype(np.float32),
+            "label": rng.integers(100, size=DP_BATCH).astype(np.int32)}
+    strategy = DataParallel(device)
+    batch = strategy.shard_batch(host)
+    runs = {}
+    for kind in ("plain", "dp"):
+        model = copy.deepcopy(base)
+        net = strategy.wrap(model) if kind == "dp" else model
+        runs[kind] = [build_train_step(classification_loss_fn(net)),
+                      TrainState(net, optim.SGD(model, lr=0.1,
+                                                momentum=0.9),
+                                 policy=policy), []]
+    for kind in ("plain", "dp", "dp", "plain"):
+        step, state, times = runs[kind]
+        runs[kind][1], dt, _ = _timed_steps(step, state, batch, DP_WARMUP,
+                                            DP_STEPS)
+        times.append(1e3 * dt / DP_STEPS)
+    plain_ms = sum(runs["plain"][2]) / 2
+    dp_ms = sum(runs["dp"][2]) / 2
+    overhead = dp_ms - plain_ms
+    print(f"(b) dp_step_overhead_ms {overhead:.3f} (DDP step "
+          f"{runs['dp'][2][0]:.3f} / {runs['dp'][2][1]:.3f} ms, plain "
+          f"{runs['plain'][2][0]:.3f} / {runs['plain'][2][1]:.3f} ms; "
+          f"ResNet [2,2] BasicBlock w32 CIFAR stem, {DP_IMAGE}^2, batch "
+          f"{DP_BATCH}, world 1 over NCCL)")
+    return dict(dp_step_overhead_ms=overhead, dp_ms=runs["dp"][2],
+                plain_ms=runs["plain"][2])
+
+
+def _recipe_run(seed):
+    """(c) ``recipes/resnet50_imagenet.main`` end to end at batch 128:
+    uint8 data through the prefetching loader, normalize and flip on the
+    card, DDP (its own world of one), SGD, one evaluation pass."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.recipes import resnet50_imagenet
+    from pytorch_distributed_tpu_torch.runtime import tracing
+
+    with tracing.enabled() as tracer:
+        t0 = time.perf_counter()
+        trainer = resnet50_imagenet.main([
+            "--batch-size", str(RESNET_BATCH), "--epochs", "1",
+            "--steps-per-epoch", str(RECIPE_STEPS),
+            "--log-every", str(RECIPE_LOG_EVERY), "--seed", str(seed),
+            "--lr", "0.05",   # the recipe's linear scaling: 0.1 x 128/256
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    roll = tracer.rollups()
+    hist = trainer.history
+    dev = next(trainer.state.model.parameters()).device
+    if dev.type != "cuda" or trainer.state.step != RECIPE_STEPS:
+        raise AssertionError(f"the recipe ran {trainer.state.step} steps "
+                             f"on {dev}")
+    losses = [r["loss"] for r in hist]
+    evals = trainer.last_eval_metrics
+    if not all(math.isfinite(x) for x in losses + list(evals.values())):
+        raise AssertionError(f"non-finite recipe metrics {losses} {evals}")
+    # the rate over the whole training loop, every step counted; the
+    # median log window's step time beside it is a per-step statistic
+    loop_s = sum(r["step_time_s"] * RECIPE_LOG_EVERY for r in hist)
+    ips = RECIPE_STEPS * RESNET_BATCH / loop_s
+    steady = sorted(r["step_time_s"] for r in hist)
+    step_ms = 1e3 * steady[len(steady) // 2]
+    wait_ms = roll["train.data_wait"]["total_ms"]
+    share = wait_ms / (1e3 * loop_s)
+    print(f"(c) recipe: {RECIPE_STEPS} steps of {RESNET_BATCH} uint8 images "
+          f"in {loop_s:.2f} s = {ips:.1f} images/s ({wall:.2f} s with "
+          f"set-up and eval); median {RECIPE_LOG_EVERY}-step window "
+          f"{step_ms:.2f} ms/step; train.data_wait {wait_ms:.1f} ms = "
+          f"{100 * share:.2f}% of the loop; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + "; eval " + " ".join(f"{k}={v:.4f}" for k, v in evals.items()))
+    del trainer
+    return dict(images_per_s=ips, median_window_step_ms=step_ms,
+                loop_s=loop_s, wall_s=wall,
+                data_wait_ms=wait_ms, data_wait_share=share, losses=losses,
+                eval=evals, spans={k: roll[k]["mean_ms"] for k in roll})
+
+
+def resnet_phase(device, seed):
+    """bench.py's ResNet-50 phases on the port, (a)-(d); (e), the
+    profile, is :func:`resnet_profile`, run last."""
+    import gc
+
+    import torch
+
+    torch.backends.cudnn.benchmark = True
+    stats = {}
+    with _World1(device):
+        model, ddp, step, state, batch = _resnet50_dp(device, seed)
+        torch.cuda.reset_peak_memory_stats(device)
+        state, dt, losses = _timed_steps(step, state, batch, RESNET_WARMUP,
+                                         RESNET_STEPS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        step_ms = 1e3 * dt / RESNET_STEPS
+        ips = RESNET_BATCH * RESNET_STEPS / dt
+        print(f"(a) resnet50_imagenet_images_per_sec_per_chip {ips:.2f} "
+              f"(step {step_ms:.3f} ms, batch {RESNET_BATCH} x "
+              f"{RESNET_IMAGE}^2, {RESNET_STEPS} steps after "
+              f"{RESNET_WARMUP}, DDP world 1 over NCCL; peak memory "
+              f"{peak:.2f} GiB); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(
+                f"the repeated batch's loss did not fall: {losses}")
+        stats["bench"] = dict(
+            images_per_s=ips, step_ms=step_ms, peak_mem_gib=peak,
+            losses=losses, batch=RESNET_BATCH, image=RESNET_IMAGE)
+        stats["logits"] = _bf16_vs_f32_logits(model, batch, device)
+        stats["grads"] = _grad_agreement(model, ddp, batch)
+        stats["norm"] = _norm_check(device, seed)
+        del model, ddp, step, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["dp_overhead"] = _dp_step_overhead(device, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["recipe"] = _recipe_run(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+# kernel-name families of the ResNet-50 step, for the profile's summary
+RESNET_FAMILIES = (
+    ("convolutions (cuDNN, cuBLAS)", re.compile(
+        r"conv|cudnn|xmma|implicit_gemm|fprop|dgrad|wgrad|gemm|sm90|nvjet",
+        re.I)),
+    ("batch norm", re.compile(r"batch_norm|batchnorm|bn_|welford", re.I)),
+    ("reductions (running statistics, loss, pooling)",
+     re.compile(r"reduce", re.I)),
+    ("NCCL", re.compile(r"nccl", re.I)),
+    ("elementwise, casts and copies", re.compile(
+        r"elementwise|vectorized|copy|memcpy|memset|fill|cast", re.I)),
+)
+
+
+def by_family(rows):
+    """``profile_step``'s rows as device ms a step by kernel family."""
+    families = {}
+    for key, us, _ in rows:
+        name = next((n for n, rx in RESNET_FAMILIES if rx.search(key)),
+                    "other")
+        families[name] = families.get(name, 0.0) + us / 2e3
+    return families
+
+
+def resnet_profile(device, seed, step_ms):
+    """(e) torch.profiler over two steps of (a), after its warm-up; the
+    idle share is against (a)'s unprofiled ``step_ms``."""
+    stats = {}
+    with _World1(device):
+        _, _, step, state, batch = _resnet50_dp(device, seed)
+        state, _, _ = _timed_steps(step, state, batch, RESNET_WARMUP, 0)
+        total_us, rows = profile_step(step, state, batch)
+    busy_ms = total_us / 2e3
+    families = by_family(rows)
+    if total_us:
+        print(f"(e) profile, 2 steps of (a): device busy {busy_ms:.2f} "
+              f"ms/step against (a)'s unprofiled step of {step_ms:.2f} ms "
+              f"(idle {100 * (1 - busy_ms / step_ms):.1f}%)")
+        for name, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:9.3f} ms/step  {100 * ms / busy_ms:5.1f}%  {name}")
+        for key, us, count in rows[:15]:
+            print(f"  {us / 2e3:9.3f} ms/step  x{count // 2:<5d} {key[:90]}")
+    else:
+        print("(e) profiler: no device time recorded (not measured)")
+    stats.update(step_ms=step_ms, device_busy_ms=busy_ms,
+                 idle_share=(1 - busy_ms / step_ms) if total_us else None,
+                 families=families,
+                 top=[dict(name=k, ms_per_step=us / 2e3, count=c // 2)
+                      for k, us, c in rows[:15]])
+    return stats
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1153,7 +1652,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from pytorch_distributed_tpu_torch.ops import flash_attention as fa
         from pytorch_distributed_tpu_torch.ops import kernel_build
+        from pytorch_distributed_tpu_torch.ops.paged_attention import (
+            paged_attention,
+        )
         from pytorch_distributed_tpu_torch.runtime.device import device_info
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -1171,19 +1674,33 @@ def main(argv=None) -> int:
     record, kdetails = kernel_phase(device, args.seed)
     flash_records, fdetails = flash_phase(device, args.seed)
     fdetails["build"] = build_report
-    # serve before train: the train phase ends with torch.profiler, whose
-    # tracing of the host would slow the host-bound decode ticks after it
+    # serve and the ResNet path before train: the train phase ends with
+    # torch.profiler, whose tracing of the host would slow the host-bound
+    # decode ticks, the small DDP step and the loader after it
     launches, stats = serve_phase(device, args.seed)
     torch.cuda.empty_cache()
+    counted = (paged_attention, fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    for fn in counted:
+        fn.launches = 0
+    rstats = resnet_phase(device, args.seed)
+    # the ResNet path runs none of the four kernels
+    rstats["kernel_launches"] = {fn.__name__: fn.launches for fn in counted}
+    print(f"ResNet path: launches of the four kernels "
+          f"{rstats['kernel_launches']} (none on this path)")
+    if any(rstats["kernel_launches"].values()):
+        raise AssertionError("the ResNet path launched an attention kernel")
     flash_launches, tstats = train_phase(device, args.seed,
                                          flash_records)
     record["launches"] = launches
     for rec in flash_records:
         rec["launches"] = flash_launches[rec["name"]]
+    rstats["profile"] = resnet_profile(device, args.seed,
+                                       rstats["bench"]["step_ms"])
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
-                                      train=tstats, serve=stats)}))
+                                      train=tstats, serve=stats,
+                                      resnet=rstats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

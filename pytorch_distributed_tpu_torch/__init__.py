@@ -1,13 +1,16 @@
 """pytorch_distributed_tpu_torch — the PyTorch/CUDA port of
 ``pytorch_distributed_tpu``, slice by slice.
 
-Two slices so far: serving Llama-3 through the continuous-batching
+Three slices so far: serving Llama-3 through the continuous-batching
 engine, with decode attention in a hand-written CUDA kernel for Hopper
-(``csrc/paged_attention.cu``), and training GPT-2 on one card, with
+(``csrc/paged_attention.cu``); training GPT-2 on one card, with
 attention forward and backward in hand-written flash kernels
-(``csrc/flash_attention.cu``). Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``. The package imports ``torch`` and
-``numpy``, never ``jax`` or the JAX package.
+(``csrc/flash_attention.cu``); and training ResNet-50 data-parallel
+(``torch.distributed`` process group, DDP with global BatchNorm
+statistics, uint8 image data normalized on the card, SGD). Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``. The
+package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
+package.
 
     import torch
     from pytorch_distributed_tpu_torch import (
@@ -20,13 +23,21 @@ the caller passes ``device="cpu"``. The package imports ``torch`` and
 
     python -m pytorch_distributed_tpu_torch.recipes.gpt2 --size medium \
         --batch-size 8 --accum-steps 1 --seq-len 1024 --steps-per-epoch 20
+    torchrun --nproc-per-node 4 -m \
+        pytorch_distributed_tpu_torch.recipes.resnet50_imagenet \
+        --batch-size 512 --steps-per-epoch 20
 """
 
 from pytorch_distributed_tpu_torch import optim
 from pytorch_distributed_tpu_torch.data import (
     ArrayDataset,
     DataLoader,
+    DistributedSampler,
+    SyntheticImageDataset,
     SyntheticTextDataset,
+    device_normalizer_for,
+    host_flip_transform,
+    make_device_normalizer,
     pack_documents,
     packed_loss_mask,
 )
@@ -34,19 +45,42 @@ from pytorch_distributed_tpu_torch.generation import generate
 from pytorch_distributed_tpu_torch.interop import (
     gpt2_params_from_jax,
     llama_params_from_jax,
+    resnet_params_from_jax,
 )
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
 )
+from pytorch_distributed_tpu_torch.models.resnet import (
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+)
 from pytorch_distributed_tpu_torch.ops.attention import attention
 from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import paged_attention
+from pytorch_distributed_tpu_torch.parallel import FSDP, DataParallel, ZeRO1
 from pytorch_distributed_tpu_torch.runtime.device import (
     default_device,
     device_info,
 )
+from pytorch_distributed_tpu_torch.runtime.distributed import (
+    ReduceOp,
+    all_reduce,
+    barrier,
+    broadcast,
+    destroy_process_group,
+    get_backend,
+    get_rank,
+    get_world_size,
+    init_process_group,
+    is_initialized,
+)
+from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for, seed_all
 from pytorch_distributed_tpu_torch.serve import (
@@ -60,17 +94,30 @@ from pytorch_distributed_tpu_torch.train import (
     TrainerConfig,
     TrainingDiverged,
     TrainState,
+    accuracy,
     build_train_step,
     causal_lm_loss_fn,
+    classification_eval_step,
+    classification_loss_fn,
+    cross_entropy,
+    topk_accuracy,
 )
 
 __all__ = [
-    "optim", "ArrayDataset", "DataLoader", "SyntheticTextDataset",
-    "pack_documents", "packed_loss_mask", "generate", "gpt2_params_from_jax",
-    "llama_params_from_jax", "GPT2Config", "GPT2LMHead", "LlamaConfig",
-    "LlamaForCausalLM", "attention", "flash_attention", "paged_attention",
-    "default_device", "device_info", "Policy", "generator_for", "seed_all",
-    "EngineConfig", "Request", "RequestStatus", "ServeEngine", "Trainer",
-    "TrainerConfig", "TrainingDiverged", "TrainState", "build_train_step",
-    "causal_lm_loss_fn",
+    "optim", "ArrayDataset", "DataLoader", "DistributedSampler",
+    "SyntheticImageDataset", "SyntheticTextDataset", "device_normalizer_for",
+    "host_flip_transform", "make_device_normalizer", "pack_documents",
+    "packed_loss_mask", "generate", "gpt2_params_from_jax",
+    "llama_params_from_jax", "resnet_params_from_jax", "GPT2Config",
+    "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
+    "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
+    "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
+    "default_device", "device_info", "ReduceOp", "all_reduce", "barrier",
+    "broadcast", "destroy_process_group", "get_backend", "get_rank",
+    "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
+    "Policy", "generator_for", "seed_all", "EngineConfig", "Request",
+    "RequestStatus", "ServeEngine", "Trainer", "TrainerConfig",
+    "TrainingDiverged", "TrainState", "accuracy", "build_train_step",
+    "causal_lm_loss_fn", "classification_eval_step",
+    "classification_loss_fn", "cross_entropy", "topk_accuracy",
 ]

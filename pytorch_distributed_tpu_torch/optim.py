@@ -1,6 +1,11 @@
 """Optimizers with optax's semantics on ``torch.optim``: the port of the
 part of ``pytorch_distributed_tpu/optim.py`` the training slice uses.
 
+* :func:`SGD` is ``torch.optim.SGD`` without dampening, whose update is
+  optax's ``sgd``: the trace is ``g + m * trace`` (torch's first step
+  sets the buffer to ``g``, which is the same thing from a zero trace),
+  Nesterov steps along ``g + m * trace_new``, and the parameter moves by
+  ``-lr * update``.
 * :func:`AdamW` and :func:`Adam` are ``torch.optim.AdamW``/``Adam``,
   whose update is optax's (``m_hat / (sqrt(v_hat) + eps)``; AdamW decays
   decoupled, ``lr * wd * p``; Adam folds ``wd * p`` into the gradient).
@@ -86,6 +91,27 @@ class _Scheduled:
                 group["lr"] = lr
         self.count += 1
         return super().step(closure)
+
+
+class SGD(_Scheduled, torch.optim.SGD):
+    """``optax.sgd(lr, momentum, nesterov)``: with a schedule, step ``t``
+    reads ``lr(t)`` before counting it, so a warmup from 0 makes the
+    first update zero (the momentum trace still takes that step's
+    gradient)."""
+
+    def __init__(
+        self,
+        params: Union[torch.nn.Module, Iterable[torch.Tensor]],
+        lr: LrOrSchedule = 0.1,
+        momentum: float = 0.0,
+        nesterov: bool = False,
+    ):
+        if isinstance(params, torch.nn.Module):
+            params = params.parameters()
+        super().__init__(
+            list(params), lr=self._init_schedule(lr), momentum=momentum,
+            nesterov=nesterov, dampening=0.0,
+        )
 
 
 class AdamW(_Scheduled, torch.optim.AdamW):

@@ -1,5 +1,5 @@
-"""GPT-2 causal-LM training on one card: the single-device path of
-``recipes/gpt2_zero1.py``.
+"""GPT-2 causal-LM training: the single-device and data-parallel paths
+of ``recipes/gpt2_zero1.py``.
 
 Synthetic token rows, ``Policy.train()`` (f32 weights and AdamW state,
 bf16 products), gradient clipping at 1.0 then ``adamw(lr)`` with optax's
@@ -10,9 +10,12 @@ kernels on the card.
     python -m pytorch_distributed_tpu_torch.recipes.gpt2 --size medium \\
         --batch-size 8 --accum-steps 1 --seq-len 1024 --steps-per-epoch 20
 
-``--device cpu`` runs the plain PyTorch path on the CPU (at ``--size
-tiny``). The JAX recipe's ZeRO-1, data-parallel and auto strategies,
-pipeline stages and text corpora are not ported yet and raise.
+``--strategy dp`` trains one process per card under ``torchrun`` (or
+alone, as a world of one) through ``parallel.DataParallel``: DDP, each
+rank taking its share of every global batch. ``--device cpu`` runs the
+plain PyTorch path on the CPU (at ``--size tiny``; gloo for ``dp``). The
+JAX recipe's ZeRO-1 and auto strategies, pipeline stages and text
+corpora are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 from pytorch_distributed_tpu_torch.data import DataLoader, SyntheticTextDataset
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
-from pytorch_distributed_tpu_torch.runtime.device import resolve_device
+from pytorch_distributed_tpu_torch.parallel import DataParallel
+from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 from pytorch_distributed_tpu_torch.runtime.prng import seed_all
 from pytorch_distributed_tpu_torch.train import (
@@ -70,10 +74,14 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    if args.strategy != "single":
+    if args.strategy == "zero1":
         raise NotImplementedError(
-            f"--strategy {args.strategy}: the data-parallel, ZeRO-1 and "
-            "planned strategies are not ported (ROADMAP A6)"
+            "--strategy zero1: ZeRO-1 is not ported (ROADMAP A6)"
+        )
+    if args.strategy == "auto":
+        raise NotImplementedError(
+            "--strategy auto: the cost-model planner is not ported "
+            "(ROADMAP A10)"
         )
     if args.pp > 1:
         raise NotImplementedError(
@@ -85,7 +93,18 @@ def main(argv=None) -> Trainer:
             "(ROADMAP A2)"
         )
     seed_all(args.seed)
-    device = resolve_device(args.device)
+    device = dist.rank_device(args.device)
+    own_group = args.strategy == "dp" and not dist.is_initialized()
+    if own_group:
+        dist.init_process_group(device=device)
+    try:
+        return _train(args, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> Trainer:
     cfg = SIZES[args.size]()
     seq_len = min(args.seq_len, cfg.n_positions)
     policy = Policy.train()
@@ -94,6 +113,8 @@ def main(argv=None) -> Trainer:
     optimizer = clip_grad_norm(
         AdamW(model, lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY), 1.0
     )
+    if args.strategy == "dp":
+        model = DataParallel(device).wrap(model)
     n = (args.steps_per_epoch or 100) * args.batch_size
     ds = SyntheticTextDataset(
         n=n, seq_len=seq_len, vocab_size=cfg.vocab_size, seed=args.seed
@@ -102,16 +123,17 @@ def main(argv=None) -> Trainer:
         TrainState(model, optimizer, policy=policy),
         build_train_step(causal_lm_loss_fn(model),
                          accum_steps=args.accum_steps),
-        DataLoader(ds, args.batch_size, seed=args.seed),
+        DataLoader(ds, args.batch_size, seed=args.seed, sharding=device),
         config=TrainerConfig(
             epochs=args.epochs, log_every=args.log_every,
             max_steps_per_epoch=args.steps_per_epoch,
         ),
     )
     n_params = sum(p.numel() for p in model.parameters())
-    logger.info("GPT-2 %s: %d params on %s, batch %d x seq %d, accum %d",
-                args.size, n_params, device, args.batch_size, seq_len,
-                args.accum_steps)
+    logger.info("GPT-2 %s: %d params on %s, batch %d x seq %d, accum %d, "
+                "%s over %d rank(s)", args.size, n_params, device,
+                args.batch_size, seq_len, args.accum_steps, args.strategy,
+                dist.get_world_size())
     trainer.fit()
     logger.info("done: step=%d", trainer.state.step)
     return trainer

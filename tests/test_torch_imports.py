@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and runs on the card unless told not to.
 
 * ``pytorch_distributed_tpu_torch`` imports (every module of it,
-  the training slice's included), serves a tiny model and trains a tiny
-  GPT-2 on the CPU, in a fresh interpreter where ``jax``, ``flax`` and
+  the training slices' included), serves a tiny model, trains a tiny
+  GPT-2 and runs the ResNet-50 recipe on the CPU, in a fresh
+  interpreter where ``jax``, ``flax`` and
   the JAX package ``pytorch_distributed_tpu`` cannot be imported at all
   (the meta-path blocker idiom of tests/test_ckpt_shard.py).
 * Its entry points default to the CUDA card and raise without one,
@@ -22,6 +23,7 @@ import torch
 
 from pytorch_distributed_tpu_torch import (
     EngineConfig,
+    ResNet50,
     GPT2Config,
     GPT2LMHead,
     LlamaConfig,
@@ -29,8 +31,10 @@ from pytorch_distributed_tpu_torch import (
     ServeEngine,
     generate,
     generator_for,
+    init_process_group,
 )
 from pytorch_distributed_tpu_torch.recipes import gpt2 as gpt2_recipe
+from pytorch_distributed_tpu_torch.recipes import resnet50_imagenet
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +56,9 @@ for m in pkgutil.walk_packages(ptt.__path__, ptt.__name__ + "."):
 for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "data.packing", "data.datasets", "data.sampler", "data.loader",
             "optim", "runtime.prng", "train.train_state", "train.losses",
-            "train.trainer", "recipes.gpt2"):
+            "train.trainer", "recipes.gpt2", "runtime.distributed",
+            "runtime.mesh", "data.native_pipeline", "models.resnet",
+            "parallel.strategies", "recipes.resnet50_imagenet"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -66,6 +72,11 @@ trainer = gpt2.main(["--size", "tiny", "--device", "cpu", "--batch-size", "2",
                      "--accum-steps", "2", "--seq-len", "16",
                      "--steps-per-epoch", "1", "--log-every", "1"])
 assert trainer.state.step == 1, trainer.state.step
+from pytorch_distributed_tpu_torch.recipes import resnet50_imagenet
+trainer = resnet50_imagenet.main(["--device", "cpu", "--image-size", "32",
+                                  "--batch-size", "2", "--steps-per-epoch",
+                                  "1", "--epochs", "1"])
+assert trainer.state.step == 1 and trainer.last_eval_metrics
 bad = [m for m in sys.modules
        if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not bad, bad
@@ -98,6 +109,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ServeEngine(cpu_model, EngineConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(cpu_model, np.ones((1, 4), np.int64), max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet50()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet50_imagenet.main(["--steps-per-epoch", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_process_group()
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
