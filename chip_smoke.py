@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: build its kernels, hold
 each against its plain PyTorch version, serve Llama-3-8B, train
-ResNet-50 data-parallel and train GPT-2-medium.
+ResNet-50 data-parallel, run the JAX recipe's GPT-2-medium ZeRO-1
+configuration with checkpoints, and train GPT-2-medium.
 
     python3 chip_smoke.py [--seed N]
 
@@ -86,10 +87,39 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    (their counts are read; a launch fails the run).
    Last of all, (e) ``torch.profiler`` over two steps of (a): device
    busy ms, idle share, and the time by kernel family.
+7. the JAX recipe's default GPT-2 run (after ResNet, before train):
+   GPT-2-medium at full width and depth under ``Policy.train()``,
+   ``ZeRO1`` (DDP + ``ZeroRedundancyOptimizer`` over AdamW) at world 1
+   over NCCL on a localhost store torn down after, full remat, vocab
+   chunk 8192, batch 8 x 1024 in 2 microbatches, clip(1.0) then
+   adamw(3e-4). (a) 6 steps with a checkpoint every 3 into a temporary
+   directory: finite losses, flash launches as the remat implies (the
+   forward twice per layer and microbatch) and no paged launch, the
+   median of steps 2-6 (the logged times leave the saves out) and the
+   same step in a plain loop on one placed batch, before and after
+   ``os.sync`` writes the saves' dirty pages out, the host's time in
+   the garbage collector, tokens/s, peak memory and save time (printed
+   beside the train phase's at the end);
+   (b) a fresh model, optimizer and trainer restore step 3: parameters,
+   both moments, step and sampler cursor equal to the bit, and steps
+   4-6 repeat the first run's losses within ``RESUME_LOSS_RTOL``; (c)
+   the chunked loss against the full logits at the head's shapes (N =
+   8 x 1023, D = 1024, V = 50257, tied ``wte``): loss and gradients
+   within stated limits, its peak memory above the inputs under half
+   the full one's; (d) one microbatch's gradients with each remat
+   policy against none, dropout on, to the bit, and each policy's flash
+   launches; (e) the recipe's ``--text-file --pack`` at GPT-2-medium
+   width on a corpus written here from a seed: 3 steps give finite
+   losses and the recipe's tokenizer round-trips the corpus.
+
+Serve, ResNet, 7a and train each set all four kernel counts to 0 just
+before their run and read all four just after; a kernel off the path
+that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
-``kernels`` JSON line, then the card's name and power limit as
-``nvidia-smi`` prints them, then the last line
+``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
+``launches_by_path`` per path as read), then the card's name and power
+limit as ``nvidia-smi`` prints them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -358,6 +388,32 @@ def kernel_report(libs):
     check_flash_routes(report)
     check_paged_routes(report)
     return report
+
+
+def kernel_counts(reset=False):
+    """The launch counts of the four kernels' wrappers by kernel name,
+    set to 0 first with ``reset``. Each path reads all four around its
+    run, so a count that should stay 0 is read, not assumed."""
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    fns = (paged_attention, fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    if reset:
+        for fn in fns:
+            fn.launches = 0
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def off_path(counts, on):
+    """Fail if a kernel not in ``on`` launched: ``counts`` is a path's."""
+    stray = {k: n for k, n in counts.items() if k not in on and n}
+    if stray:
+        raise AssertionError(f"kernels off this path launched: {stray}")
+
+
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def paged_cases(shape):
@@ -780,6 +836,36 @@ TRAIN_STEPS = 10     # timed steps on one repeated batch
 PACKED_STEPS = 3     # then steps of 2 microbatches on packed rows
 
 
+class GCTimer:
+    """Time the host spends in Python's cyclic garbage collector while
+    the block runs (``gc.callbacks``): ``ms`` and ``count`` by
+    generation. A host-bound step pays a collection where it happens."""
+
+    def __init__(self):
+        self.ms, self.count, self._t0 = [0.0] * 3, [0] * 3, None
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            g = info["generation"]
+            self.ms[g] += 1e3 * (time.perf_counter() - self._t0)
+            self.count[g] += 1
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+        return False
+
+
 def profile_step(step, state, batch):
     """Device time by kernel over two steps, from torch.profiler:
     (total busy us, [(kernel, us, count)] largest first)."""
@@ -830,7 +916,6 @@ def train_phase(device, seed, flash_records):
         causal_lm_loss_fn,
         optim,
     )
-    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
     from pytorch_distributed_tpu_torch.runtime import tracing
 
     cfg = GPT2Config.medium()
@@ -869,9 +954,8 @@ def train_phase(device, seed, flash_records):
     first_loss = float(metrics["loss"])
     torch.cuda.synchronize()
 
-    for fn in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv):
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
+    kernel_counts(reset=True)
     with tracing.enabled() as tracer:   # the main path
         t0 = time.perf_counter()
         main = Trainer(state, step1, repeated,
@@ -883,8 +967,9 @@ def train_phase(device, seed, flash_records):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     state = pk.state
-    launches = {fn.__name__: fn.launches
-                for fn in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
+    counts = kernel_counts()
+    off_path(counts, FLASH)
+    launches = {k: counts[k] for k in FLASH}
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
     microbatches = TRAIN_STEPS * 1 + PACKED_STEPS * 2
     want = cfg.num_layers * microbatches
@@ -983,7 +1068,7 @@ def train_phase(device, seed, flash_records):
     del model, opt, state, main, pk, step1, step2, loss_fn, dev_batch, ids
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, stats
+    return counts, stats
 
 
 
@@ -1084,7 +1169,6 @@ def serve_phase(device, seed):
         LlamaConfig,
         LlamaForCausalLM,
         ServeEngine,
-        paged_attention,
     )
     from pytorch_distributed_tpu_torch.serve import Request
 
@@ -1109,9 +1193,11 @@ def serve_phase(device, seed):
 
     reqs = _requests(seed, cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats(device)
-    paged_attention.launches = 0
+    kernel_counts(reset=True)
     engine, handles, timing = _drive(model, ecfg, reqs)   # the main path
-    launches = paged_attention.launches
+    counts = kernel_counts()
+    off_path(counts, ("paged_attention",))
+    launches = counts["paged_attention"]
     ticks = engine.decode_ticks
     summary = engine.telemetry.summary()
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1165,7 +1251,7 @@ def serve_phase(device, seed):
         raise AssertionError("the dense tick misses the teacher-forced check")
     stats["dense"] = dict(greedy_exact=dexact, greedy_worst_gap=max(dgaps),
                           **dtiming)
-    return launches, stats
+    return counts, stats
 
 # --------------------------------------------------------------------------
 # ResNet-50 data-parallel training
@@ -1642,6 +1728,468 @@ def resnet_profile(device, seed, step_ms):
     return stats
 
 
+
+# -- 7. the JAX recipe's default run: ZeRO-1, remat, chunked loss ---------
+
+ZERO_STEPS = 6          # steps of (a), a checkpoint every ZERO_CKPT_EVERY
+ZERO_CKPT_EVERY = 3
+ZERO_CHUNK = 8192       # --vocab-chunk
+ZERO_LOOP_STEPS = 10    # (a)'s step again in a plain loop, after the run
+# (b) steps 4-6 after the restore against the uninterrupted run: every
+# kernel on the path is deterministic (flash fwd/dq/dkv, cuBLAS at fixed
+# shapes, the chunked loss, AdamW's foreach update, one-rank NCCL), so
+# the losses must agree to the bit
+RESUME_LOSS_RTOL = 0.0
+# (c) the chunked loss against the full-logits one at the head's shapes,
+# bf16 products with f32 results on both sides: the loss differs by the
+# order of its f32 sums (~1e-7); the gradients by one bf16 rounding of
+# dlogits and of the full path's bf16 product outputs (2^-9 relative),
+# which ||chunked - full|| / ||full|| reads a few 1e-3 of
+CHUNK_LOSS_RTOL = 1e-5
+CHUNK_GRAD_RTOL = 2e-2
+# (d) one microbatch's gradients with remat against without, dropout on:
+# the recompute replays the same kernels on the same inputs and the same
+# dropout masks, so the gradients must agree to the bit
+REMAT_GRAD_RTOL = 0.0
+CORPUS_PARAGRAPHS = 200  # (e): ~20k BPE tokens, ~14 packed rows of 1024
+
+
+def _corpus(seed, paragraphs):
+    """A text corpus from a seeded generator: paragraphs of 40-160 words
+    drawn Zipf-like from a lexicon of 400 random lowercase words,
+    separated by blank lines."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    lex = np.array(["".join(rng.choice(letters, rng.integers(2, 9)))
+                    for _ in range(400)])
+    p = 1.0 / np.arange(1, len(lex) + 1)
+    p /= p.sum()
+    return "\n\n".join(
+        " ".join(lex[rng.choice(len(lex), rng.integers(40, 161), p=p)]) + "."
+        for _ in range(paragraphs))
+
+
+def _zero1_trainer(device, seed, ckpt_dir, *, init_seed=None, remat=True):
+    """GPT-2-medium under ``Policy.train()`` as the recipe builds it with
+    ``--strategy zero1 --remat --vocab-chunk 8192``: ZeRO-1 (DDP, the
+    AdamW state sharded), clip(1.0) then adamw(3e-4, decay 1e-4), batch 8
+    x 1024 in 2 microbatches, a checkpoint every 3 steps. The data
+    follows ``seed``, the weights ``init_seed`` (``seed`` unless given)."""
+    import dataclasses as dc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataLoader,
+        GPT2Config,
+        GPT2LMHead,
+        Policy,
+        SyntheticTextDataset,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        ZeRO1,
+        build_train_step,
+        causal_lm_loss_fn,
+        optim,
+    )
+
+    cfg = dc.replace(GPT2Config.medium(), remat=remat)
+    policy = Policy.train()
+    model = GPT2LMHead(cfg, device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(
+        seed if init_seed is None else init_seed))
+    strategy = ZeRO1(device)
+    opt = optim.clip_grad_norm(strategy.optimizer(
+        model, optim.AdamW, lr=3e-4, weight_decay=1e-4), 1.0)
+    net = strategy.wrap(model)
+    ds = SyntheticTextDataset(n=ZERO_STEPS * 8, seq_len=1024,
+                              vocab_size=cfg.vocab_size, seed=seed)
+    trainer = Trainer(
+        TrainState(net, opt, policy=policy),
+        build_train_step(causal_lm_loss_fn(net, vocab_chunk_size=ZERO_CHUNK),
+                         accum_steps=2),
+        DataLoader(ds, 8, seed=seed, sharding=device),
+        config=TrainerConfig(log_every=1, max_steps_per_epoch=ZERO_STEPS,
+                             ckpt_dir=ckpt_dir,
+                             ckpt_every_steps=ZERO_CKPT_EVERY))
+    return model, trainer
+
+
+def _zero1_snapshot(model, trainer):
+    """Host copies of the parameters, both moments, the step and the
+    cursor the trainer checkpoints now (on the host, so the path's peak
+    memory stays the path's; copies, since AdamW's ``step`` tensors
+    already live there)."""
+    zero = trainer.state.optimizer.optimizer
+    return dict(
+        params={n: p.detach().to("cpu", copy=True)
+                for n, p in model.named_parameters()},
+        moments={id_: {k: v.to("cpu", copy=True) for k, v in s.items()}
+                 for id_, s in ((n, zero.optim.state[p])
+                                for n, p in model.named_parameters()
+                                if p in zero.optim.state)},
+        step=trainer.state.step,
+        cursor=(trainer._cursor_epoch, trainer._cursor_offset))
+
+
+def _gc_txt(timer):
+    return "/".join(f"{ms:.1f} ({n})" for ms, n in zip(timer.ms, timer.count))
+
+
+def _loop_ms(trainer, iters):
+    """The trainer's own step on one placed batch of its loader, in a
+    plain loop: ``iters`` steps after 2 of warm-up, ending in one value
+    fetch (no per-step fetch, no span, no loader): ms a step."""
+    import torch
+
+    device = next(trainer.state.model.parameters()).device
+    batches = iter(trainer.train_loader)
+    batch = {k: v.to(device) for k, v in next(batches).items()}
+    batches.close()   # stops the loader's prefetch thread
+    state = trainer.state
+    for _ in range(2):
+        state, metrics = trainer.train_step(state, batch)
+    float(metrics["loss"])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = trainer.train_step(state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _zero1_train_and_restore(device, seed, tmp):
+    """(a) and (b)."""
+    import gc
+    import os
+    import shutil
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.runtime import tracing
+
+    run_dir, step3_dir = os.path.join(tmp, "run"), os.path.join(tmp, "at3")
+    model, trainer = _zero1_trainer(device, seed, run_dir)
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = {}
+    save = trainer.save_checkpoint
+
+    def save_and_keep_step3(tag="latest"):
+        path = save(tag)
+        if trainer.host_step == ZERO_CKPT_EVERY and "state" not in snap:
+            shutil.copytree(run_dir, step3_dir)
+            snap["state"] = _zero1_snapshot(model, trainer)
+        return path
+
+    trainer.save_checkpoint = save_and_keep_step3
+    # the host's state the step's enqueue runs in: the objects the
+    # collector tracks and the time of one full collection
+    t0 = time.perf_counter()
+    gc.collect()
+    heap = dict(gc_objects=len(gc.get_objects()),
+                gc_collect_ms=1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernel_counts(reset=True)
+    with tracing.enabled() as tracer, GCTimer() as fit_gc:   # the main path
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    roll = tracer.rollups()
+    losses = [r["loss"] for r in trainer.history]
+    per = model.config.num_layers * ZERO_STEPS * 2   # layers x microbatches
+    want = dict(flash_fwd=2 * per, flash_dq=per, flash_dkv=per)
+    launches = {k: counts[k] for k in FLASH}
+    # the logged step times leave the saves out; the first step is the
+    # warm-up (cuBLAS handles, ZeRO's moments, the allocator's pools)
+    step_s = [r["step_time_s"] for r in trainer.history]
+    steady = sorted(step_s[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    # the same step in a plain loop, then again once the host has
+    # written the saves' dirty pages out (os.sync)
+    with GCTimer() as loop_gc:
+        loop_ms = _loop_ms(trainer, ZERO_LOOP_STEPS)
+    t0 = time.perf_counter()
+    os.sync()
+    sync_s = time.perf_counter() - t0
+    synced_ms = _loop_ms(trainer, ZERO_LOOP_STEPS)
+    ckpt_ms = roll["train.checkpoint"]
+    print(f"(a) ZeRO-1 x remat(full) x vocab chunk {ZERO_CHUNK}: "
+          f"{ZERO_STEPS} steps of 8 x 1024 in 2 microbatches, {n_params} "
+          f"params, {wall:.2f} s incl. {ckpt_ms['count']} checkpoints; "
+          f"step ms " + " ".join(f"{1e3 * x:.2f}" for x in step_s)
+          + f", median of steps 2-{ZERO_STEPS} {step_ms:.2f} ms = "
+          f"{8192 / step_ms * 1e3:.0f} tokens/s (the same step in a plain "
+          f"loop on one placed batch, one fetch after {ZERO_LOOP_STEPS}: "
+          f"{loop_ms:.2f} ms; after os.sync, {sync_s:.2f} s: "
+          f"{synced_ms:.2f} ms; {heap['gc_objects']} objects tracked by "
+          f"gc, a full collection {heap['gc_collect_ms']:.1f} ms; gc ms by "
+          f"generation over the run {_gc_txt(fit_gc)}, over the first "
+          f"loop's {ZERO_LOOP_STEPS + 2} steps {_gc_txt(loop_gc)}), peak "
+          f"memory {peak:.2f} GiB; checkpoint save "
+          f"{ckpt_ms['mean_ms']:.0f} ms mean; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {counts} (want {want} and no paged kernel: the "
+          "forward runs again in each block's recompute)")
+    if len(losses) != ZERO_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ZeRO-1 losses {losses}")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} != {want}")
+    off_path(counts, FLASH)
+    stats = dict(params=n_params, steps=ZERO_STEPS, losses=losses,
+                 step_ms_median=step_ms, step_ms=[1e3 * x for x in step_s],
+                 loop_step_ms=loop_ms, sync_s=sync_s,
+                 loop_step_ms_after_sync=synced_ms, **heap,
+                 gc_ms_run=fit_gc.ms, gc_count_run=fit_gc.count,
+                 gc_ms_loop=loop_gc.ms, gc_count_loop=loop_gc.count,
+                 tokens_per_s=8192 / step_ms * 1e3, peak_mem_gib=peak,
+                 launches=counts, wall_s=wall,
+                 ckpt_save_ms=ckpt_ms["mean_ms"],
+                 ckpt_saves=ckpt_ms["count"],
+                 spans={k: roll[k]["mean_ms"] for k in roll})
+    saved = snap["state"]
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a fresh model (other weights), optimizer and trainer restore
+    # step 3, then run steps 4-6 on the same data, saving nothing more
+    model, trainer = _zero1_trainer(device, seed, step3_dir,
+                                    init_seed=seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not trainer.restore_checkpoint():
+        raise AssertionError("nothing restored")
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    got = _zero1_snapshot(model, trainer)
+    bad = [n for n, p in saved["params"].items()
+           if not torch.equal(p, got["params"][n])]
+    bad += [f"{n}.{k}" for n, s in saved["moments"].items()
+            for k, v in s.items() if not torch.equal(v, got["moments"][n][k])]
+    if (bad or got["step"] != saved["step"]
+            or got["cursor"] != saved["cursor"]
+            or set(got["moments"]) != set(saved["moments"])):
+        raise AssertionError(
+            f"restored state differs: {bad[:5]} step {got['step']} vs "
+            f"{saved['step']} cursor {got['cursor']} vs {saved['cursor']}")
+    trainer.config = dataclasses.replace(trainer.config, ckpt_dir=None)
+    trainer.fit()
+    resumed = [r["loss"] for r in trainer.history]
+    diff = max(abs(a - b) / abs(b) for a, b in
+               zip(resumed, losses[ZERO_CKPT_EVERY:]))
+    print(f"(b) restore of step {ZERO_CKPT_EVERY} in {restore_ms:.0f} ms: "
+          f"{len(saved['params'])} parameters and {len(saved['moments'])} "
+          f"x 2 moments, step {got['step']} and cursor {got['cursor']} "
+          f"equal to the bit; steps 4-6 "
+          + " ".join(f"{x:.6f}" for x in resumed) + " against "
+          + " ".join(f"{x:.6f}" for x in losses[ZERO_CKPT_EVERY:])
+          + f" (max rel {diff:.2e} <= {RESUME_LOSS_RTOL:g})")
+    if len(resumed) != ZERO_STEPS - ZERO_CKPT_EVERY or diff > RESUME_LOSS_RTOL:
+        raise AssertionError("the resumed run left the uninterrupted one")
+    stats.update(restore_ms=restore_ms, resumed_losses=resumed,
+                 resume_max_rel=diff)
+    del model, trainer, saved, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _chunk_vs_full(device, seed, N=8 * 1023, D=1024, V=50257):
+    """(c) the chunked loss against the full-logits one at the head's
+    shapes (N = 8 x 1023, D = 1024, V = 50257, tied wte), with each one's
+    peak memory above its inputs."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.models.gpt2 import tied_logits
+    from pytorch_distributed_tpu_torch.ops.lm_loss import (
+        chunked_softmax_cross_entropy,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    hidden = torch.randn(N, D, device=device, generator=g).bfloat16()
+    wte = torch.randn(V, D, device=device, generator=g) / D ** 0.5
+    labels = torch.randint(0, V, (N,), device=device, generator=g)
+    out = {}
+    for name in ("full", "chunked"):
+        h = hidden.clone().requires_grad_()
+        w = wte.clone().requires_grad_()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        if name == "full":
+            logits = tied_logits(h[None], w, torch.bfloat16)[0]
+            loss = F.cross_entropy(logits, labels)
+            del logits
+        else:
+            loss = chunked_softmax_cross_entropy(h, w, labels,
+                                                 chunk_size=ZERO_CHUNK)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        out[name] = (loss.item(), h.grad.float(), w.grad.float(), peak)
+        del h, w, loss
+    (lf, hf, wf, pf), (lc, hc, wc, pc) = out["full"], out["chunked"]
+    rel = dict(loss=abs(lc - lf) / abs(lf),
+               d_hidden=((hc - hf).norm() / hf.norm()).item(),
+               d_wte=((wc - wf).norm() / wf.norm()).item())
+    print(f"(c) chunked ({ZERO_CHUNK}) vs full-logits loss at N={N}, D={D}, "
+          f"V={V}: loss {lc:.6f} vs {lf:.6f} (rel {rel['loss']:.2e} <= "
+          f"{CHUNK_LOSS_RTOL:g}), d(hidden) {rel['d_hidden']:.2e}, d(wte) "
+          f"{rel['d_wte']:.2e} (<= {CHUNK_GRAD_RTOL:g}); peak memory above "
+          f"the inputs {pc:.3f} GiB chunked vs {pf:.3f} GiB full")
+    if (rel["loss"] > CHUNK_LOSS_RTOL or rel["d_hidden"] > CHUNK_GRAD_RTOL
+            or rel["d_wte"] > CHUNK_GRAD_RTOL):
+        raise AssertionError("the chunked loss disagrees with the full one")
+    if not pc < 0.5 * pf:
+        raise AssertionError(f"chunked peak {pc:.3f} GiB is not under half "
+                             f"the full one's {pf:.3f} GiB")
+    del out, hf, wf, hc, wc, hidden, wte
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss=[lc, lf], rel=rel, peak_gib=dict(chunked=pc, full=pf))
+
+
+def _remat_grads(device, seed):
+    """(d) one microbatch's gradients with remat against without (full,
+    dots, dots_no_batch), dropout on, the same model, batch and dropout
+    stream, and each policy's flash launches."""
+    import dataclasses as dc
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        GPT2Config,
+        GPT2LMHead,
+        Policy,
+        SyntheticTextDataset,
+        causal_lm_loss_fn,
+        generator_for,
+    )
+
+    model = GPT2LMHead(GPT2Config.medium(), device=device,
+                       policy=Policy.train())
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    rows = SyntheticTextDataset(n=4, seq_len=1024,
+                                vocab_size=model.config.vocab_size, seed=seed)
+    batch = {"input_ids": torch.from_numpy(np.stack(
+        [rows[i]["input_ids"] for i in range(4)])).to(device)}
+    loss_fn = causal_lm_loss_fn(model, vocab_chunk_size=ZERO_CHUNK)
+    grads, ends, counts = {}, {}, {}
+    for policy in (None, "full", "dots", "dots_no_batch"):
+        model.config = dc.replace(model.config, remat=policy is not None,
+                                  remat_policy=policy or "full")
+        model.zero_grad(set_to_none=True)
+        gen = generator_for(7, 0x64726F70, device)
+        kernel_counts(reset=True)
+        loss, _ = loss_fn(batch, gen)
+        loss.backward()
+        counts[policy or "none"] = {
+            k: n for k, n in kernel_counts().items() if k in FLASH}
+        ends[policy] = gen.get_state()
+        grads[policy] = [p.grad.clone() for p in model.parameters()]
+    L = model.config.num_layers
+    # the flash forward is no matmul: every policy's recompute runs it
+    for policy, got in counts.items():
+        want = dict(flash_fwd=L if policy == "none" else 2 * L,
+                    flash_dq=L, flash_dkv=L)
+        if got != want:
+            raise AssertionError(f"remat {policy}: launches {got} != {want}")
+    ref = grads.pop(None)
+    rel = {}
+    for policy, gs in grads.items():
+        num = sum((a.double() - b.double()).square().sum()
+                  for a, b in zip(gs, ref)) ** 0.5
+        den = sum(b.double().square().sum() for b in ref) ** 0.5
+        rel[policy] = (num / den).item()
+    same_end = {p: torch.equal(ends[p], ends[None]) for p in grads}
+    print(f"(d) remat vs none, one microbatch of 4 x 1024, dropout 0.1: "
+          f"gradient rel {rel} (<= {REMAT_GRAD_RTOL:g}); the dropout "
+          f"generator ends where it does without remat: {same_end}; flash "
+          f"launches per microbatch by policy {counts}")
+    if max(rel.values()) > REMAT_GRAD_RTOL or not all(same_end.values()):
+        raise AssertionError("remat changed the gradients")
+    del model, grads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(grad_rel=rel, launches_per_microbatch=counts)
+
+
+def _text_run(seed, tmp):
+    """(e) ``--text-file --pack`` at GPT-2-medium width on a corpus written
+    here from a seeded generator: the recipe's 3 packed steps give finite
+    losses, and the tokenizer it trained round-trips the corpus."""
+    import os
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.recipes import gpt2 as recipe
+
+    corpus = _corpus(seed, CORPUS_PARAGRAPHS)
+    path = os.path.join(tmp, "corpus.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(corpus)
+    trainer = recipe.main([
+        "--size", "medium", "--text-file", path, "--pack", "--batch-size",
+        "4", "--accum-steps", "2", "--seq-len", "1024", "--steps-per-epoch",
+        "3", "--log-every", "1", "--remat", "--vocab-chunk",
+        str(ZERO_CHUNK), "--seed", str(seed)])
+    losses = [r["loss"] for r in trainer.history]
+    dev = next(trainer.state.model.parameters()).device
+    tok = trainer.tokenizer
+    t0 = time.perf_counter()
+    ids = tok.encode(corpus)
+    encode_s = time.perf_counter() - t0
+    if tok.decode(ids) != corpus:
+        raise AssertionError("the tokenizer does not round-trip the corpus")
+    print(f"(e) corpus of {len(corpus)} bytes, {CORPUS_PARAGRAPHS} "
+          f"paragraphs: the recipe's BPE vocab {tok.vocab_size}, "
+          f"{len(ids)} tokens, round trip exact ({encode_s:.2f} s to "
+          f"encode); --text-file --pack on {dev}: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f", eval {trainer.last_eval_metrics}")
+    if (dev.type != "cuda" or len(losses) != 3
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"the packed text run gave {losses} on {dev}")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(bytes=len(corpus), vocab=tok.vocab_size, tokens=len(ids),
+                encode_s=encode_s, losses=losses)
+
+
+def zero1_phase(device, seed):
+    """Phase 7: the JAX recipe's default run (``--strategy zero1``) on
+    the port, (a)-(e)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="ptd_zero1_") as tmp:
+        with _World1(device):
+            stats["train"] = _zero1_train_and_restore(device, seed, tmp)
+        stats["chunk"] = _chunk_vs_full(device, seed)
+        stats["remat"] = _remat_grads(device, seed)
+        stats["text"] = _text_run(seed, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1652,11 +2200,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from pytorch_distributed_tpu_torch.ops import flash_attention as fa
         from pytorch_distributed_tpu_torch.ops import kernel_build
-        from pytorch_distributed_tpu_torch.ops.paged_attention import (
-            paged_attention,
-        )
         from pytorch_distributed_tpu_torch.runtime.device import device_info
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -1674,33 +2218,43 @@ def main(argv=None) -> int:
     record, kdetails = kernel_phase(device, args.seed)
     flash_records, fdetails = flash_phase(device, args.seed)
     fdetails["build"] = build_report
-    # serve and the ResNet path before train: the train phase ends with
+    # serve, ResNet and ZeRO-1 before train: the train phase ends with
     # torch.profiler, whose tracing of the host would slow the host-bound
-    # decode ticks, the small DDP step and the loader after it
-    launches, stats = serve_phase(device, args.seed)
+    # paths after it. Each path reads all four kernel counts around its
+    # run (serve, 7a and train inside their phases).
+    serve_counts, stats = serve_phase(device, args.seed)
     torch.cuda.empty_cache()
-    counted = (paged_attention, fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
-    for fn in counted:
-        fn.launches = 0
+    kernel_counts(reset=True)
     rstats = resnet_phase(device, args.seed)
     # the ResNet path runs none of the four kernels
-    rstats["kernel_launches"] = {fn.__name__: fn.launches for fn in counted}
+    rstats["kernel_launches"] = kernel_counts()
     print(f"ResNet path: launches of the four kernels "
           f"{rstats['kernel_launches']} (none on this path)")
-    if any(rstats["kernel_launches"].values()):
-        raise AssertionError("the ResNet path launched an attention kernel")
-    flash_launches, tstats = train_phase(device, args.seed,
-                                         flash_records)
-    record["launches"] = launches
-    for rec in flash_records:
-        rec["launches"] = flash_launches[rec["name"]]
+    off_path(rstats["kernel_launches"], ())
+    zstats = zero1_phase(device, args.seed)
+    train_counts, tstats = train_phase(device, args.seed, flash_records)
+    zt = zstats["train"]
+    print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
+          f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
+          f"a plain loop), {zt['tokens_per_s']:.0f} tokens/s, peak "
+          f"{zt['peak_mem_gib']:.2f} GiB; train phase (no "
+          f"remat, full logits, no ZeRO) {tstats['step_ms_median']:.2f} "
+          f"ms/step, {tstats['tokens_per_s']:.0f} tokens/s, peak "
+          f"{tstats['peak_mem_gib']:.2f} GiB")
+    by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
+                   zero1=zt["launches"], train=train_counts)
+    print(f"launches by path, each read around its run: {by_path}")
+    for rec in [record] + flash_records:
+        rec["launches_by_path"] = {path: counts[rec["name"]]
+                                   for path, counts in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     rstats["profile"] = resnet_profile(device, args.seed,
                                        rstats["bench"]["step_ms"])
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
                                       train=tstats, serve=stats,
-                                      resnet=rstats)}))
+                                      resnet=rstats, zero1=zstats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """pytorch_distributed_tpu_torch — the PyTorch/CUDA port of
 ``pytorch_distributed_tpu``, slice by slice.
 
-Three slices so far: serving Llama-3 through the continuous-batching
+The slices so far: serving Llama-3 through the continuous-batching
 engine, with decode attention in a hand-written CUDA kernel for Hopper
 (``csrc/paged_attention.cu``); training GPT-2 on one card, with
 attention forward and backward in hand-written flash kernels
-(``csrc/flash_attention.cu``); and training ResNet-50 data-parallel
+(``csrc/flash_attention.cu``); training ResNet-50 data-parallel
 (``torch.distributed`` process group, DDP with global BatchNorm
-statistics, uint8 image data normalized on the card, SGD). Entry points
+statistics, uint8 image data normalized on the card, SGD); and the JAX
+recipe's GPT-2 run (ZeRO-1, remat, the chunked-vocab loss, BPE corpora)
+with checkpoints both packages restore. Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
 package.
@@ -35,6 +37,8 @@ from pytorch_distributed_tpu_torch.data import (
     DistributedSampler,
     SyntheticImageDataset,
     SyntheticTextDataset,
+    TokenizedTextDataset,
+    Tokenizer,
     device_normalizer_for,
     host_flip_transform,
     make_device_normalizer,
@@ -44,8 +48,10 @@ from pytorch_distributed_tpu_torch.data import (
 from pytorch_distributed_tpu_torch.generation import generate
 from pytorch_distributed_tpu_torch.interop import (
     gpt2_params_from_jax,
+    gpt2_params_to_jax,
     llama_params_from_jax,
     resnet_params_from_jax,
+    resnet_params_to_jax,
 )
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.llama import (
@@ -90,25 +96,35 @@ from pytorch_distributed_tpu_torch.serve import (
     ServeEngine,
 )
 from pytorch_distributed_tpu_torch.train import (
+    EX_TEMPFAIL,
+    CheckpointCorrupted,
+    Preempted,
     Trainer,
     TrainerConfig,
     TrainingDiverged,
     TrainState,
     accuracy,
     build_train_step,
+    causal_lm_eval_step,
     causal_lm_loss_fn,
     classification_eval_step,
     classification_loss_fn,
     cross_entropy,
+    fit_elastic,
+    restore_checkpoint,
+    save_checkpoint,
     topk_accuracy,
+    verify_checkpoint,
 )
 
 __all__ = [
     "optim", "ArrayDataset", "DataLoader", "DistributedSampler",
-    "SyntheticImageDataset", "SyntheticTextDataset", "device_normalizer_for",
+    "SyntheticImageDataset", "SyntheticTextDataset", "TokenizedTextDataset",
+    "Tokenizer", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
     "packed_loss_mask", "generate", "gpt2_params_from_jax",
-    "llama_params_from_jax", "resnet_params_from_jax", "GPT2Config",
+    "gpt2_params_to_jax", "llama_params_from_jax", "resnet_params_from_jax",
+    "resnet_params_to_jax", "GPT2Config",
     "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
     "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
@@ -116,8 +132,11 @@ __all__ = [
     "broadcast", "destroy_process_group", "get_backend", "get_rank",
     "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
     "Policy", "generator_for", "seed_all", "EngineConfig", "Request",
-    "RequestStatus", "ServeEngine", "Trainer", "TrainerConfig",
-    "TrainingDiverged", "TrainState", "accuracy", "build_train_step",
+    "RequestStatus", "ServeEngine", "EX_TEMPFAIL", "CheckpointCorrupted",
+    "Preempted", "Trainer", "TrainerConfig", "TrainingDiverged",
+    "TrainState", "accuracy", "build_train_step", "causal_lm_eval_step",
     "causal_lm_loss_fn", "classification_eval_step",
-    "classification_loss_fn", "cross_entropy", "topk_accuracy",
+    "classification_loss_fn", "cross_entropy", "fit_elastic",
+    "restore_checkpoint", "save_checkpoint", "topk_accuracy",
+    "verify_checkpoint",
 ]

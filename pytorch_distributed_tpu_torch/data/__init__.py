@@ -20,10 +20,15 @@ from pytorch_distributed_tpu_torch.data.sampler import (
     DistributedSampler,
     GlobalBatchSampler,
 )
+from pytorch_distributed_tpu_torch.data.tokenizer import (
+    TokenizedTextDataset,
+    Tokenizer,
+)
 
 __all__ = [
     "ArrayDataset", "SyntheticImageDataset", "SyntheticTextDataset",
     "stack_items", "DataLoader", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
     "packed_loss_mask", "DistributedSampler", "GlobalBatchSampler",
+    "TokenizedTextDataset", "Tokenizer",
 ]

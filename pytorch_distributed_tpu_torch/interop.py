@@ -15,11 +15,20 @@ an ``attention_bias`` Llama, the ``q_norm``/``k_norm`` scales of a
 ``qk_norm`` one or the experts of a mixture-of-experts GPT-2, is an error
 that names the leaf and the ROADMAP item that would port it, never a
 weight silently left behind.
+
+The other direction serves the checkpoints both packages read:
+:func:`gpt2_slots`, :func:`resnet_slots` and :func:`model_slots` place
+every port tensor at its JAX ``TrainState`` leaf (path, layer of a
+scan-stacked leaf, layout map), :func:`gpt2_params_to_jax` and
+:func:`resnet_params_to_jax` are the inverses of the converters above,
+and :func:`optimizer_layout` names the optax state (``mu``, ``nu``,
+``count``, ``trace``) that a port optimizer's state stands for.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -212,3 +221,243 @@ def _resnet_kind(module: str):
 # flax's auto-names inside a block -> the port's attribute names
 _RESNET_NAMES = {f"{kind}_{i}": f"{short}{i}" for i in range(3)
                  for kind, short in (("Conv", "conv"), ("BatchNorm", "bn"))}
+
+
+# --------------------------------------------------------------------------
+# The other direction: the port's state under the JAX TrainState's leaves.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    """Where one port tensor lives in the JAX ``TrainState``: the tree
+    (``"params"`` or ``"batch_stats"``), the path inside it, the layer
+    it fills of a scan-stacked leaf (``None``: the whole leaf), the
+    stack's depth, and the two layout maps (port -> JAX, JAX -> port)
+    for one layer's array."""
+
+    tree: str
+    path: Tuple[str, ...]
+    layer: Optional[int]
+    depth: int
+    to_jax: Callable[[np.ndarray], np.ndarray]
+    from_jax: Callable[[np.ndarray], np.ndarray]
+
+    def leaf_shape(self, port_shape) -> Tuple[int, ...]:
+        """The JAX leaf's full shape, from the port tensor's shape."""
+        one = self.to_jax(np.empty(port_shape, np.float32)).shape
+        return one if self.layer is None else (self.depth,) + one
+
+
+def _same(a):
+    return a
+
+
+def gpt2_slots(cfg) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``GPT2LMHead``: the scan-stacked JAX
+    layout (``blocks/block/...`` with a leading ``[L]``), the one the
+    JAX recipe trains."""
+    D, H = cfg.hidden_size, cfg.num_heads
+    L, hd = cfg.num_layers, cfg.hidden_size // cfg.num_heads
+    top = {
+        "wte.weight": ("wte", "embedding"), "wpe.weight": ("wpe", "embedding"),
+        "ln_f.weight": ("ln_f", "scale"), "ln_f.bias": ("ln_f", "bias"),
+    }
+    slots = {k: Slot("params", p, None, 0, _same, _same)
+             for k, p in top.items()}
+    T = lambda a: a.T  # noqa: E731 - [out, in] <-> [in, out]
+    per_layer = {
+        "ln1.weight": ("ln1", "scale", _same, _same),
+        "ln1.bias": ("ln1", "bias", _same, _same),
+        "ln2.weight": ("ln2", "scale", _same, _same),
+        "ln2.bias": ("ln2", "bias", _same, _same),
+        "attn_qkv.weight": ("attn_qkv", "kernel",
+                            lambda w: w.T.reshape(D, 3, H, hd),
+                            lambda k: k.reshape(D, -1).T),
+        "attn_qkv.bias": ("attn_qkv", "bias",
+                          lambda b: b.reshape(3, H, hd),
+                          lambda b: b.reshape(-1)),
+        "attn_out.weight": ("attn_out", "kernel",
+                            lambda w: w.T.reshape(H, hd, D),
+                            lambda k: k.reshape(-1, D).T),
+        "attn_out.bias": ("attn_out", "bias", _same, _same),
+        "mlp_up.weight": ("mlp_up", "kernel", T, T),
+        "mlp_up.bias": ("mlp_up", "bias", _same, _same),
+        "mlp_down.weight": ("mlp_down", "kernel", T, T),
+        "mlp_down.bias": ("mlp_down", "bias", _same, _same),
+    }
+    for i in range(L):
+        for sub, (mod, leaf, fwd, inv) in per_layer.items():
+            slots[f"blocks.{i}.{sub}"] = Slot(
+                "params", ("blocks", "block", mod, leaf), i, L, fwd, inv)
+    return slots
+
+
+_RESNET_JAX_NAMES = {short: jax for jax, short in _RESNET_NAMES.items()}
+
+
+def resnet_slots(names) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for a ``ResNet``'s parameters and running
+    statistics, given its ``state_dict`` names: conv weights
+    ``[O, I, kh, kw]`` are JAX ``[kh, kw, I, O]`` kernels, the head's
+    ``[out, in]`` an ``[in, out]`` kernel, a norm's weight/bias its
+    ``scale``/``bias`` and its running mean/var the ``batch_stats``
+    ``mean``/``var``."""
+    conv = (lambda w: w.transpose(2, 3, 1, 0),
+            lambda k: k.transpose(3, 2, 0, 1))
+    T = (lambda a: a.T, lambda a: a.T)
+    leaf_of = {"running_mean": ("batch_stats", "mean"),
+               "running_var": ("batch_stats", "var"),
+               "bias": ("params", "bias")}
+    slots = {}
+    for name in names:
+        *mods, leaf = name.split(".")
+        jmods = tuple(_RESNET_JAX_NAMES.get(m, m) for m in mods)
+        kind = _resnet_kind(jmods[-1])
+        if kind == "bn":
+            tree, jleaf = leaf_of.get(leaf, ("params", "scale"))
+            maps = (_same, _same)
+        elif kind == "head":
+            tree, jleaf = "params", "kernel" if leaf == "weight" else "bias"
+            maps = T if leaf == "weight" else (_same, _same)
+        elif kind == "conv" and leaf == "weight":
+            tree, jleaf, maps = "params", "kernel", conv
+        else:
+            raise NotImplementedError(
+                f"resnet_slots: no JAX leaf for {name!r} (ROADMAP A3)")
+        slots[name] = Slot(tree, jmods + (jleaf,), None, 0, *maps)
+    return slots
+
+
+def model_slots(model) -> Dict[str, Slot]:
+    """The slots of a ``GPT2LMHead`` or a ``ResNet`` (or either inside
+    ``DistributedDataParallel``): every entry of its ``state_dict``."""
+    from pytorch_distributed_tpu_torch.models.gpt2 import GPT2LMHead
+    from pytorch_distributed_tpu_torch.models.resnet import ResNet
+
+    model = getattr(model, "module", model)
+    if isinstance(model, GPT2LMHead):
+        slots = gpt2_slots(model.config)
+    elif isinstance(model, ResNet):
+        slots = resnet_slots(model.state_dict().keys())
+    else:
+        raise NotImplementedError(
+            f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
+            "the port cover GPT-2 and ResNet (ROADMAP A5)")
+    missing = set(model.state_dict()) - set(slots)
+    if missing:
+        raise NotImplementedError(
+            f"model_slots: port tensors without a JAX leaf: {sorted(missing)}"
+            " (ROADMAP A5)")
+    return slots
+
+
+def _stacked(sd, slots, tree: str) -> dict:
+    """The nested JAX tree ``tree`` from a port state_dict."""
+    out: dict = {}
+    stacks: Dict[Tuple[str, ...], list] = {}
+    for name, slot in slots.items():
+        if slot.tree != tree:
+            continue
+        arr = np.ascontiguousarray(slot.to_jax(
+            np.asarray(sd[name].detach().cpu().float().numpy())))
+        if slot.layer is None:
+            node = out
+            for k in slot.path[:-1]:
+                node = node.setdefault(k, {})
+            node[slot.path[-1]] = arr
+        else:
+            stacks.setdefault(slot.path, [None] * slot.depth)[slot.layer] = arr
+    for path, layers in stacks.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack(layers)
+    return out
+
+
+def gpt2_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`gpt2_params_from_jax`: the port's
+    ``GPT2LMHead`` state_dict as JAX ``GPT2LMHead`` params (f32 numpy,
+    the scan-stacked layout)."""
+    slots = gpt2_slots(cfg)
+    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
+    if left or missing:
+        raise NotImplementedError(
+            f"gpt2_params_to_jax: tensors the JAX model has no leaf for: "
+            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
+            "(ROADMAP A7)")
+    return _stacked(state_dict, slots, "params")
+
+
+def resnet_params_to_jax(state_dict) -> Tuple[dict, dict]:
+    """The inverse of :func:`resnet_params_from_jax`: the port's ResNet
+    state_dict as JAX ``(params, batch_stats)``."""
+    slots = resnet_slots(state_dict.keys())
+    return (_stacked(state_dict, slots, "params"),
+            _stacked(state_dict, slots, "batch_stats"))
+
+
+# --------------------------------------------------------------------------
+# Optimizer state and step under optax's names.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerLayout:
+    """Where a port optimizer's state lives in the JAX ``opt_state``.
+
+    ``moments`` maps the torch per-parameter state key to the JAX path
+    prefix its per-parameter tree hangs under (``exp_avg`` ->
+    ``opt_state/1/0/mu`` for ``chain(clip_by_global_norm, adamw)``);
+    ``count`` is the path of the optax update count (one scalar, where
+    torch keeps a ``step`` per parameter), ``schedule_count`` that of a
+    learning-rate schedule's own count, when there is one."""
+
+    moments: Dict[str, Tuple[str, ...]]
+    count: Optional[Tuple[str, ...]]
+    schedule_count: Optional[Tuple[str, ...]]
+
+
+def unwrap_optimizer(optimizer):
+    """(clipped?, the optimizer that holds this rank's state, the
+    ``ZeroRedundancyOptimizer`` around it or None)."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    from pytorch_distributed_tpu_torch.optim import _ClippedOptimizer
+
+    clipped = isinstance(optimizer, _ClippedOptimizer)
+    inner = optimizer.optimizer if clipped else optimizer
+    zero = inner if isinstance(inner, ZeroRedundancyOptimizer) else None
+    return clipped, (zero.optim if zero is not None else inner), zero
+
+
+def optimizer_layout(optimizer) -> OptimizerLayout:
+    """The optax state a port optimizer stands for:
+    ``AdamW`` is ``optax.adamw`` (``chain(scale_by_adam,
+    add_decayed_weights, scale_by_learning_rate)``), ``SGD`` is
+    ``optax.sgd`` (``chain(trace, scale_by_learning_rate)``), and
+    ``clip_grad_norm`` puts either second in
+    ``chain(clip_by_global_norm, ...)``."""
+    clipped, local, _ = unwrap_optimizer(optimizer)
+    base = ("opt_state", "1") if clipped else ("opt_state",)
+    sched = getattr(local, "schedule", None) is not None
+    if isinstance(local, torch.optim.AdamW):
+        adam = base + ("0",)
+        return OptimizerLayout(
+            {"exp_avg": adam + ("mu",), "exp_avg_sq": adam + ("nu",)},
+            adam + ("count",), base + ("2", "count") if sched else None)
+    if isinstance(local, torch.optim.SGD):
+        momentum = local.param_groups[0]["momentum"]
+        return OptimizerLayout(
+            {"momentum_buffer": base + ("0", "trace")} if momentum else {},
+            None, base + ("1", "count") if sched else None)
+    raise NotImplementedError(
+        f"no optax layout for {type(local).__name__}: checkpoints cover "
+        "AdamW and SGD (ROADMAP A4)")
+
+
+def leaf_name(*path: str) -> str:
+    """The JAX checkpoint's leaf name for a TrainState path: its parts
+    joined by ``_`` (``train/checkpoint.py``'s ``_leaf_files``)."""
+    return "_".join(path)

@@ -13,7 +13,9 @@ to ``policy.compute_dtype``; LayerNorm takes its statistics in f32 and
 returns the compute dtype; the tied head multiplies in the compute dtype
 and returns f32 logits. Dropout (residuals and embeddings only, never
 the attention weights) draws its masks from the ``generator`` the
-caller passes, so a step's masks depend on its seed alone.
+caller passes, so a step's masks depend on its seed alone. With
+``config.remat`` each block runs under ``torch.utils.checkpoint``
+(``models/scan.py``), its generator replayed in the recompute.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorch_distributed_tpu_torch.models.scan import remat_call
 from pytorch_distributed_tpu_torch.ops.attention import attention
 from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
@@ -47,6 +50,9 @@ class GPT2Config:
     num_heads: int = 16
     dropout_rate: float = 0.1
     layer_norm_eps: float = 1e-5
+    # recompute each block's activations in the backward (models/scan.py)
+    remat: bool = False
+    remat_policy: str = "full"  # full | dots | dots_no_batch
     # > 0 turns every FFN into a mixture of experts: not ported
     moe_experts: int = 0
 
@@ -270,9 +276,15 @@ class GPT2LMHead(nn.Module):
         x = self.wte(input_ids) + self.wpe(positions)
         x = dropout(x, cfg.dropout_rate, train, generator)
         x = x.to(self.policy.compute_dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, segment_ids, train=train, generator=generator,
-                      attn_impl=attn_impl)
+            if remat:
+                x = remat_call(block, x, segment_ids, train=train,
+                               generator=generator, attn_impl=attn_impl,
+                               policy=cfg.remat_policy)
+            else:
+                x = block(x, segment_ids, train=train, generator=generator,
+                          attn_impl=attn_impl)
         x = self.ln_f(x)
         if return_hidden:
             return x.to(self.policy.output_dtype)

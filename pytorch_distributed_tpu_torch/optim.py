@@ -14,7 +14,13 @@ part of ``pytorch_distributed_tpu/optim.py`` the training slice uses.
 * :func:`clip_grad_norm` wraps an optimizer so every ``step()`` first
   scales the gradients by ``max_norm / norm`` when their global norm
   exceeds ``max_norm`` (``optax.clip_by_global_norm``: no epsilon, unlike
-  ``torch.nn.utils.clip_grad_norm_``).
+  ``torch.nn.utils.clip_grad_norm_``). Under ZeRO-1 it wraps the
+  ``ZeroRedundancyOptimizer``, whose ``param_groups`` hold every
+  parameter, never the per-rank optimizer inside it: a norm over one
+  rank's shard would clip by the wrong factor without an error.
+* :func:`AdamW` and :func:`SGD` also take a list of param-group dicts,
+  which is how ``ZeroRedundancyOptimizer`` builds its per-rank optimizer
+  (``optimizer_class(groups, **defaults)``).
 * :func:`no_decay_mask` is the "no decay for biases and norms" split over
   the port's parameter names.
 
@@ -59,7 +65,15 @@ def no_decay_mask(patterns: Sequence[str] = DEFAULT_NO_DECAY):
 def _param_groups(params, weight_decay: float,
                   no_decay: Optional[Sequence[str]]):
     """Parameters -> torch param groups; with ``no_decay`` (which needs a
-    module, for the names) the matching ones get weight decay 0."""
+    module, for the names) the matching ones get weight decay 0. Param
+    groups given as dicts (as ``ZeroRedundancyOptimizer`` builds its
+    per-rank optimizer) pass through."""
+    if not isinstance(params, torch.nn.Module):
+        params = list(params)
+        if params and isinstance(params[0], dict):
+            if no_decay is not None:
+                raise ValueError("no_decay needs the module, not groups")
+            return [dict(g) for g in params]
     if no_decay is None:
         if isinstance(params, torch.nn.Module):
             params = params.parameters()

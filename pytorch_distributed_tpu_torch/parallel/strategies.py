@@ -1,4 +1,4 @@
-"""Data parallelism: the port of ``DataParallel`` in
+"""Data parallelism: the port of ``DataParallel`` and ``ZeRO1`` in
 ``pytorch_distributed_tpu/parallel/strategies.py``.
 
 The JAX strategy is a choice of shardings on one mesh: replicated
@@ -14,8 +14,15 @@ BatchNorm statistics are over the global batch in the JAX model (the
 batch-axis mean lowers to a psum under SPMD); the port's
 ``models.resnet.BatchNorm`` takes them over the process group itself,
 so DDP does not broadcast buffers (``broadcast_buffers=False``): every
-rank's running statistics are already the global ones. ``ZeRO1`` and
-``FSDP`` are not ported (ROADMAP A6).
+rank's running statistics are already the global ones.
+
+:class:`ZeRO1` is DDP for the gradients plus the optimizer state sharded
+over the ranks: :meth:`ZeRO1.optimizer` builds
+``torch.distributed.optim.ZeroRedundancyOptimizer`` over the port's
+optimizer (the reference's own ZeRO-1, BASELINE.json:10). Each rank
+keeps the moments of whole parameters, about ``1/world`` of them, steps
+those, and broadcasts its updated parameters to the others. ``FSDP`` is
+not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -73,11 +80,24 @@ class DataParallel:
 
 
 class ZeRO1(DataParallel):
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "ZeRO-1 (optimizer state sharded over dp) is not ported "
-            "(ROADMAP A6)"
-        )
+    """DDP (:meth:`wrap`) with the optimizer state sharded over the
+    ranks (:meth:`optimizer`)."""
+
+    def optimizer(self, params, optimizer_class=None, **defaults):
+        """``ZeroRedundancyOptimizer`` over ``params`` (a module or its
+        parameters), each rank's shard an ``optimizer_class`` (the port's
+        ``AdamW`` unless given) built with ``defaults``. Clip by the
+        global norm around it (``optim.clip_grad_norm(zero, max_norm)``),
+        never around its shard."""
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        from pytorch_distributed_tpu_torch.optim import AdamW
+
+        if isinstance(params, torch.nn.Module):
+            params = params.parameters()
+        return ZeroRedundancyOptimizer(
+            list(params), optimizer_class=optimizer_class or AdamW,
+            **defaults)
 
 
 class FSDP(DataParallel):

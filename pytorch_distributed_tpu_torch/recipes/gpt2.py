@@ -1,34 +1,56 @@
-"""GPT-2 causal-LM training: the single-device and data-parallel paths
-of ``recipes/gpt2_zero1.py``.
+"""GPT-2 causal-LM training: the port of ``recipes/gpt2_zero1.py``'s
+ZeRO-1, data-parallel and single-device paths.
 
-Synthetic token rows, ``Policy.train()`` (f32 weights and AdamW state,
-bf16 products), gradient clipping at 1.0 then ``adamw(lr)`` with optax's
-default weight decay of 1e-4, as the JAX recipe chains them, microbatch
-accumulation with ``--accum-steps``. Attention runs through the flash
-kernels on the card.
+Synthetic token rows, or a local text corpus (``--text-file``: a byte
+BPE tokenizer trained on it, the model's vocabulary shrunk to the
+tokenizer's; ``--pack`` packs its paragraphs into rows with
+segment-masked attention), ``Policy.train()`` (f32 weights and AdamW
+state, bf16 products), gradient clipping at 1.0 by the global norm then
+``adamw(lr)`` with optax's default weight decay of 1e-4, as the JAX
+recipe chains them, microbatch accumulation with ``--accum-steps``, a
+held-out eval set (seed + 1) after every epoch. Attention runs through
+the flash kernels on the card. ``main`` returns the ``Trainer``, with
+the corpus's tokenizer (or None) as ``trainer.tokenizer``.
 
     python -m pytorch_distributed_tpu_torch.recipes.gpt2 --size medium \\
-        --batch-size 8 --accum-steps 1 --seq-len 1024 --steps-per-epoch 20
+        --batch-size 8 --accum-steps 2 --seq-len 1024 --steps-per-epoch 20 \\
+        --remat --vocab-chunk 8192 --ckpt-dir /tmp/gpt2
 
-``--strategy dp`` trains one process per card under ``torchrun`` (or
-alone, as a world of one) through ``parallel.DataParallel``: DDP, each
-rank taking its share of every global batch. ``--device cpu`` runs the
-plain PyTorch path on the CPU (at ``--size tiny``; gloo for ``dp``). The
-JAX recipe's ZeRO-1 and auto strategies, pipeline stages and text
-corpora are not ported yet and raise.
+``--strategy zero1`` (the default, as in the JAX recipe) is DDP with the
+optimizer state sharded over the ranks (``parallel.ZeRO1``:
+``ZeroRedundancyOptimizer`` over the port's AdamW, clipped by the global
+norm around it); ``dp`` is plain DDP; both run one process per card
+under ``torchrun``, or alone as a world of one. ``single`` is one
+process without a group. ``--remat`` (``--remat-policy full | dots |
+dots_no_batch``) recomputes each block in the backward, ``--vocab-chunk
+C`` takes the chunked-vocab loss (``ops/lm_loss.py``) in training and
+eval. ``--ckpt-dir`` checkpoints after every epoch in the format both
+packages read, restores the newest intact checkpoint first, and on
+SIGTERM checkpoints and exits ``EX_TEMPFAIL`` (75). ``--device cpu``
+runs the plain PyTorch path on the CPU (at ``--size tiny``; gloo).
+``--sample`` (GPT-2 decode, ROADMAP A8), ``--strategy auto`` and
+``--pp`` (ROADMAP A10) raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
 import torch
 
-from pytorch_distributed_tpu_torch.data import DataLoader, SyntheticTextDataset
+from pytorch_distributed_tpu_torch.data import (
+    ArrayDataset,
+    DataLoader,
+    SyntheticTextDataset,
+    TokenizedTextDataset,
+    Tokenizer,
+    pack_documents,
+)
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
-from pytorch_distributed_tpu_torch.parallel import DataParallel
+from pytorch_distributed_tpu_torch.parallel import DataParallel, ZeRO1
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 from pytorch_distributed_tpu_torch.runtime.prng import seed_all
@@ -37,7 +59,9 @@ from pytorch_distributed_tpu_torch.train import (
     TrainerConfig,
     TrainState,
     build_train_step,
+    causal_lm_eval_step,
     causal_lm_loss_fn,
+    fit_elastic,
 )
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
 
@@ -65,19 +89,29 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default=None,
                    help="the CUDA card unless given (e.g. 'cpu')")
-    p.add_argument("--strategy", choices=("single", "zero1", "dp", "auto"),
-                   default="single")
+    p.add_argument("--strategy", choices=("zero1", "dp", "single", "auto"),
+                   default="zero1")
     p.add_argument("--pp", type=int, default=1, help="pipeline stages")
-    p.add_argument("--text-file", default=None)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute block activations in the backward")
+    p.add_argument("--remat-policy", choices=("full", "dots",
+                   "dots_no_batch"), default="full",
+                   help="what remat saves (implies --remat when not full)")
+    p.add_argument("--pack", action="store_true",
+                   help="pack paragraph documents into rows with "
+                        "segment-masked attention (needs --text-file)")
+    p.add_argument("--vocab-chunk", type=int, default=None,
+                   help="chunked-vocab loss: never form [B, S, V] logits")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--sample", type=int, default=0, metavar="N",
+                   help="generate N tokens at the end (not ported)")
+    p.add_argument("--text-file", default=None,
+                   help="train on this local text corpus (byte BPE)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    if args.strategy == "zero1":
-        raise NotImplementedError(
-            "--strategy zero1: ZeRO-1 is not ported (ROADMAP A6)"
-        )
     if args.strategy == "auto":
         raise NotImplementedError(
             "--strategy auto: the cost-model planner is not ported "
@@ -87,14 +121,15 @@ def main(argv=None) -> Trainer:
         raise NotImplementedError(
             "--pp: pipeline parallelism is not ported (ROADMAP A10)"
         )
-    if args.text_file:
+    if args.sample:
         raise NotImplementedError(
-            "--text-file: the tokenizer and text datasets are not ported "
-            "(ROADMAP A2)"
+            "--sample: GPT-2 KV-cache decode is not ported (ROADMAP A8)"
         )
+    if args.pack and not args.text_file:
+        raise SystemExit("--pack needs --text-file (documents to pack)")
     seed_all(args.seed)
     device = dist.rank_device(args.device)
-    own_group = args.strategy == "dp" and not dist.is_initialized()
+    own_group = args.strategy != "single" and not dist.is_initialized()
     if own_group:
         dist.init_process_group(device=device)
     try:
@@ -104,38 +139,98 @@ def main(argv=None) -> Trainer:
             dist.destroy_process_group()
 
 
+def _datasets(args, cfg, seq_len):
+    """(config, train set, eval set, tokenizer): the synthetic stream (no
+    tokenizer), or the corpus's windows or packed paragraphs, whose BPE
+    tokenizer also sets the vocab."""
+    if not args.text_file:
+        n = (args.steps_per_epoch or 100) * args.batch_size
+        ds = SyntheticTextDataset(n=n, seq_len=seq_len,
+                                  vocab_size=cfg.vocab_size, seed=args.seed)
+        eval_ds = SyntheticTextDataset(
+            n=max(args.batch_size, 64), seq_len=seq_len,
+            vocab_size=cfg.vocab_size, seed=args.seed + 1)   # held out
+        return cfg, ds, eval_ds, None
+    with open(args.text_file, encoding="utf-8") as f:
+        corpus = f.read()
+    tokenizer = Tokenizer.train(corpus, vocab_size=min(cfg.vocab_size, 8192))
+    cfg = dataclasses.replace(cfg, vocab_size=tokenizer.vocab_size)
+    if args.pack:
+        docs = [tokenizer.encode(p) for p in corpus.split("\n\n")
+                if p.strip()]
+        packed = pack_documents(docs, seq_len)
+        if args.steps_per_epoch:
+            keep = args.steps_per_epoch * args.batch_size
+            packed = {k: v[:keep] for k, v in packed.items()}
+        rows = packed["input_ids"].shape[0]
+        if rows < args.batch_size:
+            raise SystemExit(
+                f"corpus packs into only {rows} row(s) of {seq_len}, fewer "
+                f"than --batch-size {args.batch_size}: the drop-last loader "
+                "would train zero steps")
+        ds = ArrayDataset(**packed)
+        logger.info("packed corpus: %d documents into %d rows of %d "
+                    "(vocab %d)", len(docs), rows, seq_len,
+                    tokenizer.vocab_size)
+    else:
+        ds = TokenizedTextDataset(
+            corpus, tokenizer, seq_len, stride=seq_len // 2,
+            max_windows=(args.steps_per_epoch * args.batch_size
+                         if args.steps_per_epoch else None))
+        logger.info("text corpus: %d tokens, vocab %d, %d windows",
+                    ds.num_tokens, tokenizer.vocab_size, len(ds))
+    # the JAX recipe's choice: eval on the training distribution
+    return cfg, ds, ds, tokenizer
+
+
 def _train(args, device) -> Trainer:
     cfg = SIZES[args.size]()
+    if args.remat or args.remat_policy != "full":
+        cfg = dataclasses.replace(cfg, remat=True,
+                                  remat_policy=args.remat_policy)
     seq_len = min(args.seq_len, cfg.n_positions)
+    cfg, ds, eval_ds, tokenizer = _datasets(args, cfg, seq_len)
     policy = Policy.train()
     model = GPT2LMHead(cfg, device=device, policy=policy)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
-    optimizer = clip_grad_norm(
-        AdamW(model, lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY), 1.0
-    )
-    if args.strategy == "dp":
-        model = DataParallel(device).wrap(model)
-    n = (args.steps_per_epoch or 100) * args.batch_size
-    ds = SyntheticTextDataset(
-        n=n, seq_len=seq_len, vocab_size=cfg.vocab_size, seed=args.seed
-    )
+    net = model
+    if args.strategy == "zero1":
+        strategy = ZeRO1(device)
+        optimizer = strategy.optimizer(model, AdamW, lr=args.lr,
+                                       weight_decay=ADAMW_WEIGHT_DECAY)
+        net = strategy.wrap(model)
+    else:
+        optimizer = AdamW(model, lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY)
+        if args.strategy == "dp":
+            net = DataParallel(device).wrap(model)
+    optimizer = clip_grad_norm(optimizer, 1.0)
     trainer = Trainer(
-        TrainState(model, optimizer, policy=policy),
-        build_train_step(causal_lm_loss_fn(model),
-                         accum_steps=args.accum_steps),
+        TrainState(net, optimizer, policy=policy),
+        build_train_step(
+            causal_lm_loss_fn(net, vocab_chunk_size=args.vocab_chunk),
+            accum_steps=args.accum_steps),
         DataLoader(ds, args.batch_size, seed=args.seed, sharding=device),
+        eval_step=causal_lm_eval_step(model,
+                                      vocab_chunk_size=args.vocab_chunk),
+        eval_loader=DataLoader(eval_ds, args.batch_size, shuffle=False,
+                               sharding=device),
         config=TrainerConfig(
             epochs=args.epochs, log_every=args.log_every,
             max_steps_per_epoch=args.steps_per_epoch,
+            ckpt_dir=args.ckpt_dir,
         ),
     )
+    trainer.tokenizer = tokenizer   # the corpus's BPE, or None
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("GPT-2 %s: %d params on %s, batch %d x seq %d, accum %d, "
-                "%s over %d rank(s)", args.size, n_params, device,
-                args.batch_size, seq_len, args.accum_steps, args.strategy,
-                dist.get_world_size())
-    trainer.fit()
-    logger.info("done: step=%d", trainer.state.step)
+                "%s over %d rank(s), remat %s, vocab chunk %s", args.size,
+                n_params, device, args.batch_size, seq_len, args.accum_steps,
+                args.strategy, dist.get_world_size(),
+                cfg.remat_policy if cfg.remat else "off", args.vocab_chunk)
+    trainer.restore_checkpoint()
+    fit_elastic(trainer)
+    logger.info("done: step=%d eval=%s", trainer.state.step,
+                trainer.last_eval_metrics)
     return trainer
 
 

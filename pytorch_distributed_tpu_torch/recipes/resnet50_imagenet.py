@@ -19,9 +19,12 @@ evaluation pass on the running statistics after every epoch.
         --device cpu --image-size 32 --batch-size 8 --steps-per-epoch 2
 
 ``--batch-size`` is the global batch; every rank takes its share. Alone
-(no torchrun environment) the recipe is a world of one. ``--strategy
-zero1|auto``, a real ``--data-dir``, ``--ema-decay``,
-``--tensorboard-dir`` and ``--ckpt-dir`` are not ported yet and raise.
+(no torchrun environment) the recipe is a world of one. ``--ckpt-dir``
+checkpoints after every epoch (with the sampler cursor), in the format
+both packages read, restores the newest intact checkpoint first, and on
+SIGTERM checkpoints and exits ``EX_TEMPFAIL`` (75). ``--strategy
+zero1|auto``, a real ``--data-dir``, ``--ema-decay`` and
+``--tensorboard-dir`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from pytorch_distributed_tpu_torch.train import (
     TrainerConfig,
     TrainState,
     build_train_step,
+    fit_elastic,
 )
 from pytorch_distributed_tpu_torch.train.losses import (
     classification_eval_step,
@@ -103,8 +107,8 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     refusals = (
-        (args.strategy == "zero1", "--strategy zero1: ZeRO-1 is not "
-         "ported (ROADMAP A6)"),
+        (args.strategy == "zero1", "--strategy zero1: ZeRO-1 for the "
+         "ResNet recipe is not ported (ROADMAP A6)"),
         (args.strategy == "auto", "--strategy auto: the cost-model "
          "planner is not ported (ROADMAP A10)"),
         (args.data_dir is not None, "--data-dir: real ImageNet folders "
@@ -114,8 +118,6 @@ def _refuse_unported(args) -> None:
          "(ROADMAP A5)"),
         (args.tensorboard_dir is not None, "--tensorboard-dir: the "
          "trainer's metric writers are not ported (ROADMAP A5)"),
-        (args.ckpt_dir is not None, "--ckpt-dir: checkpoints are not "
-         "ported (ROADMAP A5)"),
     )
     for refused, why in refusals:
         if refused:
@@ -199,9 +201,11 @@ def _train(args, device: torch.device) -> Trainer:
                                            batch_transform=eval_normalizer),
         eval_loader=eval_loader,
         config=TrainerConfig(epochs=args.epochs, log_every=args.log_every,
-                             max_steps_per_epoch=args.steps_per_epoch),
+                             max_steps_per_epoch=args.steps_per_epoch,
+                             ckpt_dir=args.ckpt_dir),
     )
-    trainer.fit()
+    trainer.restore_checkpoint()
+    fit_elastic(trainer)
     if dist.get_rank() == 0:
         logger.info("done: step=%d %s", trainer.state.step,
                     trainer.last_eval_metrics)

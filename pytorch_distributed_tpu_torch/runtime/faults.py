@@ -1,6 +1,6 @@
 """Deterministic, seeded fault injection at named sites: the port's own
 copy of the part of ``pytorch_distributed_tpu/runtime/faults.py`` that
-the serve engine calls.
+the serve engine and the checkpoint calls.
 
 Production code calls :func:`check` at named sites; a chaos run arms a
 subset of them with seeded probability/count budgets. Unarmed (the
@@ -15,8 +15,11 @@ or, in tests, ``with faults.injected("serve.prefill:count=1"): ...``.
 Grammar: ``site[:key=value,...]`` joined by ``;``; options ``p``
 (firing probability, default 1.0), ``count`` (firing budget), ``after``
 (skip the first N eligible checks), ``mode`` (``raise``: raise
-:class:`InjectedFault`, the default; ``kill``: ``os._exit``) and
-``match`` (only checks whose ``path`` contains this substring).
+:class:`InjectedFault`, the default; ``kill``: ``os._exit``;
+``truncate``: cut the site's file to half its length; ``bitflip``: flip
+one byte in the middle of it; the last two report success, so only a
+checksum can catch them) and ``match`` (only checks whose ``path``
+contains this substring).
 Each site draws from its own generator seeded by ``(seed, crc32(site))``.
 
 Sites:
@@ -27,6 +30,13 @@ Sites:
                      (FAILED), the engine keeps serving
 ``serve.decode``     per request per decode tick, before its sampled
                      token is accepted — same evict-and-continue contract
+``ckpt.write_shard`` after each shard file is written and checksummed
+                     (``train/ckpt_io.py``, ``train/checkpoint.py``);
+                     raise/kill abort the save mid-write,
+                     truncate/bitflip damage the file silently
+``ckpt.swing``       inside the rename window of ``ckpt_io._swing``
+                     (between ``final -> old`` and ``tmp -> final``)
+``ckpt.read_shard``  before each shard is read on restore
 ================== ====================================================
 """
 
@@ -50,8 +60,9 @@ ENV_SEED = "PTD_FAULTS_SEED"
 #: exit status of ``mode=kill``
 KILLED_EXIT = 113
 
-KNOWN_SITES = ("serve.prefill", "serve.decode")
-_MODES = ("raise", "kill")
+KNOWN_SITES = ("serve.prefill", "serve.decode", "ckpt.write_shard",
+               "ckpt.swing", "ckpt.read_shard")
+_MODES = ("raise", "kill", "truncate", "bitflip")
 
 
 class InjectedFault(RuntimeError):
@@ -180,7 +191,8 @@ def injected(spec: str, *, seed: int = 0):
 
 def check(site: str, path: Optional[str] = None) -> None:
     """The production fault site: no-op unless ``site`` is armed and its
-    budgets elect this check."""
+    budgets elect this check. ``path`` (a file, where the site has one)
+    feeds ``match`` and the damaging modes."""
     if _plan is None:
         return
     s = _plan.get(site)
@@ -193,7 +205,28 @@ def check(site: str, path: Optional[str] = None) -> None:
     )
     if s.mode == "kill":
         os._exit(KILLED_EXIT)
-    raise InjectedFault(site, path)
+    if s.mode == "raise":
+        raise InjectedFault(site, path)
+    _corrupt(path, s.mode)
+
+
+def _corrupt(path: Optional[str], mode: str) -> None:
+    """Damage ``path`` silently: cut it to half (``truncate``) or flip the
+    byte in its middle (``bitflip``)."""
+    if not path or not os.path.isfile(path):
+        return
+    size = os.path.getsize(path)
+    if size == 0:
+        return
+    with open(path, "r+b") as f:
+        if mode == "truncate":
+            f.truncate(max(size // 2, 1))
+        else:
+            off = size // 2
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0xFF]))
 
 
 _env_spec = os.environ.get(ENV_SPEC)

@@ -1,8 +1,23 @@
 """The training slices: state, the causal-LM and classifier losses, the
-step builder and the fit loop."""
+step builder, the fit loop, checkpoints and preemption."""
 
+from pytorch_distributed_tpu_torch.train.checkpoint import (
+    CheckpointCorrupted,
+    load_sampler_cursor,
+    restore_checkpoint,
+    save_checkpoint,
+    save_sampler_cursor,
+    verify_checkpoint,
+)
+from pytorch_distributed_tpu_torch.train.elastic import (
+    EX_TEMPFAIL,
+    Preempted,
+    PreemptionHandler,
+    fit_elastic,
+)
 from pytorch_distributed_tpu_torch.train.losses import (
     accuracy,
+    causal_lm_eval_step,
     causal_lm_loss_fn,
     classification_eval_step,
     classification_loss_fn,
@@ -18,7 +33,10 @@ from pytorch_distributed_tpu_torch.train.trainer import (
 )
 
 __all__ = [
-    "accuracy", "causal_lm_loss_fn", "classification_eval_step",
+    "CheckpointCorrupted", "load_sampler_cursor", "restore_checkpoint",
+    "save_checkpoint", "save_sampler_cursor", "verify_checkpoint",
+    "EX_TEMPFAIL", "Preempted", "PreemptionHandler", "fit_elastic",
+    "accuracy", "causal_lm_eval_step", "causal_lm_loss_fn", "classification_eval_step",
     "classification_loss_fn", "cross_entropy", "topk_accuracy", "TrainState", "Trainer", "TrainerConfig",
     "TrainingDiverged", "build_train_step",
 ]

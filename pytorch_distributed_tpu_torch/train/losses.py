@@ -1,6 +1,6 @@
-"""Losses and metrics: the port of the full-logits path of
-``causal_lm_loss_fn`` and of the classifier losses in
-``pytorch_distributed_tpu/train/losses.py``.
+"""Losses and metrics: the port of ``causal_lm_loss_fn`` (full logits
+or the chunked-vocab loss of ``ops/lm_loss.py``), ``causal_lm_eval_step``
+and the classifier losses in ``pytorch_distributed_tpu/train/losses.py``.
 
 A loss function here is ``loss_fn(batch, generator) -> (loss, aux)``
 with ``aux = {"metrics": {...}}``. It closes over the module, whose
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.data.packing import packed_loss_mask
+from pytorch_distributed_tpu_torch.ops.lm_loss import causal_lm_chunked_loss
 
 
 def masked_token_mean(tok_loss: torch.Tensor, segment_ids) -> torch.Tensor:
@@ -29,6 +30,85 @@ def masked_token_mean(tok_loss: torch.Tensor, segment_ids) -> torch.Tensor:
         return tok_loss.mean()
     valid = packed_loss_mask(segment_ids).to(tok_loss.dtype)
     return (tok_loss * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+#: attributes that look like an untied head under a name
+#: :func:`_lm_projection_weight` does not know: with one present the tied
+#: ``embed`` fallback would project through the wrong weight
+_HEAD_LIKE = ("head", "lm_out", "output_projection", "embed_out")
+
+
+def _lm_projection_weight(model, tied: Optional[bool] = None):
+    """``(projection, vocab_axis)`` of an LM's head in the weight's own
+    layout: GPT-2's tied ``wte`` ``[V, D]``, or an untied ``lm_head``
+    (``nn.Linear``, ``[V, D]`` too: ``vocab_axis`` 0 in the port, where
+    the JAX kernel is ``[D, V]``). The tied ``embed`` fallback refuses
+    when ``tied`` says untied or a head-like attribute exists, as the
+    JAX resolver does: the loss would train against the wrong logits
+    without an error."""
+    model = getattr(model, "module", model)
+    if hasattr(model, "wte"):
+        return model.wte.weight, 0
+    if hasattr(model, "lm_head"):
+        return model.lm_head.weight, 0
+    if hasattr(model, "embed"):
+        head_like = [k for k in _HEAD_LIKE if hasattr(model, k)]
+        if tied is False or (tied is None and head_like):
+            reason = (f"head-like attributes {head_like} exist" if head_like
+                      else "the model reports tie_word_embeddings=False")
+            raise ValueError(
+                f"refusing the tied 'embed' projection: {reason}; the "
+                "chunked-vocab loss would use tied-embedding logits for an "
+                "untied model (pass vocab_chunk_size=None)")
+        return model.embed.weight, 0
+    raise ValueError(
+        "model has neither a tied 'wte'/'embed' embedding nor an 'lm_head'; "
+        "pass vocab_chunk_size=None")
+
+
+def _packed_extra(batch) -> dict:
+    seg = batch.get("segment_ids")
+    if seg is None:
+        return {}
+    extra = {"segment_ids": seg}
+    if "positions" in batch:
+        extra["positions"] = batch["positions"]
+    return extra
+
+
+def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
+                     generator=None, attn_impl=None):
+    """The chunked loss's shared train/eval body: the model's hidden
+    states in the compute dtype, projected chunk by chunk through the
+    head in its own layout."""
+    core = getattr(model, "module", model)
+    kw = dict(train=train, return_hidden=True, attn_impl=attn_impl,
+              **_packed_extra(batch))
+    if train:
+        kw["generator"] = generator
+    hidden = model(ids, **kw)
+    weight, axis = _lm_projection_weight(
+        core, tied=getattr(getattr(core, "config", None),
+                           "tie_word_embeddings", None))
+    return causal_lm_chunked_loss(
+        hidden.to(core.policy.compute_dtype), weight, ids,
+        chunk_size=chunk_size, vocab_axis=axis,
+        segment_ids=batch.get("segment_ids"))
+
+
+def _full_lm_loss(model, ids, batch, *, train: bool, generator=None,
+                  attn_impl=None):
+    kw = dict(train=train, attn_impl=attn_impl, **_packed_extra(batch))
+    if train:
+        kw["generator"] = generator
+    logits = model(ids, **kw)
+    shift_logits = logits[:, :-1].float()
+    labels = ids[:, 1:].long()
+    tok_loss = F.cross_entropy(
+        shift_logits.reshape(-1, shift_logits.shape[-1]),
+        labels.reshape(-1), reduction="none",
+    ).reshape(labels.shape)
+    return masked_token_mean(tok_loss, batch.get("segment_ids"))
 
 
 def causal_lm_loss_fn(
@@ -42,12 +122,11 @@ def causal_lm_loss_fn(
     """Next-token cross-entropy (shift by one, f32), averaged over every
     target or, for packed batches (``segment_ids`` and ``positions`` from
     ``data.pack_documents``), over the targets inside one document.
-    ``attn_impl`` is passed to the model (``None``: flash on the card)."""
-    if vocab_chunk_size is not None:
-        raise NotImplementedError(
-            "the chunked-vocab loss (ops/lm_loss.py) is not ported "
-            "(ROADMAP A7)"
-        )
+    ``vocab_chunk_size`` runs the model with ``return_hidden=True`` and
+    takes the chunked-vocab loss (``ops/lm_loss.py``), which never forms
+    the ``[B, S, V]`` logits. ``attn_impl`` is passed to the model
+    (``None``: flash on the card). ``model`` may be the module or its
+    ``DistributedDataParallel`` wrapper."""
     if moe_aux_weight > 0.0:
         raise NotImplementedError(
             "mixture-of-experts aux losses are not ported (ROADMAP A10)"
@@ -55,24 +134,42 @@ def causal_lm_loss_fn(
 
     def loss_fn(batch, generator):
         ids = batch[ids_key]
-        seg = batch.get("segment_ids")
-        extra = {}
-        if seg is not None:
-            extra["segment_ids"] = seg
-            if "positions" in batch:
-                extra["positions"] = batch["positions"]
-        logits = model(ids, train=True, generator=generator,
-                        attn_impl=attn_impl, **extra)
-        shift_logits = logits[:, :-1].float()
-        labels = ids[:, 1:].long()
-        tok_loss = F.cross_entropy(
-            shift_logits.reshape(-1, shift_logits.shape[-1]),
-            labels.reshape(-1), reduction="none",
-        ).reshape(labels.shape)
-        loss = masked_token_mean(tok_loss, seg)
+        if vocab_chunk_size is not None:
+            loss = _chunked_lm_loss(model, ids, vocab_chunk_size, batch,
+                                    train=True, generator=generator,
+                                    attn_impl=attn_impl)
+        else:
+            loss = _full_lm_loss(model, ids, batch, train=True,
+                                 generator=generator, attn_impl=attn_impl)
         return loss, {"metrics": {"loss": loss.detach()}}
 
     return loss_fn
+
+
+def causal_lm_eval_step(
+    model,
+    *,
+    ids_key: str = "input_ids",
+    vocab_chunk_size: Optional[int] = None,
+    attn_impl: Optional[str] = None,
+) -> Callable:
+    """``eval_step(state, batch) -> metrics`` for decoder LMs: the mean
+    next-token loss and its ``perplexity``, through the chunked loss
+    when ``vocab_chunk_size`` is given (the eval pass then never forms
+    the logits the chunked train step avoids)."""
+
+    @torch.no_grad()
+    def eval_step(state, batch) -> Dict[str, torch.Tensor]:
+        ids = batch[ids_key]
+        if vocab_chunk_size is not None:
+            loss = _chunked_lm_loss(model, ids, vocab_chunk_size, batch,
+                                    train=False, attn_impl=attn_impl)
+        else:
+            loss = _full_lm_loss(model, ids, batch, train=False,
+                                 attn_impl=attn_impl)
+        return {"loss": loss, "perplexity": torch.exp(loss)}
+
+    return eval_step
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -28,16 +28,28 @@ averaged over the ranks of a process group, raises
 :class:`TrainingDiverged` after ``halt_on_nonfinite`` consecutive
 non-finite logged losses, and with an ``eval_step`` and ``eval_loader``
 evaluates after every epoch (``last_eval_metrics``: sample-weighted
-means over the whole eval set, summed over the ranks). Checkpoints,
-goodput accounting and the watchdog wait for ROADMAP A5.
+means over the whole eval set, summed over the ranks).
+
+With ``ckpt_dir`` it checkpoints (``train/checkpoint.py``, span
+``train.checkpoint``, left out of the logged ``step_time_s``) every
+``ckpt_every_steps`` steps and after every epoch, with the sampler
+cursor beside it (epoch and batches taken, under the step it belongs
+to); :meth:`Trainer.restore_checkpoint` (span
+``train.restore``) first finishes a save a kill interrupted, then
+restores the newest candidate that passes verification, and the next
+``fit`` starts at the cursor's batch (the sampler skips the batches
+already taken, unfetched). With ``handle_preemption`` a SIGTERM makes
+the loop checkpoint at the next step boundary and raise
+``elastic.Preempted``. Goodput accounting and the watchdog wait for
+ROADMAP A5.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import itertools
 import math
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -47,6 +59,8 @@ from torch.nn.parallel import DistributedDataParallel
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime import tracing
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for
+from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
+from pytorch_distributed_tpu_torch.train import elastic
 from pytorch_distributed_tpu_torch.train.train_state import TrainState
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
 
@@ -133,6 +147,9 @@ class TrainerConfig:
     max_steps_per_epoch: Optional[int] = None
     halt_on_nonfinite: int = 3  # consecutive non-finite logged losses
     # before raising TrainingDiverged (0 disables)
+    ckpt_dir: Optional[str] = None
+    ckpt_every_steps: Optional[int] = None  # None: after each epoch only
+    handle_preemption: bool = True  # SIGTERM -> checkpoint -> Preempted
 
 
 class TrainingDiverged(RuntimeError):
@@ -157,13 +174,144 @@ class Trainer:
         self.history: List[dict] = []
         self.last_eval_metrics: Dict[str, float] = {}
         self._nonfinite_logs = 0
+        # where fit() starts (restore_checkpoint moves it) and the cursor
+        # a checkpoint records: the epoch and the batches it has taken
+        self._first_epoch = 0
+        self._resume_skip_batches = 0
+        self._cursor_epoch = 0
+        self._cursor_offset = 0
+        self._preemption: Optional[elastic.PreemptionHandler] = None
 
+    # -- checkpoints --------------------------------------------------------
+    def save_checkpoint(self, tag: str = "latest") -> Optional[str]:
+        """Checkpoint the state under ``ckpt_dir/tag`` (every rank takes
+        part) and the sampler cursor beside it (rank 0)."""
+        cfg = self.config
+        if cfg.ckpt_dir is None:
+            return None
+        with tracing.span("train.checkpoint", tag=tag):
+            path = ckpt.save_checkpoint(cfg.ckpt_dir, self.state, tag=tag)
+            if dist.get_rank() == 0:
+                ckpt.save_sampler_cursor(
+                    cfg.ckpt_dir, step=self.host_step,
+                    epoch=self._cursor_epoch, offset=self._cursor_offset)
+        logger.info("checkpoint saved: %s (step %d)", path, self.host_step)
+        return path
+
+    def restore_checkpoint(self, tag: str = "latest") -> bool:
+        """Restore the newest intact checkpoint for ``tag``: rank 0 first
+        finishes any swing a kill interrupted, then the candidates are
+        tried newest first, each verified by rank 0 (the verdict is
+        shared, so every rank skips the same ones). False when there is
+        nothing to restore; ``CheckpointCorrupted`` when checkpoints
+        exist and none is restorable."""
+        with tracing.span("train.restore", tag=tag):
+            return self._restore(tag)
+
+    def _restore(self, tag: str) -> bool:
+        ckpt_dir = self.config.ckpt_dir
+        if ckpt_dir is None:
+            return False
+        if dist.get_rank() == 0:
+            recovered = ckpt.recover_stranded_checkpoints(ckpt_dir)
+            if recovered:
+                logger.warning("recovered interrupted checkpoint commit(s): "
+                               "%s", recovered)
+        dist.barrier()
+        candidates = ckpt.restore_candidates(ckpt_dir, tag)
+        device = next(self.state.model.parameters()).device
+        load_errors = []
+        for cand in candidates:
+            ok = 1.0
+            if dist.get_rank() == 0:
+                problems = ckpt.verify_checkpoint(ckpt_dir, cand)
+                if problems:
+                    logger.warning(
+                        "checkpoint %r failed verification (%s): falling "
+                        "back to the next candidate", cand,
+                        "; ".join(problems[:3]))
+                    ok = 0.0
+            if not dist.broadcast(torch.tensor([ok], device=device)).item():
+                continue
+            try:
+                ckpt.restore_checkpoint(ckpt_dir, self.state, tag=cand)
+            except Exception as e:
+                if dist.get_world_size() > 1:
+                    raise   # falling back alone would split the world
+                logger.warning("restoring checkpoint %r failed (%s: %s): "
+                               "falling back to the next candidate", cand,
+                               type(e).__name__, e)
+                load_errors.append(e)
+                continue
+            self._resume_bookkeeping(cand)
+            return True
+        if load_errors:
+            # verified candidates that do not fit this state: a template
+            # mismatch, not damage; surface it
+            raise load_errors[0]
+        if candidates or (tag == "latest" and _damaged(ckpt_dir)):
+            raise ckpt.CheckpointCorrupted(
+                f"checkpoints exist under {ckpt_dir!r} but none is "
+                "restorable: refusing to train from scratch over them")
+        return False
+
+    def _epoch_len(self) -> Optional[int]:
+        """Batches an epoch takes; None when the loader has no length."""
+        try:
+            n = max(len(self.train_loader), 1)
+        except TypeError:
+            return self.config.max_steps_per_epoch
+        if self.config.max_steps_per_epoch:
+            n = min(n, self.config.max_steps_per_epoch)
+        return n
+
+    def _resume_bookkeeping(self, tag: str) -> None:
+        step = int(self.state.step)
+        self.host_step = step
+        epoch_len = self._epoch_len()
+        cursor = ckpt.load_sampler_cursor(self.config.ckpt_dir)
+        if cursor is not None and cursor["step"] == step:
+            epoch, offset = cursor["epoch"], cursor["offset"]
+            if epoch_len is not None and offset >= epoch_len:
+                epoch, offset = epoch + 1, 0   # saved on the boundary
+        else:
+            if cursor is not None:
+                logger.warning(
+                    "sampler cursor is for step %d but the checkpoint is "
+                    "step %d: resuming by the steps-per-epoch count",
+                    cursor["step"], step)
+            epoch, offset = divmod(step, epoch_len) if epoch_len else (0, 0)
+        self._first_epoch = self._cursor_epoch = epoch
+        self._resume_skip_batches = self._cursor_offset = offset
+        logger.info("resumed %r at step %d (epoch %d, skipping %d batches)",
+                    tag, step, epoch, offset)
+
+    def _check_preemption(self) -> None:
+        if self._preemption is not None and self._preemption.requested:
+            self.save_checkpoint()
+            logger.warning("preemption checkpoint written at step %d: "
+                           "exiting for a restart", self.host_step)
+            raise elastic.Preempted(self.host_step)
+
+    # -- loops --------------------------------------------------------------
     def fit(self) -> TrainState:
-        for epoch in range(self.config.epochs):
-            self.train_loader.set_epoch(epoch)
-            self._train_epoch(epoch)
-            if self.eval_step is not None:
-                self.evaluate(epoch)
+        cfg = self.config
+        self._preemption = (elastic.PreemptionHandler().install()
+                            if cfg.handle_preemption else None)
+        try:
+            for epoch in range(self._first_epoch, cfg.epochs):
+                self.train_loader.set_epoch(epoch)
+                self._train_epoch(epoch)
+                # the epoch is taken: a checkpoint from here on resumes at
+                # the next epoch's first batch
+                self._cursor_epoch, self._cursor_offset = epoch + 1, 0
+                if self.eval_step is not None:
+                    self.evaluate(epoch)
+                self.save_checkpoint()
+        finally:
+            if self._preemption is not None:
+                self._preemption.uninstall()
+                self._preemption = None
         return self.state
 
     def _train_epoch(self, epoch: int) -> None:
@@ -171,8 +319,13 @@ class Trainer:
         device = next(self.state.model.parameters()).device
         t_last = time.perf_counter()
         since_log = 0
+        taken, self._resume_skip_batches = self._resume_skip_batches, 0
+        if taken:   # resume: the sampler starts past the batches taken
+            self.train_loader.sampler.load_state_dict(
+                {"epoch": epoch, "offset": taken})
+        self._cursor_epoch, self._cursor_offset = epoch, taken
         batches = iter(self.train_loader)
-        for taken in itertools.count():
+        while True:
             if cfg.max_steps_per_epoch and taken >= cfg.max_steps_per_epoch:
                 break
             with tracing.span("train.data_wait"):
@@ -181,8 +334,11 @@ class Trainer:
                     break
                 batch = {k: v.to(device, non_blocking=True)
                          for k, v in batch.items()}
+            taken += 1
+            self._cursor_offset = taken
             self.state, metrics = self.train_step(self.state, batch)
             self.host_step += 1
+            self._check_preemption()
             since_log += 1
             if cfg.log_every and self.host_step % cfg.log_every == 0:
                 # the sync point: pull the metrics off the card
@@ -201,6 +357,11 @@ class Trainer:
                     " ".join(f"{k}={v:.4f}" for k, v in values.items()),
                     dt * 1e3,
                 )
+            if cfg.ckpt_every_steps and (
+                    self.host_step % cfg.ckpt_every_steps == 0):
+                t_save = time.perf_counter()
+                self.save_checkpoint()
+                t_last += time.perf_counter() - t_save   # no step's time
 
     def evaluate(self, epoch: int) -> Dict[str, float]:
         """One pass of ``eval_step`` over ``eval_loader``: sample-weighted
@@ -246,6 +407,23 @@ class Trainer:
                 "from the last finite checkpoint with a lower LR (set "
                 "TrainerConfig(halt_on_nonfinite=0) to disable)"
             )
+
+
+def _damaged(ckpt_dir: str) -> bool:
+    """A ``latest``/``step-<N>`` directory (or its ``.old``) exists, even
+    with an unreadable manifest: 'everything saved is damaged', not
+    'nothing saved yet'. A ``.tmp`` (an aborted first save) does not
+    count."""
+    if not os.path.isdir(ckpt_dir):
+        return False
+    for name in os.listdir(ckpt_dir):
+        base = name[:-len(".old")] if name.endswith(".old") else name
+        if name.endswith(".tmp"):
+            continue
+        if (base == "latest" or base.startswith("step-")) and os.path.isdir(
+                os.path.join(ckpt_dir, name)):
+            return True
+    return False
 
 
 def _rank_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -90,7 +90,7 @@ def test_gpt2_recipe_dp_equals_single(accum):
     (losses, state), _ = workers.spawn(workers.gpt2_recipe, 2, argv)
     recipe, undo = workers.f32_gpt2_recipe()
     try:
-        trainer = recipe.main(argv)
+        trainer = recipe.main(argv + ["--strategy", "single"])
     finally:
         undo()
     want = [r["loss"] for r in trainer.history]
@@ -155,21 +155,19 @@ def test_resnet_recipe_trains_alone_and_refuses_the_unported():
                         (["--strategy", "auto"], "A10"),
                         (["--data-dir", "imagenet"], "A2"),
                         (["--ema-decay", "0.999"], "A5"),
-                        (["--tensorboard-dir", "tb"], "A5"),
-                        (["--ckpt-dir", "ck"], "A5")):
+                        (["--tensorboard-dir", "tb"], "A5")):
         with pytest.raises(NotImplementedError, match=item):
             resnet50_imagenet.main(base + extra)
-    for strategy, item in (("zero1", "A6"), ("auto", "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            gpt2_recipe.main(["--device", "cpu", "--strategy", strategy])
+    with pytest.raises(NotImplementedError, match="A10"):
+        gpt2_recipe.main(["--device", "cpu", "--strategy", "auto"])
 
 
 def test_unported_strategies_and_axes_refuse():
-    with pytest.raises(RuntimeError, match="process group"):
-        parallel.DataParallel("cpu")
-    for cls in (parallel.ZeRO1, parallel.FSDP):
-        with pytest.raises(NotImplementedError, match="A6"):
+    for cls in (parallel.DataParallel, parallel.ZeRO1):
+        with pytest.raises(RuntimeError, match="process group"):
             cls("cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        parallel.FSDP("cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         MeshSpec(tp=2)
     assert MeshSpec().resolve(4) == MeshSpec(dp=4)

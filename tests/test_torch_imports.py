@@ -58,7 +58,10 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "optim", "runtime.prng", "train.train_state", "train.losses",
             "train.trainer", "recipes.gpt2", "runtime.distributed",
             "runtime.mesh", "data.native_pipeline", "models.resnet",
-            "parallel.strategies", "recipes.resnet50_imagenet"):
+            "parallel.strategies", "recipes.resnet50_imagenet",
+            "ops.lm_loss", "models.scan", "train.ckpt_io",
+            "train.checkpoint", "train.elastic", "utils.integrity",
+            "utils.native_build", "data.tokenizer"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))

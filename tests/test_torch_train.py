@@ -318,7 +318,7 @@ def test_recipe_trains_on_cpu_and_refuses_the_unported():
     trainer = gpt2_recipe.main(base + ["--accum-steps", "2"])
     assert trainer.state.step == 2 and len(trainer.history) == 2
     assert all(np.isfinite(r["loss"]) for r in trainer.history)
-    for extra, item in ((["--strategy", "zero1"], "A6"), (["--pp", "2"],
-                        "A10"), (["--text-file", "x.txt"], "A2")):
+    for extra, item in ((["--strategy", "auto"], "A10"), (["--pp", "2"],
+                        "A10"), (["--sample", "4"], "A8")):
         with pytest.raises(NotImplementedError, match=item):
             gpt2_recipe.main(base + extra)

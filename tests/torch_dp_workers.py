@@ -200,3 +200,94 @@ def spawn(target, world, *args, timeout_s=180.0):
 def numpy_rows(seed, world, shape):
     return np.random.default_rng(seed).normal(
         size=(world,) + shape).astype(np.float32)
+
+
+ZERO_STEPS, ZERO_BATCH, ZERO_SEQ = 3, 8, 16
+
+
+def build_gpt2_step(strategy: str, max_norm: float = 1.0, seed: int = 0):
+    """(model, step, state, batches): a tiny f32 GPT-2 (dropout 0.1 on,
+    einsum attention) with clip(``max_norm``) then AdamW(1e-2, decay
+    1e-4), two microbatches a step, in ``DataParallel`` (``"dp"``) or
+    ``ZeRO1`` (``"zero1"``: the optimizer state sharded over the ranks)
+    over the process group; each batch this rank's share of
+    ``ZERO_STEPS`` seeded global batches."""
+    from pytorch_distributed_tpu_torch import optim
+    from pytorch_distributed_tpu_torch.models.gpt2 import (
+        GPT2Config,
+        GPT2LMHead,
+    )
+    from pytorch_distributed_tpu_torch.parallel import DataParallel, ZeRO1
+    from pytorch_distributed_tpu_torch.runtime.precision import Policy
+    from pytorch_distributed_tpu_torch.train import (
+        TrainState,
+        build_train_step,
+        causal_lm_loss_fn,
+    )
+
+    cfg = GPT2Config.tiny()
+    model = GPT2LMHead(cfg, device="cpu", policy=Policy.full())
+    model.init_weights(torch.Generator().manual_seed(seed))
+    if strategy == "zero1":
+        par = ZeRO1("cpu")
+        opt = par.optimizer(model, optim.AdamW, lr=1e-2, weight_decay=1e-4)
+    else:
+        par = DataParallel("cpu")
+        opt = optim.AdamW(model, lr=1e-2, weight_decay=1e-4)
+    net = par.wrap(model)
+    opt = optim.clip_grad_norm(opt, max_norm)
+    rng = np.random.default_rng(seed + 1)
+    batches = [par.shard_batch({"input_ids": rng.integers(
+        0, cfg.vocab_size, (ZERO_BATCH, ZERO_SEQ)).astype(np.int64)})
+        for _ in range(ZERO_STEPS)]
+    step = build_train_step(causal_lm_loss_fn(net), accum_steps=2)
+    return model, step, TrainState(net, opt, policy=Policy.full()), batches
+
+
+def zero1_vs_ddp(rank, world, port, ckpt_dir, out):
+    """The same steps under DDP and under ZeRO-1; returns each run's
+    parameters and losses, the ZeRO run's moments by parameter name (the
+    ones this rank holds), the shard-local and global gradient norms of
+    one clipped step, and writes the ZeRO state to ``ckpt_dir``."""
+    from pytorch_distributed_tpu_torch import optim
+    from pytorch_distributed_tpu_torch.train import save_checkpoint
+
+    def run(strategy, max_norm):
+        model, step, state, batches = build_gpt2_step(strategy, max_norm)
+        losses = []
+        for batch in batches:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        params = {k: v.detach().numpy().copy()
+                  for k, v in model.named_parameters()}
+        return model, state, losses, params
+
+    def body():
+        _join(rank, world, port)
+        res = {}
+        for max_norm in (1.0, 0.05):   # clipping off at 1.0, on at 0.05
+            _, _, res[f"dp_losses_{max_norm}"], res[f"dp_{max_norm}"] = run(
+                "dp", max_norm)
+            model, state, res[f"zero_losses_{max_norm}"], \
+                res[f"zero_{max_norm}"] = run("zero1", max_norm)
+        zero = state.optimizer.optimizer
+        names = {id(p): n for n, p in model.named_parameters()}
+        res["moments"] = {
+            names[id(p)]: {k: v.numpy().copy() for k, v in s.items()
+                           if k != "step"}
+            for p, s in zero.optim.state.items()}
+        res["steps"] = sorted({int(s["step"])
+                               for s in zero.optim.state.values()})
+        # the norm a clip around this rank's shard would take, against
+        # the global one, and the one the clip around
+        # ZeroRedundancyOptimizer takes (it scales the grads: last)
+        owned = [p.grad for g in zero.optim.param_groups
+                 for p in g["params"] if p.grad is not None]
+        every = [p.grad for p in model.parameters() if p.grad is not None]
+        res["norms"] = (float(optim.global_norm(owned)),
+                        float(optim.global_norm(every)))
+        save_checkpoint(ckpt_dir, state)
+        res["clip_norm"] = float(state.optimizer.clip_())
+        return res
+
+    _run(rank, out, body)
