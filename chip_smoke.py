@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one CUDA card: build its kernels, hold
 each against its plain PyTorch version, serve Llama-3-8B, train
 ResNet-50 data-parallel, run the JAX recipe's GPT-2-medium ZeRO-1
-configuration with checkpoints, and train GPT-2-medium.
+configuration with checkpoints, train GPT-2-medium, and run the JAX
+recipe's Llama-3-8B FSDP full-shard configuration at full width.
 
     python3 chip_smoke.py [--seed N]
 
@@ -33,10 +34,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
    head_dim 64, causal), on packed rows from ``pack_documents``, with a
    ragged ``kv_mask``, at Llama-3-8B's GQA shapes (32/8 heads, head_dim
-   128, S=2048, full), with ``sm_scale=1.0`` and at S=T=1000; the bf16
+   128, S=2048, full), at Llama-3-8B's training shape (8b: B=8,
+   S=T=2048, 32/8 heads, head_dim 128, causal), with ``sm_scale=1.0``
+   and at S=T=1000; the bf16
    forward, dq and dkv must give the same bits on two launches; then each
-   kernel's time at the training shapes beside its plain version's, a
-   bound, and ``scaled_dot_product_attention``'s flash backend: its
+   kernel's time at GPT-2-medium's and at Llama-3-8B's training shapes
+   beside its plain version's, a
+   bound, and ``scaled_dot_product_attention``'s flash backend (K/V
+   expanded to the query heads outside the timed region at Llama's GQA
+   shape, which that backend does not take): its
    forward for the forward kernel, its backward alone (one call that
    computes dq, dk and dv, so the dq and dkv kernels share it) for the
    backward kernels. The kernels and the yardsticks are replayed from a
@@ -112,13 +118,29 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    width on a corpus written here from a seed: 3 steps give finite
    losses and the recipe's tokenizer round-trips the corpus.
 
-Serve, ResNet, 7a and train each set all four kernel counts to 0 just
-before their run and read all four just after; a kernel off the path
-that launched fails the run.
+8. the JAX recipe's Llama-3-8B run (``recipes/llama_fsdp.py --strategy
+   fsdp --remat --vocab-chunk 8192``), last before the ResNet profile:
+   (a) Llama-3-8B at full width and 4 of its 32 layers (1.92 B
+   parameters: one card cannot hold the 8B AdamW state) under
+   ``Policy.train()``, FSDP full-shard at world 1 over NCCL (made on the
+   meta device, each rank drawing its rows of the seeded weights), full
+   remat, vocab chunk 8192, batch 8 x 2048, clip(1.0) then adamw(1e-4,
+   decay 1e-4), 6 steps with one checkpoint at step 3: finite losses,
+   flash launches 8 forward, 4 dq, 4 dkv a step and no paged launch, the
+   median of steps 2-6, tokens/s and peak memory; a fresh model restores
+   step 3 (parameters, both moments, step and cursor equal to the bit)
+   and repeats steps 4-6 to the bit; then ``torch.profiler`` over two
+   steps: device busy ms, idle share, time by kernel family. (b) is
+   phase 3's Llama-shape case and timing.
+
+Serve, ResNet, 7a, train and 8a each set all four kernel counts to 0
+just before their run and read all four just after; a kernel off the
+path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
-``launches_by_path`` per path as read), then the card's name and power
+``launches_by_path`` per path as read, and for the flash kernels their
+numbers ``at_llama_shape``), then the card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -583,9 +605,13 @@ def kernel_phase(device, seed):
 # --------------------------------------------------------------------------
 
 _TRAIN_SHAPE = dict(B=8, S=1024, T=1024, Hq=16, Hkv=16, D=64)
+# Llama-3-8B's training shape (phase 8b): 32 query heads over 8 kv heads
+# of 128, causal, batch 8 x 2048
+_LLAMA_SHAPE = dict(B=8, S=2048, T=2048, Hq=32, Hkv=8, D=128)
 FLASH_CASES = (
     # name, shape, causal, extras
     ("train", _TRAIN_SHAPE, True, {}),
+    ("llama_train", _LLAMA_SHAPE, True, {}),
     ("packed", _TRAIN_SHAPE, True, {"packed": True}),
     ("kv_mask", dict(_TRAIN_SHAPE, B=4), False, {"kv_mask": True}),
     ("gqa_llama", dict(B=2, S=2048, T=2048, Hq=32, Hkv=8, D=128), False, {}),
@@ -708,15 +734,40 @@ def flash_phase(device, seed):
                       f"{lim['max']:g} * max|ref| {scale:.4f}, norm "
                       f"{norm:.3e} <= {lim['norm']:g} -> "
                       f"{'ok' if ok else 'FAIL'}")
-                if name == "train" and dname == "bfloat16":
-                    worst[what] = err
+                if dname == "bfloat16":
+                    worst.setdefault(name, {})[what] = err
             del q, k, v, out, ref, dout, dq, dk, dv, ref_dk, ref_dv, pairs
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with plain: {bad}")
 
-    # time at the training shapes (bf16, causal)
-    shape = _TRAIN_SHAPE
+    records, details = _flash_times(gen, seed, _TRAIN_SHAPE, device,
+                                    worst["train"])
+    details["checks"] = checks
+    # 8b: the same kernels at Llama-3-8B's training shape, beside the
+    # GPT-2 records as their ``at_llama_shape``
+    lrecords, ldetails = _flash_times(gen, seed, _LLAMA_SHAPE, device,
+                                      worst["llama_train"])
+    for rec, lrec in zip(records, lrecords):
+        rec["at_llama_shape"] = {k: lrec[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}
+    details["llama_shape"] = ldetails
+    return records, details
+
+
+def _flash_times(gen, seed, shape, device, worst):
+    """The three kernels at ``shape`` (bf16, causal): bitwise equal over
+    two launches, then each one's time replayed from a CUDA graph beside
+    its eager time, its plain version's, its bound and SDPA's flash
+    backend (K/V expanded to the query heads outside the timed region
+    when the shape has GQA: that backend takes equal head counts)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
     B, S, T, Hq, Hkv, D = (shape[k] for k in ("B", "S", "T", "Hq", "Hkv",
                                               "D"))
     q, k, v, _, _ = _flash_inputs(gen, seed, shape, torch.bfloat16, device,
@@ -760,7 +811,10 @@ def flash_phase(device, seed):
     # is its aten op alone, fed the out and logsumexp of a forward made
     # outside the graph: one call for dq, dk and dv, so the dq and dkv
     # kernels share it (hold dq_ms + dkv_ms against it)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    group = Hq // Hkv
+    qt, kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2)
+                  if t is not q and group > 1 else t.transpose(1, 2)
+                  for t in (q, k, v))
     aten = torch.ops.aten
     lib = aten._scaled_dot_product_flash_attention(
         qt, kt, vt, 0.0, True, False, scale=kw["sm_scale"]
@@ -811,7 +865,7 @@ def flash_phase(device, seed):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
         ))
-        print(f"{name}: {ms[name]:.4f} ms (graph replay; eager "
+        print(f"{name} at {shape}: {ms[name]:.4f} ms (graph replay; eager "
               f"{eager_ms[name]:.4f} ms), plain {plain_ms[name]:.4f} ms, "
               f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, "
               f"{flops} flops), {flops / ms[name] / 1e9:.1f} TFLOP/s")
@@ -819,7 +873,7 @@ def flash_phase(device, seed):
           f"the forward kernel {lib_err:.3e}), backward {lib_bwd:.4f} ms "
           f"(dq max|diff| vs the dq kernel {lib_dq_err:.3e}) against dq + "
           f"dkv {ms['flash_dq'] + ms['flash_dkv']:.4f} ms")
-    details = dict(checks=checks, live_pairs=pairs, eager_ms=eager_ms,
+    details = dict(shape=shape, live_pairs=pairs, eager_ms=eager_ms,
                    deterministic=same, sdpa_fwd_ms=lib_fwd,
                    sdpa_bwd_ms=lib_bwd, sdpa_max_abs_diff=lib_err,
                    sdpa_bwd_dq_max_abs_diff=lib_dq_err,
@@ -921,6 +975,12 @@ def train_phase(device, seed, flash_records):
     cfg = GPT2Config.medium()
     policy = Policy.train()
     B, S = 8, 1024
+    # earlier phases can leave memory allocated (0.07-1.06 GiB after the
+    # ZeRO-1 phase on the H100, varying from run to run: see
+    # scripts/port_smoke_memory.py); the peak is this phase's own, above it
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_mem = torch.cuda.memory_allocated(device) / 2**30
     t0 = time.perf_counter()
     model = GPT2LMHead(cfg, device=device, policy=policy)
     model.init_weights(torch.Generator(device=device).manual_seed(seed))
@@ -955,6 +1015,7 @@ def train_phase(device, seed, flash_records):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(device)
+    held_mem = torch.cuda.memory_allocated(device) / 2**30
     kernel_counts(reset=True)
     with tracing.enabled() as tracer:   # the main path
         t0 = time.perf_counter()
@@ -970,7 +1031,7 @@ def train_phase(device, seed, flash_records):
     counts = kernel_counts()
     off_path(counts, FLASH)
     launches = {k: counts[k] for k in FLASH}
-    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30 - left_mem
     microbatches = TRAIN_STEPS * 1 + PACKED_STEPS * 2
     want = cfg.num_layers * microbatches
     print(f"train: {TRAIN_STEPS} steps x 1 + {PACKED_STEPS} packed steps x 2"
@@ -1005,7 +1066,10 @@ def train_phase(device, seed, flash_records):
     top = rows[:12]
     print(f"train step (batch {B} x {S}, median of {TRAIN_STEPS}): "
           f"{step_ms:.2f} ms, {tokens_s:.0f} tokens/s, peak memory "
-          f"{peak_mem:.2f} GiB; flash kernels ~{100 * est_share:.1f}% of "
+          f"{peak_mem:.2f} GiB ({held_mem - left_mem:.2f} GiB of it held "
+          f"before the first step: weights, gradients, moments; "
+          f"{left_mem:.3f} GiB that earlier phases left not counted); "
+          f"flash kernels ~{100 * est_share:.1f}% of "
           f"the step (24 x their timed ms)")
     if total_us:
         print(f"profiler, 2 steps: device busy {total_us / 2e3:.2f} ms/step "
@@ -1056,6 +1120,7 @@ def train_phase(device, seed, flash_records):
         warmup_loss=first_loss, losses=losses, packed_losses=packed_losses,
         step_ms_median=step_ms, step_ms=[1e3 * x for x in step_s],
         tokens_per_s=tokens_s, peak_mem_gib=peak_mem,
+        held_mem_gib=held_mem - left_mem, left_mem_gib=left_mem,
         flash_share_from_kernel_ms=est_share,
         profile_device_ms_per_step=total_us / 2e3,
         profile_flash_ms_per_step=flash_us / 2e3,
@@ -1690,12 +1755,11 @@ RESNET_FAMILIES = (
 )
 
 
-def by_family(rows):
+def by_family(rows, table=RESNET_FAMILIES):
     """``profile_step``'s rows as device ms a step by kernel family."""
     families = {}
     for key, us, _ in rows:
-        name = next((n for n, rx in RESNET_FAMILIES if rx.search(key)),
-                    "other")
+        name = next((n for n, rx in table if rx.search(key)), "other")
         families[name] = families.get(name, 0.0) + us / 2e3
     return families
 
@@ -2190,6 +2254,237 @@ def zero1_phase(device, seed):
     return stats
 
 
+# -- 8. the JAX recipe's Llama-3-8B run: FSDP full-shard -------------------
+
+LLAMA_LAYERS = 4        # of 32: the 8B AdamW state (128.5 GB) exceeds a card
+LLAMA_STEPS = 6         # steps of (a), a checkpoint after LLAMA_CKPT_AT
+LLAMA_CKPT_AT = 3
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_CHUNK = 8, 2048, 8192
+LLAMA_FAMILIES = (
+    ("flash kernels (B1-B3)", re.compile(r"flash_(fwd|dq|dkv)", re.I)),
+    ("AdamW and the clip (foreach)", re.compile(r"multi_tensor|foreach",
+                                                re.I)),
+    ("matmuls (cuBLAS)", re.compile(r"gemm|sm90|nvjet|cutlass|xmma", re.I)),
+    ("NCCL (FSDP's gather and reduce-scatter)", re.compile(r"nccl", re.I)),
+    ("copies (FSDP's gather buffers, casts)", re.compile(
+        r"copy|memcpy|memset|chunk_cat|split_with_sizes|cast", re.I)),
+    ("elementwise and reductions", re.compile(
+        r"elementwise|vectorized|reduce|fill|softmax|norm", re.I)),
+)
+
+
+def _llama_trainer(device, seed, ckpt_dir, *, init_seed=None):
+    """Llama-3-8B at full width and ``LLAMA_LAYERS`` layers as the recipe
+    builds it with ``--strategy fsdp --remat --vocab-chunk 8192``:
+    ``Policy.train()``, FSDP full-shard at world 1 (made on the meta
+    device, each rank drawing its own rows), clip(1.0) then adamw(1e-4,
+    decay 1e-4), batch 8 x 2048 in one microbatch, checkpoints every
+    ``LLAMA_CKPT_AT`` steps into ``ckpt_dir``. The data follows ``seed``,
+    the weights ``init_seed`` (``seed`` unless given)."""
+    import dataclasses as dc
+
+    from pytorch_distributed_tpu_torch import (
+        FSDP,
+        DataLoader,
+        LlamaConfig,
+        MeshSpec,
+        Policy,
+        SyntheticTextDataset,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        build_train_step,
+        causal_lm_loss_fn,
+        optim,
+    )
+    from pytorch_distributed_tpu_torch.recipes.llama_fsdp import (
+        ADAMW_WEIGHT_DECAY,
+        build_model,
+    )
+
+    cfg = dc.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA_LAYERS,
+                     remat=True)
+    policy = Policy.train()
+    strategy = FSDP(device, MeshSpec(dp=1, fsdp=-1))
+    model, net = build_model(cfg, strategy, device,
+                             seed if init_seed is None else init_seed, policy)
+    opt = optim.clip_grad_norm(strategy.optimizer(
+        model, optim.AdamW, lr=1e-4, weight_decay=ADAMW_WEIGHT_DECAY), 1.0)
+    ds = SyntheticTextDataset(n=LLAMA_STEPS * LLAMA_BATCH, seq_len=LLAMA_SEQ,
+                              vocab_size=cfg.vocab_size, seed=seed)
+    trainer = Trainer(
+        TrainState(net, opt, policy=policy),
+        build_train_step(causal_lm_loss_fn(net,
+                                           vocab_chunk_size=LLAMA_CHUNK)),
+        DataLoader(ds, LLAMA_BATCH, seed=seed,
+                   sharding=strategy.batch_sharding()),
+        config=TrainerConfig(log_every=1, max_steps_per_epoch=LLAMA_STEPS,
+                             ckpt_dir=ckpt_dir,
+                             ckpt_every_steps=LLAMA_CKPT_AT))
+    return model, trainer
+
+
+def _llama_snapshot(model, trainer):
+    """Host copies of this rank's rows of every parameter and both
+    moments, the step and the cursor."""
+    from pytorch_distributed_tpu_torch.interop import unwrap_optimizer
+
+    _, adam, _ = unwrap_optimizer(trainer.state.optimizer)
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = p.to_local().detach().to("cpu", copy=True)
+        for k, v in adam.state.get(p, {}).items():
+            if k != "step":
+                out[f"{n}.{k}"] = v.to_local().to("cpu", copy=True)
+    return dict(tensors=out, step=trainer.state.step,
+                cursor=(trainer._cursor_epoch, trainer._cursor_offset))
+
+
+def llama_phase(device, seed):
+    """Phase 8a: the recipe's path on one card (run, checkpoint, restore,
+    resume), then torch.profiler over two steps."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="ptd_llama_") as tmp, \
+            _World1(device):
+        print(f"(8a) checkpoint directory {tmp}: "
+              f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
+        model, trainer = _llama_trainer(device, seed, tmp)
+        n_params = sum(p.numel() for p in model.parameters())
+        snap = {}
+        save = trainer.save_checkpoint
+
+        def save_at_ckpt_step(tag="latest"):
+            # the state is 23 GB of files: one save, at LLAMA_CKPT_AT,
+            # and a host copy of the state it wrote
+            if trainer.host_step != LLAMA_CKPT_AT:
+                return None
+            path = save(tag)
+            snap["state"] = _llama_snapshot(model, trainer)
+            return path
+
+        trainer.save_checkpoint = save_at_ckpt_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernel_counts(reset=True)
+        from pytorch_distributed_tpu_torch.runtime import tracing
+
+        with tracing.enabled() as tracer:   # the main path
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        roll = tracer.rollups()
+        losses = [r["loss"] for r in trainer.history]
+        step_s = [r["step_time_s"] for r in trainer.history]
+        steady = sorted(step_s[1:])
+        step_ms = 1e3 * steady[len(steady) // 2]
+        tokens = LLAMA_BATCH * LLAMA_SEQ
+        L = LLAMA_LAYERS * LLAMA_STEPS
+        want = dict(flash_fwd=2 * L, flash_dq=L, flash_dkv=L)
+        launches = {k: counts[k] for k in FLASH}
+        ckpt = roll.get("train.checkpoint", {})
+        print(f"(8a) Llama-3-8B width, {LLAMA_LAYERS} of 32 layers, {n_params}"
+              f" params, FSDP full-shard at world 1, remat(full), vocab chunk"
+              f" {LLAMA_CHUNK}, batch {LLAMA_BATCH} x {LLAMA_SEQ}: "
+              f"{LLAMA_STEPS} steps in {wall:.2f} s incl. "
+              f"{ckpt.get('count', 0)} checkpoint(s) of "
+              f"{ckpt.get('mean_ms', 0.0):.0f} ms; step ms "
+              + " ".join(f"{1e3 * x:.2f}" for x in step_s)
+              + f", median of steps 2-{LLAMA_STEPS} {step_ms:.2f} ms = "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+              f"{peak:.2f} GiB; losses " + " ".join(f"{x:.4f}" for x in losses)
+              + f"; launches {counts} (want {want} and no paged kernel)")
+        if len(losses) != LLAMA_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"Llama losses {losses}")
+        if launches != want:
+            raise AssertionError(f"flash launches {launches} != {want}")
+        off_path(counts, FLASH)
+        stats.update(params=n_params, layers=LLAMA_LAYERS, losses=losses,
+                     step_ms=[1e3 * x for x in step_s], step_ms_median=step_ms,
+                     tokens_per_s=tokens / step_ms * 1e3, peak_mem_gib=peak,
+                     launches=counts, wall_s=wall,
+                     ckpt_save_ms=ckpt.get("mean_ms"),
+                     spans={k: roll[k]["mean_ms"] for k in roll})
+        saved = snap["state"]
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a fresh model (other weights) restores step 3 and runs 4-6
+        model, trainer = _llama_trainer(device, seed, tmp,
+                                        init_seed=seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not trainer.restore_checkpoint():
+            raise AssertionError("nothing restored")
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        got = _llama_snapshot(model, trainer)
+        bad = [k for k, v in saved["tensors"].items()
+               if k not in got["tensors"] or not torch.equal(
+                   v, got["tensors"][k])]
+        if (bad or set(got["tensors"]) != set(saved["tensors"])
+                or got["step"] != saved["step"]
+                or got["cursor"] != saved["cursor"]):
+            raise AssertionError(
+                f"restored state differs: {bad[:5]} step {got['step']} vs "
+                f"{saved['step']} cursor {got['cursor']} vs "
+                f"{saved['cursor']}")
+        del saved, got
+        trainer.config = dataclasses.replace(trainer.config, ckpt_dir=None)
+        trainer.fit()
+        resumed = [r["loss"] for r in trainer.history]
+        print(f"(8a) restore of step {LLAMA_CKPT_AT} in {restore_ms:.0f} ms: "
+              f"parameters, both moments, step and cursor equal to the bit;"
+              f" steps 4-6 " + " ".join(f"{x:.6f}" for x in resumed)
+              + " against " + " ".join(f"{x:.6f}"
+                                       for x in losses[LLAMA_CKPT_AT:]))
+        if resumed != losses[LLAMA_CKPT_AT:]:
+            raise AssertionError("the resumed run left the uninterrupted one")
+        stats.update(restore_ms=restore_ms, resumed_losses=resumed)
+
+        # torch.profiler over two steps on one placed batch, last
+        batches = iter(trainer.train_loader)
+        batch = {k: v.to(device) for k, v in next(batches).items()}
+        batches.close()
+        state = trainer.state
+        for _ in range(2):
+            state, metrics = trainer.train_step(state, batch)
+        float(metrics["loss"])
+        total_us, rows = profile_step(trainer.train_step, state, batch)
+        busy_ms = total_us / 2e3
+        families = by_family(rows, LLAMA_FAMILIES)
+        if total_us:
+            print(f"(8a) profile, 2 steps: device busy {busy_ms:.2f} ms/step "
+                  f"against the unprofiled step of {step_ms:.2f} ms (idle "
+                  f"{100 * (1 - busy_ms / step_ms):.1f}%)")
+            for name, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+                print(f"  {ms:9.3f} ms/step  {100 * ms / busy_ms:5.1f}%  "
+                      f"{name}")
+            for key, us, count in rows[:15]:
+                print(f"  {us / 2e3:9.3f} ms/step  x{count // 2:<5d} "
+                      f"{key[:90]}")
+        else:
+            print("(8a) profiler: no device time recorded (not measured)")
+        stats["profile"] = dict(
+            device_busy_ms=busy_ms, families=families,
+            idle_share=(1 - busy_ms / step_ms) if total_us else None,
+            top=[dict(name=k, ms_per_step=us / 2e3, count=c // 2)
+                 for k, us, c in rows[:15]])
+        del model, trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2220,8 +2515,10 @@ def main(argv=None) -> int:
     fdetails["build"] = build_report
     # serve, ResNet and ZeRO-1 before train: the train phase ends with
     # torch.profiler, whose tracing of the host would slow the host-bound
-    # paths after it. Each path reads all four kernel counts around its
-    # run (serve, 7a and train inside their phases).
+    # paths after it (the Llama step after it is device-bound: the card's
+    # time, not the host's, sets its pace).
+    # Each path reads all four kernel counts around its run (serve, 7a,
+    # train and 8a inside their phases).
     serve_counts, stats = serve_phase(device, args.seed)
     torch.cuda.empty_cache()
     kernel_counts(reset=True)
@@ -2233,6 +2530,7 @@ def main(argv=None) -> int:
     off_path(rstats["kernel_launches"], ())
     zstats = zero1_phase(device, args.seed)
     train_counts, tstats = train_phase(device, args.seed, flash_records)
+    lstats = llama_phase(device, args.seed)
     zt = zstats["train"]
     print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
@@ -2241,8 +2539,15 @@ def main(argv=None) -> int:
           f"remat, full logits, no ZeRO) {tstats['step_ms_median']:.2f} "
           f"ms/step, {tstats['tokens_per_s']:.0f} tokens/s, peak "
           f"{tstats['peak_mem_gib']:.2f} GiB")
+    print(f"Llama-3-8B width, {LLAMA_LAYERS} layers, FSDP + remat + chunked "
+          f"loss, batch {LLAMA_BATCH} x {LLAMA_SEQ}: "
+          f"{lstats['step_ms_median']:.2f} ms/step, "
+          f"{lstats['tokens_per_s']:.0f} tokens/s, peak "
+          f"{lstats['peak_mem_gib']:.2f} GiB, device busy "
+          f"{lstats['profile']['device_busy_ms']:.2f} ms/step")
     by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
-                   zero1=zt["launches"], train=train_counts)
+                   zero1=zt["launches"], train=train_counts,
+                   llama=lstats["launches"])
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -2254,7 +2559,8 @@ def main(argv=None) -> int:
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
                                       train=tstats, serve=stats,
-                                      resnet=rstats, zero1=zstats)}))
+                                      resnet=rstats, zero1=zstats,
+                                      llama=lstats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ attention forward and backward in hand-written flash kernels
 (``torch.distributed`` process group, DDP with global BatchNorm
 statistics, uint8 image data normalized on the card, SGD); and the JAX
 recipe's GPT-2 run (ZeRO-1, remat, the chunked-vocab loss, BPE corpora)
-with checkpoints both packages restore. Entry points
+with checkpoints both packages restore; and the JAX recipe's Llama-3-8B
+run, FSDP full-shard (FSDP2 over the ``fsdp`` mesh axis, each rank
+checkpointing its own rows). Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
 package.
@@ -28,6 +30,9 @@ package.
     torchrun --nproc-per-node 4 -m \
         pytorch_distributed_tpu_torch.recipes.resnet50_imagenet \
         --batch-size 512 --steps-per-epoch 20
+    torchrun --nproc-per-node 4 -m \
+        pytorch_distributed_tpu_torch.recipes.llama_fsdp --size 8b \
+        --fsdp 4 --batch-size 8 --seq-len 2048 --remat --vocab-chunk 8192
 """
 
 from pytorch_distributed_tpu_torch import optim
@@ -50,6 +55,7 @@ from pytorch_distributed_tpu_torch.interop import (
     gpt2_params_from_jax,
     gpt2_params_to_jax,
     llama_params_from_jax,
+    llama_params_to_jax,
     resnet_params_from_jax,
     resnet_params_to_jax,
 )
@@ -86,7 +92,11 @@ from pytorch_distributed_tpu_torch.runtime.distributed import (
     init_process_group,
     is_initialized,
 )
-from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec
+from pytorch_distributed_tpu_torch.runtime.mesh import (
+    MeshSpec,
+    data_axes,
+    make_mesh,
+)
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for, seed_all
 from pytorch_distributed_tpu_torch.serve import (
@@ -123,7 +133,8 @@ __all__ = [
     "Tokenizer", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
     "packed_loss_mask", "generate", "gpt2_params_from_jax",
-    "gpt2_params_to_jax", "llama_params_from_jax", "resnet_params_from_jax",
+    "gpt2_params_to_jax", "llama_params_from_jax", "llama_params_to_jax",
+    "resnet_params_from_jax",
     "resnet_params_to_jax", "GPT2Config",
     "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
@@ -131,6 +142,7 @@ __all__ = [
     "default_device", "device_info", "ReduceOp", "all_reduce", "barrier",
     "broadcast", "destroy_process_group", "get_backend", "get_rank",
     "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
+    "data_axes", "make_mesh",
     "Policy", "generator_for", "seed_all", "EngineConfig", "Request",
     "RequestStatus", "ServeEngine", "EX_TEMPFAIL", "CheckpointCorrupted",
     "Preempted", "Trainer", "TrainerConfig", "TrainingDiverged",

@@ -17,9 +17,11 @@ that names the leaf and the ROADMAP item that would port it, never a
 weight silently left behind.
 
 The other direction serves the checkpoints both packages read:
-:func:`gpt2_slots`, :func:`resnet_slots` and :func:`model_slots` place
-every port tensor at its JAX ``TrainState`` leaf (path, layer of a
-scan-stacked leaf, layout map), :func:`gpt2_params_to_jax` and
+:func:`gpt2_slots`, :func:`llama_slots`, :func:`resnet_slots` and
+:func:`model_slots` place every port tensor at its JAX ``TrainState``
+leaf (path, layer of a scan-stacked leaf, layout map; a Llama slot also
+maps any range of the port tensor's rows, an FSDP shard, to boxes of the
+JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax` and
 :func:`resnet_params_to_jax` are the inverses of the converters above,
 and :func:`optimizer_layout` names the optax state (``mu``, ``nu``,
 ``count``, ``trace``) that a port optimizer's state stands for.
@@ -242,11 +244,77 @@ class Slot:
     depth: int
     to_jax: Callable[[np.ndarray], np.ndarray]
     from_jax: Callable[[np.ndarray], np.ndarray]
+    # a permuted slot (llama_slots): the port tensor is the JAX array of
+    # one layer, shape ``jshape``, transposed by ``perm`` and reshaped so
+    # that its first ``rows`` axes make the port's dim 0 and the rest
+    # its dim 1
+    perm: Optional[Tuple[int, ...]] = None
+    jshape: Optional[Tuple[int, ...]] = None
+    rows: int = 1
 
     def leaf_shape(self, port_shape) -> Tuple[int, ...]:
         """The JAX leaf's full shape, from the port tensor's shape."""
         one = self.to_jax(np.empty(port_shape, np.float32)).shape
         return one if self.layer is None else (self.depth,) + one
+
+    def row_boxes(self, a: int, b: int):
+        """Rows ``[a, b)`` of the port tensor as boxes of the JAX leaf:
+        ``[(ra, rb, start, stop, to_jax, from_jax)]``, where rows
+        ``[ra, rb)`` fill the box ``[start, stop)`` (the layer axis of a
+        stacked leaf included) and the two maps turn those rows into the
+        box's array and back. A row range that cuts a head (``rows`` 2,
+        e.g. q's ``[H * hd, D]`` against the JAX ``[D, H, hd]``) becomes
+        a partial-head box, whole heads and another partial one."""
+        if self.perm is None:
+            raise NotImplementedError(
+                f"{'/'.join(self.path)}: rows of this slot have no JAX box "
+                "(sharded checkpoints cover Llama; ROADMAP A6)")
+        perm, js = self.perm, self.jshape
+        inv = tuple(int(i) for i in np.argsort(perm))
+        trail = tuple(js[i] for i in perm[self.rows:])
+        segments = []   # (ra, rb, per-axis (lo, hi) of the row axes)
+        if self.rows == 1:
+            segments.append((a, b, [(a, b)]))
+        else:   # two row axes: heads x head_dim
+            n1 = js[perm[1]]
+            while a < b:
+                h, r = divmod(a, n1)
+                if r or b - a < n1:
+                    end = min(b, (h + 1) * n1)
+                    segments.append((a, end, [(h, h + 1), (r, r + end - a)]))
+                else:
+                    end = (b // n1) * n1
+                    segments.append((a, end, [(h, end // n1), (0, n1)]))
+                a = end
+        lead = () if self.layer is None else (self.layer,)
+        out = []
+        for ra, rb, ranges in segments:
+            start, stop = [0] * len(js), list(js)
+            for axis, (lo, hi) in zip(perm, ranges):
+                start[axis], stop[axis] = lo, hi
+            shape = tuple(hi - lo for lo, hi in ranges) + trail
+            out.append((
+                ra, rb, lead + tuple(start),
+                tuple(x + 1 for x in lead) + tuple(stop),
+                lambda x, shape=shape: x.reshape(shape).transpose(inv),
+                lambda y, n=rb - ra: y.transpose(perm).reshape(
+                    (n,) + ((int(np.prod(trail)),) if trail else ())),
+            ))
+        return out
+
+
+def _permuted(tree, path, layer, depth, jshape, perm, rows=1) -> Slot:
+    """A :class:`Slot` whose maps are a transpose by ``perm`` and a
+    reshape: port ``[prod(row axes), prod(the rest)]``."""
+    inv = tuple(int(i) for i in np.argsort(perm))
+    pshape = (int(np.prod([jshape[i] for i in perm[:rows]])),)
+    if rows < len(perm):
+        pshape += (int(np.prod([jshape[i] for i in perm[rows:]])),)
+    return Slot(
+        tree, path, layer, depth,
+        lambda w: w.reshape([jshape[i] for i in perm]).transpose(inv),
+        lambda k: k.transpose(perm).reshape(pshape),
+        perm=tuple(perm), jshape=tuple(jshape), rows=rows)
 
 
 def _same(a):
@@ -293,6 +361,43 @@ def gpt2_slots(cfg) -> Dict[str, Slot]:
     return slots
 
 
+def llama_slots(cfg) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``LlamaForCausalLM``: the scan-stacked
+    JAX layout (``layers/block/...`` with a leading ``[L]``), the one the
+    JAX recipe trains. q/k/v ``[H * hd, D]`` are ``[D, H, hd]`` kernels,
+    o ``[D, H * hd]`` an ``[H, hd, D]`` one, gate/up/down and the head
+    ``[out, in]`` ``[in, out]`` kernels, the embedding and the norms'
+    scales as they are."""
+    D, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    H, Hkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_layers
+    slots = {
+        "embed.weight": _permuted("params", ("embed", "embedding"), None, 0,
+                                  (V, D), (0, 1)),
+        "final_norm.weight": _permuted("params", ("final_norm", "scale"),
+                                       None, 0, (D,), (0,)),
+        "lm_head.weight": _permuted("params", ("lm_head", "kernel"), None, 0,
+                                    (D, V), (1, 0)),
+    }
+    per_layer = {
+        "attn_norm.weight": ("attn_norm", "scale", (D,), (0,), 1),
+        "mlp_norm.weight": ("mlp_norm", "scale", (D,), (0,), 1),
+        "q.weight": ("q", "kernel", (D, H, hd), (1, 2, 0), 2),
+        "k.weight": ("k", "kernel", (D, Hkv, hd), (1, 2, 0), 2),
+        "v.weight": ("v", "kernel", (D, Hkv, hd), (1, 2, 0), 2),
+        "o.weight": ("o", "kernel", (H, hd, D), (2, 0, 1), 1),
+        "gate.weight": ("gate", "kernel", (D, I), (1, 0), 1),
+        "up.weight": ("up", "kernel", (D, I), (1, 0), 1),
+        "down.weight": ("down", "kernel", (I, D), (1, 0), 1),
+    }
+    for i in range(L):
+        for sub, (mod, leaf, js, perm, rows) in per_layer.items():
+            slots[f"layers.{i}.{sub}"] = _permuted(
+                "params", ("layers", "block", mod, leaf), i, L, js, perm,
+                rows)
+    return slots
+
+
 _RESNET_JAX_NAMES = {short: jax for jax, short in _RESNET_NAMES.items()}
 
 
@@ -330,20 +435,24 @@ def resnet_slots(names) -> Dict[str, Slot]:
 
 
 def model_slots(model) -> Dict[str, Slot]:
-    """The slots of a ``GPT2LMHead`` or a ``ResNet`` (or either inside
-    ``DistributedDataParallel``): every entry of its ``state_dict``."""
+    """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM`` or a
+    ``ResNet`` (or one inside ``DistributedDataParallel``): every entry
+    of its ``state_dict``."""
     from pytorch_distributed_tpu_torch.models.gpt2 import GPT2LMHead
+    from pytorch_distributed_tpu_torch.models.llama import LlamaForCausalLM
     from pytorch_distributed_tpu_torch.models.resnet import ResNet
 
     model = getattr(model, "module", model)
     if isinstance(model, GPT2LMHead):
         slots = gpt2_slots(model.config)
+    elif isinstance(model, LlamaForCausalLM):
+        slots = llama_slots(model.config)
     elif isinstance(model, ResNet):
         slots = resnet_slots(model.state_dict().keys())
     else:
         raise NotImplementedError(
             f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
-            "the port cover GPT-2 and ResNet (ROADMAP A5)")
+            "the port cover GPT-2, Llama and ResNet (ROADMAP A5)")
     missing = set(model.state_dict()) - set(slots)
     if missing:
         raise NotImplementedError(
@@ -359,8 +468,9 @@ def _stacked(sd, slots, tree: str) -> dict:
     for name, slot in slots.items():
         if slot.tree != tree:
             continue
-        arr = np.ascontiguousarray(slot.to_jax(
-            np.asarray(sd[name].detach().cpu().float().numpy())))
+        # a copy: on the CPU an f32 tensor's numpy view shares its storage
+        arr = np.array(slot.to_jax(
+            sd[name].detach().cpu().float().numpy()), order="C", copy=True)
         if slot.layer is None:
             node = out
             for k in slot.path[:-1]:
@@ -385,6 +495,20 @@ def gpt2_params_to_jax(state_dict, cfg) -> dict:
     if left or missing:
         raise NotImplementedError(
             f"gpt2_params_to_jax: tensors the JAX model has no leaf for: "
+            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
+            "(ROADMAP A7)")
+    return _stacked(state_dict, slots, "params")
+
+
+def llama_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`llama_params_from_jax`: the port's
+    ``LlamaForCausalLM`` state_dict as JAX ``LlamaForCausalLM`` params
+    (f32 numpy, the scan-stacked layout, ``scan_layers=True``)."""
+    slots = llama_slots(cfg)
+    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
+    if left or missing:
+        raise NotImplementedError(
+            f"llama_params_to_jax: tensors the JAX model has no leaf for: "
             f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
             "(ROADMAP A7)")
     return _stacked(state_dict, slots, "params")

@@ -17,7 +17,11 @@ part of ``pytorch_distributed_tpu/optim.py`` the training slice uses.
   ``torch.nn.utils.clip_grad_norm_``). Under ZeRO-1 it wraps the
   ``ZeroRedundancyOptimizer``, whose ``param_groups`` hold every
   parameter, never the per-rank optimizer inside it: a norm over one
-  rank's shard would clip by the wrong factor without an error.
+  rank's shard would clip by the wrong factor without an error. Under
+  FSDP the gradients are ``DTensor`` shards: :func:`global_norm` sums
+  each shard's squares on its rank, once per shard (HSDP's replicas
+  skipped), over the shard's process group, so the norm is the whole
+  gradient's, and the clip scales each rank's shard in place.
 * :func:`AdamW` and :func:`SGD` also take a list of param-group dicts,
   which is how ``ZeroRedundancyOptimizer`` builds its per-rank optimizer
   (``optimizer_class(groups, **defaults)``).
@@ -169,10 +173,48 @@ class Adam(_Scheduled, torch.optim.Adam):
         )
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (FSDP's gradients), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32 at least (f64 stays f64, as optax sums in its dtype)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every element, in f32, on the device."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt(sum of squares) over every element, in f32 (f64 for f64
+    tensors), on the device.
+    ``DTensor`` shards (FSDP) count every element of the whole tensor
+    once: each rank's squares are summed over the mesh dims it is
+    sharded on (never the replicated ones)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    plain = [t for t in tensors if not isinstance(t, DTensor)]
+    sharded: Dict[tuple, list] = {}
+    for t in tensors:
+        if isinstance(t, DTensor):
+            dims = tuple(i for i, pl in enumerate(t.placements)
+                         if isinstance(pl, Shard))
+            sharded.setdefault((t.device_mesh, dims), []).append(
+                t.to_local())
+    if not sharded:
+        norms = torch._foreach_norm([_wide(t) for t in tensors])
+        return torch.linalg.vector_norm(torch.stack(norms))
+    squares = []
+    if plain:
+        norms = torch._foreach_norm([_wide(t) for t in plain])
+        squares.append(torch.stack(norms).square().sum())
+    for (mesh, dims), local in sharded.items():
+        norms = torch._foreach_norm([_wide(t) for t in local])
+        sq = torch.stack(norms).square().sum()
+        for d in dims:
+            torch.distributed.all_reduce(sq, group=mesh.get_group(d))
+        squares.append(sq)
+    return torch.stack(squares).sum().sqrt()
 
 
 class _ClippedOptimizer:
@@ -192,7 +234,7 @@ class _ClippedOptimizer:
         # device-side select, so the step never waits for the host
         factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
                              self.max_norm / norm)
-        torch._foreach_mul_(grads, factor)
+        torch._foreach_mul_([_local(g) for g in grads], factor)
         return norm
 
     def step(self, closure=None):

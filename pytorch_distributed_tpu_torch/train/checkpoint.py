@@ -25,6 +25,17 @@ rank 0 merges the ranks' manifests, writes the COMMIT marker and swings
 the directory into place, between barriers of the process group. A
 restore reads, on each rank, the parameters whole and the moments of
 the parameters its optimizer now holds, at any world size.
+
+Under FSDP every parameter and both its moments are DTensors, and a
+rank holds rows of dim 0 (``runtime.mesh.row_shard``). Each rank writes
+its own rows of each, in the JAX layout, as boxes of the JAX leaf
+(``interop.Slot.row_boxes``: rows of ``q.weight [H * hd, D]`` are a head
+range of the ``[D, H, hd]`` kernel, rows of ``down.weight [D, I]`` a
+column range of the ``[I, D]`` one, a range that cuts a head a partial
+box), so no leaf is ever gathered on one rank; under HSDP only the first
+replica of each shard writes. A restore reads each rank's rows back out
+of whatever boxes the writer's world cut, at any world size, and the
+JAX package reads the leaves whole.
 """
 
 from __future__ import annotations
@@ -38,9 +49,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from pytorch_distributed_tpu_torch import interop
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
+from pytorch_distributed_tpu_torch.runtime.mesh import row_shard
 from pytorch_distributed_tpu_torch.train.ckpt_io import (  # noqa: F401
     _MANIFEST,
     CheckpointCorrupted,
@@ -81,8 +94,8 @@ class _Leaf:
     name: str
     shape: Tuple[int, ...]
     dtype: np.dtype
-    boxes: List[_Box]      # the boxes this rank writes and reads
-    replicated: bool       # written by rank 0 only
+    boxes: List[_Box]      # the boxes this rank reads (and writes)
+    writes: bool           # this rank writes its boxes
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -109,6 +122,34 @@ def _tensor_box(slot: interop.Slot, get: Callable[[], torch.Tensor],
     return _Box(slot.layer or 0, start, stop, read, write)
 
 
+def _row_boxes(slot: interop.Slot, param: torch.Tensor,
+               get: Callable[..., torch.Tensor]) -> List[_Box]:
+    """The boxes of this rank's rows of a tensor sharded (or not) as
+    ``param`` is: ``get(create)`` returns the tensor itself (a moment not
+    yet made reads as zeros, and is made in the optimizer's state when
+    written), whose local rows are read and written in place."""
+    local, first, _ = row_shard(param)
+    n = local.shape[0]
+    boxes = []
+    for ra, rb, start, stop, to_jax, from_jax in (
+            slot.row_boxes(first, first + n) if n else ()):
+        lo, hi = ra - first, rb - first
+
+        def read(lo=lo, hi=hi, to_jax=to_jax):
+            arr = to_jax(_numpy(row_shard(get(False))[0][lo:hi]))
+            return arr if slot.layer is None else arr[None]
+
+        def write(arr, lo=lo, hi=hi, from_jax=from_jax):
+            arr = arr if slot.layer is None else arr[0]
+            rows = row_shard(get(True))[0][lo:hi]
+            with torch.no_grad():
+                rows.copy_(torch.from_numpy(
+                    np.ascontiguousarray(from_jax(arr))).to(rows.dtype))
+
+        boxes.append(_Box(slot.layer or 0, start, stop, read, write))
+    return boxes
+
+
 def _owned_params(optimizer) -> List[torch.Tensor]:
     _, local, _ = interop.unwrap_optimizer(optimizer)
     return [p for g in local.param_groups for p in g["params"]]
@@ -133,28 +174,39 @@ def _plan(state: TrainState) -> List[_Leaf]:
     layout = interop.optimizer_layout(state.optimizer)
     _, local, zero = interop.unwrap_optimizer(state.optimizer)
     sd = model.state_dict(keep_vars=True)
+    rank0 = dist.get_rank() == 0
     leaves: Dict[str, _Leaf] = {}
 
-    def add(name, shape, dtype, box, replicated):
+    def add(name, shape, dtype, boxes, writes):
+        # a stacked leaf takes one add per layer; under ZeRO a rank
+        # writes the leaf when it owns any of them
         leaf = leaves.setdefault(name, _Leaf(name, tuple(shape),
-                                             np.dtype(dtype), [],
-                                             replicated))
-        if box is not None:
-            leaf.boxes.append(box)
+                                             np.dtype(dtype), [], False))
+        leaf.boxes.extend(boxes)
+        leaf.writes = leaf.writes or (writes and bool(boxes))
+
+    def writer(t, replicated):
+        # a sharded tensor's first replica writes its rows; a replicated
+        # one is rank 0's (or, under ZeRO, its owner's) to write
+        return row_shard(t)[2] if isinstance(t, DTensor) else replicated
 
     for key, slot in slots.items():
         t = sd[key]
         shape = slot.leaf_shape(tuple(t.shape))
+        if slot.perm is not None:
+            boxes = _row_boxes(slot, t, lambda create, t=t: t)
+        else:
+            def put(x, t=t):
+                with torch.no_grad():
+                    t.copy_(x.to(t.dtype))
 
-        def put(x, t=t):
-            with torch.no_grad():
-                t.copy_(x.to(t.dtype))
-
+            boxes = [_tensor_box(slot, lambda t=t: t, put, shape)]
         add(interop.leaf_name(slot.tree, *slot.path), shape, np.float32,
-            _tensor_box(slot, lambda t=t: t, put, shape), True)
+            boxes, writer(t, rank0))
 
     # moments: the parameters this rank's optimizer holds (all of them
-    # unless ZeRO shards the optimizer over the ranks)
+    # unless ZeRO shards the optimizer over the ranks; under FSDP this
+    # rank's rows of every one)
     owned = {id(p) for p in _owned_params(state.optimizer)}
     for p_name, p in model.named_parameters():
         slot = slots[p_name]
@@ -162,25 +214,33 @@ def _plan(state: TrainState) -> List[_Leaf]:
         for key, prefix in layout.moments.items():
             name = interop.leaf_name(*prefix, *slot.path)
             if id(p) not in owned:
-                add(name, shape, np.float32, None, zero is None)
+                add(name, shape, np.float32, [], False)
                 continue
 
-            def get(p=p, key=key):
+            def get(create=False, p=p, key=key):
                 s = local.state.get(p, {})
-                return s[key] if s.get(key) is not None else (
-                    torch.zeros_like(p))
+                if s.get(key) is not None:
+                    return s[key]
+                z = torch.zeros_like(p)
+                if create:
+                    local.state.setdefault(p, {})[key] = z
+                return z
 
             def put(x, p=p, key=key):
                 local.state.setdefault(p, {})[key] = x.to(
                     device=p.device, dtype=p.dtype)
 
-            add(name, shape, np.float32, _tensor_box(slot, get, put, shape),
-                zero is None)
+            if slot.perm is not None:
+                boxes = _row_boxes(slot, p, get)
+            else:
+                boxes = [_tensor_box(slot, get, put, shape)]
+            add(name, shape, np.float32, boxes,
+                writer(p, rank0 if zero is None else True))
 
     def scalar(name, value_fn, put):
         add(name, (), np.int32,
-            _Box(0, (), (), lambda: np.asarray(value_fn(), np.int32),
-                 lambda arr: put(int(arr))), True)
+            [_Box(0, (), (), lambda: np.asarray(value_fn(), np.int32),
+                  lambda arr: put(int(arr)))], rank0)
 
     def set_step(v):
         state.step = v
@@ -207,7 +267,7 @@ def _write_rank_files(tmp: str, plan: List[_Leaf], rank: int,
                       step: int) -> None:
     entries = []
     for i, leaf in enumerate(plan):
-        if leaf.replicated and rank != 0:
+        if not leaf.writes:
             continue
         shards = [
             write_shard(tmp, f"{i:05d}_{leaf.name[:72]}.p{rank}s{b.index}.npy",

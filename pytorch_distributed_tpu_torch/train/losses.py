@@ -80,16 +80,32 @@ def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
                      generator=None, attn_impl=None):
     """The chunked loss's shared train/eval body: the model's hidden
     states in the compute dtype, projected chunk by chunk through the
-    head in its own layout."""
+    head in its own layout.
+
+    Under FSDP the head is read after the model's forward, outside any
+    FSDP-managed call: the root is unsharded explicitly first
+    (``FSDPModule.unshard``, a no-op when FSDP2 kept the root gathered
+    after its forward), so the chunks multiply by the whole gathered
+    head, and its gradient lands on the unsharded parameter, which the
+    root's post-backward reduce-scatters with the others."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
     core = getattr(model, "module", model)
     kw = dict(train=train, return_hidden=True, attn_impl=attn_impl,
               **_packed_extra(batch))
     if train:
         kw["generator"] = generator
     hidden = model(ids, **kw)
+    if isinstance(core, FSDPModule):
+        core.unshard()
     weight, axis = _lm_projection_weight(
         core, tied=getattr(getattr(core, "config", None),
                            "tie_word_embeddings", None))
+    if isinstance(weight, DTensor):
+        raise RuntimeError(
+            "the LM head is still sharded after unshard(): the chunked "
+            "loss would multiply by this rank's rows only")
     return causal_lm_chunked_loss(
         hidden.to(core.policy.compute_dtype), weight, ids,
         chunk_size=chunk_size, vocab_axis=axis,

@@ -12,8 +12,9 @@ each runs forward and backward with its own dropout generator
 (``generator_for(step, DROPOUT_TAG + i)``, the counterpart of
 ``fold_in(key_for(step), i)``), the gradients are summed and multiplied
 by 1/A (a model in ``DistributedDataParallel`` runs every microbatch but
-the last under ``no_sync()``, so its gradients cross the ranks once a
-step), the metrics averaged, and the optimizer steps once. BatchNorm
+the last under ``no_sync()``, one sharded by FSDP with
+``set_requires_gradient_sync(False)``, so its gradients cross the ranks
+once a step), the metrics averaged, and the optimizer steps once. BatchNorm
 running statistics, which the JAX step carries in ``state.batch_stats``,
 are module buffers that each train-mode forward updates in place, one
 microbatch after another as the JAX scan threads them. The step emits
@@ -56,6 +57,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from pytorch_distributed_tpu_torch.optim import _local
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime import tracing
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for
@@ -87,10 +89,26 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], accum_steps: int):
     return out
 
 
+@contextlib.contextmanager
+def _fsdp_no_sync(model):
+    model.set_requires_gradient_sync(False)
+    try:
+        yield
+    finally:
+        model.set_requires_gradient_sync(True)
+
+
 def _sync_unless(model, accumulating: bool):
-    """DDP's ``no_sync()`` while gradients still accumulate locally."""
+    """No gradient sync while gradients still accumulate locally: DDP's
+    ``no_sync()``; for a model FSDP sharded, its unsharded gradients
+    accumulate on each rank and are reduce-scattered after the last
+    microbatch."""
+    from torch.distributed.fsdp import FSDPModule
+
     if accumulating and isinstance(model, DistributedDataParallel):
         return model.no_sync()
+    if accumulating and isinstance(model, FSDPModule):
+        return _fsdp_no_sync(model)
     return contextlib.nullcontext()
 
 
@@ -128,7 +146,7 @@ def build_train_step(
                         sums[k] = v if k not in sums else sums[k] + v
             if accum_steps > 1:
                 inv = 1.0 / accum_steps
-                grads = [p.grad for p in model.parameters()
+                grads = [_local(p.grad) for p in model.parameters()
                          if p.grad is not None]
                 torch._foreach_mul_(grads, inv)
                 sums = {k: v * inv for k, v in sums.items()}

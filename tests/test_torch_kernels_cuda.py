@@ -200,6 +200,11 @@ FLASH_CASES = {
     # segment boundaries just inside and across the 32- and 64-row tiles
     "segments_straddle": (2, 200, 200, 4, 2, 128, True,
                           {"cuts": (31, 63, 65, 130, 191)}),
+    # Llama-3-8B's training rows: 32 query heads over 8 kv heads of 128,
+    # causal, S = 2048, plain and packed
+    "llama_train_row": (1, 2048, 2048, 32, 8, 128, True, {}),
+    "llama_packed_row": (1, 2048, 2048, 32, 8, 128, True,
+                         {"segments": True}),
 }
 
 
@@ -403,6 +408,42 @@ def test_gpt2_step_flash_matches_einsum_on_cuda(cuda):
             if n.endswith("attn_qkv.bias"):
                 grads[n] = torch.cat([g[:D], g[2 * D:]])
         results.append((float(metrics["loss"]), grads))
+    assert abs(results[0][0] - results[1][0]) <= 1e-5 * abs(results[1][0])
+    for n, g in results[0][1].items():
+        _assert_close(g, results[1][1][n], 1e-4, n)
+
+
+def test_llama_step_flash_matches_einsum_on_cuda(cuda):
+    """One f32 step of a small Llama at Llama-3-8B's head shape (head_dim
+    128, 4 query heads per kv head), full remat, the chunked loss, with
+    the flash kernels and with the einsum attention: the losses agree to
+    1e-5 and every gradient to 1e-4 of its largest magnitude (sums in
+    another order). Under remat the forward kernel runs twice per layer,
+    dq and dkv once."""
+    from pytorch_distributed_tpu_torch import causal_lm_loss_fn
+
+    cfg = dataclasses.replace(
+        LlamaConfig.tiny(), hidden_size=512, num_heads=4, num_kv_heads=1,
+        intermediate_size=1024, max_seq_len=512, remat=True)
+    ids = torch.randint(0, cfg.vocab_size, (2, 256),
+                        generator=torch.Generator().manual_seed(3)).to(cuda)
+    results = []
+    for impl in (None, "xla"):
+        model = LlamaForCausalLM(cfg, device=cuda, policy=Policy.full())
+        model.init_weights(torch.Generator(device=cuda).manual_seed(0))
+        before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+                  fa.flash_dkv.launches)
+        loss, _ = causal_lm_loss_fn(model, vocab_chunk_size=200,
+                                    attn_impl=impl)({"input_ids": ids}, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = tuple(n - b for n, b in zip(
+            (fa.flash_fwd.launches, fa.flash_dq.launches,
+             fa.flash_dkv.launches), before))
+        L = cfg.num_layers
+        assert launched == ((2 * L, L, L) if impl is None else (0, 0, 0))
+        results.append((loss.item(), {n: p.grad for n, p in
+                                      model.named_parameters()}))
     assert abs(results[0][0] - results[1][0]) <= 1e-5 * abs(results[1][0])
     for n, g in results[0][1].items():
         _assert_close(g, results[1][1][n], 1e-4, n)

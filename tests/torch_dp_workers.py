@@ -25,8 +25,15 @@ def _run(rank, out, fn):
         dist.destroy_process_group()
 
 
+# intra-op threads a rank: the ranks of a world, and the test processes
+# beside them, share the host's cores
+RANK_THREADS = 2
+
+
 def _join(rank, world, port):
     from pytorch_distributed_tpu_torch.runtime import distributed as dist
+
+    torch.set_num_threads(RANK_THREADS)
 
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank, device="cpu")
@@ -164,11 +171,8 @@ def spawn(target, world, *args, timeout_s=180.0):
     killed, never left running)."""
     import multiprocessing as mp
     import queue
-    import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = _free_port()
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = [ctx.Process(target=target, args=(r, world, port, *args, out))
@@ -195,6 +199,32 @@ def spawn(target, world, *args, timeout_s=180.0):
                 p.kill()
                 p.join(timeout=10)
     return [results[r] for r in range(world)]
+
+
+def in_process(target, *args):
+    """``target(0, 1, port, *args, out)`` in this process, a world of one
+    without the cost of a spawn; returns its result, or fails the caller
+    as :func:`spawn` does."""
+    import queue
+
+    out = queue.Queue()
+    threads = torch.get_num_threads()
+    try:
+        target(0, 1, _free_port(), *args, out)
+    finally:
+        torch.set_num_threads(threads)
+    _, res = out.get_nowait()
+    if isinstance(res, str):
+        raise AssertionError(f"{target.__name__} failed:\n{res}")
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def numpy_rows(seed, world, shape):
