@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one CUDA card: build its kernels, hold
 each against its plain PyTorch version, serve Llama-3-8B, train
 ResNet-50 data-parallel, run the JAX recipe's GPT-2-medium ZeRO-1
-configuration with checkpoints, train GPT-2-medium, and run the JAX
-recipe's Llama-3-8B FSDP full-shard configuration at full width.
+configuration with checkpoints, train GPT-2-medium, run the JAX
+recipe's Llama-3-8B FSDP full-shard configuration at full width, and
+run the JAX recipe's BERT-base fine-tune in bf16 and fp16.
 
     python3 chip_smoke.py [--seed N]
 
@@ -13,11 +14,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    one process per source, all at once, into
    ``pytorch_distributed_tpu_torch/_build/`` (ignored by git); then each
    kernel's registers and spills (``ptxas -v``) and its tensor-core
-   instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``): the bf16
-   flash forward, dq and dkv kernels and the bf16 paged kernel must have
-   some at every head_dim and the f32 flash forward and f32 paged kernel
-   none; the bf16 flash forward must not spill up to head_dim 64, the
-   bf16 paged kernel up to 128.
+   instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``): the bf16 and
+   fp16 flash forward, dq and dkv kernels and the bf16 paged kernel must
+   have some at every head_dim and the f32 flash forward and f32 paged
+   kernel none; the bf16 and fp16 flash forwards must not spill up to
+   head_dim 64, the bf16 paged kernel up to 128.
 2. paged kernel: the paged-attention kernel at the decode tick's shapes
    (Llama-3-8B attention: 32 query / 8 kv heads, head_dim 128, 32-token
    pages, 8 rows of seeded lengths up to 2000), plus a W=5 verify block,
@@ -30,17 +31,20 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    version's, a bytes bound, and ``scaled_dot_product_attention`` over
    the same K/V gathered dense.
 3. flash kernels: the forward, dq and dkv kernels against their plain
-   versions (the backward ones fed the same dO, lse and delta), in bf16
-   and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
+   versions (the backward ones fed the same dO, lse and delta), in bf16,
+   fp16 and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
    head_dim 64, causal), on packed rows from ``pack_documents``, with a
    ragged ``kv_mask``, at Llama-3-8B's GQA shapes (32/8 heads, head_dim
    128, S=2048, full), at Llama-3-8B's training shape (8b: B=8,
-   S=T=2048, 32/8 heads, head_dim 128, causal), with ``sm_scale=1.0``
-   and at S=T=1000; the bf16
+   S=T=2048, 32/8 heads, head_dim 128, causal), with ``sm_scale=1.0``,
+   at S=T=1000 and at BERT-base's (B=32, S=T=128, 12 heads of 64,
+   non-causal, padded to seeded lengths 16-128); the bf16
    forward, dq and dkv must give the same bits on two launches; then each
-   kernel's time at GPT-2-medium's and at Llama-3-8B's training shapes
-   beside its plain version's, a
-   bound, and ``scaled_dot_product_attention``'s flash backend (K/V
+   kernel's time at GPT-2-medium's and at Llama-3-8B's training shapes,
+   and at BERT's in bf16 and in fp16, beside its plain version's, a
+   bound, and ``scaled_dot_product_attention``'s flash backend (at
+   BERT's padded shape its memory-efficient one, the one that takes a
+   bias: the mask as a ``[B, H, S, T]`` bias made outside the timing; K/V
    expanded to the query heads outside the timed region at Llama's GQA
    shape, which that backend does not take): its
    forward for the forward kernel, its backward alone (one call that
@@ -133,14 +137,37 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    steps: device busy ms, idle share, time by kernel family. (b) is
    phase 3's Llama-shape case and timing.
 
-Serve, ResNet, 7a, train and 8a each set all four kernel counts to 0
+9. the JAX recipe's BERT-base fine-tune (``recipes/bert_finetune.py``,
+   through its ``build_trainer``), after phase 8: BERT-base at full width
+   and depth, ``BertForSequenceClassification`` with 2 labels,
+   ``DataParallel`` at world 1 over NCCL, AdamW(2e-5, decay 0.01, the
+   no-decay groups), the recipe's batch 32 x 128 over one batch of its
+   synthetic rows padded to seeded lengths 16-128. (a) bf16 and (b)
+   fp16 (the recipe's scaler), ``BERT_STEPS`` steps each through fit():
+   finite losses, the rows' loss with dropout off falling, the median
+   step, samples/s, peak memory, then torch.profiler over two steps
+   (device busy ms, idle share, time by family); (b) fp16 from a scale
+   of 2^40 (growth interval 3) for ``BERT_FP16_STEPS`` steps through
+   fit(), each step checked: a skipped one leaves every parameter and
+   AdamW tensor bitwise, the scale and tracker follow the JAX rule, at
+   least one skip and one growth, the optimizer's count lags ``step`` by
+   the skips, the rows' loss falls; (c) the checkpoint fit() wrote
+   after them restored into a model of other weights to the bit (the
+   scaler's state, step and cursor included) and the next 3 steps
+   repeated to the bit; (d) ``--mlm`` at lr 1e-4 for 8 steps: the rows'
+   loss under a fixed masking falls, each step's ``mask_frac`` within
+   0.02 of 0.15 x the rows' unpadded share. Flash launches 12 of each
+   kernel a step, the paged kernel none.
+
+Serve, ResNet, 7a, train, 8a and 9 each set all four kernel counts to 0
 just before their run and read all four just after; a kernel off the
 path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
 ``launches_by_path`` per path as read, and for the flash kernels their
-numbers ``at_llama_shape``), then the card's name and power
+numbers ``at_llama_shape`` and ``at_bert_shape`` per dtype), then the
+card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -155,7 +182,8 @@ import re
 import sys
 import time
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
+# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 (and fp16)
+# tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
@@ -189,11 +217,17 @@ GREEDY_MARGIN = 0.25
 # six cases, tensor-core kernels in bf16: max 3.6e-3 (out, sm_scale=1.0)
 # and 4.1e-3 (dk); norm 1.4e-3 (out, kv_mask) and 3.1e-4 (dv, GQA); f32:
 # norm 8.4e-7 (out) and 1.7e-6 (grads).
+# fp16 rounds at the same points with 3 more mantissa bits (11): H100
+# readings over tests/test_torch_kernels_cuda.py's 18 cases, BERT's
+# padded shape among them: max 5.2e-4 (out) and 5.1e-4 (dk); norm 2.0e-4
+# (out) and 1.2e-4 (dv).
 FLASH_TOL = {
     "float32": {"out": dict(max=1e-5, norm=1e-5),
                 "grad": dict(max=5e-5, norm=1e-5)},
     "bfloat16": {"out": dict(max=1e-2, norm=5e-3),
                  "grad": dict(max=1e-2, norm=1e-3)},
+    "float16": {"out": dict(max=2e-3, norm=1e-3),
+                "grad": dict(max=2e-3, norm=5e-4)},
 }
 LSE_TOL = dict(max=1e-5, norm=1e-5)   # f32 in both dtypes
 # the repeated batch's loss must fall at least this far (nats) over the
@@ -294,13 +328,17 @@ def _live_keys(lengths, W, n, ps, window):
 
 
 _FLASH_KERNEL = re.compile(
-    r"(flash_(?:fwd|dq|dkv)_kernel(?:_tc)?)I(f|13__nv_bfloat16)?Li(\d+)E"
+    r"(flash_(?:fwd|dq|dkv)_kernel(?:_tc)?)I(f|13__nv_bfloat16|6__half)"
+    r"Li(\d+)E"
 )
+_MANGLED_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                   "6__half": "float16"}
 
 
 _TC_KERNELS = ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
                "flash_dkv_kernel_tc")
 _HEAD_DIMS = (16, 32, 64, 128)
+_TC_DTYPES = ("bfloat16", "float16")
 
 
 def flash_label(fn):
@@ -309,19 +347,19 @@ def flash_label(fn):
     m = _FLASH_KERNEL.search(fn)
     if not m:
         return None
-    dtype = "float32" if m.group(2) == "f" else "bfloat16"
-    return f"{m.group(1)} {dtype} D={m.group(3)}"
+    return f"{m.group(1)} {_MANGLED_DTYPES[m.group(2)]} D={m.group(3)}"
 
 
 def check_flash_routes(report):
     """The flash routes the library must hold, from the build report
-    (``{label: ptxas fields and SASS counts}``): bf16 forward, dq and dkv
-    on the tensor cores (HMMA or HGMMA in their SASS) at every head_dim,
-    the bf16 forward without spills up to D = 64; f32 on the CUDA-core
-    kernels, the forward with no tensor-core instruction; and nothing
-    else, so no bf16 instantiation of a CUDA-core kernel. Raises naming
-    every departure."""
-    tc = {f"{k} bfloat16 D={d}" for k in _TC_KERNELS for d in _HEAD_DIMS}
+    (``{label: ptxas fields and SASS counts}``): bf16 and fp16 forward, dq
+    and dkv on the tensor cores (HMMA or HGMMA in their SASS) at every
+    head_dim, the bf16 and fp16 forwards without spills up to D = 64; f32
+    on the CUDA-core kernels, the forward with no tensor-core instruction;
+    and nothing else, so no bf16 or fp16 instantiation of a CUDA-core
+    kernel. Raises naming every departure."""
+    tc = {f"{k} {t} D={d}" for k in _TC_KERNELS for t in _TC_DTYPES
+          for d in _HEAD_DIMS}
     f32 = {f"flash_{k}_kernel float32 D={d}" for k in ("fwd", "dq", "dkv")
            for d in _HEAD_DIMS}
     found = {k for k in report if k.startswith("flash_")}
@@ -330,10 +368,11 @@ def check_flash_routes(report):
     for k in sorted(tc & found):
         if report[k].get("HMMA", 0) + report[k].get("HGMMA", 0) == 0:
             wrong.append(f"{k}: no tensor-core instructions")
-    for d in _HEAD_DIMS[:3]:
-        info = report.get(f"flash_fwd_kernel_tc bfloat16 D={d}", {})
-        if info.get("spill_stores", 0) or info.get("spill_loads", 0):
-            wrong.append(f"flash_fwd_kernel_tc bfloat16 D={d} spills")
+    for t in _TC_DTYPES:
+        for d in _HEAD_DIMS[:3]:
+            info = report.get(f"flash_fwd_kernel_tc {t} D={d}", {})
+            if info.get("spill_stores", 0) or info.get("spill_loads", 0):
+                wrong.append(f"flash_fwd_kernel_tc {t} D={d} spills")
     for d in _HEAD_DIMS:
         info = report.get(f"flash_fwd_kernel float32 D={d}", {})
         if info.get("HMMA", 0) + info.get("HGMMA", 0):
@@ -608,6 +647,10 @@ _TRAIN_SHAPE = dict(B=8, S=1024, T=1024, Hq=16, Hkv=16, D=64)
 # Llama-3-8B's training shape (phase 8b): 32 query heads over 8 kv heads
 # of 128, causal, batch 8 x 2048
 _LLAMA_SHAPE = dict(B=8, S=2048, T=2048, Hq=32, Hkv=8, D=128)
+# BERT-base's fine-tune batch (phase 9): 12 heads of 64, non-causal, a
+# padded tail per row (lengths 16-128, as padded GLUE sentences)
+_BERT_SHAPE = dict(B=32, S=128, T=128, Hq=12, Hkv=12, D=64)
+_BERT_PAD = {"lengths": (16, 128)}
 FLASH_CASES = (
     # name, shape, causal, extras
     ("train", _TRAIN_SHAPE, True, {}),
@@ -618,7 +661,9 @@ FLASH_CASES = (
     ("sm_scale_1", dict(_TRAIN_SHAPE, B=2, S=512, T=512), True,
      {"sm_scale": 1.0}),
     ("ragged_1000", dict(_TRAIN_SHAPE, B=4, S=1000, T=1000), True, {}),
+    ("bert", _BERT_SHAPE, False, _BERT_PAD),
 )
+FLASH_DTYPES = ("bfloat16", "float16", "float32")
 _REPLACES = {
     "flash_fwd": "pytorch_distributed_tpu/ops/flash_attention.py:80",
     "flash_dq": "pytorch_distributed_tpu/ops/flash_attention.py:234",
@@ -653,8 +698,10 @@ def _flash_inputs(gen, seed, shape, dtype, device, extras):
     k = torch.randn(B, T, Hkv, D, generator=gen)
     v = torch.randn(B, T, Hkv, D, generator=gen)
     bias = seg = None
-    if extras.get("kv_mask"):   # a ragged padded tail per row
-        lengths = torch.randint(T // 2, T + 1, (B,), generator=gen)
+    if extras.get("kv_mask") or "lengths" in extras:
+        # a ragged padded tail per row, lengths in [lo, hi]
+        lo, hi = extras.get("lengths", (T // 2, T))
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen)
         keep = torch.arange(T)[None, :] < lengths[:, None]
         bias = torch.zeros(B, T).masked_fill(~keep, fa._NEG_INF).to(device)
     if extras.get("packed"):
@@ -693,8 +740,8 @@ def flash_phase(device, seed):
     gen = torch.Generator().manual_seed(seed + 1)
     checks = []
     worst = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).replace("torch.", "")
+    for dname in FLASH_DTYPES:
+        dtype = getattr(torch, dname)
         tol = FLASH_TOL[dname]
         for name, shape, causal, extras in FLASH_CASES:
             q, k, v, bias, seg = _flash_inputs(gen, seed, shape, dtype,
@@ -734,53 +781,73 @@ def flash_phase(device, seed):
                       f"{lim['max']:g} * max|ref| {scale:.4f}, norm "
                       f"{norm:.3e} <= {lim['norm']:g} -> "
                       f"{'ok' if ok else 'FAIL'}")
-                if dname == "bfloat16":
-                    worst.setdefault(name, {})[what] = err
+                worst.setdefault(dname, {}).setdefault(name, {})[what] = err
             del q, k, v, out, ref, dout, dq, dk, dv, ref_dk, ref_dv, pairs
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with plain: {bad}")
 
     records, details = _flash_times(gen, seed, _TRAIN_SHAPE, device,
-                                    worst["train"])
+                                    worst["bfloat16"]["train"])
     details["checks"] = checks
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
     # 8b: the same kernels at Llama-3-8B's training shape, beside the
     # GPT-2 records as their ``at_llama_shape``
     lrecords, ldetails = _flash_times(gen, seed, _LLAMA_SHAPE, device,
-                                      worst["llama_train"])
+                                      worst["bfloat16"]["llama_train"])
     for rec, lrec in zip(records, lrecords):
-        rec["at_llama_shape"] = {k: lrec[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")}
+        rec["at_llama_shape"] = {k: lrec[k] for k in keys}
     details["llama_shape"] = ldetails
+    # phase 9's shape: BERT-base, non-causal with its padding, in bf16
+    # and in fp16, as ``at_bert_shape``
+    details["bert_shape"] = {}
+    for dname in ("bfloat16", "float16"):
+        # one generator a dtype: both time the same tensors and mask
+        bgen = torch.Generator().manual_seed(seed + 2)
+        brecords, bdetails = _flash_times(
+            bgen, seed, _BERT_SHAPE, device, worst[dname]["bert"],
+            dtype=getattr(torch, dname), causal=False, extras=_BERT_PAD)
+        for rec, brec in zip(records, brecords):
+            rec.setdefault("at_bert_shape", {})[dname] = {
+                k: brec[k] for k in keys}
+        details["bert_shape"][dname] = bdetails
     return records, details
 
 
-def _flash_times(gen, seed, shape, device, worst):
-    """The three kernels at ``shape`` (bf16, causal): bitwise equal over
-    two launches, then each one's time replayed from a CUDA graph beside
-    its eager time, its plain version's, its bound and SDPA's flash
-    backend (K/V expanded to the query heads outside the timed region
-    when the shape has GQA: that backend takes equal head counts)."""
+def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
+                 causal=True, extras=None):
+    """The three kernels at ``shape`` (bf16 and causal unless given;
+    ``extras`` as ``_flash_inputs`` takes them: a padding mask): bitwise
+    equal over two launches, then each one's time replayed from a CUDA
+    graph beside its eager time, its plain version's, its bound and
+    ``scaled_dot_product_attention``'s. Without a mask the yardstick is
+    SDPA's flash backend (K/V expanded to the query heads outside the
+    timed region when the shape has GQA: that backend takes equal head
+    counts); with one it is the memory-efficient backend, the one that
+    takes an additive bias, given the mask as a ``[B, H, S, T]`` bias in
+    the input dtype (made outside the timed region)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from pytorch_distributed_tpu_torch.ops import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
     B, S, T, Hq, Hkv, D = (shape[k] for k in ("B", "S", "T", "Hq", "Hkv",
                                               "D"))
-    q, k, v, _, _ = _flash_inputs(gen, seed, shape, torch.bfloat16, device,
-                                  {})
-    kw = dict(sm_scale=D ** -0.5, causal=True)
-    out, lse = fa.flash_fwd(q, k, v, **kw)
+    q, k, v, bias, seg = _flash_inputs(gen, seed, shape, dtype, device,
+                                       extras or {})
+    kw = dict(sm_scale=D ** -0.5, causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, bias, seg, **kw)
     dout = torch.randn(out.shape, generator=gen).to(device, out.dtype)
     delta = fa._delta(dout, out)
-    bargs = (q, k, v, dout, lse, delta)
+    bargs = (q, k, v, dout, lse, delta, bias, seg)
     # two launches on the same inputs give the same bits (no atomics)
     same = {
         "flash_fwd": all(torch.equal(a, b) for a, b in zip(
-            fa.flash_fwd(q, k, v, **kw), fa.flash_fwd(q, k, v, **kw))),
+            fa.flash_fwd(q, k, v, bias, seg, **kw),
+            fa.flash_fwd(q, k, v, bias, seg, **kw))),
         "flash_dq": torch.equal(fa.flash_dq(*bargs, **kw),
                                 fa.flash_dq(*bargs, **kw)),
         "flash_dkv": all(torch.equal(a, b) for a, b in zip(
@@ -790,7 +857,7 @@ def _flash_times(gen, seed, shape, device, worst):
     if not all(same.values()):
         raise AssertionError(f"a flash kernel is not deterministic: {same}")
     calls = {
-        "flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, bias, seg, **kw),
         "flash_dq": lambda: fa.flash_dq(*bargs, **kw),
         "flash_dkv": lambda: fa.flash_dkv(*bargs, **kw),
     }
@@ -800,55 +867,81 @@ def _flash_times(gen, seed, shape, device, worst):
     eager_ms = {name: _time_ms(fn, 20) for name, fn in calls.items()}
     plain_ms = {
         "flash_fwd": _time_ms(
-            lambda: fa._flash_fwd_plain(q, k, v, None, None, **kw), 3),
-        "flash_dq": _time_ms(
-            lambda: fa._flash_dq_plain(*bargs, None, None, **kw), 3),
-        "flash_dkv": _time_ms(
-            lambda: fa._flash_dkv_plain(*bargs, None, None, **kw), 3),
+            lambda: fa._flash_fwd_plain(q, k, v, bias, seg, **kw), 3),
+        "flash_dq": _time_ms(lambda: fa._flash_dq_plain(*bargs, **kw), 3),
+        "flash_dkv": _time_ms(lambda: fa._flash_dkv_plain(*bargs, **kw), 3),
     }
-    # the library yardsticks (never called by the port): SDPA's flash
-    # backend on the same tensors in its [B, H, S, D] layout. The backward
-    # is its aten op alone, fed the out and logsumexp of a forward made
-    # outside the graph: one call for dq, dk and dv, so the dq and dkv
-    # kernels share it (hold dq_ms + dkv_ms against it)
+    # the library yardsticks (never called by the port), on the same
+    # tensors in SDPA's [B, H, S, D] layout. The backward is the backend's
+    # aten op alone, fed the out and logsumexp of its forward made outside
+    # the graph: one call for dq, dk and dv, so the dq and dkv kernels
+    # share it (hold dq_ms + dkv_ms against it)
     group = Hq // Hkv
     qt, kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2)
                   if t is not q and group > 1 else t.transpose(1, 2)
                   for t in (q, k, v))
     aten = torch.ops.aten
-    lib = aten._scaled_dot_product_flash_attention(
-        qt, kt, vt, 0.0, True, False, scale=kw["sm_scale"]
-    )
-    lo, llse, cum_q, cum_k, max_q, max_k, seed_t, offset_t = lib[:8]
-    gout = torch.empty_like(lo).copy_(dout.transpose(1, 2))
+    gout = torch.empty(B, Hq, S, D, dtype=dtype,
+                       device=device).copy_(dout.transpose(1, 2))
+    scale = kw["sm_scale"]
+    if bias is None:
+        backend = "flash"
+        lib = aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False, scale=scale)
+        lo, llse, cum_q, cum_k, max_q, max_k, seed_t, offset_t = lib[:8]
 
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
 
-    def sdpa_bwd():
-        return aten._scaled_dot_product_flash_attention_backward(
-            gout, qt, kt, vt, lo, llse, cum_q, cum_k, max_q, max_k, 0.0,
-            True, seed_t, offset_t, scale=kw["sm_scale"],
-        )
+        def sdpa_bwd():
+            return aten._scaled_dot_product_flash_attention_backward(
+                gout, qt, kt, vt, lo, llse, cum_q, cum_k, max_q, max_k, 0.0,
+                causal, seed_t, offset_t, scale=scale)
 
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            lib_fwd = _graph_ms(sdpa_fwd, 20)
+            lib_out = sdpa_fwd()
+    else:
+        backend = "efficient"
+        if causal:
+            raise ValueError("the masked yardstick is non-causal")
+        abias = bias.to(dtype)[:, None, None, :].expand(
+            B, Hq, S, T).contiguous()
+        lo, llse, seed_t, offset_t = (
+            aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, abias, True, 0.0, False, scale=scale))
+
+        def sdpa_fwd():
+            return aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, abias, False, 0.0, False, scale=scale)[0]
+
+        def sdpa_bwd():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                gout, qt, kt, vt, abias, lo, llse, seed_t, offset_t, 0.0,
+                [True, True, True, False], False, scale=scale)
+
         lib_fwd = _graph_ms(sdpa_fwd, 20)
-        lib_err = (sdpa_fwd().transpose(1, 2).float()
-                   - out.float()).abs().max().item()
+        lib_out = sdpa_fwd()
+    lib_err = (lib_out.transpose(1, 2).float() - out.float()).abs().max()
+    lib_err = lib_err.item()
     lib_bwd = _graph_ms(sdpa_bwd, 20)
     lib_dq = sdpa_bwd()[0].transpose(1, 2).float()
     lib_dq_err = (lib_dq - fa.flash_dq(*bargs, **kw).float()).abs().max()
     lib_dq_err = lib_dq_err.item()
-    pairs = _live_pairs(B, S, T, Hq, True, None, None)
+    pairs = _live_pairs(B, S, T, Hq, causal, bias, seg)
     n_q, n_kv, rows = B * S * Hq * D, B * T * Hkv * D, B * Hq * S
     item = q.element_size()
+    extra = 4 * B * T if bias is not None else 0   # the f32 bias row
     work = {   # (bytes: each input read once, each output written once; flops)
-        "flash_fwd": ((2 * n_q + 2 * n_kv) * item + 4 * rows,
+        "flash_fwd": ((2 * n_q + 2 * n_kv) * item + 4 * rows + extra,
                       4 * D * pairs),
-        "flash_dq": ((3 * n_q + 2 * n_kv) * item + 8 * rows, 6 * D * pairs),
-        "flash_dkv": ((2 * n_q + 4 * n_kv) * item + 8 * rows,
+        "flash_dq": ((3 * n_q + 2 * n_kv) * item + 8 * rows + extra,
+                     6 * D * pairs),
+        "flash_dkv": ((2 * n_q + 4 * n_kv) * item + 8 * rows + extra,
                       8 * D * pairs),
     }
+    dname = str(dtype).replace("torch.", "")
     records = []
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         nbytes, flops = work[name]
@@ -865,16 +958,20 @@ def _flash_times(gen, seed, shape, device, worst):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
         ))
-        print(f"{name} at {shape}: {ms[name]:.4f} ms (graph replay; eager "
-              f"{eager_ms[name]:.4f} ms), plain {plain_ms[name]:.4f} ms, "
-              f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, "
-              f"{flops} flops), {flops / ms[name] / 1e9:.1f} TFLOP/s")
-    print(f"sdpa (flash backend): forward {lib_fwd:.4f} ms (max|diff| vs "
-          f"the forward kernel {lib_err:.3e}), backward {lib_bwd:.4f} ms "
+        print(f"{name} at {shape} {dname}{' causal' if causal else ''}"
+              f"{' padded' if bias is not None else ''}: {ms[name]:.4f} ms "
+              f"(graph replay; eager {eager_ms[name]:.4f} ms), plain "
+              f"{plain_ms[name]:.4f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, {flops} "
+              f"flops), {flops / ms[name] / 1e9:.1f} TFLOP/s")
+    print(f"sdpa ({backend} backend): forward {lib_fwd:.4f} ms (max|diff| "
+          f"vs the forward kernel {lib_err:.3e}), backward {lib_bwd:.4f} ms "
           f"(dq max|diff| vs the dq kernel {lib_dq_err:.3e}) against dq + "
           f"dkv {ms['flash_dq'] + ms['flash_dkv']:.4f} ms")
-    details = dict(shape=shape, live_pairs=pairs, eager_ms=eager_ms,
-                   deterministic=same, sdpa_fwd_ms=lib_fwd,
+    details = dict(shape=shape, dtype=dname, causal=causal,
+                   padded=bias is not None, live_pairs=pairs,
+                   eager_ms=eager_ms, deterministic=same,
+                   sdpa_backend=backend, sdpa_fwd_ms=lib_fwd,
                    sdpa_bwd_ms=lib_bwd, sdpa_max_abs_diff=lib_err,
                    sdpa_bwd_dq_max_abs_diff=lib_dq_err,
                    work={k: dict(bytes=b, flops=f)
@@ -2485,6 +2582,390 @@ def llama_phase(device, seed):
     return stats
 
 
+# -- 9. the JAX recipe's BERT-base fine-tune: DDP, bf16 and fp16 -----------
+
+BERT_BATCH, BERT_SEQ = 32, 128   # the recipe's --batch-size, --seq-len
+BERT_STEPS = 20          # (9a) and (9b)'s timed run: steps through fit()
+BERT_FP16_STEPS = 40     # (9b) checked fp16 steps, from an overflowing scale
+BERT_FP16_INIT = 2.0 ** 40   # the first steps' gradients overflow fp16
+BERT_GROWTH = 3          # (9b) the scaler's growth interval
+BERT_RESUME = 3          # (9c) steps after the checkpoint
+BERT_MLM_STEPS = 8       # (9d)
+# (9d): the recipe's 2e-5 moves the MLM loss by less than the noise of
+# its fresh masking within 8 steps
+BERT_MLM_LR = 1e-4
+BERT_MASK_TOL = 0.02     # (9d) |mask_frac - 0.15 x the unpadded share|
+BERT_FAMILIES = (
+    ("flash kernels (B1-B3)", re.compile(r"flash_(fwd|dq|dkv)", re.I)),
+    ("AdamW (foreach)", re.compile(r"multi_tensor|foreach", re.I)),
+    ("matmuls (cuBLAS)", re.compile(r"gemm|sm90|nvjet|cutlass|xmma", re.I)),
+    ("NCCL (DDP's all-reduce)", re.compile(r"nccl", re.I)),
+    ("copies and casts", re.compile(r"copy|memcpy|memset|cast", re.I)),
+    ("elementwise and reductions", re.compile(
+        r"elementwise|vectorized|reduce|fill|softmax|norm", re.I)),
+)
+
+
+def _bert_rows(seed, vocab, steps):
+    """The recipe's synthetic rows (ids and labels), one batch of them,
+    padded as GLUE sentences are: seeded lengths 16-128, id 0 and
+    ``attention_mask`` False past each; tiled ``steps`` times, so the
+    loader cycles over the same 32 rows (a loss that must fall)."""
+    import numpy as np
+
+    from pytorch_distributed_tpu_torch import (
+        ArrayDataset,
+        SyntheticTextDataset,
+    )
+
+    ds = SyntheticTextDataset(n=BERT_BATCH, seq_len=BERT_SEQ,
+                              vocab_size=vocab, num_classes=2, seed=seed)
+    ids = np.stack([ds[i]["input_ids"] for i in range(BERT_BATCH)])
+    labels = np.stack([ds[i]["label"] for i in range(BERT_BATCH)])
+    lengths = np.random.default_rng(seed + 9).integers(
+        16, BERT_SEQ + 1, BERT_BATCH)
+    mask = np.arange(BERT_SEQ)[None] < lengths[:, None]
+    rows = dict(input_ids=np.where(mask, ids, 0).astype(np.int32),
+                attention_mask=mask, label=labels)
+    return ArrayDataset(**{k: np.tile(v, (steps,) + (1,) * (v.ndim - 1))
+                           for k, v in rows.items()}), float(mask.mean())
+
+
+def _bert_build(device, seed, steps, *flags, scaler=None, init_seed=None):
+    """The recipe's ``build_trainer`` at BERT-base with its batch 32 x
+    128 over ``_bert_rows`` (``steps`` batches an epoch): (model, trainer,
+    the rows, their unpadded share)."""
+    from pytorch_distributed_tpu_torch.models.bert import BertConfig
+    from pytorch_distributed_tpu_torch.recipes import bert_finetune
+
+    args = bert_finetune.parse_args(
+        ["--batch-size", str(BERT_BATCH), "--seq-len", str(BERT_SEQ),
+         "--steps-per-epoch", str(steps), "--log-every", "1",
+         "--seed", str(seed), *flags])
+    ds, unpadded = _bert_rows(seed, BertConfig.base().vocab_size, steps)
+    model, trainer = bert_finetune.build_trainer(
+        args, device, dataset=ds, scaler=scaler, init_seed=init_seed)
+    return model, trainer, ds, unpadded
+
+
+def _bert_eval_loss(model, ds, device, mlm=False):
+    """The loss on the 32 distinct rows with dropout off (an MLM's under
+    one masking drawn from a fixed seed), through the einsum attention
+    (so the flash counts stay the training steps'): the trend a run on
+    these rows must move down, free of dropout's and masking's noise."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.models.bert import mask_tokens
+
+    b = {k: torch.from_numpy(v[:BERT_BATCH]).to(device)
+         for k, v in ds.arrays.items()}
+    with torch.no_grad():
+        if not mlm:
+            logits = model(b["input_ids"], b["attention_mask"],
+                           attn_impl="xla")
+            return F.cross_entropy(logits.float(), b["label"].long()).item()
+        V = model.config.vocab_size
+        ids, labels = mask_tokens(
+            torch.Generator(device=device).manual_seed(0), b["input_ids"],
+            mask_token_id=103, vocab_size=V, mask_prob=0.15,
+            special_mask=~b["attention_mask"])
+        logits = model(ids, b["attention_mask"], attn_impl="xla")
+        return F.cross_entropy(logits.float().reshape(-1, V),
+                               labels.long().reshape(-1),
+                               ignore_index=-100).item()
+
+
+def _bert_fit(device, seed, steps, what, *flags, profile=True):
+    """fit() over ``steps`` steps of the recipe's step: losses, step ms
+    (median of steps 2..), samples/s, this run's own peak memory, then
+    torch.profiler over two more steps. Returns (stats, steps run)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    model, trainer, ds, unpadded = _bert_build(device, seed, steps, *flags)
+    n_params = sum(p.numel() for p in model.parameters())
+    mlm = "--mlm" in flags
+    eval_before = _bert_eval_loss(model, ds, device, mlm)
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_after = _bert_eval_loss(model, ds, device, mlm)
+    peak = (torch.cuda.max_memory_allocated(device) - left) / 2**30
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    step_s = [r["step_time_s"] for r in hist]
+    steady = sorted(step_s[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    stats = dict(params=n_params, losses=losses,
+                 eval_loss=(eval_before, eval_after),
+                 step_ms=[1e3 * x for x in step_s], step_ms_median=step_ms,
+                 samples_per_s=BERT_BATCH / step_ms * 1e3,
+                 peak_mem_gib=peak, wall_s=wall, unpadded=unpadded,
+                 metrics={k: [r[k] for r in hist] for k in hist[0]
+                          if k not in ("step", "epoch")})
+    print(f"({what}) BERT-base {n_params} params, {' '.join(flags) or 'bf16'}"
+          f", DDP at world 1, batch {BERT_BATCH} x {BERT_SEQ} padded "
+          f"({100 * unpadded:.1f}% of positions unpadded): {steps} steps in "
+          f"{wall:.2f} s, step ms " + " ".join(f"{1e3 * x:.2f}"
+                                               for x in step_s)
+          + f", median of steps 2-{steps} {step_ms:.2f} ms = "
+          f"{stats['samples_per_s']:.1f} samples/s, peak memory {peak:.2f} "
+          f"GiB; losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; the rows' loss, dropout off, {eval_before:.4f} -> "
+          f"{eval_after:.4f}")
+    if (len(losses) != steps or not all(map(math.isfinite, losses))
+            or not eval_after < eval_before):
+        raise AssertionError(f"({what}) losses {losses}, the rows' loss "
+                             f"{eval_before} -> {eval_after}")
+    run = steps
+    if profile:
+        batches = iter(trainer.train_loader)
+        batch = {k: v.to(device) for k, v in next(batches).items()}
+        batches.close()
+        state = trainer.state
+        for _ in range(2):
+            state, metrics = trainer.train_step(state, batch)
+        float(metrics["loss"])
+        total_us, rows = profile_step(trainer.train_step, state, batch)
+        run += 4
+        busy_ms = total_us / 2e3
+        families = by_family(rows, BERT_FAMILIES)
+        if total_us:
+            print(f"({what}) profile, 2 steps: device busy {busy_ms:.2f} "
+                  f"ms/step against the unprofiled step of {step_ms:.2f} ms "
+                  f"(idle {100 * (1 - busy_ms / step_ms):.1f}%)")
+            for name, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+                print(f"  {ms:9.3f} ms/step  {100 * ms / busy_ms:5.1f}%  "
+                      f"{name}")
+            for key, us, count in rows[:12]:
+                print(f"  {us / 2e3:9.3f} ms/step  x{count // 2:<5d} "
+                      f"{key[:90]}")
+        else:
+            print(f"({what}) profiler: no device time recorded (not "
+                  "measured)")
+        stats["profile"] = dict(
+            device_busy_ms=busy_ms, families=families,
+            idle_share=(1 - busy_ms / step_ms) if total_us else None,
+            top=[dict(name=k, ms_per_step=us / 2e3, count=c // 2)
+                 for k, us, c in rows[:12]])
+        del state, batch
+    del model, trainer
+    return stats, run
+
+
+def _bert_snapshot(model, trainer):
+    """Host copies of every parameter and AdamW tensor (moments and
+    torch's ``step``), the scaler state, the step and the cursor."""
+    opt = trainer.state.optimizer
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {n: p.detach().to("cpu", copy=True)
+           for n, p in model.named_parameters()}
+    for p, st in opt.state.items():
+        for k, v in st.items():
+            out[f"{names[id(p)]}.{k}"] = v.to("cpu", copy=True)
+    ss = trainer.state.scaler_state
+    out["scaler.scale"] = ss.scale.to("cpu", copy=True)
+    out["scaler.growth_tracker"] = ss.growth_tracker.to("cpu", copy=True)
+    return dict(tensors=out, step=trainer.state.step,
+                cursor=(trainer._cursor_epoch, trainer._cursor_offset))
+
+
+def _bert_fp16_checks(device, seed, tmp):
+    """(9b) fp16 steps through fit() from a scale that overflows, each
+    checked against the scaler's rule; (9c) the checkpoint fit() writes
+    after them, restored into a fresh model to the bit, and the next
+    steps repeated to the bit. Returns (stats, steps run)."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import GradScaler
+
+    def scaler():
+        return GradScaler(init_scale=BERT_FP16_INIT,
+                          growth_interval=BERT_GROWTH, dtype=torch.float16)
+
+    model, trainer, ds, _ = _bert_build(
+        device, seed, BERT_FP16_STEPS, "--fp16", "--ckpt-dir", tmp,
+        scaler=scaler())
+    opt = trainer.state.optimizer
+    inner = trainer.train_step
+    rule = dict(scale=BERT_FP16_INIT, tracker=0, grew=0, skipped=0)
+    losses, finite, scales, bad = [], [], [], []
+
+    def checked(state, batch):
+        i = len(losses)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        moments = {id(p): {k: v.clone() for k, v in st.items()}
+                   for p, st in opt.state.items()}
+        state, m = inner(state, batch)
+        ok = float(m["grads_finite"]) == 1.0
+        losses.append(float(m["loss"]))
+        finite.append(ok)
+        # the JAX update rule, on the host
+        if ok:
+            rule["tracker"] += 1
+            if rule["tracker"] >= BERT_GROWTH:
+                rule.update(scale=rule["scale"] * 2, tracker=0,
+                            grew=rule["grew"] + 1)
+        else:
+            rule.update(scale=rule["scale"] / 2, tracker=0,
+                        skipped=rule["skipped"] + 1)
+            if any(not torch.equal(p, before[n])
+                   for n, p in model.named_parameters()):
+                bad.append(f"step {i}: a parameter moved on a skipped step")
+            if {id(p) for p in opt.state} != set(moments) or any(
+                    not torch.equal(v, moments[id(p)][k])
+                    for p, st in opt.state.items() for k, v in st.items()):
+                bad.append(f"step {i}: AdamW's state moved on a skip")
+        ss = state.scaler_state
+        scales.append(float(ss.scale))
+        if (float(ss.scale), int(ss.growth_tracker)) != (rule["scale"],
+                                                         rule["tracker"]):
+            bad.append(f"step {i}: scale {float(ss.scale)} tracker "
+                       f"{int(ss.growth_tracker)}, want {rule['scale']} "
+                       f"{rule['tracker']}")
+        return state, m
+
+    eval_before = _bert_eval_loss(model, ds, device)
+    trainer.train_step = checked
+    trainer.fit()   # checkpoints after its epoch: (9c)'s
+    trainer.train_step = inner
+    eval_after = _bert_eval_loss(model, ds, device)
+    skipped, grew = rule["skipped"], rule["grew"]
+    counts = {int(st["step"]) for st in opt.state.values()}
+    if counts != {trainer.state.step - skipped}:
+        bad.append(f"optimizer count {counts} != step "
+                   f"{trainer.state.step} - {skipped} skips")
+    done = [x for x, ok in zip(losses, finite) if ok]
+    print(f"(9b) fp16, GradScaler(init_scale=2^40, growth_interval="
+          f"{BERT_GROWTH}): {len(losses)} steps, {skipped} skipped "
+          f"(parameters and AdamW state bitwise unchanged on each), "
+          f"{grew} growth(s); optimizer count {sorted(counts)} at step "
+          f"{trainer.state.step}; scales " + " ".join(
+              f"2^{math.log2(x):g}" for x in scales)
+          + "; losses of the applied steps " + " ".join(
+              f"{x:.4f}" for x in done)
+          + f"; the rows' loss, dropout off, {eval_before:.4f} -> "
+          f"{eval_after:.4f}")
+    falls = eval_after < eval_before
+    if (bad or not skipped or not grew or not falls
+            or len(losses) != BERT_FP16_STEPS
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"(9b) fp16 scaling: {bad[:5]}, {skipped} "
+                             f"skips, {grew} growths, falls {falls}")
+    stats = dict(steps=len(losses), skipped=skipped, growths=grew,
+                 scales=scales, finite=finite, losses=losses,
+                 optimizer_count=sorted(counts), step=trainer.state.step,
+                 eval_loss=(eval_before, eval_after))
+
+    # (9c) the checkpoint fit() wrote, the next steps on the same rows,
+    # then a fresh model (other weights) restores it and repeats them
+    saved = _bert_snapshot(model, trainer)
+    resume = [{k: torch.from_numpy(v[:BERT_BATCH]).to(device)
+               for k, v in ds.arrays.items()} for _ in range(BERT_RESUME)]
+    after = []
+    for batch in resume:
+        trainer.state, m = trainer.train_step(trainer.state, batch)
+        after.append(float(m["loss"]))
+    final = _bert_snapshot(model, trainer)
+    del model, trainer, opt
+    model, trainer, _, _ = _bert_build(
+        device, seed, BERT_FP16_STEPS, "--fp16", "--ckpt-dir", tmp,
+        scaler=scaler(), init_seed=seed + 1)
+    t0 = time.perf_counter()
+    if not trainer.restore_checkpoint():
+        raise AssertionError("(9c) nothing restored")
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    got = _bert_snapshot(model, trainer)
+    bad = [k for k, v in saved["tensors"].items()
+           if k not in got["tensors"] or not torch.equal(v, got["tensors"][k])]
+    if (bad or set(got["tensors"]) != set(saved["tensors"])
+            or got["step"] != saved["step"]
+            or got["cursor"] != saved["cursor"]):
+        raise AssertionError(
+            f"(9c) restored state differs: {bad[:5]} step {got['step']} vs "
+            f"{saved['step']} cursor {got['cursor']} vs {saved['cursor']}")
+    again = []
+    for batch in resume:
+        trainer.state, m = trainer.train_step(trainer.state, batch)
+        again.append(float(m["loss"]))
+    end = _bert_snapshot(model, trainer)
+    differ = [k for k, v in final["tensors"].items()
+              if not torch.equal(v, end["tensors"][k])]
+    print(f"(9c) checkpoint at step {saved['step']} (scale "
+          f"{float(saved['tensors']['scaler.scale']):g}, tracker "
+          f"{int(saved['tensors']['scaler.growth_tracker'])}), restored "
+          f"into other weights in {restore_ms:.0f} ms: parameters, AdamW "
+          f"state, scaler state, step and cursor equal to the bit; the next "
+          f"{BERT_RESUME} steps " + " ".join(f"{x:.6f}" for x in again)
+          + " against " + " ".join(f"{x:.6f}" for x in after)
+          + f", {len(differ)} tensors differ after them")
+    if again != after or differ:
+        raise AssertionError(f"(9c) the resumed steps differ: {differ[:5]}")
+    stats.update(restore_ms=restore_ms, resumed_losses=again)
+    del model, trainer, saved, got, final, end, resume
+    return stats, BERT_FP16_STEPS + 2 * BERT_RESUME
+
+
+def bert_phase(device, seed):
+    """Phase 9: the recipe's BERT-base fine-tune on one card, in a DDP
+    world of one over NCCL: (9a) bf16 and (9b) fp16 through fit() with
+    their profiles, (9b) the fp16 scaler's skips and growths checked
+    step by step, (9c) a checkpoint with the scaler's state restored to
+    the bit, (9d) a short MLM run. The four kernels' counts are set to 0
+    before it and read after: 12 launches of each flash kernel a step."""
+    import gc
+    import tempfile
+
+    import torch
+
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="ptd_bert_") as tmp, \
+            _World1(device):
+        kernel_counts(reset=True)
+        stats["bf16"], run = _bert_fit(device, seed, BERT_STEPS, "9a")
+        stats["fp16"], n = _bert_fit(device, seed, BERT_STEPS, "9b", "--fp16")
+        run += n
+        fp16 = stats["fp16"]["metrics"]
+        print(f"(9b) timed run at the recipe's scaler (2^15): loss scale "
+              f"{fp16['loss_scale'][0]:g} -> {fp16['loss_scale'][-1]:g}, "
+              f"{int(sum(1 - x for x in fp16['grads_finite']))} skipped")
+        checks, n = _bert_fp16_checks(device, seed, tmp)
+        stats["fp16_scaler"] = checks
+        run += n
+        stats["mlm"], n = _bert_fit(
+            device, seed, BERT_MLM_STEPS, "9d", "--mlm", "--lr",
+            str(BERT_MLM_LR), profile=False)
+        run += n
+        counts = kernel_counts()
+        mlm = stats["mlm"]
+        frac = mlm["metrics"]["mask_frac"]
+        want_frac = 0.15 * mlm["unpadded"]
+        print(f"(9d) --mlm mask_frac " + " ".join(f"{x:.4f}" for x in frac)
+              + f" against 0.15 x {mlm['unpadded']:.4f} unpadded = "
+              f"{want_frac:.4f} (+- {BERT_MASK_TOL})")
+        if any(abs(x - want_frac) > BERT_MASK_TOL for x in frac):
+            raise AssertionError(f"(9d) MLM mask_frac {frac} against "
+                                 f"{want_frac} +- {BERT_MASK_TOL}")
+        layers = 12
+        want = {k: layers * run for k in FLASH}
+        print(f"BERT path: {run} steps, launches {counts} (want {want} and "
+              "no paged kernel)")
+        if {k: counts[k] for k in FLASH} != want:
+            raise AssertionError(f"BERT flash launches {counts} != {want}")
+        off_path(counts, FLASH)
+        stats.update(launches=counts, steps_run=run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2531,6 +3012,7 @@ def main(argv=None) -> int:
     zstats = zero1_phase(device, args.seed)
     train_counts, tstats = train_phase(device, args.seed, flash_records)
     lstats = llama_phase(device, args.seed)
+    bstats = bert_phase(device, args.seed)
     zt = zstats["train"]
     print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
@@ -2545,9 +3027,16 @@ def main(argv=None) -> int:
           f"{lstats['tokens_per_s']:.0f} tokens/s, peak "
           f"{lstats['peak_mem_gib']:.2f} GiB, device busy "
           f"{lstats['profile']['device_busy_ms']:.2f} ms/step")
+    for name in ("bf16", "fp16"):
+        b = bstats[name]
+        print(f"BERT-base fine-tune {name}, batch {BERT_BATCH} x {BERT_SEQ}:"
+              f" {b['step_ms_median']:.2f} ms/step, "
+              f"{b['samples_per_s']:.1f} samples/s, peak "
+              f"{b['peak_mem_gib']:.2f} GiB, device busy "
+              f"{b['profile']['device_busy_ms']:.2f} ms/step")
     by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
                    zero1=zt["launches"], train=train_counts,
-                   llama=lstats["launches"])
+                   llama=lstats["launches"], bert=bstats["launches"])
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -2560,7 +3049,7 @@ def main(argv=None) -> int:
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
                                       train=tstats, serve=stats,
                                       resnet=rstats, zero1=zstats,
-                                      llama=lstats)}))
+                                      llama=lstats, bert=bstats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ attention forward and backward in hand-written flash kernels
 (``torch.distributed`` process group, DDP with global BatchNorm
 statistics, uint8 image data normalized on the card, SGD); and the JAX
 recipe's GPT-2 run (ZeRO-1, remat, the chunked-vocab loss, BPE corpora)
-with checkpoints both packages restore; and the JAX recipe's Llama-3-8B
+with checkpoints both packages restore; the JAX recipe's Llama-3-8B
 run, FSDP full-shard (FSDP2 over the ``fsdp`` mesh axis, each rank
-checkpointing its own rows). Entry points
+checkpointing its own rows); and the JAX recipe's BERT-base fine-tune
+(DDP, bf16 or fp16 with dynamic loss scaling, the flash kernels in
+either dtype at its padded, non-causal shape). Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
 package.
@@ -33,6 +35,8 @@ package.
     torchrun --nproc-per-node 4 -m \
         pytorch_distributed_tpu_torch.recipes.llama_fsdp --size 8b \
         --fsdp 4 --batch-size 8 --seq-len 2048 --remat --vocab-chunk 8192
+    python -m pytorch_distributed_tpu_torch.recipes.bert_finetune \
+        --steps-per-epoch 20 --fp16
 """
 
 from pytorch_distributed_tpu_torch import optim
@@ -52,12 +56,21 @@ from pytorch_distributed_tpu_torch.data import (
 )
 from pytorch_distributed_tpu_torch.generation import generate
 from pytorch_distributed_tpu_torch.interop import (
+    bert_params_from_jax,
+    bert_params_to_jax,
     gpt2_params_from_jax,
     gpt2_params_to_jax,
     llama_params_from_jax,
     llama_params_to_jax,
     resnet_params_from_jax,
     resnet_params_to_jax,
+)
+from pytorch_distributed_tpu_torch.models.bert import (
+    BertConfig,
+    BertForMaskedLM,
+    BertForSequenceClassification,
+    BertModel,
+    mask_tokens,
 )
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.llama import (
@@ -97,7 +110,14 @@ from pytorch_distributed_tpu_torch.runtime.mesh import (
     data_axes,
     make_mesh,
 )
-from pytorch_distributed_tpu_torch.runtime.precision import Policy
+from pytorch_distributed_tpu_torch.runtime.precision import (
+    GradScaler,
+    Policy,
+    ScalerState,
+    autocast,
+    current_policy,
+    use_policy,
+)
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for, seed_all
 from pytorch_distributed_tpu_torch.serve import (
     EngineConfig,
@@ -121,8 +141,10 @@ from pytorch_distributed_tpu_torch.train import (
     classification_loss_fn,
     cross_entropy,
     fit_elastic,
+    masked_lm_loss_fn,
     restore_checkpoint,
     save_checkpoint,
+    text_classification_loss_fn,
     topk_accuracy,
     verify_checkpoint,
 )
@@ -132,10 +154,13 @@ __all__ = [
     "SyntheticImageDataset", "SyntheticTextDataset", "TokenizedTextDataset",
     "Tokenizer", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
-    "packed_loss_mask", "generate", "gpt2_params_from_jax",
+    "packed_loss_mask", "generate", "bert_params_from_jax",
+    "bert_params_to_jax", "gpt2_params_from_jax",
     "gpt2_params_to_jax", "llama_params_from_jax", "llama_params_to_jax",
     "resnet_params_from_jax",
-    "resnet_params_to_jax", "GPT2Config",
+    "resnet_params_to_jax", "BertConfig", "BertForMaskedLM",
+    "BertForSequenceClassification", "BertModel", "mask_tokens",
+    "GPT2Config",
     "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
     "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
@@ -143,12 +168,14 @@ __all__ = [
     "broadcast", "destroy_process_group", "get_backend", "get_rank",
     "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
     "data_axes", "make_mesh",
-    "Policy", "generator_for", "seed_all", "EngineConfig", "Request",
+    "GradScaler", "Policy", "ScalerState", "autocast", "current_policy",
+    "use_policy", "generator_for", "seed_all", "EngineConfig", "Request",
     "RequestStatus", "ServeEngine", "EX_TEMPFAIL", "CheckpointCorrupted",
     "Preempted", "Trainer", "TrainerConfig", "TrainingDiverged",
     "TrainState", "accuracy", "build_train_step", "causal_lm_eval_step",
     "causal_lm_loss_fn", "classification_eval_step",
     "classification_loss_fn", "cross_entropy", "fit_elastic",
-    "restore_checkpoint", "save_checkpoint", "topk_accuracy",
+    "masked_lm_loss_fn", "restore_checkpoint", "save_checkpoint",
+    "text_classification_loss_fn", "topk_accuracy",
     "verify_checkpoint",
 ]

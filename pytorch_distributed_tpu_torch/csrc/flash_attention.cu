@@ -42,13 +42,13 @@
 //    writes dK and dV straight in the [B, T, Hkv, D] shape. Each CTA owns its
 //    tile, so there are no atomics and no per-q-head output to sum outside,
 //    and two launches on the same inputs give the same bits.
-//  * bf16 inputs (flash_fwd_kernel_tc, flash_dq_kernel_tc,
-//    flash_dkv_kernel_tc) run every product on the tensor cores: mma.sync
-//    m16n8k16, bf16 in, f32 accumulate, operands read from shared memory
-//    with ldmatrix (.trans where a product needs V, K, Q or dO with the key
-//    or query axis as its depth). Tiles stay bf16 in shared memory, rows
-//    padded by 16 bytes so that the 8 rows one ldmatrix reads fall in 8
-//    different bank groups, and stream through a two-stage ring of cp.async
+//  * bf16 and fp16 inputs (flash_fwd_kernel_tc, flash_dq_kernel_tc,
+//    flash_dkv_kernel_tc, each instantiated for both) run every product on
+//    the tensor cores: mma.sync m16n8k16, bf16 or fp16 in, f32 accumulate,
+//    operands read from shared memory with ldmatrix (.trans where a product
+//    needs V, K, Q or dO with the key or query axis as its depth). Tiles
+//    stay in the input type in shared memory, rows padded by 16 bytes so
+//    that the 8 rows one ldmatrix reads fall in 8 different bank groups, and stream through a two-stage ring of cp.async
 //    16-byte copies, so the next tile's load overlaps this tile's products.
 //    Four warps own 16 rows each: query rows in fwd and dq (Q, and dO in
 //    dq, kept as A fragments across the key loop), key rows in dkv (K and V
@@ -58,16 +58,21 @@
 //    four and three CTAs per SM, whose extra warps hide the latency of the
 //    mma chains. Scores, P and dS stay in registers in f32; the accumulator
 //    layout of S = Q.K^T (or S^T = K.Q^T) is the A-fragment layout of the
-//    next product, so P (fwd) and dS (dq, dkv), rounded to bf16 there (the
-//    Pallas rounding points), and P^T feed O += P.V, dQ += dS.K,
+//    next product, so P (fwd) and dS (dq, dkv), rounded to the input type
+//    there (the Pallas rounding points), and P^T feed O += P.V, dQ += dS.K,
 //    dK += dS^T.Q and dV += P^T.dO without a trip through shared memory.
 //    The forward's online softmax runs on that fragment in log2 units
 //    (P = 2^(s log2(e) - m), one ex2 per score): a row's scores sit in the
 //    4 lanes of a quad, so its max and sum are two shuffles; key tiles no
 //    mask can reach are only scaled, and with causal a warp skips those
 //    wholly past its rows. dV keeps P in f32 as the Pallas kernel does:
-//    P = hi + lo with hi = bf16(P), lo = bf16(P - hi), two bf16 products,
-//    which holds P to about 2^-16 of itself (one more product per tile).
+//    P = hi + lo with hi = E(P), lo = E(P - hi), two products (one more
+//    per tile), which holds P to about 2^-16 of itself in bf16 and, in
+//    fp16, to about 2^-22 of itself or 2^-25 absolute (split2). fp16's
+//    range is not widened anywhere: scores, the -1e30 sentinel, the bias,
+//    lse and delta stay f32 in registers, and a dS, dQ, dK or dV past
+//    65504 (a loss scaled too far) rounds to inf, as the plain version's
+//    casts do, for the loss scaler to see.
 //    Head dim 128 halves dq's and dkv's streamed tile (32 rows) and runs at
 //    the occupancy its registers allow (two CTAs per SM for the forward).
 //  * f32 inputs: the first version. 64 x 64 tiles staged in shared memory
@@ -565,34 +570,47 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
 }
 
 // --------------------------------------------------------------------------
-// bf16 forward, dq and dkv on the tensor cores
+// bf16 and fp16 forward, dq and dkv on the tensor cores (E: the element
+// type, bf16 or f16; the structs' sizes hold for either, both 2 bytes)
 // --------------------------------------------------------------------------
 
 constexpr int kTcThreads = 128;  // four warps, 16 rows each
 constexpr int kStages = 2;       // depth of the cp.async ring
 // cp.async, ldmatrix, mma.sync, acc_to_a, ex2, quad_max/sum: mma_sm90.cuh
 
-// x = hi + lo to about 2^-16 of x: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 f = __bfloat1622float2(h);
+// x = hi + lo with hi = E(x), lo = E(x - hi). For P in [0, 1]: bf16 (8
+// mantissa bits, f32's exponent range) holds P to about 2^-16 of itself;
+// fp16 (11 bits) to about 2^-22 of itself down to lo's subnormal step
+// 2^-24, so a P below about 2^-3 (where x - hi drops under fp16's least
+// normal, 2^-14) is held to 2^-25 absolute, and one below 2^-25 reads 0.
+template <typename E>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const typename Elem<E>::Pair h = Elem<E>::pack(x0, x1);
+  const float2 f = Elem<E>::unpack(h);
   hi = as_u32(h);
-  lo = pack_bf16(x0 - f.x, x1 - f.y);
+  lo = pack2<E>(x0 - f.x, x1 - f.y);
 }
 
-__device__ __forceinline__ const bf16* head_ptr(const void* base,
-                                                const int64_t* st, int b,
-                                                int h) {
-  return static_cast<const bf16*>(base) + (int64_t)b * st[0] +
+template <typename E>
+__device__ __forceinline__ const E* head_ptr(const void* base,
+                                             const int64_t* st, int b,
+                                             int h) {
+  return static_cast<const E*>(base) + (int64_t)b * st[0] +
          (int64_t)h * st[2];
+}
+
+// two f32 -> two E at row[0..1] (an f32 past fp16's range stores inf)
+template <typename E>
+__device__ __forceinline__ void store2(E* row, float x0, float x1) {
+  *reinterpret_cast<typename Elem<E>::Pair*>(row) = Elem<E>::pack(x0, x1);
 }
 
 // Issue the copies of rows [row0, row0 + ROWS) of one head (row stride rs
 // elements) into dst[ROWS][D + 8]; rows at or past n are zero-filled. The
 // 16-byte pad per row puts the 8 rows of an ldmatrix in 8 bank groups.
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_rows_async(bf16* dst, const bf16* base,
+template <int D, int ROWS, typename E>
+__device__ __forceinline__ void copy_rows_async(E* dst, const E* base,
                                                 int64_t rs, int row0, int n) {
   constexpr int kChunks = D / 8;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kTcThreads) {
@@ -656,7 +674,7 @@ __device__ __forceinline__ float tc_score2(const FlashParams& p, float dot,
 // cores, masked (a tile that no mask can reach is only scaled), then the
 // online softmax on the 16 x BN score fragment in log2 units (each lane
 // holds two rows, g and g + 8, spread over its quad), and P rounded to
-// bf16 straight into the A fragments of O += P V. l sums the unrounded P.
+// E straight into the A fragments of O += P V. l sums the unrounded P.
 // With causal, a warp skips a tile whose keys all lie past its rows.
 // ldmatrix addresses are 32-bit shared-window offsets with the lane's part
 // computed once. Up to D = 64 this fits 168 registers without spills,
@@ -674,7 +692,7 @@ struct FwdTc {
       + (size_t)kStages * 2 * BN * 4;                 // ring: bias, kseg
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
     flash_fwd_kernel_tc(FlashParams p) {
   using C = FwdTc<D>;
@@ -685,8 +703,8 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
   constexpr int ND = D / 8;    // head_dim column tiles of O
   constexpr int ROW = LDS * 2; // bytes per shared row
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);  // [BM][LDS]
-  bf16* kv_s = q_s + BM * LDS;                   // [stage][K, V][BN][LDS]
+  E* q_s = reinterpret_cast<E*>(tc_smem);  // [BM][LDS]
+  E* kv_s = q_s + BM * LDS;                   // [stage][K, V][BN][LDS]
   float* bias_s = reinterpret_cast<float*>(kv_s + kStages * 2 * BN * LDS);
   int* kseg_s = reinterpret_cast<int*>(bias_s + kStages * BN);
 
@@ -703,12 +721,12 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
   const uint32_t v_lane = (r8 + (mi & 1) * 8) * ROW + (mi >> 1) * 16;
   const uint32_t kv_u32 = smem_u32(kv_s);
 
-  const bf16* kb = head_ptr(p.k, p.k_stride, b, hk);
-  const bf16* vb = head_ptr(p.v, p.v_stride, b, hk);
+  const E* kb = head_ptr<E>(p.k, p.k_stride, b, hk);
+  const E* vb = head_ptr<E>(p.v, p.v_stride, b, hk);
   const float* bias_row = p.bias ? p.bias + (int64_t)b * p.T : nullptr;
   const int* seg_row = p.seg ? p.seg + (int64_t)b * p.S : nullptr;
   auto load_keys = [&](int stage, int k0) {
-    bf16* ks = kv_s + stage * 2 * BN * LDS;
+    E* ks = kv_s + stage * 2 * BN * LDS;
     copy_rows_async<D, BN>(ks, kb, p.k_stride[1], k0, p.T);
     copy_rows_async<D, BN>(ks + BN * LDS, vb, p.v_stride[1], k0, p.T);
     if (bias_row)
@@ -718,7 +736,7 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
   };
 
   const int n_kt = (key_end(p, q0, BM) + BN - 1) / BN;
-  copy_rows_async<D, BM>(q_s, head_ptr(p.q, p.q_stride, b, hq),
+  copy_rows_async<D, BM>(q_s, head_ptr<E>(p.q, p.q_stride, b, hq),
                          p.q_stride[1], q0, p.S);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -783,8 +801,8 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
       for (int np = 0; np < NB / 2; ++np) {
         uint32_t bk[4];
         ldsm_x4(bk, k_addr + k_lane + np * 16 * ROW + kk * 32);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma<E>(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma<E>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
       }
     }
 
@@ -821,7 +839,7 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
       l[h] *= alpha[h];
     }
 
-    // P = 2^(s - m): summed unrounded into l, rounded to bf16 as the A
+    // P = 2^(s - m): summed unrounded into l, rounded to E as the A
     // fragments of O += P V (the Pallas kernel's p.astype(v.dtype))
     uint32_t pf[KB][4];
 #pragma unroll
@@ -832,7 +850,7 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
         pv[e] = ex2(s[j][e] - m[e / 2]);
         l[e / 2] += pv[e];
       }
-      acc_to_a(pf[j / 2], j, pv[0], pv[1], pv[2], pv[3]);
+      acc_to_a<E>(pf[j / 2], j, pv[0], pv[1], pv[2], pv[3]);
     }
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
@@ -847,25 +865,24 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
       for (int np = 0; np < ND / 2; ++np) {
         uint32_t bv[4];
         ldsm_x4_t(bv, v_addr + v_lane + kk * 16 * ROW + np * 32);
-        mma_bf16(acc[2 * np], pf[kk], bv[0], bv[1]);
-        mma_bf16(acc[2 * np + 1], pf[kk], bv[2], bv[3]);
+        mma<E>(acc[2 * np], pf[kk], bv[0], bv[1]);
+        mma<E>(acc[2 * np + 1], pf[kk], bv[2], bv[3]);
       }
     }
   }
   cp_async_wait<0>();
 
-  bf16* out = static_cast<bf16*>(p.out);
+  E* out = static_cast<E*>(p.out);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float sum = quad_sum(l[h]);  // every lane: the shuffle is warp-wide
     if (qi[h] >= p.S) continue;
     const float safe = sum > 0.f ? sum : 1.f;
-    bf16* row = out + (((int64_t)b * p.S + qi[h]) * p.Hq + hq) * D;
+    E* row = out + (((int64_t)b * p.S + qi[h]) * p.Hq + hq) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * h] / safe,
-                                acc[j][2 * h + 1] / safe);
+      store2(row + j * 8 + 2 * t, acc[j][2 * h] / safe,
+             acc[j][2 * h + 1] / safe);
     // lse = m + log(l) in natural units; the -1e30 sentinel of a row
     // without a visible key stays itself, as in the Pallas kernel
     if (t == 0)
@@ -893,7 +910,7 @@ struct DqTc {
       + (size_t)kStages * 2 * BN * 4;                 // ring: bias, kseg
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
     flash_dq_kernel_tc(FlashParams p) {
   using C = DqTc<D>;
@@ -903,9 +920,9 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
   constexpr int KB = SUB / 16; // depth steps over keys (dQ)
   constexpr int ND = D / 8;    // head_dim column tiles of dQ
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);      // [BM][LDS]
-  bf16* do_s = q_s + BM * LDS;                       // [BM][LDS]
-  bf16* kv_s = do_s + BM * LDS;  // [stage][K, V][BN][LDS]
+  E* q_s = reinterpret_cast<E*>(tc_smem);      // [BM][LDS]
+  E* do_s = q_s + BM * LDS;                       // [BM][LDS]
+  E* kv_s = do_s + BM * LDS;  // [stage][K, V][BN][LDS]
   float* bias_s = reinterpret_cast<float*>(kv_s + kStages * 2 * BN * LDS);
   int* kseg_s = reinterpret_cast<int*>(bias_s + kStages * BN);
 
@@ -917,12 +934,12 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
   const int g = lane / 4, t = lane % 4;
   const int mi = lane / 8, r8 = lane % 8;  // ldmatrix: matrix, row
 
-  const bf16* kb = head_ptr(p.k, p.k_stride, b, hk);
-  const bf16* vb = head_ptr(p.v, p.v_stride, b, hk);
+  const E* kb = head_ptr<E>(p.k, p.k_stride, b, hk);
+  const E* vb = head_ptr<E>(p.v, p.v_stride, b, hk);
   const float* bias_row = p.bias ? p.bias + (int64_t)b * p.T : nullptr;
   const int* seg_row = p.seg ? p.seg + (int64_t)b * p.S : nullptr;
   auto load_keys = [&](int stage, int k0) {
-    bf16* ks = kv_s + stage * 2 * BN * LDS;
+    E* ks = kv_s + stage * 2 * BN * LDS;
     copy_rows_async<D, BN>(ks, kb, p.k_stride[1], k0, p.T);
     copy_rows_async<D, BN>(ks + BN * LDS, vb, p.v_stride[1], k0, p.T);
     if (bias_row)
@@ -932,9 +949,9 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
   };
 
   const int n_kt = (key_end(p, q0, BM) + BN - 1) / BN;
-  copy_rows_async<D, BM>(q_s, head_ptr(p.q, p.q_stride, b, hq),
+  copy_rows_async<D, BM>(q_s, head_ptr<E>(p.q, p.q_stride, b, hq),
                          p.q_stride[1], q0, p.S);
-  copy_rows_async<D, BM>(do_s, head_ptr(p.dout, p.do_stride, b, hq),
+  copy_rows_async<D, BM>(do_s, head_ptr<E>(p.dout, p.do_stride, b, hq),
                          p.do_stride[1], q0, p.S);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -983,8 +1000,8 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
     const int st = it % kStages;
 #pragma unroll 1
     for (int c0 = 0; c0 < BN; c0 += SUB) {
-      const bf16* k_s = kv_s + st * 2 * BN * LDS + c0 * LDS;
-      const bf16* v_s = k_s + BN * LDS;
+      const E* k_s = kv_s + st * 2 * BN * LDS + c0 * LDS;
+      const E* v_s = k_s + BN * LDS;
       const float* bias_t = bias_s + st * BN + c0;
       const int* kseg_t = kseg_s + st * BN + c0;
       const int k0 = it * BN + c0;
@@ -1006,14 +1023,14 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
           uint32_t bk[4], bv[4];
           ldsm_x4(bk, k_s + off);
           ldsm_x4(bv, v_s + off);
-          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-          mma_bf16(dp[2 * np], dof[kk], bv[0], bv[1]);
-          mma_bf16(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
+          mma<E>(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma<E>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma<E>(dp[2 * np], dof[kk], bv[0], bv[1]);
+          mma<E>(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
         }
       }
 
-      // dS = P (dP - delta) scale, rounded to bf16: the A fragments of dQ
+      // dS = P (dP - delta) scale, rounded to E: the A fragments of dQ
       uint32_t dsf[KB][4];
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
@@ -1026,7 +1043,7 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
                                    k0 + c, lse[h], diag, edge);
           ds[e] = pv * (dp[j][e] - delta[h]) * p.scale;
         }
-        acc_to_a(dsf[j / 2], j, ds[0], ds[1], ds[2], ds[3]);
+        acc_to_a<E>(dsf[j / 2], j, ds[0], ds[1], ds[2], ds[3]);
       }
 
       // dQ += dS K
@@ -1037,23 +1054,22 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
           uint32_t bk[4];
           ldsm_x4_t(bk, k_s + (kk * 16 + r8 + (mi & 1) * 8) * LDS +
                             np * 16 + (mi >> 1) * 8);
-          mma_bf16(acc[2 * np], dsf[kk], bk[0], bk[1]);
-          mma_bf16(acc[2 * np + 1], dsf[kk], bk[2], bk[3]);
+          mma<E>(acc[2 * np], dsf[kk], bk[0], bk[1]);
+          mma<E>(acc[2 * np + 1], dsf[kk], bk[2], bk[3]);
         }
       }
     }
   }
   cp_async_wait<0>();
 
-  bf16* dq = static_cast<bf16*>(p.dq);
+  E* dq = static_cast<E*>(p.dq);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qi[h] >= p.S) continue;
-    bf16* row = dq + (((int64_t)b * p.S + qi[h]) * p.Hq + hq) * D;
+    E* row = dq + (((int64_t)b * p.S + qi[h]) * p.Hq + hq) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+      store2(row + j * 8 + 2 * t, acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
@@ -1077,7 +1093,7 @@ struct DkvTc {
       + (size_t)2 * BN * 4;                           // key bias, kseg
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
     flash_dkv_kernel_tc(FlashParams p) {
   using C = DkvTc<D>;
@@ -1087,9 +1103,9 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
   constexpr int KQ = SUB / 16; // depth steps over queries (dK, dV)
   constexpr int ND = D / 8;    // head_dim column tiles of dK and dV
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(tc_smem);  // [BN][LDS]
-  bf16* v_s = k_s + BN * LDS;                    // [BN][LDS]
-  bf16* qd_s = v_s + BN * LDS;                   // [stage][Q, dO][BM][LDS]
+  E* k_s = reinterpret_cast<E*>(tc_smem);  // [BN][LDS]
+  E* v_s = k_s + BN * LDS;                    // [BN][LDS]
+  E* qd_s = v_s + BN * LDS;                   // [stage][Q, dO][BM][LDS]
   float* row_s = reinterpret_cast<float*>(qd_s + kStages * 2 * BM * LDS);
   // row_s: [stage][lse, delta, qseg][BM]
   float* kbias_s = row_s + kStages * 3 * BM;                // [BN]
@@ -1111,11 +1127,11 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
   auto load_queries = [&](int stage, int i) {
     const int hq = hk * G + i / per_head;
     const int q0 = (qt0 + i % per_head) * BM;
-    bf16* qs = qd_s + stage * 2 * BM * LDS;
-    copy_rows_async<D, BM>(qs, head_ptr(p.q, p.q_stride, b, hq),
+    E* qs = qd_s + stage * 2 * BM * LDS;
+    copy_rows_async<D, BM>(qs, head_ptr<E>(p.q, p.q_stride, b, hq),
                            p.q_stride[1], q0, p.S);
     copy_rows_async<D, BM>(qs + BM * LDS,
-                           head_ptr(p.dout, p.do_stride, b, hq),
+                           head_ptr<E>(p.dout, p.do_stride, b, hq),
                            p.do_stride[1], q0, p.S);
     float* rs = row_s + stage * 3 * BM;
     const int64_t row = ((int64_t)b * p.Hq + hq) * p.S;
@@ -1131,9 +1147,9 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
   if (n_it > 0) {
-    copy_rows_async<D, BN>(k_s, head_ptr(p.k, p.k_stride, b, hk),
+    copy_rows_async<D, BN>(k_s, head_ptr<E>(p.k, p.k_stride, b, hk),
                            p.k_stride[1], k0, p.T);
-    copy_rows_async<D, BN>(v_s, head_ptr(p.v, p.v_stride, b, hk),
+    copy_rows_async<D, BN>(v_s, head_ptr<E>(p.v, p.v_stride, b, hk),
                            p.v_stride[1], k0, p.T);
     if (p.bias) copy_words_async(kbias_s, p.bias + (int64_t)b * p.T, k0, BN,
                                  p.T);
@@ -1155,8 +1171,8 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
     const int q_tile = (qt0 + it % per_head) * BM;
 #pragma unroll 1
     for (int c0 = 0; c0 < BM; c0 += SUB) {
-      const bf16* q_s = qd_s + st * 2 * BM * LDS + c0 * LDS;
-      const bf16* do_s = q_s + BM * LDS;
+      const E* q_s = qd_s + st * 2 * BM * LDS + c0 * LDS;
+      const E* do_s = q_s + BM * LDS;
       const float* lse_s = row_s + st * 3 * BM + c0;
       const float* delta_s = lse_s + BM;
       const int* qseg_s = reinterpret_cast<const int*>(delta_s + BM);
@@ -1184,14 +1200,14 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
           uint32_t bq[4], bd[4];
           ldsm_x4(bq, q_s + off);
           ldsm_x4(bd, do_s + off);
-          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
-          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
-          mma_bf16(dp[2 * np], va, bd[0], bd[1]);
-          mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
+          mma<E>(s[2 * np], ka, bq[0], bq[1]);
+          mma<E>(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma<E>(dp[2 * np], va, bd[0], bd[1]);
+          mma<E>(dp[2 * np + 1], va, bd[2], bd[3]);
         }
       }
 
-      // P^T (f32, as hi + lo) and dS^T (rounded to bf16): the A fragments
+      // P^T (f32, as hi + lo) and dS^T (rounded to E): the A fragments
       // of dV and dK
       uint32_t ph[KQ][4], pl[KQ][4], dsf[KQ][4];
 #pragma unroll
@@ -1208,9 +1224,9 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
           ds[e] = pv[e] * (dp[j][e] - delta_s[c]) * p.scale;
         }
         const int r = (j % 2) * 2;
-        split_bf16(pv[0], pv[1], ph[j / 2][r], pl[j / 2][r]);
-        split_bf16(pv[2], pv[3], ph[j / 2][r + 1], pl[j / 2][r + 1]);
-        acc_to_a(dsf[j / 2], j, ds[0], ds[1], ds[2], ds[3]);
+        split2<E>(pv[0], pv[1], ph[j / 2][r], pl[j / 2][r]);
+        split2<E>(pv[2], pv[3], ph[j / 2][r + 1], pl[j / 2][r + 1]);
+        acc_to_a<E>(dsf[j / 2], j, ds[0], ds[1], ds[2], ds[3]);
       }
 
       // dV += P^T dO (hi, then lo) and dK += dS^T Q
@@ -1222,13 +1238,13 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
                           (mi >> 1) * 8;
           uint32_t bd[4], bq[4];
           ldsm_x4_t(bd, do_s + off);
-          mma_bf16(dv[2 * np], ph[kk], bd[0], bd[1]);
-          mma_bf16(dv[2 * np + 1], ph[kk], bd[2], bd[3]);
-          mma_bf16(dv[2 * np], pl[kk], bd[0], bd[1]);
-          mma_bf16(dv[2 * np + 1], pl[kk], bd[2], bd[3]);
+          mma<E>(dv[2 * np], ph[kk], bd[0], bd[1]);
+          mma<E>(dv[2 * np + 1], ph[kk], bd[2], bd[3]);
+          mma<E>(dv[2 * np], pl[kk], bd[0], bd[1]);
+          mma<E>(dv[2 * np + 1], pl[kk], bd[2], bd[3]);
           ldsm_x4_t(bq, q_s + off);
-          mma_bf16(dk[2 * np], dsf[kk], bq[0], bq[1]);
-          mma_bf16(dk[2 * np + 1], dsf[kk], bq[2], bq[3]);
+          mma<E>(dk[2 * np], dsf[kk], bq[0], bq[1]);
+          mma<E>(dk[2 * np + 1], dsf[kk], bq[2], bq[3]);
         }
       }
     }
@@ -1240,14 +1256,12 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
     const int kj = k0 + warp * 16 + g + 8 * h;
     if (kj >= p.T) continue;
     const int64_t off = (((int64_t)b * p.T + kj) * p.Hkv + hk) * D;
-    bf16* dkr = static_cast<bf16*>(p.dk) + off;
-    bf16* dvr = static_cast<bf16*>(p.dv) + off;
+    E* dkr = static_cast<E*>(p.dk) + off;
+    E* dvr = static_cast<E*>(p.dv) + off;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk[j][2 * h], dk[j][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv[j][2 * h], dv[j][2 * h + 1]);
+      store2(dkr + j * 8 + 2 * t, dk[j][2 * h], dk[j][2 * h + 1]);
+      store2(dvr + j * 8 + 2 * t, dv[j][2 * h], dv[j][2 * h + 1]);
     }
   }
 }
@@ -1279,11 +1293,12 @@ int launch(Kernel kernel, int threads, size_t bytes, dim3 grid,
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// f32 inputs: the CUDA-core kernels; bf16: the tensor-core kernels. No
-// other route.
+// f32 inputs: the CUDA-core kernels; bf16 and fp16: the tensor-core
+// kernels. No other route (the CUDA-core kernels have no fp16 form).
 template <typename T, int D>
 int run(Which which, const FlashParams& p, cudaStream_t s) {
-  constexpr bool tc = std::is_same<T, bf16>::value;
+  constexpr bool tc =
+      std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
   const dim3 q_grid((p.S + kTile - 1) / kTile, p.Hq, p.B);
   const dim3 kv_grid((p.T + kTile - 1) / kTile, p.Hkv, p.B);
   constexpr size_t F = sizeof(float);
@@ -1291,7 +1306,7 @@ int run(Which which, const FlashParams& p, cudaStream_t s) {
     case kFwd:
       if constexpr (tc) {
         constexpr int BM = FwdTc<D>::BM;
-        return launch(flash_fwd_kernel_tc<D>, kTcThreads, FwdTc<D>::smem,
+        return launch(flash_fwd_kernel_tc<T, D>, kTcThreads, FwdTc<D>::smem,
                       dim3(p.B * p.Hq, (p.S + BM - 1) / BM), p, s);
       } else {
         return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem(D) * F,
@@ -1300,7 +1315,7 @@ int run(Which which, const FlashParams& p, cudaStream_t s) {
     case kDq:
       if constexpr (tc) {
         constexpr int BM = DqTc<D>::BM;
-        return launch(flash_dq_kernel_tc<D>, kTcThreads, DqTc<D>::smem,
+        return launch(flash_dq_kernel_tc<T, D>, kTcThreads, DqTc<D>::smem,
                       dim3(p.B * p.Hq, (p.S + BM - 1) / BM), p, s);
       } else {
         return launch(flash_dq_kernel<T, D>, kThreads, dq_smem(D) * F, q_grid,
@@ -1309,7 +1324,7 @@ int run(Which which, const FlashParams& p, cudaStream_t s) {
     case kDkv:
       if constexpr (tc) {
         constexpr int BN = DkvTc<D>::BN;
-        return launch(flash_dkv_kernel_tc<D>, kTcThreads, DkvTc<D>::smem,
+        return launch(flash_dkv_kernel_tc<T, D>, kTcThreads, DkvTc<D>::smem,
                       dim3(p.B * p.Hkv, (p.T + BN - 1) / BN), p, s);
       } else {
         return launch(flash_dkv_kernel<T, D>, kThreads, dkv_smem(D) * F,
@@ -1338,7 +1353,8 @@ int dispatch(Which which, const FlashParams* p, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (p->seg && p->S != p->T) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 1) return run_d<__nv_bfloat16>(which, *p, s);
+  if (p->dtype == 2) return run_d<f16>(which, *p, s);
+  if (p->dtype == 1) return run_d<bf16>(which, *p, s);
   if (p->dtype == 0) return run_d<float>(which, *p, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -1353,7 +1369,8 @@ int flash_supports_head_dim(int D) {
 int flash_params_size() { return (int)sizeof(FlashParams); }
 
 // Each returns a cudaError_t (0 = success): the launch's own error, read
-// with cudaGetLastError right after it. dtype: 0 = float32, 1 = bfloat16.
+// with cudaGetLastError right after it. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 int flash_fwd(const FlashParams* p, void* stream) {
   return dispatch(kFwd, p, stream);
 }

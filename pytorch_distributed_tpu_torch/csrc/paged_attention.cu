@@ -260,13 +260,13 @@ __global__ void __launch_bounds__(kThreads, DecodeTc<D>::CTAS)
       uint32_t bk[4];
       ldsm_x4(bk, k_addr + k_lane + kk * 32);
       if constexpr (C::kQRegs) {
-        mma_bf16(s[0], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[1], qf[kk], bk[2], bk[3]);
+        mma<bf16>(s[0], qf[kk], bk[0], bk[1]);
+        mma<bf16>(s[1], qf[kk], bk[2], bk[3]);
       } else {
         uint32_t a[4];
         ldsm_x4(a, q_lane + kk * 32);
-        mma_bf16(s[0], a, bk[0], bk[1]);
-        mma_bf16(s[1], a, bk[2], bk[3]);
+        mma<bf16>(s[0], a, bk[0], bk[1]);
+        mma<bf16>(s[1], a, bk[2], bk[3]);
       }
     }
 
@@ -306,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, DecodeTc<D>::CTAS)
         pv[e] = ex2(s[j][e] - m[e / 2]);
         l[e / 2] += pv[e];
       }
-      acc_to_a(pf, j, pv[0], pv[1], pv[2], pv[3]);
+      acc_to_a<bf16>(pf, j, pv[0], pv[1], pv[2], pv[3]);
     }
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
@@ -319,8 +319,8 @@ __global__ void __launch_bounds__(kThreads, DecodeTc<D>::CTAS)
     for (int np = 0; np < ND / 2; ++np) {
       uint32_t bv[4];
       ldsm_x4_t(bv, v_addr + v_lane + np * 32);
-      mma_bf16(acc[2 * np], pf, bv[0], bv[1]);
-      mma_bf16(acc[2 * np + 1], pf, bv[2], bv[3]);
+      mma<bf16>(acc[2 * np], pf, bv[0], bv[1]);
+      mma<bf16>(acc[2 * np + 1], pf, bv[2], bv[3]);
     }
   }
   cp_async_wait<0>();

@@ -1,11 +1,11 @@
 """Datasets: the port's copy of the part of
-``pytorch_distributed_tpu/data/datasets.py`` the GPT-2 and ResNet recipes
-use. Items are dicts of numpy arrays, drawn exactly as the JAX package
-draws them."""
+``pytorch_distributed_tpu/data/datasets.py`` the GPT-2, Llama, BERT and
+ResNet recipes use. Items are dicts of numpy arrays, drawn exactly as
+the JAX package draws them."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -35,18 +35,22 @@ def stack_items(items):
 
 
 class SyntheticTextDataset:
-    """Deterministic random token sequences for LM recipes."""
+    """Deterministic random token sequences for LM and fine-tune recipes;
+    with ``num_classes`` each item also carries an int32 ``label``, drawn
+    after its tokens from the same per-index generator."""
 
     def __init__(
         self,
         n: int = 10_000,
         seq_len: int = 512,
         vocab_size: int = 50_257,
+        num_classes: Optional[int] = None,  # set for classification heads
         seed: int = 0,
     ):
         self.n = n
         self.seq_len = seq_len
         self.vocab_size = vocab_size
+        self.num_classes = num_classes
         self.seed = seed
 
     def __len__(self) -> int:
@@ -57,11 +61,14 @@ class SyntheticTextDataset:
         if not 0 <= i < self.n:
             raise IndexError(i)
         g = np.random.default_rng(self.seed * 1_000_003 + i)
-        return {
+        item = {
             "input_ids": g.integers(
                 self.vocab_size, size=(self.seq_len,), dtype=np.int32
             )
         }
+        if self.num_classes is not None:
+            item["label"] = np.int32(g.integers(self.num_classes))
+        return item
 
 
 class SyntheticImageDataset:

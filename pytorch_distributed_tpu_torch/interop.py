@@ -16,12 +16,19 @@ an ``attention_bias`` Llama, the ``q_norm``/``k_norm`` scales of a
 that names the leaf and the ROADMAP item that would port it, never a
 weight silently left behind.
 
+:func:`bert_params_from_jax` does the same for a JAX
+``BertForSequenceClassification`` or ``BertForMaskedLM`` tree (its
+unscanned ``layer{i}`` layout), through the same slots as the
+checkpoints below.
+
 The other direction serves the checkpoints both packages read:
-:func:`gpt2_slots`, :func:`llama_slots`, :func:`resnet_slots` and
+:func:`gpt2_slots`, :func:`llama_slots`, :func:`bert_slots`,
+:func:`resnet_slots` and
 :func:`model_slots` place every port tensor at its JAX ``TrainState``
 leaf (path, layer of a scan-stacked leaf, layout map; a Llama slot also
 maps any range of the port tensor's rows, an FSDP shard, to boxes of the
-JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax` and
+JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax`,
+:func:`bert_params_to_jax` and
 :func:`resnet_params_to_jax` are the inverses of the converters above,
 and :func:`optimizer_layout` names the optax state (``mu``, ``nu``,
 ``count``, ``trace``) that a port optimizer's state stands for.
@@ -398,6 +405,88 @@ def llama_slots(cfg) -> Dict[str, Slot]:
     return slots
 
 
+def bert_slots(cfg, head: str = "classifier") -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``BertForSequenceClassification``
+    (``head="classifier"``) or ``BertForMaskedLM`` (``head="mlm"``):
+    the JAX tree's unscanned layout (``bert/layer{i}/...``). q/k/v
+    ``[H, H]`` weights are ``[H, heads, hd]`` DenseGeneral kernels and
+    their biases ``[heads, hd]``, the attention output ``[H, H]`` an
+    ``[heads, hd, H]`` kernel, the other Dense weights ``[out, in]``
+    ``[in, out]`` kernels, LayerNorm weights ``scale`` leaves; the
+    embeddings and ``mlm_bias`` are as they are. The MLM decoder is the
+    word-embedding table itself, no tensor of its own."""
+    if head not in ("classifier", "mlm"):
+        raise ValueError(f"head must be 'classifier' or 'mlm', got {head!r}")
+    H, heads, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    T = (lambda a: a.T, lambda a: a.T)  # [out, in] <-> [in, out]
+    same = (_same, _same)
+    qkv = (lambda w: w.T.reshape(H, heads, hd), lambda k: k.reshape(H, -1).T)
+    qkv_bias = (lambda b: b.reshape(heads, hd), lambda b: b.reshape(-1))
+    out = (lambda w: w.T.reshape(heads, hd, H), lambda k: k.reshape(-1, H).T)
+
+    def dense(port, path, kernel=T, bias=same):
+        return {f"{port}.weight": (path + ("kernel",), kernel),
+                f"{port}.bias": (path + ("bias",), bias)}
+
+    def norm(port, path):
+        return {f"{port}.weight": (path + ("scale",), same),
+                f"{port}.bias": (path + ("bias",), same)}
+
+    table = {f"bert.{e}.weight": (("bert", e, "embedding"), same)
+             for e in ("word_embeddings", "position_embeddings",
+                       "token_type_embeddings")}
+    table.update(norm("bert.embed_ln", ("bert", "embed_ln")))
+    for i in range(cfg.num_layers):
+        p, jp = f"bert.layers.{i}.", ("bert", f"layer{i}")
+        for name in ("query", "key", "value"):
+            table.update(dense(p + f"attn.{name}", jp + ("attn", name),
+                               qkv, qkv_bias))
+        table.update(dense(p + "attn.out", jp + ("attn", "out"), out))
+        table.update(norm(p + "attn_ln", jp + ("attn_ln",)))
+        table.update(dense(p + "mlp_up", jp + ("mlp_up",)))
+        table.update(dense(p + "mlp_down", jp + ("mlp_down",)))
+        table.update(norm(p + "mlp_ln", jp + ("mlp_ln",)))
+    table.update(dense("bert.pooler", ("bert", "pooler")))
+    if head == "classifier":
+        table.update(dense("classifier", ("classifier",)))
+    else:
+        table.update(dense("mlm_dense", ("mlm_dense",)))
+        table.update(norm("mlm_ln", ("mlm_ln",)))
+        table["mlm_bias"] = (("mlm_bias",), same)
+    return {name: Slot("params", path, None, 0, *maps)
+            for name, (path, maps) in table.items()}
+
+
+def _bert_head(names) -> str:
+    """The head whose tensors (or JAX leaves) ``names`` holds."""
+    return "mlm" if any(n.startswith("mlm_") for n in names) else "classifier"
+
+
+def bert_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``BertForSequenceClassification`` or ``BertForMaskedLM``
+    params (the unscanned ``bert/layer{i}`` tree) -> the port model's
+    state_dict (f32 CPU tensors), every leaf accounted for: one the port
+    has no place for raises ``NotImplementedError`` naming A7."""
+    leaves = _Leaves(params, "bert_params_from_jax", "A7")
+    sd = {name: _t(slot.from_jax(leaves.take("/".join(slot.path))))
+          for name, slot in bert_slots(cfg, _bert_head(leaves.arrays)).items()}
+    leaves.finish()
+    return sd
+
+
+def bert_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`bert_params_from_jax`: the port's BERT
+    state_dict as JAX params (f32 numpy, ``bert/layer{i}``)."""
+    slots = bert_slots(cfg, _bert_head(state_dict))
+    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
+    if left or missing:
+        raise NotImplementedError(
+            f"bert_params_to_jax: tensors the JAX model has no leaf for: "
+            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
+            "(ROADMAP A7)")
+    return _stacked(state_dict, slots, "params")
+
+
 _RESNET_JAX_NAMES = {short: jax for jax, short in _RESNET_NAMES.items()}
 
 
@@ -435,9 +524,14 @@ def resnet_slots(names) -> Dict[str, Slot]:
 
 
 def model_slots(model) -> Dict[str, Slot]:
-    """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM`` or a
+    """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM``, a BERT
+    (``BertForSequenceClassification``, ``BertForMaskedLM``) or a
     ``ResNet`` (or one inside ``DistributedDataParallel``): every entry
     of its ``state_dict``."""
+    from pytorch_distributed_tpu_torch.models.bert import (
+        BertForMaskedLM,
+        BertForSequenceClassification,
+    )
     from pytorch_distributed_tpu_torch.models.gpt2 import GPT2LMHead
     from pytorch_distributed_tpu_torch.models.llama import LlamaForCausalLM
     from pytorch_distributed_tpu_torch.models.resnet import ResNet
@@ -447,12 +541,16 @@ def model_slots(model) -> Dict[str, Slot]:
         slots = gpt2_slots(model.config)
     elif isinstance(model, LlamaForCausalLM):
         slots = llama_slots(model.config)
+    elif isinstance(model, BertForSequenceClassification):
+        slots = bert_slots(model.config, "classifier")
+    elif isinstance(model, BertForMaskedLM):
+        slots = bert_slots(model.config, "mlm")
     elif isinstance(model, ResNet):
         slots = resnet_slots(model.state_dict().keys())
     else:
         raise NotImplementedError(
             f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
-            "the port cover GPT-2, Llama and ResNet (ROADMAP A5)")
+            "the port cover GPT-2, Llama, BERT and ResNet (ROADMAP A5)")
     missing = set(model.state_dict()) - set(slots)
     if missing:
         raise NotImplementedError(

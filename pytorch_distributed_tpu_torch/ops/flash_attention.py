@@ -16,8 +16,8 @@ Two implementations of each of the three steps sit side by side:
   the Pallas ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``. CUDA
   tensors get them; each counts its launches in ``<fn>.launches`` and
   raises on anything it does not take. There is no fallback. The dtype
-  picks the kernel inside the library: bf16 runs all three on the
-  tensor cores, f32 all three on the CUDA cores.
+  picks the kernel inside the library: bf16 and fp16 run all three on
+  the tensor cores, f32 all three on the CUDA cores.
 * the plain versions :func:`_flash_fwd_plain`, :func:`_flash_dq_plain`
   and :func:`_flash_dkv_plain`: the same blocked algorithm in PyTorch,
   recomputing from the saved logsumexp exactly as the kernels do. CPU
@@ -306,7 +306,7 @@ def _flash_dkv_plain(q, k, v, dout, lse, delta, bias, seg, *, sm_scale,
 # the kernels: csrc/flash_attention.cu, built with nvcc, loaded with ctypes
 # --------------------------------------------------------------------------
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LIB = None
 
 
@@ -376,8 +376,8 @@ def _kernel_params(q, k, v, bias, seg, sm_scale, causal) -> _Params:
         v.dtype != q.dtype
     ):
         raise ValueError(
-            f"the flash kernels take float32 or bfloat16 q, k and v of one "
-            f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
+            f"the flash kernels take float32, bfloat16 or float16 q, k and "
+            f"v of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]

@@ -26,7 +26,10 @@ part of ``pytorch_distributed_tpu/optim.py`` the training slice uses.
   which is how ``ZeroRedundancyOptimizer`` builds its per-rank optimizer
   (``optimizer_class(groups, **defaults)``).
 * :func:`no_decay_mask` is the "no decay for biases and norms" split over
-  the port's parameter names.
+  the port's parameter names: every ``bias`` and every norm's weight,
+  the JAX package's ``bias`` and ``scale`` leaves. BERT's free
+  ``mlm_bias`` is a leaf of its own name there and decays, so it does
+  here.
 
 The JAX recipe's ``optax.adamw(lr)`` decays every parameter by its
 default 1e-4; this module's :func:`AdamW`, like the JAX package's
@@ -46,8 +49,9 @@ LrOrSchedule = Union[float, Schedule]
 
 #: parameter-name patterns exempt from weight decay: biases and the
 #: LayerNorm/RMSNorm scales (the port's names: ``blocks.3.ln1.weight``,
-#: ``ln_f.weight``, ``layers.0.attn_norm.weight``)
-DEFAULT_NO_DECAY = (r"(^|\.)bias$", r"(^|\.)(ln\w*|\w*norm)\.weight$")
+#: ``ln_f.weight``, ``layers.0.attn_norm.weight``, BERT's
+#: ``bert.layers.0.attn_ln.weight`` and ``mlm_ln.weight``)
+DEFAULT_NO_DECAY = (r"(^|\.)bias$", r"(^|[._])(ln\w*|\w*norm)\.weight$")
 
 
 def no_decay_mask(patterns: Sequence[str] = DEFAULT_NO_DECAY):

@@ -6,7 +6,9 @@ The port writes its state under the JAX ``TrainState``'s leaf names and
 in the JAX layouts (``interop.model_slots``, ``interop.optimizer_layout``):
 ``step``, ``params_...`` (Dense kernels ``[in, out]`` with heads as their
 own axes, conv kernels ``[kh, kw, I, O]``, GPT-2's layers stacked on a
-leading ``[L]``), ``batch_stats_...`` and ``opt_state_...`` (optax's
+leading ``[L]``), ``batch_stats_...``, the fp16 loss scaler's
+``scaler_state_scale`` (f32) and ``scaler_state_growth_tracker``
+(int32) when the state has one, and ``opt_state_...`` (optax's
 ``mu``/``nu``/``count`` of ``chain(clip_by_global_norm, adamw)``, the
 ``trace`` and schedule ``count`` of ``sgd``), in the manifest format of
 ``train/ckpt_io.py``. So the JAX package's ``restore_checkpoint``, given
@@ -246,6 +248,22 @@ def _plan(state: TrainState) -> List[_Leaf]:
         state.step = v
 
     scalar("step", lambda: state.step, set_step)
+    if state.scaler_state is not None:
+        # the fp16 loss scaler's device scalars, as the JAX ScalerState's
+        # leaves: an f32 scale and an int32 growth tracker
+        for field, dtype in (("scale", np.float32),
+                             ("growth_tracker", np.int32)):
+            def read(field=field, dtype=dtype):
+                return np.asarray(
+                    _numpy(getattr(state.scaler_state, field)), dtype)
+
+            def write(arr, field=field, dtype=dtype):
+                t = getattr(state.scaler_state, field)
+                with torch.no_grad():
+                    t.copy_(torch.from_numpy(np.asarray(arr, dtype)))
+
+            add(interop.leaf_name("scaler_state", field), (), dtype,
+                [_Box(0, (), (), read, write)], rank0)
     if layout.count is not None:
         def set_count(v):
             # torch's per-parameter step, as its AdamW makes it (a CPU

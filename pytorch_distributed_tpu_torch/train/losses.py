@@ -1,6 +1,7 @@
 """Losses and metrics: the port of ``causal_lm_loss_fn`` (full logits
-or the chunked-vocab loss of ``ops/lm_loss.py``), ``causal_lm_eval_step``
-and the classifier losses in ``pytorch_distributed_tpu/train/losses.py``.
+or the chunked-vocab loss of ``ops/lm_loss.py``), ``causal_lm_eval_step``,
+the classifier losses, ``text_classification_loss_fn`` and
+``masked_lm_loss_fn`` in ``pytorch_distributed_tpu/train/losses.py``.
 
 A loss function here is ``loss_fn(batch, generator) -> (loss, aux)``
 with ``aux = {"metrics": {...}}``. It closes over the module, whose
@@ -274,3 +275,76 @@ def classification_eval_step(
         return out
 
     return eval_step
+
+
+def text_classification_loss_fn(
+    model, *, label_smoothing: float = 0.0, attn_impl: Optional[str] = None,
+) -> Callable:
+    """Loss for BERT-style sequence classification: a train-mode forward
+    of ``input_ids`` (with the batch's ``attention_mask`` when it has
+    one), cross-entropy against ``label`` with ``label_smoothing``;
+    metrics ``loss`` and ``accuracy``. ``attn_impl`` is passed to the
+    model (``None``: flash on the card)."""
+
+    def loss_fn(batch, generator):
+        logits = model(batch["input_ids"], batch.get("attention_mask"),
+                       train=True, generator=generator, attn_impl=attn_impl)
+        labels = batch["label"]
+        loss = cross_entropy(logits, labels, label_smoothing)
+        return loss, {"metrics": {
+            "loss": loss.detach(),
+            "accuracy": accuracy(logits.detach(), labels),
+        }}
+
+    return loss_fn
+
+
+def masked_lm_loss_fn(
+    model,
+    *,
+    mask_token_id: int,
+    vocab_size: int,
+    mask_prob: float = 0.15,
+    ids_key: str = "input_ids",
+    attention_mask_key: str = "attention_mask",
+    attn_impl: Optional[str] = None,
+) -> Callable:
+    """BERT's masked-LM loss with dynamic masking: every step draws a
+    fresh 80/10/10 masking (``models.bert.mask_tokens``) from the step's
+    generator, before the dropout masks, and scores cross-entropy over
+    the selected positions only. The batch's optional ``special_mask``
+    (``[B, S]`` bool, True = never mask) and its padding (``attention_mask``
+    False) are never selected. Metrics ``loss``, ``accuracy`` over the
+    selected positions and the realized ``mask_frac``."""
+    from pytorch_distributed_tpu_torch.models.bert import mask_tokens
+
+    def loss_fn(batch, generator):
+        ids = batch[ids_key]
+        attn = batch.get(attention_mask_key)
+        protect = batch.get("special_mask")
+        if protect is not None:
+            protect = protect.to(torch.bool)
+        if attn is not None:
+            pad = ~attn.to(torch.bool)
+            protect = pad if protect is None else (protect | pad)
+        masked_ids, labels = mask_tokens(
+            generator, ids, mask_token_id=mask_token_id,
+            vocab_size=vocab_size, mask_prob=mask_prob, special_mask=protect)
+        logits = model(masked_ids, attn, batch.get("token_type_ids"),
+                       train=True, generator=generator, attn_impl=attn_impl)
+        sel = labels != -100
+        w = sel.to(torch.float32)
+        denom = torch.clamp(w.sum(), min=1.0)
+        per_tok = F.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            labels.clamp(min=0).long().reshape(-1), reduction="none",
+        ).reshape(labels.shape)
+        loss = (per_tok * w).sum() / denom
+        hits = (logits.detach().argmax(-1) == labels).to(torch.float32)
+        return loss, {"metrics": {
+            "loss": loss.detach(),
+            "accuracy": (hits * w).sum() / denom,
+            "mask_frac": w.mean(),
+        }}
+
+    return loss_fn

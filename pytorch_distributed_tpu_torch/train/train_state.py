@@ -3,17 +3,22 @@
 The JAX package keeps everything a step changes in one immutable pytree.
 PyTorch keeps parameters in the module and moments in the optimizer, both
 updated in place, so the port's state is the handle on those two plus
-the step counter (which seeds the step's random streams) and the dtype
-policy the model was built with.
+the step counter (which seeds the step's random streams), the dtype
+policy the model was built with, and the fp16 loss-scale state
+(``runtime.precision.ScalerState``: None unless fp16 dynamic scaling).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from pytorch_distributed_tpu_torch.runtime.precision import Policy
+from pytorch_distributed_tpu_torch.runtime.precision import (
+    Policy,
+    ScalerState,
+)
 
 
 @dataclasses.dataclass
@@ -22,3 +27,4 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     policy: Policy = Policy.train()
+    scaler_state: Optional[ScalerState] = None

@@ -20,12 +20,27 @@ are module buffers that each train-mode forward updates in place, one
 microbatch after another as the JAX scan threads them. The step emits
 the tracing spans ``train.step`` (all of it), ``train.fwd_bwd`` (the
 microbatch loop) and ``train.optim`` (the update). Its metrics stay on
-the device: nothing in the step waits for the card.
+the device: nothing in the step waits for the card, unless it scales.
+
+``build_train_step(..., scaler=S)`` with an fp16 ``GradScaler`` (the
+JAX ``build_train_step(scaler=...)``) multiplies each microbatch's loss
+by ``state.scaler_state.scale`` before its backward, and the summed
+gradients (after DDP's all-reduce) by the inverse; then
+``S.functional_update`` reads whether they are finite and moves the
+scale. On a non-finite step the optimizer does not step: parameters,
+moments, torch's per-parameter ``step`` (optax's count) and a
+schedule's count stay as they were, while ``state.step`` advances, as
+in the JAX step's skipped branch. That choice is one host read of the
+device's finite flag a step, as ``torch.cuda.amp.GradScaler.step``
+makes it. The metrics gain ``loss_scale`` (the new scale) and
+``grads_finite`` (1.0 or 0.0).
 
 ``Trainer.fit`` runs epochs of the loader, ``max_steps_per_epoch`` steps
 at most, times each wait for the next batch (``train.data_wait``), logs
 (and so synchronizes) every ``log_every`` steps, with the metrics
-averaged over the ranks of a process group, raises
+averaged over the ranks of a process group and the samples a second
+over the logging window (``samples_per_s``: the leading dim of the
+batch's ``samples_axis`` leaf, times the ranks), raises
 :class:`TrainingDiverged` after ``halt_on_nonfinite`` consecutive
 non-finite logged losses, and with an ``eval_step`` and ``eval_loader``
 evaluates after every epoch (``last_eval_metrics``: sample-weighted
@@ -60,6 +75,7 @@ from torch.nn.parallel import DistributedDataParallel
 from pytorch_distributed_tpu_torch.optim import _local
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime import tracing
+from pytorch_distributed_tpu_torch.runtime.precision import GradScaler
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for
 from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
 from pytorch_distributed_tpu_torch.train import elastic
@@ -117,12 +133,14 @@ def build_train_step(
     *,
     accum_steps: int = 1,
     batch_transform: Optional[Callable] = None,
+    scaler: Optional[GradScaler] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], tuple]:
     """``step(state, batch) -> (state, metrics)``; see the module
     docstring. The batch must already be on the model's device."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     takes_rng = getattr(batch_transform, "_ptd_takes_rng", False)
+    scaling = scaler is not None and scaler.enabled
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
@@ -134,6 +152,10 @@ def build_train_step(
                         batch, generator_for(state.step, AUG_TAG, device))
                 else:
                     batch = batch_transform(batch)
+            if scaling and state.scaler_state is None:
+                raise ValueError(
+                    "an fp16 GradScaler needs state.scaler_state (TrainState("
+                    "..., scaler_state=scaler.init_state(device)))")
             opt.zero_grad(set_to_none=True)
             sums: Dict[str, torch.Tensor] = {}
             with tracing.span("train.fwd_bwd"):
@@ -141,17 +163,29 @@ def build_train_step(
                     gen = generator_for(state.step, DROPOUT_TAG + i, device)
                     with _sync_unless(model, i < accum_steps - 1):
                         loss, aux = loss_fn(mb, gen)
+                        if scaling:
+                            loss = scaler.scale_value(loss,
+                                                      state.scaler_state)
                         loss.backward()
                     for k, v in aux.get("metrics", {}).items():
                         sums[k] = v if k not in sums else sums[k] + v
+            grads = [p.grad for p in model.parameters()
+                     if p.grad is not None]
             if accum_steps > 1:
                 inv = 1.0 / accum_steps
-                grads = [_local(p.grad) for p in model.parameters()
-                         if p.grad is not None]
-                torch._foreach_mul_(grads, inv)
+                torch._foreach_mul_([_local(g) for g in grads], inv)
                 sums = {k: v * inv for k, v in sums.items()}
+            apply = True
+            if scaling:
+                scaler.unscale_grads(grads, state.scaler_state)
+                state.scaler_state, finite = scaler.functional_update(
+                    grads, state.scaler_state)
+                sums["loss_scale"] = state.scaler_state.scale
+                sums["grads_finite"] = finite.to(torch.float32)
+                apply = bool(finite)   # the one host read of a scaled step
             with tracing.span("train.optim"):
-                opt.step()
+                if apply:
+                    opt.step()
             state.step += 1
         return state, sums
 
@@ -168,6 +202,7 @@ class TrainerConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every_steps: Optional[int] = None  # None: after each epoch only
     handle_preemption: bool = True  # SIGTERM -> checkpoint -> Preempted
+    samples_axis: str = "image"  # batch leaf whose dim 0 counts samples
 
 
 class TrainingDiverged(RuntimeError):
@@ -336,7 +371,7 @@ class Trainer:
         cfg = self.config
         device = next(self.state.model.parameters()).device
         t_last = time.perf_counter()
-        since_log = 0
+        since_log = samples = 0
         taken, self._resume_skip_batches = self._resume_skip_batches, 0
         if taken:   # resume: the sampler starts past the batches taken
             self.train_loader.sampler.load_state_dict(
@@ -354,6 +389,7 @@ class Trainer:
                          for k, v in batch.items()}
             taken += 1
             self._cursor_offset = taken
+            samples += self._batch_samples(batch)
             self.state, metrics = self.train_step(self.state, batch)
             self.host_step += 1
             self._check_preemption()
@@ -362,12 +398,13 @@ class Trainer:
                 # the sync point: pull the metrics off the card
                 values = _rank_mean(metrics)
                 now = time.perf_counter()
+                rate = samples * dist.get_world_size() / (now - t_last)
                 dt = (now - t_last) / since_log
-                t_last, since_log = now, 0
+                t_last, since_log, samples = now, 0, 0
                 self._check_finite(values, self.host_step)
                 self.history.append(dict(
                     step=self.host_step, epoch=epoch, step_time_s=dt,
-                    **values,
+                    samples_per_s=rate, **values,
                 ))
                 logger.info(
                     "epoch %d step %d %s (%.1f ms/step)", epoch,
@@ -380,6 +417,14 @@ class Trainer:
                 t_save = time.perf_counter()
                 self.save_checkpoint()
                 t_last += time.perf_counter() - t_save   # no step's time
+
+    def _batch_samples(self, batch) -> int:
+        """This rank's samples in ``batch``: the leading dim of its
+        ``samples_axis`` leaf, else of its first leaf."""
+        x = batch.get(self.config.samples_axis)
+        if x is None:
+            x = next(iter(batch.values()), None)
+        return 0 if x is None else int(x.shape[0])
 
     def evaluate(self, epoch: int) -> Dict[str, float]:
         """One pass of ``eval_step`` over ``eval_loader``: sample-weighted

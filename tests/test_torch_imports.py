@@ -2,8 +2,8 @@
 
 * ``pytorch_distributed_tpu_torch`` imports (every module of it,
   the training slices' included), serves a tiny model, trains a tiny
-  GPT-2, runs the ResNet-50 recipe and the Llama FSDP recipe on the
-  CPU, in a fresh
+  GPT-2, runs the ResNet-50 recipe, the Llama FSDP recipe and the BERT
+  recipe (fp16 with loss scaling) on the CPU, in a fresh
   interpreter where ``jax``, ``flax`` and
   the JAX package ``pytorch_distributed_tpu`` cannot be imported at all
   (the meta-path blocker idiom of tests/test_ckpt_shard.py).
@@ -23,6 +23,8 @@ import pytest
 import torch
 
 from pytorch_distributed_tpu_torch import (
+    BertConfig,
+    BertForSequenceClassification,
     EngineConfig,
     ResNet50,
     GPT2Config,
@@ -35,7 +37,11 @@ from pytorch_distributed_tpu_torch import (
     init_process_group,
 )
 from pytorch_distributed_tpu_torch.recipes import gpt2 as gpt2_recipe
-from pytorch_distributed_tpu_torch.recipes import llama_fsdp, resnet50_imagenet
+from pytorch_distributed_tpu_torch.recipes import (
+    bert_finetune,
+    llama_fsdp,
+    resnet50_imagenet,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,7 +69,8 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "ops.lm_loss", "models.scan", "train.ckpt_io",
             "train.checkpoint", "train.elastic", "utils.integrity",
             "utils.native_build", "data.tokenizer", "recipes.llama_fsdp",
-            "interop"):
+            "interop", "models.bert", "recipes.bert_finetune",
+            "runtime.precision"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -88,6 +95,11 @@ trainer = llama_fsdp.main(["--size", "tiny", "--device", "cpu",
                            "--steps-per-epoch", "1", "--log-every", "1",
                            "--remat", "--vocab-chunk", "100"])
 assert trainer.state.step == 1, trainer.state.step
+from pytorch_distributed_tpu_torch.recipes import bert_finetune
+trainer = bert_finetune.main(["--tiny", "--device", "cpu", "--fp16",
+                              "--batch-size", "2", "--seq-len", "16",
+                              "--steps-per-epoch", "1", "--log-every", "1"])
+assert trainer.state.step == 1 and trainer.state.scaler_state is not None
 bad = [m for m in sys.modules
        if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not bad, bad
@@ -128,6 +140,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         init_process_group()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama_fsdp.main(["--steps-per-epoch", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BertForSequenceClassification(BertConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bert_finetune.main(["--tiny", "--steps-per-epoch", "1"])
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -11,7 +11,8 @@ import pytest
 
 from pytorch_distributed_tpu_torch.ops import kernel_build
 
-DQ_TC = "_ZN12_GLOBAL__N_118flash_dq_kernel_tcILi64EEEv11FlashParams"
+DQ_TC = ("_ZN12_GLOBAL__N_118flash_dq_kernel_tcI13__nv_bfloat16Li64EEEv"
+         "11FlashParams")
 DQ_F32 = "_ZN12_GLOBAL__N_115flash_dq_kernelIfLi64EEEv11FlashParams"
 
 PTXAS = f"""\
@@ -69,7 +70,10 @@ _spec = importlib.util.spec_from_file_location(
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
-FWD_TC = "_ZN12_GLOBAL__N_119flash_fwd_kernel_tcILi64EEEv11FlashParams"
+FWD_TC = ("_ZN12_GLOBAL__N_119flash_fwd_kernel_tcI13__nv_bfloat16Li64EEEv"
+          "11FlashParams")
+FWD_TC_F16 = ("_ZN12_GLOBAL__N_119flash_fwd_kernel_tcI6__halfLi64EEEv"
+              "11FlashParams")
 FWD_BF16 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEv"
             "11FlashParams")
 
@@ -79,20 +83,24 @@ def test_flash_label_names_kernel_dtype_and_head_dim():
     assert chip_smoke.flash_label(DQ_F32) == "flash_dq_kernel float32 D=64"
     assert chip_smoke.flash_label(FWD_TC) == (
         "flash_fwd_kernel_tc bfloat16 D=64")
+    assert chip_smoke.flash_label(FWD_TC_F16) == (
+        "flash_fwd_kernel_tc float16 D=64")
     assert chip_smoke.flash_label(FWD_BF16) == (
         "flash_fwd_kernel bfloat16 D=64")
     assert chip_smoke.flash_label("_Z12paged_kernelv") is None
 
 
 def _good_report():
-    """What the library must hold: the three bf16 kernels on the tensor
-    cores and the three f32 ones on the CUDA cores, at each head_dim."""
+    """What the library must hold: the three bf16 and the three fp16
+    kernels on the tensor cores and the three f32 ones on the CUDA cores,
+    at each head_dim."""
     report = {}
     for d in (16, 32, 64, 128):
         for k in ("fwd", "dq", "dkv"):
-            report[f"flash_{k}_kernel_tc bfloat16 D={d}"] = dict(
-                registers=128, spill_stores=0, spill_loads=0, HMMA=8,
-                HGMMA=0)
+            for t in ("bfloat16", "float16"):
+                report[f"flash_{k}_kernel_tc {t} D={d}"] = dict(
+                    registers=128, spill_stores=0, spill_loads=0, HMMA=8,
+                    HGMMA=0)
             report[f"flash_{k}_kernel float32 D={d}"] = dict(
                 registers=128, spill_stores=0, spill_loads=0, HMMA=0,
                 HGMMA=0)
@@ -120,12 +128,32 @@ def _missing(r):
     del r["flash_fwd_kernel_tc bfloat16 D=16"]
 
 
+def _f16_missing(r):
+    del r["flash_dkv_kernel_tc float16 D=64"]
+
+
+def _f16_spills(r):
+    r["flash_fwd_kernel_tc float16 D=64"].update(spill_loads=4)
+
+
+def _f16_cuda_cores(r):
+    r["flash_dq_kernel float16 D=64"] = dict(HMMA=0, HGMMA=0)
+
+
+def _f16_no_tc(r):
+    r["flash_dq_kernel_tc float16 D=32"].update(HMMA=0)
+
+
 @pytest.mark.parametrize("spoil,what", [
     (_no_tc, "D=128: no tensor-core instructions"),
     (_spills, "D=32 spills"),
     (_bf16_cuda_cores, "unexpected flash_fwd_kernel bfloat16 D=64"),
     (_f32_on_tensor_cores, "float32 D=16: tensor-core instructions"),
     (_missing, "missing flash_fwd_kernel_tc bfloat16 D=16"),
+    (_f16_missing, "missing flash_dkv_kernel_tc float16 D=64"),
+    (_f16_spills, "flash_fwd_kernel_tc float16 D=64 spills"),
+    (_f16_cuda_cores, "unexpected flash_dq_kernel float16 D=64"),
+    (_f16_no_tc, "float16 D=32: no tensor-core instructions"),
 ])
 def test_check_flash_routes_refuses_a_wrong_build(spoil, what):
     report = _good_report()

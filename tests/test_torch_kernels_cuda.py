@@ -174,6 +174,12 @@ FLASH_TOL = {
                 "grad": dict(max=5e-5, norm=1e-5)},
     "bfloat16": {"out": dict(max=1e-2, norm=5e-3),
                  "grad": dict(max=1e-2, norm=1e-3)},
+    # fp16 rounds at the same points with 3 more mantissa bits; H100
+    # readings over these cases (tensor-core kernels): max 5.2e-4 (out,
+    # segments_straddle) and 5.1e-4 (dk, GQA at D=128); norm 2.0e-4 (out)
+    # and 1.2e-4 (dv, Llama's row)
+    "float16": {"out": dict(max=2e-3, norm=1e-3),
+                "grad": dict(max=2e-3, norm=5e-4)},
 }
 
 FLASH_CASES = {
@@ -205,6 +211,10 @@ FLASH_CASES = {
     "llama_train_row": (1, 2048, 2048, 32, 8, 128, True, {}),
     "llama_packed_row": (1, 2048, 2048, 32, 8, 128, True,
                          {"segments": True}),
+    # BERT-base's fine-tune batch: 12 heads of 64, non-causal, a padded
+    # tail per row (lengths 16-128, as padded GLUE sentences): one
+    # 128-key tile per row, the padding inside it
+    "bert": (32, 128, 128, 12, 12, 64, False, {"lengths": (16, 128)}),
 }
 
 
@@ -214,8 +224,9 @@ def _flash_inputs(gen, B, S, T, Hq, Hkv, D, dtype, device, extras):
     k = torch.randn(B, T, Hkv, D, **kw)
     v = torch.randn(B, T, Hkv, D, **kw)
     bias = seg = None
-    if extras.get("kv_mask"):
-        lengths = torch.randint(T // 3, T + 1, (B,), generator=gen)
+    if extras.get("kv_mask") or "lengths" in extras:
+        lo, hi = extras.get("lengths", (T // 3, T))
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen)
         mask = torch.arange(T)[None, :] < lengths[:, None]
         bias = torch.zeros(B, T).masked_fill(~mask, fa._NEG_INF).to(device)
     if extras.get("segments"):
@@ -248,7 +259,7 @@ def _assert_close(out, ref, tol, what):
     assert norm <= tol["norm"], (what, norm)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain_versions(cuda, dtype, case):
     B, S, T, Hq, Hkv, D, causal, extras = FLASH_CASES[case]
@@ -282,7 +293,7 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, case):
         assert torch.isfinite(t).all()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_backward_kernels_are_deterministic(cuda, dtype):
     """Each CTA owns its output tile (no atomics), so two launches on the
     same inputs give the same bits: GQA, causal, packed segments."""
@@ -301,7 +312,7 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_forward_kernel_is_deterministic(cuda, dtype):
     """Each CTA owns its q tile, so two forward launches on the same
     inputs give the same bits: GQA, causal, packed segments."""
@@ -317,7 +328,7 @@ def test_flash_forward_kernel_is_deterministic(cuda, dtype):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_forward_with_a_fully_masked_row(cuda, dtype, causal):
     """A kv_mask that hides every key of one batch row: that row's
@@ -367,8 +378,8 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q, q, q, sm_scale=1.0, causal=True)
-    h = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
-    with pytest.raises(ValueError, match="bfloat16"):
+    h = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float16"):
         fa.flash_fwd(h, h, h, sm_scale=1.0, causal=True)
 
 
@@ -447,3 +458,68 @@ def test_llama_step_flash_matches_einsum_on_cuda(cuda):
     assert abs(results[0][0] - results[1][0]) <= 1e-5 * abs(results[1][0])
     for n, g in results[0][1].items():
         _assert_close(g, results[1][1][n], 1e-4, n)
+
+
+@pytest.mark.parametrize("policy", ["full", "fp16"])
+def test_bert_step_flash_matches_einsum_on_cuda(cuda, policy):
+    """One step's loss and gradients of a small BERT classifier at
+    BERT-base's head shape (head_dim 64, non-causal) on a ragged padded
+    batch, with the flash kernels and with the einsum attention, dropout
+    off. f32 (``Policy.full()``, the CUDA-core kernels): the loss to
+    1e-5 and every gradient to 1e-4 of its largest magnitude (sums in
+    another order). fp16 (``Policy.fp16()``, the tensor-core kernels):
+    the kernels round P and dS to fp16 where the einsum path keeps f32,
+    so the loss to 1e-3 and each gradient to 2e-2 of its norm
+    (||flash - einsum|| / ||einsum||), the GPT-2 smoke's q/k/v limit. The
+    key bias is left out: its gradient is zero in exact arithmetic. Each
+    flash kernel launches once a layer."""
+    from pytorch_distributed_tpu_torch.models.bert import (
+        BertConfig,
+        BertForSequenceClassification,
+    )
+    from pytorch_distributed_tpu_torch.train import (
+        text_classification_loss_fn,
+    )
+
+    pol = Policy.full() if policy == "full" else Policy.fp16()
+    cfg = dataclasses.replace(BertConfig.tiny(), hidden_size=256,
+                              num_heads=4, intermediate_size=512,
+                              dropout_rate=0.0)
+    gen = torch.Generator().manual_seed(4)
+    B, S = 8, 128
+    lengths = torch.randint(16, S + 1, (B,), generator=gen)
+    mask = torch.arange(S)[None, :] < lengths[:, None]
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=gen).to(cuda),
+             "attention_mask": mask.to(cuda),
+             "label": torch.randint(0, 2, (B,), generator=gen).to(cuda)}
+    results = []
+    for impl in (None, "xla"):
+        model = BertForSequenceClassification(cfg, device=cuda, policy=pol)
+        model.init_weights(torch.Generator(device=cuda).manual_seed(0))
+        before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+                  fa.flash_dkv.launches)
+        loss, _ = text_classification_loss_fn(model, attn_impl=impl)(
+            batch, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = tuple(n - b for n, b in zip(
+            (fa.flash_fwd.launches, fa.flash_dq.launches,
+             fa.flash_dkv.launches), before))
+        L = cfg.num_layers
+        assert launched == ((L, L, L) if impl is None else (0, 0, 0))
+        results.append((loss.item(), {n: p.grad for n, p in
+                                      model.named_parameters()}))
+    loss_rtol = 1e-5 if policy == "full" else 1e-3
+    assert abs(results[0][0] - results[1][0]) <= loss_rtol * abs(
+        results[1][0])
+    for n, g in results[0][1].items():
+        if n.endswith("attn.key.bias"):
+            continue
+        ref = results[1][1][n]
+        if policy == "full":
+            _assert_close(g, ref, 1e-4, n)
+        else:
+            err = ((g.float() - ref.float()).norm()
+                   / ref.float().norm().clamp_min(1e-30)).item()
+            assert err <= 2e-2, (n, err)
