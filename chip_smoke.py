@@ -4,7 +4,9 @@ each against its plain PyTorch version, serve Llama-3-8B, train
 ResNet-50 data-parallel, run the JAX recipe's GPT-2-medium ZeRO-1
 configuration with checkpoints, train GPT-2-medium, run the JAX
 recipe's Llama-3-8B FSDP full-shard configuration at full width, and
-run the JAX recipe's BERT-base fine-tune in bf16 and fp16.
+run the JAX recipe's BERT-base fine-tune in bf16 and fp16, and run
+generation (GPT-2 decode, beams, speculative decoding, the int8 KV
+cache), int8/int4 Llama-3-8B and BERT-base LoRA.
 
     python3 chip_smoke.py [--seed N]
 
@@ -159,9 +161,47 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    0.02 of 0.15 x the rows' unpadded share. Flash launches 12 of each
    kernel a step, the paged kernel none.
 
-Serve, ResNet, 7a, train, 8a and 9 each set all four kernel counts to 0
-just before their run and read all four just after; a kernel off the
-path that launched fails the run.
+10. generation, quantization and LoRA (after 7, before train, whose
+   profiler would slow the host-bound decode): (a) ``recipes/gpt2.py
+   --size medium``, 2 steps at 8 x 512 then ``--sample 32`` (2 rows of
+   32 new ids); on that model, greedy ``generate`` over 8 left-padded
+   prompts of seeded lengths 64-256 (``prompt_mask``), 64 new tokens,
+   every token within ``GEN_MARGIN`` of the argmax of a teacher-forced,
+   cache-free forward of its row (einsum attention), and a sampled call
+   repeated with the same generator giving the same ids: prefill ms,
+   decode ms a token, tokens/s; (b) ``repetition_penalty=1.3`` and
+   ``no_repeat_ngram_size=3``: no 3-gram repeats; ``generate_beam`` with
+   4 beams and ``return_scores``: each score within ``BEAM_MARGIN`` of
+   its sequence's teacher-forced log-probs over ``len**length_penalty``;
+   (c) ``generate_speculative`` (k=4, greedy) with a seeded GPT-2-small
+   draft and with the target as its own draft: every token within
+   ``GEN_MARGIN`` of the teacher-forced argmax, the self-draft accepting
+   >= 95%; acceptance and tokens/s beside ``generate``'s, and the
+   sampled mode's acceptance; (e) ``kv_cache_quantize="int8"`` on the
+   same weights: agreement with the exact cache, each token within
+   ``KV8_MARGIN`` of the exact model's teacher-forced argmax, cache
+   bytes 0.5 + 2/head_dim of bf16's; (d) Llama-3-8B at full width and
+   ``QUANT_LAYERS`` layers, seeded bf16 weights, then int8 and int4
+   trees (``quantize_for_scan_dequant``) in ``QuantizedModel``: every
+   quantized leaf within scale/2 of its source, prefill logits against
+   the same model with the dequantized weights loaded as plain bf16,
+   resident bytes equal to ``quantized_bytes``, the decode's peak above
+   them under one layer's bf16 weights plus the cache plus a stated
+   activation margin; decode ms a token for bf16, int8 and int4; (f)
+   the BERT recipe's ``--lora 8`` through ``build_trainer`` at
+   BERT-base, 20 bf16 steps over phase 9's padded rows: trainable count
+   = ``lora_param_count``, every base tensor bitwise unchanged, the
+   optimizer's state the adapters' alone, the rows' dropout-free loss
+   falling, 12 launches of each flash kernel a step, the checkpoint
+   ``fit()`` wrote restored into fresh adapters to the bit; then 5 QLoRA
+   steps on an int8 base with finite losses. Paths: ``gpt2_sample``
+   (the recipe), ``generation`` (a-c, e: no kernel), ``quant`` (d: the
+   prefill checks' plain forwards launch the flash forward) and
+   ``lora`` (f).
+
+Serve, ResNet, 7a, train, 8a, 9 and each path of 10 set all four kernel
+counts to 0 just before their run and read all four just after; a
+kernel off the path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
@@ -2966,6 +3006,563 @@ def bert_phase(device, seed):
     return stats
 
 
+# --------------------------------------------------------------------------
+# Phase 10: generation, quantization and LoRA
+# --------------------------------------------------------------------------
+
+GEN_B, GEN_NEW = 8, 64                # (10a) rows and new tokens
+GEN_PROMPT = (64, 256)                # (10a) ragged prompt lengths
+GEN_RECIPE = ["--size", "medium", "--batch-size", "8", "--accum-steps",
+              "1", "--seq-len", "512", "--steps-per-epoch", "2",
+              "--sample", "32", "--log-every", "1"]
+# greedy tokens vs the teacher-forced, cache-free forward of the same
+# rows: the decode reads its K/V from the cache in bf16 through the
+# einsum path, the reference recomputes them at another width, so the
+# f32 logits (magnitude ~1-5 after two steps; bf16 products) move by a
+# few bf16 ulps of the hidden state. phase 4's margin for Llama-3-8B is
+# 0.25; GPT-2-medium's logits sit in the same range.
+GEN_MARGIN = 0.25
+BEAM_K, BEAM_NEW = 4, 16
+# a beam's score against the teacher-forced sum of its log-probs over
+# len**length_penalty: each of the 16 log-probs carries the GEN_MARGIN
+# kind of noise (about 1e-2 measured per token, bf16), averaged by len
+BEAM_MARGIN = 0.05
+SPEC_K = 4
+SPEC_SELF_ACCEPT = 0.95
+# (10d) Llama-3-8B at full width; depth cut to fit the phase's time (the
+# three variants each build, quantize and decode the model)
+QUANT_LAYERS = 8
+QUANT_B, QUANT_P, QUANT_NEW = 4, 128, 16
+# quantized prefill logits vs the same model with the dequantized weights
+# loaded as plain bf16: the same products on the same bf16 weights, so
+# equal up to the order of cuBLAS's sums (0 expected); a wrong geometry
+# reads ~1
+QUANT_LOGIT_TOL = 1e-2
+# (10e) the int8 cache is lossy (each K/V value within amax/254 of
+# itself, on every value), so a greedy row may leave the exact cache's
+# tokens at a near tie and continue elsewhere: agreement is printed, and
+# each token is held to the exact model's teacher-forced forward of the
+# int8 run's own rows, at twice GEN_MARGIN; a cache read with wrong
+# scales or layout sits units away
+KV8_MARGIN = 0.5
+LORA_RANK, LORA_STEPS, QLORA_STEPS = 8, 20, 5
+
+
+def _ragged_prompts(seed, vocab, device):
+    """``GEN_B`` left-padded prompts of seeded lengths in ``GEN_PROMPT``:
+    (ids [B, P], mask [B, P])."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 10)
+    lens = rng.integers(GEN_PROMPT[0], GEN_PROMPT[1] + 1, GEN_B)
+    lens[0] = GEN_PROMPT[1]
+    P = GEN_PROMPT[1]
+    ids = rng.integers(1, vocab, size=(GEN_B, P))
+    mask = np.arange(P)[None] >= (P - lens)[:, None]
+    ids = np.where(mask, ids, 0)
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def _row_seqs(out, mask):
+    """Each row's real tokens: its unpadded prompt, then what came out."""
+    import torch
+
+    P = mask.shape[1]
+    return [torch.cat([out[b, :P][mask[b]], out[b, P:]])
+            for b in range(out.shape[0])]
+
+
+def _forced_gaps(model, out, mask):
+    """For every generated token: the cache-free, teacher-forced forward's
+    max logit minus the logit of the token chosen (einsum attention)."""
+    import torch
+
+    gaps, exact = [], 0
+    new = out.shape[1] - mask.shape[1]
+    with torch.no_grad():
+        for seq in _row_seqs(out, mask):
+            logits = model(seq[None], attn_impl="xla")[0, -new - 1:-1]
+            if not torch.isfinite(logits).all():
+                raise AssertionError("non-finite teacher-forced logits")
+            toks = seq[-new:]
+            mine = logits.gather(1, toks[:, None])[:, 0]
+            gaps.extend((logits.max(-1).values - mine).tolist())
+            exact += int((logits.argmax(-1) == toks).sum())
+    return exact, gaps
+
+
+def _cuda_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _decode_times(model, prompt, mask, new, **kw):
+    """(out, prefill ms, decode ms a token, tokens/s): one prefill alone
+    (``max_new_tokens=1``), then the whole call."""
+    from pytorch_distributed_tpu_torch import generate
+
+    kw.setdefault("device", prompt.device)
+    _, pre_ms = _cuda_ms(lambda: generate(model, prompt, max_new_tokens=1,
+                                          prompt_mask=mask, **kw))
+    out, ms = _cuda_ms(lambda: generate(model, prompt, max_new_tokens=new,
+                                        prompt_mask=mask, **kw))
+    dec = (ms - pre_ms) / (new - 1)
+    return out, pre_ms, dec, prompt.shape[0] * new / ms * 1e3
+
+
+def _gpt2_sample(device, seed):
+    """(10a) the recipe at --size medium, 2 steps then --sample 32."""
+    from pytorch_distributed_tpu_torch.recipes import gpt2 as recipe
+
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    trainer = recipe.main(GEN_RECIPE + ["--seed", str(seed)])
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    sample = trainer.sample
+    if tuple(sample.shape) != (2, 8 + 32) or trainer.state.step != 2:
+        raise AssertionError(f"(10a) --sample gave {tuple(sample.shape)} "
+                             f"after {trainer.state.step} steps")
+    losses = [r["loss"] for r in trainer.history]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"(10a) losses {losses}")
+    print(f"(10a) recipes/gpt2.py {' '.join(GEN_RECIPE)}: 2 steps (losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"), sample of 2 x 32 "
+          f"new ids: {sample[0, 8:].tolist()}; {wall:.1f} s; launches "
+          f"{counts}")
+    off_path(counts, FLASH)
+    model = getattr(trainer.state.model, "module", trainer.state.model)
+    return model, counts, dict(losses=losses, sample=sample.tolist(),
+                               wall_s=wall, launches=counts)
+
+
+def _generation_checks(model, device, seed):
+    """(10a) greedy ragged decode vs the teacher-forced forward, sampled
+    repeat; (10b) penalties and beams; (10c) speculative decoding;
+    (10e) the int8 KV cache."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        GPT2Config,
+        GPT2LMHead,
+        Policy,
+        generate,
+        generate_beam,
+        generate_speculative,
+    )
+    from pytorch_distributed_tpu_torch.ops.attention import cache_bytes
+
+    stats = {}
+    cfg = model.config
+    prompt, mask = _ragged_prompts(seed, cfg.vocab_size, device)
+    generate(model, prompt[:, -8:], max_new_tokens=2, device=device)  # warm
+    out, pre_ms, dec_ms, tps = _decode_times(model, prompt, mask, GEN_NEW)
+    exact, gaps = _forced_gaps(model, out, mask)
+    worst = max(gaps)
+    print(f"(10a) greedy generate, B={GEN_B}, prompts "
+          f"{mask.sum(1).tolist()} (left-padded to {mask.shape[1]}), "
+          f"{GEN_NEW} new: prefill {pre_ms:.2f} ms, decode {dec_ms:.3f} "
+          f"ms/token, {tps:.1f} tokens/s; {exact}/{len(gaps)} exact argmax "
+          f"of the teacher-forced forward, worst gap {worst:.4f} (margin "
+          f"{GEN_MARGIN})")
+    if worst > GEN_MARGIN:
+        raise AssertionError(f"(10a) greedy gap {worst} > {GEN_MARGIN}")
+    kw = dict(max_new_tokens=GEN_NEW, prompt_mask=mask, temperature=0.8,
+              top_k=40, device=device)
+    runs = [generate(model, prompt, generator=torch.Generator(
+        device=device).manual_seed(seed), **kw) for _ in range(2)]
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("(10a) a sampled call repeated with the same "
+                             "generator gave other ids")
+    stats["greedy"] = dict(prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
+                           tokens_per_s=tps, exact=exact, tokens=len(gaps),
+                           worst_gap=worst, margin=GEN_MARGIN)
+
+    # (10b) penalties: no 3-gram may repeat in any row
+    pen = generate(model, prompt, max_new_tokens=GEN_NEW, prompt_mask=mask,
+                   repetition_penalty=1.3, no_repeat_ngram_size=3,
+                   device=device)
+    repeats = 0
+    for seq in _row_seqs(pen, mask):
+        s = seq.tolist()
+        grams = [tuple(s[i:i + 3]) for i in range(len(s) - 2)]
+        # a gram ending at a generated token may not appear earlier
+        first = len(s) - GEN_NEW - 2
+        seen = set(grams[:max(first, 0)])
+        for g in grams[max(first, 0):]:
+            repeats += g in seen
+            seen.add(g)
+    print(f"(10b) repetition_penalty=1.3, no_repeat_ngram_size=3: "
+          f"{repeats} banned 3-grams in {GEN_B} rows")
+    if repeats:
+        raise AssertionError(f"(10b) {repeats} repeated 3-grams")
+    bp = prompt[:2, -64:]
+    (beams, scores), beam_ms = _cuda_ms(lambda: generate_beam(
+        model, bp, max_new_tokens=BEAM_NEW, num_beams=BEAM_K,
+        return_scores=True, device=device))
+    with torch.no_grad():
+        lp = torch.log_softmax(model(beams, attn_impl="xla").float(), -1)
+    P = bp.shape[1]
+    toks = beams[:, P:]
+    forced = lp[:, P - 1:-1].gather(2, toks[..., None])[..., 0].sum(1)
+    forced = forced / BEAM_NEW ** 1.0
+    beam_err = (forced - scores).abs().max().item()
+    print(f"(10b) generate_beam num_beams={BEAM_K}, {BEAM_NEW} new, "
+          f"{beam_ms:.1f} ms: scores {scores.tolist()} against the "
+          f"teacher-forced {forced.tolist()}, max diff {beam_err:.4f} "
+          f"(margin {BEAM_MARGIN})")
+    if not beam_err <= BEAM_MARGIN:
+        raise AssertionError(f"(10b) beam scores off by {beam_err}")
+    stats["penalties"] = dict(banned_repeats=repeats)
+    stats["beam"] = dict(ms=beam_ms, scores=scores.tolist(),
+                         forced=forced.tolist(), max_diff=beam_err,
+                         margin=BEAM_MARGIN)
+
+    # (10c) speculative decoding, target = this model
+    draft = GPT2LMHead(GPT2Config.small(), device=device,
+                       policy=Policy.train())
+    draft.init_weights(torch.Generator(device=device).manual_seed(seed + 3))
+    spec = {}
+    for name, d in (("small", draft), ("self", model)):
+        (sout, st), ms = _cuda_ms(lambda: generate_speculative(
+            model, d, prompt, max_new_tokens=GEN_NEW, num_draft_tokens=SPEC_K,
+            prompt_mask=mask, return_stats=True, device=device))
+        sx, sg = _forced_gaps(model, sout, mask)
+        agree = (sout[:, -GEN_NEW:] == out[:, -GEN_NEW:]).float().mean()
+        rate = st["accepted"] / max(st["drafted"], 1)
+        spec[name] = dict(ms=ms, tokens_per_s=GEN_B * GEN_NEW / ms * 1e3,
+                          acceptance=rate, rounds=st["rounds"],
+                          agree_with_generate=agree.item(), worst_gap=max(sg),
+                          exact=sx)
+        print(f"(10c) speculative, draft {name}, k={SPEC_K}, greedy: "
+              f"{ms:.1f} ms = {spec[name]['tokens_per_s']:.1f} tokens/s "
+              f"(generate {tps:.1f}), acceptance {rate:.3f} over "
+              f"{st['rounds']} rounds, tokens equal to generate's "
+              f"{100 * agree.item():.1f}%, worst teacher-forced gap "
+              f"{max(sg):.4f} (margin {GEN_MARGIN})")
+        if max(sg) > GEN_MARGIN:
+            raise AssertionError(f"(10c) {name}: gap {max(sg)}")
+    if spec["self"]["acceptance"] < SPEC_SELF_ACCEPT:
+        raise AssertionError(f"(10c) self-draft acceptance "
+                             f"{spec['self']['acceptance']}")
+    (_, st), ms = _cuda_ms(lambda: generate_speculative(
+        model, draft, prompt, max_new_tokens=GEN_NEW,
+        num_draft_tokens=SPEC_K, prompt_mask=mask, temperature=0.8,
+        top_k=40, return_stats=True, device=device,
+        generator=torch.Generator(device=device).manual_seed(seed)))
+    spec["sampled_small_acceptance"] = st["accepted"] / max(st["drafted"], 1)
+    print(f"(10c) sampled (T 0.8, top-k 40), draft small: acceptance "
+          f"{spec['sampled_small_acceptance']:.3f}, {ms:.1f} ms")
+    stats["speculative"] = spec
+    del draft
+
+    # (10e) the int8 KV cache on the same weights
+    q8 = GPT2LMHead(dataclasses.replace(cfg, kv_cache_quantize="int8"),
+                    device=device, policy=model.policy)
+    q8.load_state_dict(model.state_dict())
+    out8, pre8, dec8, tps8 = _decode_times(q8, prompt, mask, GEN_NEW)
+    agree = (out8[:, -GEN_NEW:] == out[:, -GEN_NEW:]).float().mean().item()
+    x8, g8 = _forced_gaps(model, out8, mask)
+    L = mask.shape[1] + GEN_NEW
+    ratio = cache_bytes(q8.init_cache(GEN_B, L)) / cache_bytes(
+        model.init_cache(GEN_B, L))
+    print(f"(10e) kv_cache_quantize='int8': tokens equal to the exact "
+          f"cache's {100 * agree:.1f}%, {x8}/{len(g8)} the exact model's "
+          f"teacher-forced argmax, worst gap {max(g8):.4f} (margin "
+          f"{KV8_MARGIN}); decode {dec8:.3f} ms/token (exact "
+          f"{dec_ms:.3f}), cache bytes {ratio:.4f} x bf16 (0.5 + "
+          f"2/head_dim = {0.5 + 2 / cfg.head_dim:.4f})")
+    if max(g8) > KV8_MARGIN or abs(ratio - (0.5 + 2 / cfg.head_dim)) > 1e-9:
+        raise AssertionError(f"(10e) gap {max(g8)}, bytes {ratio}")
+    stats["kv_int8"] = dict(agreement=agree, exact=x8, worst_gap=max(g8),
+                            margin=KV8_MARGIN, decode_ms_per_token=dec8,
+                            prefill_ms=pre8, bytes_ratio=ratio)
+    del q8
+    return stats
+
+
+def _llama_quant(device, seed):
+    """(10d) Llama-3-8B at full width and ``QUANT_LAYERS`` layers, seeded
+    bf16 weights: bf16, then int8 and int4 trees
+    (``quantize_for_scan_dequant``) in ``QuantizedModel``."""
+    import gc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from pytorch_distributed_tpu_torch.ops import (
+        QuantizedModel,
+        dequantize_tree,
+        quantize_for_scan_dequant,
+        quantized_bytes,
+    )
+    from pytorch_distributed_tpu_torch.ops.attention import cache_bytes
+    from pytorch_distributed_tpu_torch.ops.quant import (
+        _is_qleaf,
+        dequantize_leaf,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=QUANT_LAYERS)
+
+    def build():
+        m = LlamaForCausalLM(cfg, device=device)
+        m.init_weights(torch.Generator(device=device).manual_seed(seed))
+        return m.requires_grad_(False)
+
+    ids = torch.randint(1, cfg.vocab_size, (QUANT_B, QUANT_P),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(seed + 5), device=device)
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    model = build()
+    with torch.no_grad():
+        model(ids[:, :8])
+    _, pre, dec, _ = _decode_times(model, ids, mask, QUANT_NEW)
+    stats = dict(layers=QUANT_LAYERS, bf16=dict(prefill_ms=pre,
+                                                decode_ms_per_token=dec))
+    trees = {k: quantize_for_scan_dequant(model, k) for k in ("int8",
+                                                              "int4")}
+    sd = dict(model.named_parameters())
+    for kind, tree in trees.items():
+        worst = 0.0
+        for name, leaf in tree.items():
+            if not _is_qleaf(leaf):
+                continue
+            g = tree.geometry[name]
+            f = g.to_jax(sd[name]).float()
+            err = (dequantize_leaf(leaf) - f).abs()
+            scale = leaf["scale"]
+            if kind == "int4":
+                shape = (*err.shape[:-2], scale.shape[-3], -1, err.shape[-1])
+                err, f = err.reshape(shape), f.reshape(shape)
+            slack = 4 * torch.finfo(torch.float32).eps * f.abs()
+            worst = max(worst, float(((err - slack) / scale).max()))
+        print(f"(10d) {kind}: every quantized leaf within "
+              f"{worst:.4f} x scale of its source (<= 0.5)")
+        if worst > 0.5:
+            raise AssertionError(f"(10d) {kind} dequantizes {worst} x scale "
+                                 "from its source")
+        stats[kind] = dict(worst_err_over_scale=worst)
+    layer_bf16 = sum(p.numel() * 2 for p in model.layers[0].parameters())
+    del model, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    for kind, tree in trees.items():
+        m = build()
+        m.load_state_dict(dequantize_tree(tree, torch.bfloat16))
+        with torch.no_grad():
+            ref = m(ids)
+        qm = QuantizedModel(m, tree, dtype=torch.bfloat16)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            got = qm(ids)
+        diff = (got - ref).abs().max().item()
+        resident = sum(t.numel() * t.element_size() for t in
+                       list(qm.parameters()) + list(qm.buffers()))
+        want = quantized_bytes(tree)
+        cache = cache_bytes(m.init_cache(QUANT_B, QUANT_P + QUANT_NEW))
+        margin = 3 * QUANT_B * QUANT_P * cfg.vocab_size * 4 + 2**28
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        _, pre, dec, _ = _decode_times(qm, ids, mask, QUANT_NEW)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        limit = layer_bf16 + cache + margin
+        print(f"(10d) {kind}: prefill logits vs the dequantized bf16 model "
+              f"max |diff| {diff:.3g} (tol {QUANT_LOGIT_TOL}); resident "
+              f"weights {resident / 2**30:.3f} GiB = quantized_bytes "
+              f"{want / 2**30:.3f} GiB; decode peak above them "
+              f"{peak / 2**30:.3f} GiB <= one layer's bf16 "
+              f"{layer_bf16 / 2**30:.3f} + cache {cache / 2**30:.3f} + "
+              f"activations {margin / 2**30:.3f} GiB; prefill {pre:.1f} ms,"
+              f" decode {dec:.2f} ms/token (bf16 "
+              f"{stats['bf16']['decode_ms_per_token']:.2f})")
+        if diff > QUANT_LOGIT_TOL or resident != want or peak > limit:
+            raise AssertionError(f"(10d) {kind}: diff {diff}, resident "
+                                 f"{resident} vs {want}, peak {peak} > "
+                                 f"{limit}")
+        stats[kind].update(logit_diff=diff, resident_bytes=resident,
+                           quantized_bytes=want, decode_peak_bytes=peak,
+                           peak_limit_bytes=limit, prefill_ms=pre,
+                           decode_ms_per_token=dec)
+        del m, qm, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _lora_snapshot(lm, trainer):
+    """Host copies of the adapters, their AdamW state, the step and the
+    cursor."""
+    opt = trainer.state.optimizer
+    names = {id(p): n for n, p in lm.named_parameters()}
+    out = {n: p.detach().to("cpu", copy=True)
+           for n, p in lm.named_parameters() if p.requires_grad}
+    for p, st in opt.state.items():
+        for k, v in st.items():
+            out[f"{names[id(p)]}.{k}"] = v.to("cpu", copy=True)
+    return dict(tensors=out, step=trainer.state.step,
+                cursor=(trainer._cursor_epoch, trainer._cursor_offset))
+
+
+def _bert_lora(device, seed, tmp):
+    """(10f) the recipe's --lora 8 at BERT-base through build_trainer."""
+    import gc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import lora_param_count
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    flags = ("--lora", str(LORA_RANK), "--ckpt-dir", tmp)
+    lm, trainer, ds, _ = _bert_build(device, seed, LORA_STEPS, *flags)
+    base = {n: t.detach().clone() for n, t in lm.model.state_dict().items()
+            if not n.endswith((".a", ".b"))}
+    trainable = [p for p in lm.parameters() if p.requires_grad]
+    n_train = sum(p.numel() for p in trainable)
+    if n_train != lora_param_count(lm.adapters()):
+        raise AssertionError(f"(10f) {n_train} trainable != "
+                             f"{lora_param_count(lm.adapters())}")
+    before = _bert_eval_loss(lm, ds, device)
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    after = _bert_eval_loss(lm, ds, device)
+    peak = (torch.cuda.max_memory_allocated(device) - left) / 2**30
+    moved = [n for n, t in lm.model.state_dict().items()
+             if n in base and not torch.equal(t, base[n])]
+    opt = trainer.state.optimizer
+    ids = {id(p) for p in trainable}
+    opt_bytes = sum(v.numel() * v.element_size() for st in opt.state.values()
+                    for v in st.values())
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    steady = sorted(r["step_time_s"] for r in hist[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    want = {k: 12 * LORA_STEPS for k in FLASH}
+    print(f"(10f) BERT-base --lora {LORA_RANK}, bf16, batch {BERT_BATCH} x "
+          f"{BERT_SEQ}, {LORA_STEPS} steps in {wall:.2f} s: {n_train} "
+          f"trainable = lora_param_count, median step {step_ms:.2f} ms = "
+          f"{BERT_BATCH / step_ms * 1e3:.1f} samples/s, peak "
+          f"{peak:.2f} GiB, optimizer state {opt_bytes / 2**20:.2f} MiB; "
+          f"losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; the rows' loss, "
+          f"dropout off, {before:.4f} -> {after:.4f}; base tensors moved "
+          f"{len(moved)}; launches {counts} (want {want})")
+    if (moved or set(map(id, opt.state)) != ids
+            or not all(map(math.isfinite, losses)) or not after < before
+            or {k: counts[k] for k in FLASH} != want):
+        raise AssertionError(f"(10f) moved {moved[:3]}, optimizer state "
+                             f"{len(opt.state)} vs {len(ids)}, losses "
+                             f"{losses}, {before} -> {after}, {counts}")
+    off_path(counts, FLASH)
+    stats = dict(trainable=n_train, steps=LORA_STEPS, losses=losses,
+                 eval_loss=(before, after), step_ms_median=step_ms,
+                 samples_per_s=BERT_BATCH / step_ms * 1e3, peak_mem_gib=peak,
+                 optimizer_state_bytes=opt_bytes, launches=counts)
+
+    # the checkpoint fit() wrote, into a fresh trainer (fresh adapters)
+    saved = _lora_snapshot(lm, trainer)
+    del lm, trainer, opt
+    lm, trainer, _, _ = _bert_build(device, seed, LORA_STEPS, *flags)
+    if not trainer.restore_checkpoint():
+        raise AssertionError("(10f) nothing restored")
+    got = _lora_snapshot(lm, trainer)
+    bad = [k for k, v in saved["tensors"].items()
+           if k not in got["tensors"] or not torch.equal(v, got["tensors"][k])]
+    if (bad or set(got["tensors"]) != set(saved["tensors"])
+            or (got["step"], got["cursor"]) != (saved["step"],
+                                                saved["cursor"])):
+        raise AssertionError(f"(10f) restored LoRA state differs: {bad[:5]}")
+    print(f"(10f) the LoRA checkpoint at step {saved['step']} restored to "
+          f"the bit: {len(saved['tensors'])} adapter tensors and moments, "
+          f"step and cursor")
+    del lm, trainer
+
+    # QLoRA: an int8 base
+    args_flags = ("--lora", str(LORA_RANK))
+    from pytorch_distributed_tpu_torch.models.bert import BertConfig
+    from pytorch_distributed_tpu_torch.recipes import bert_finetune
+
+    args = bert_finetune.parse_args(
+        ["--batch-size", str(BERT_BATCH), "--seq-len", str(BERT_SEQ),
+         "--steps-per-epoch", str(QLORA_STEPS), "--log-every", "1",
+         "--seed", str(seed), *args_flags])
+    qds, _ = _bert_rows(seed, BertConfig.base().vocab_size, QLORA_STEPS)
+    kernel_counts(reset=True)
+    qlm, qtrainer = bert_finetune.build_trainer(args, device, dataset=qds,
+                                                quantize="int8")
+    qtrainer.fit()
+    qcounts = kernel_counts()
+    qlosses = [r["loss"] for r in qtrainer.history]
+    print(f"(10f) QLoRA, int8 base: {QLORA_STEPS} steps, losses "
+          + " ".join(f"{x:.4f}" for x in qlosses) + f"; launches {qcounts}")
+    if len(qlosses) != QLORA_STEPS or not all(map(math.isfinite, qlosses)):
+        raise AssertionError(f"(10f) QLoRA losses {qlosses}")
+    stats["qlora"] = dict(losses=qlosses, launches=qcounts)
+    launches = {k: counts[k] + qcounts[k] for k in counts}
+    del qlm, qtrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def generation_phase(device, seed):
+    """Phase 10: (10a) the GPT-2 recipe's --sample and greedy ragged
+    decode, (10b) penalties and beams, (10c) speculative decoding, (10e)
+    the int8 KV cache, all on the recipe's GPT-2-medium; (10d) int8 and
+    int4 Llama-3-8B; (10f) BERT-base --lora 8 and QLoRA. Returns (stats,
+    launches by path)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.runtime.device import device_info
+
+    print(f"phase 10 on {device_info()}")
+    stats, by_path = {}, {}
+    # the one cut of size in this phase, named in the details line
+    stats["cuts"] = {"10d": f"Llama-3-8B at {QUANT_LAYERS} of 32 layers, "
+                            "full width"}
+    t0 = time.perf_counter()
+    with _World1(device):
+        model, by_path["gpt2_sample"], stats["recipe"] = _gpt2_sample(
+            device, seed)
+        kernel_counts(reset=True)
+        stats.update(_generation_checks(model, device, seed))
+        by_path["generation"] = kernel_counts()
+        off_path(by_path["generation"], ())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernel_counts(reset=True)
+        stats["quant"] = _llama_quant(device, seed)
+        by_path["quant"] = kernel_counts()
+        # the prefill-logit checks run the model's plain forward: flash
+        off_path(by_path["quant"], ("flash_fwd",))
+        with tempfile.TemporaryDirectory(prefix="ptd_lora_") as tmp:
+            stats["lora"], by_path["lora"] = _bert_lora(device, seed, tmp)
+    stats["wall_s"] = time.perf_counter() - t0
+    stats["launches"] = by_path
+    print(f"phase 10: {stats['wall_s']:.1f} s; launches by path {by_path}")
+    return stats, by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3010,6 +3607,7 @@ def main(argv=None) -> int:
           f"{rstats['kernel_launches']} (none on this path)")
     off_path(rstats["kernel_launches"], ())
     zstats = zero1_phase(device, args.seed)
+    gstats, gen_paths = generation_phase(device, args.seed)
     train_counts, tstats = train_phase(device, args.seed, flash_records)
     lstats = llama_phase(device, args.seed)
     bstats = bert_phase(device, args.seed)
@@ -3034,9 +3632,16 @@ def main(argv=None) -> int:
               f"{b['samples_per_s']:.1f} samples/s, peak "
               f"{b['peak_mem_gib']:.2f} GiB, device busy "
               f"{b['profile']['device_busy_ms']:.2f} ms/step")
+    lo = gstats["lora"]
+    print(f"BERT-base --lora {LORA_RANK}, bf16: {lo['step_ms_median']:.2f} "
+          f"ms/step, {lo['samples_per_s']:.1f} samples/s, peak "
+          f"{lo['peak_mem_gib']:.2f} GiB (the full fine-tune above: "
+          f"{bstats['bf16']['peak_mem_gib']:.2f}), optimizer state "
+          f"{lo['optimizer_state_bytes'] / 2**20:.2f} MiB")
     by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
                    zero1=zt["launches"], train=train_counts,
-                   llama=lstats["launches"], bert=bstats["launches"])
+                   llama=lstats["launches"], bert=bstats["launches"],
+                   **gen_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -3049,7 +3654,8 @@ def main(argv=None) -> int:
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
                                       train=tstats, serve=stats,
                                       resnet=rstats, zero1=zstats,
-                                      llama=lstats, bert=bstats)}))
+                                      llama=lstats, bert=bstats,
+                                      generation=gstats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

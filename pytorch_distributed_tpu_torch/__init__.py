@@ -13,7 +13,11 @@ with checkpoints both packages restore; the JAX recipe's Llama-3-8B
 run, FSDP full-shard (FSDP2 over the ``fsdp`` mesh axis, each rank
 checkpointing its own rows); and the JAX recipe's BERT-base fine-tune
 (DDP, bf16 or fp16 with dynamic loss scaling, the flash kernels in
-either dtype at its padded, non-causal shape). Entry points
+either dtype at its padded, non-causal shape); and generation (GPT-2
+and Llama KV-cache decode with ragged prompts, penalties and an int8
+cache, beam search, speculative decoding), int8/int4 weight
+quantization (``ops.QuantizedModel``) and LoRA (``LoRAModel``, the BERT
+recipe's ``--lora``). Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
 package.
@@ -54,7 +58,7 @@ from pytorch_distributed_tpu_torch.data import (
     pack_documents,
     packed_loss_mask,
 )
-from pytorch_distributed_tpu_torch.generation import generate
+from pytorch_distributed_tpu_torch.generation import generate, generate_beam
 from pytorch_distributed_tpu_torch.interop import (
     bert_params_from_jax,
     bert_params_to_jax,
@@ -62,8 +66,18 @@ from pytorch_distributed_tpu_torch.interop import (
     gpt2_params_to_jax,
     llama_params_from_jax,
     llama_params_to_jax,
+    lora_params_from_jax,
+    lora_params_to_jax,
+    quantized_params_from_jax,
+    quantized_params_to_jax,
     resnet_params_from_jax,
     resnet_params_to_jax,
+)
+from pytorch_distributed_tpu_torch.lora import (
+    LoRAModel,
+    lora_init,
+    lora_merge,
+    lora_param_count,
 )
 from pytorch_distributed_tpu_torch.models.bert import (
     BertConfig,
@@ -119,6 +133,7 @@ from pytorch_distributed_tpu_torch.runtime.precision import (
     use_policy,
 )
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for, seed_all
+from pytorch_distributed_tpu_torch.speculative import generate_speculative
 from pytorch_distributed_tpu_torch.serve import (
     EngineConfig,
     Request,
@@ -154,7 +169,11 @@ __all__ = [
     "SyntheticImageDataset", "SyntheticTextDataset", "TokenizedTextDataset",
     "Tokenizer", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
-    "packed_loss_mask", "generate", "bert_params_from_jax",
+    "packed_loss_mask", "generate", "generate_beam",
+    "generate_speculative", "LoRAModel", "lora_init", "lora_merge",
+    "lora_param_count", "lora_params_from_jax", "lora_params_to_jax",
+    "quantized_params_from_jax", "quantized_params_to_jax",
+    "bert_params_from_jax",
     "bert_params_to_jax", "gpt2_params_from_jax",
     "gpt2_params_to_jax", "llama_params_from_jax", "llama_params_to_jax",
     "resnet_params_from_jax",

@@ -537,6 +537,9 @@ def model_slots(model) -> Dict[str, Slot]:
     from pytorch_distributed_tpu_torch.models.resnet import ResNet
 
     model = getattr(model, "module", model)
+    if hasattr(model, "adapter_slots"):   # a lora.LoRAModel
+        return model.adapter_slots()
+    model = getattr(model, "wrapped_model", model)
     if isinstance(model, GPT2LMHead):
         slots = gpt2_slots(model.config)
     elif isinstance(model, LlamaForCausalLM):
@@ -546,17 +549,42 @@ def model_slots(model) -> Dict[str, Slot]:
     elif isinstance(model, BertForMaskedLM):
         slots = bert_slots(model.config, "mlm")
     elif isinstance(model, ResNet):
-        slots = resnet_slots(model.state_dict().keys())
+        slots = resnet_slots(logical_shapes(model).keys())
     else:
         raise NotImplementedError(
             f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
             "the port cover GPT-2, Llama, BERT and ResNet (ROADMAP A5)")
-    missing = set(model.state_dict()) - set(slots)
+    missing = set(logical_shapes(model)) - set(slots)
     if missing:
         raise NotImplementedError(
             f"model_slots: port tensors without a JAX leaf: {sorted(missing)}"
             " (ROADMAP A5)")
     return slots
+
+
+def logical_shapes(model) -> Dict[str, Tuple[int, ...]]:
+    """``{state_dict name: shape}`` of a model as it was built: a tensor
+    that ``torch.nn.utils.parametrize`` replaced (a quantized weight, a
+    weight with LoRA adapters) keeps its own name and shape, and the
+    tensors the parametrizations hold are left out."""
+    from torch.nn.utils import parametrize
+
+    out = {}
+    for mod_name, mod in model.named_modules():
+        if ".parametrizations." in f".{mod_name}.":
+            continue
+        prefix = f"{mod_name}." if mod_name else ""
+        for kind in (mod._parameters, mod._buffers):
+            for name, t in kind.items():
+                if t is not None:
+                    out[prefix + name] = tuple(t.shape)
+        if parametrize.is_parametrized(mod):
+            for name, plist in mod.parametrizations.items():
+                first = plist[0]
+                out[prefix + name] = tuple(
+                    first.pshape if hasattr(first, "pshape")
+                    else plist.original.shape)
+    return out
 
 
 def _stacked(sd, slots, tree: str) -> dict:
@@ -683,3 +711,206 @@ def leaf_name(*path: str) -> str:
     """The JAX checkpoint's leaf name for a TrainState path: its parts
     joined by ``_`` (``train/checkpoint.py``'s ``_leaf_files``)."""
     return "_".join(path)
+
+
+# --------------------------------------------------------------------------
+# One layer of a JAX leaf, on the device: the geometry that the weight
+# quantizers (ops/quant.py) and the LoRA adapters (lora.py) work in.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A port tensor as one layer of its JAX leaf, for torch tensors on
+    any device. A Dense kernel's port weight is ``[prod(out), prod(in)]``
+    and the JAX kernel ``W.T`` reshaped to ``jshape`` (``transposed``);
+    every other leaf (embeddings, norms, biases) is the port tensor
+    reshaped. ``path`` is the JAX leaf's path, ``layer`` the layer of a
+    scan-stacked leaf (None: not stacked) and ``depth`` the stack's
+    depth."""
+
+    path: Tuple[str, ...]
+    layer: Optional[int]
+    depth: int
+    jshape: Tuple[int, ...]
+    pshape: Tuple[int, ...]
+    transposed: bool
+
+    @property
+    def stacked_shape(self) -> Tuple[int, ...]:
+        """The whole JAX leaf's shape (the layer axis first when
+        stacked)."""
+        return self.jshape if self.layer is None else (
+            (self.depth,) + self.jshape)
+
+    def to_jax(self, w: torch.Tensor) -> torch.Tensor:
+        return (w.t() if self.transposed else w).reshape(self.jshape)
+
+    def from_jax(self, k: torch.Tensor) -> torch.Tensor:
+        if self.transposed:
+            return k.reshape(self.pshape[1], self.pshape[0]).t()
+        return k.reshape(self.pshape)
+
+
+def geometries(model) -> Dict[str, Geometry]:
+    """``{port name: Geometry}`` for every 2-D-or-more tensor of a
+    ``GPT2LMHead``, ``LlamaForCausalLM`` or BERT that a JAX ``Dense``,
+    ``DenseGeneral`` or ``Embed`` leaf holds, and for every 1-D one.
+    ``Slot.to_jax`` is the same map on numpy arrays (the tests hold the
+    two equal)."""
+    base = getattr(model, "module", model)
+    base = getattr(base, "wrapped_model", base)
+    slots = model_slots(base)
+    shapes = logical_shapes(base)
+    out = {}
+    for name, slot in slots.items():
+        if slot.tree != "params":
+            continue
+        pshape = shapes[name]
+        one = slot.leaf_shape(pshape)
+        jshape = one if slot.layer is None else one[1:]
+        transposed = slot.path[-1] == "kernel"
+        if transposed and len(pshape) != 2:
+            raise NotImplementedError(
+                f"{name}: a {len(pshape)}-D kernel has no Dense geometry "
+                "(convolutions are not quantized or adapted; ROADMAP A8)")
+        out[name] = Geometry(tuple(slot.path), slot.layer, slot.depth,
+                             tuple(jshape), pshape, transposed)
+    return out
+
+
+def _split_layers(tree, geoms: Dict[str, Geometry], what: str, leaf_fn):
+    """Port tensors (or quantized leaves) keyed by port name, from a
+    nested JAX tree: ``leaf_fn(jax node, geometry)`` takes one layer.
+    Every JAX leaf must be taken (``_Leaves``)."""
+    leaves = _Leaves(tree, what, "A8")
+    out = {}
+    for name, g in geoms.items():
+        prefix = "/".join(g.path)
+        if not leaves.has(prefix):
+            continue
+        sub = {p[len(prefix) + 1:]: None for p in leaves.arrays
+               if p.startswith(prefix + "/")}
+        if sub:
+            node = {k: leaves.take(f"{prefix}/{k}") for k in sub}
+        else:
+            node = leaves.take(prefix)
+        out[name] = leaf_fn(node, g)
+    leaves.finish()
+    return out
+
+
+def _stack_layers(items, geoms: Dict[str, Geometry], leaf_fn) -> dict:
+    """The nested JAX tree of ``{port name: item}``, ``leaf_fn(item,
+    geometry) -> {suffix path: numpy array}`` giving one layer's leaves;
+    the layers of a stacked leaf are stacked on a leading axis."""
+    out: dict = {}
+    stacks: Dict[Tuple[str, ...], list] = {}
+    for name, item in items.items():
+        g = geoms[name]
+        for suffix, arr in leaf_fn(item, g).items():
+            path = g.path + suffix
+            arr = np.array(arr, order="C", copy=True)
+            if g.layer is None:
+                node = out
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = arr
+            else:
+                stacks.setdefault(path, [None] * g.depth)[g.layer] = arr
+    for path, layers in stacks.items():
+        missing = [i for i, a in enumerate(layers) if a is None]
+        if missing:
+            raise ValueError(
+                f"{'/'.join(path)}: layers {missing} have no tensor; a "
+                "scan-stacked JAX leaf needs every layer")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack(layers)
+    return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def quantized_params_to_jax(qparams) -> dict:
+    """A port quantized tree (``ops.quant.QuantizedTree``: ``{port name:
+    tensor or {"q8"|"q4", "scale"}}`` and each entry's geometry) as the
+    JAX package's quantized params tree: float leaves in their JAX
+    layout, quantized leaves as they are (the port quantizes in the JAX
+    geometry), scan-stacked layers stacked."""
+    from pytorch_distributed_tpu_torch.ops.quant import _is_qleaf
+
+    def leaf(item, g):
+        if _is_qleaf(item):
+            return {(k,): _np(v) for k, v in item.items()}
+        return {(): _np(g.to_jax(item))}
+
+    return _stack_layers(qparams, qparams.geometry, leaf)
+
+
+def quantized_params_from_jax(params, model):
+    """The inverse of :func:`quantized_params_to_jax`: a JAX quantized
+    tree (``quantize_tree_int8``/``quantize_tree_int4``, either layout of
+    its leaves) -> the port's quantized tree for ``model`` (CPU tensors;
+    ``QuantizedModel`` moves them to the model's device). Every leaf is
+    accounted for."""
+    from pytorch_distributed_tpu_torch.ops.quant import QuantizedTree
+
+    geoms = geometries(model)
+
+    def leaf(node, g):
+        if isinstance(node, dict):
+            if set(node) not in ({"q8", "scale"}, {"q4", "scale"}):
+                raise NotImplementedError(
+                    f"{'/'.join(g.path)}: sub-leaves {sorted(node)} are "
+                    "neither a q8 nor a q4 leaf (ROADMAP A8)")
+            return {k: torch.from_numpy(np.array(
+                v if g.layer is None else v[g.layer], order="C", copy=True))
+                for k, v in node.items()}
+        arr = node if g.layer is None else node[g.layer]
+        return g.from_jax(torch.tensor(np.asarray(arr, np.float32)))
+
+    tree = QuantizedTree(_split_layers(params, geoms,
+                                       "quantized_params_from_jax", leaf))
+    tree.geometry.update({k: geoms[k] for k in tree})
+    return tree
+
+
+def lora_params_to_jax(adapters, model) -> dict:
+    """A port adapter tree (``lora``: ``{port weight name: {"a", "b"}}``)
+    as the JAX package's adapter tree: each ``{"a": [in, r], "b": [r,
+    out]}`` at its kernel's path, scan-stacked layers stacked to ``[L,
+    in, r]`` / ``[L, r, out]``."""
+    geoms = geometries(model)
+    unknown = set(adapters) - set(geoms)
+    if unknown:
+        raise NotImplementedError(
+            f"lora_params_to_jax: no JAX kernel for {sorted(unknown)} "
+            "(ROADMAP A8)")
+    return _stack_layers(
+        adapters, geoms,
+        lambda ab, g: {(k,): _np(ab[k]) for k in ("a", "b")})
+
+
+def lora_params_from_jax(adapters,
+                         model) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The inverse of :func:`lora_params_to_jax`: a JAX adapter tree ->
+    ``{port weight name: {"a", "b"}}`` (f32 CPU tensors, one layer each).
+    Every leaf is accounted for."""
+    geoms = geometries(model)
+
+    def leaf(node, g):
+        if not isinstance(node, dict) or set(node) != {"a", "b"}:
+            raise NotImplementedError(
+                f"{'/'.join(g.path)}: an adapter is {{'a', 'b'}}, found "
+                f"{sorted(node) if isinstance(node, dict) else 'an array'}"
+                " (ROADMAP A8)")
+        return {k: torch.tensor(np.asarray(
+            v if g.layer is None else v[g.layer], np.float32))
+            for k, v in node.items()}
+
+    return _split_layers(adapters, geoms, "lora_params_from_jax", leaf)

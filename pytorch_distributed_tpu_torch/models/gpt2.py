@@ -29,7 +29,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_distributed_tpu_torch.models.scan import remat_call
-from pytorch_distributed_tpu_torch.ops.attention import attention
+from pytorch_distributed_tpu_torch.ops.attention import (
+    attention,
+    decode_cache,
+    init_layer_cache,
+    validate_write_pos,
+)
 from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
     resolve_device,
@@ -55,6 +60,16 @@ class GPT2Config:
     remat_policy: str = "full"  # full | dots | dots_no_batch
     # > 0 turns every FFN into a mixture of experts: not ported
     moe_experts: int = 0
+    # "int8" rests the decode KV cache quantized (ops/attention.py's
+    # _decode_cache_int8; lossy); None = exact
+    kv_cache_quantize: Optional[str] = None
+
+    def __post_init__(self):
+        if self.kv_cache_quantize not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_quantize must be None or 'int8', got "
+                f"{self.kv_cache_quantize!r}"
+            )
 
     @property
     def intermediate_size(self) -> int:
@@ -176,16 +191,24 @@ class GPT2Block(nn.Module):
         self.mlp_down = Dense(cfg.intermediate_size, D, **kw)
 
     def forward(self, x, segment_ids, *, train: bool, generator,
-                attn_impl: Optional[str] = None):
+                attn_impl: Optional[str] = None, layer_cache=None,
+                write_pos=None, kv_mask=None):
         cfg = self.cfg
         B, S, D = x.shape
         H, hd = cfg.num_heads, cfg.head_dim
         qkv = self.attn_qkv(self.ln1(x)).view(B, S, 3, H, hd)
         # strided views of one tensor: the flash kernels read them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = attention(
-            q, k, v, causal=True, segment_ids=segment_ids, impl=attn_impl
-        )
+        if layer_cache is not None:
+            k, v, offset = decode_cache(layer_cache, k, v,
+                                        write_pos=write_pos, paged=None)
+            attn = attention(q, k, v, causal=True, q_offset=offset,
+                             mask=kv_mask, impl=attn_impl)
+        else:
+            attn = attention(
+                q, k, v, causal=True, segment_ids=segment_ids,
+                impl=attn_impl
+            )
         attn = self.attn_out(attn.reshape(B, S, D))
         x = x + dropout(attn, cfg.dropout_rate, train, generator)
         h = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
@@ -221,7 +244,20 @@ class GPT2LMHead(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.wte.weight.device
+        return self.ln_f.weight.device
+
+    def init_cache(self, batch: int, length: int):
+        """Zeroed per-layer dense caches ``[batch, length, H, hd]`` in the
+        compute dtype (int8 payloads and f32 scales with
+        ``kv_cache_quantize="int8"``)."""
+        cfg = self.config
+        return [
+            init_layer_cache(batch, length, cfg.num_heads, cfg.head_dim,
+                             dtype=self.policy.compute_dtype,
+                             device=self.device,
+                             quantize=cfg.kv_cache_quantize)
+            for _ in range(cfg.num_layers)
+        ]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -258,24 +294,66 @@ class GPT2LMHead(nn.Module):
         decode: bool = False,
         return_hidden: bool = False,
         attn_impl: Optional[str] = None,
+        cache=None,
+        write_pos: Optional[torch.Tensor] = None,
+        cache_len: Optional[int] = None,
+        kv_mask: Optional[torch.Tensor] = None,
+        paged=None,
     ):
         """``train=True`` applies dropout with masks from ``generator``;
         ``attn_impl`` is passed to every block's ``attention`` call
         (``None``: flash on the card, ``"flash"`` or ``"xla"`` to force
-        one)."""
+        one).
+
+        ``decode=True`` is KV-cache decode, with the Llama model's
+        contract: ``write_pos`` [B] and ``positions`` [B, S] are required
+        (the learned ``wpe`` is looked up at exactly those positions, so
+        left-padded rows count real tokens only), ``cache`` defaults to
+        zeroed ``[B, cache_len]`` buffers, ``kv_mask`` [B, T] (left-padded
+        prompts) is for decode only, and it returns ``(logits, cache)``.
+        The attention over the cache is the einsum path, as in the JAX
+        package (the cache offset is per row). There is no paged form
+        (ROADMAP A9)."""
         cfg = self.config
         B, S = input_ids.shape
         if S > cfg.n_positions:
             raise ValueError(f"sequence {S} > n_positions {cfg.n_positions}")
-        if decode:
+        if cache_len is not None and cache_len > cfg.n_positions:
+            raise ValueError(
+                f"cache_len {cache_len} > n_positions {cfg.n_positions}")
+        if paged is not None:
             raise NotImplementedError(
-                "GPT-2 KV-cache decode is not ported (ROADMAP A8)"
-            )
+                "paged GPT-2 decode (the serving engine's pools) is not "
+                "ported (ROADMAP A9)")
+        if segment_ids is not None and decode:
+            raise ValueError(
+                "segment_ids (packed training) and decode (KV cache) are "
+                "mutually exclusive")
+        if kv_mask is not None and not decode:
+            raise ValueError(
+                "kv_mask is for KV-cache decode (left-padded prompts); "
+                "training masks go through the loss/segment machinery")
+        validate_write_pos(write_pos, decode, positions)
+        if decode and write_pos is None:
+            raise ValueError("decode=True needs write_pos and positions")
+        if not decode and cache is not None:
+            raise ValueError("a cache needs decode=True")
+        if decode and cache is None:
+            cache = self.init_cache(B, cache_len or cfg.n_positions)
         if positions is None:
             positions = torch.arange(S, device=input_ids.device)[None, :]
         x = self.wte(input_ids) + self.wpe(positions)
         x = dropout(x, cfg.dropout_rate, train, generator)
         x = x.to(self.policy.compute_dtype)
+        if decode:
+            for block, layer_cache in zip(self.blocks, cache):
+                x = block(x, None, train=train, generator=generator,
+                          attn_impl=attn_impl, layer_cache=layer_cache,
+                          write_pos=write_pos, kv_mask=kv_mask)
+            x = self.ln_f(x)
+            logits = tied_logits(x, self.wte.weight,
+                                 self.policy.compute_dtype)
+            return logits.to(self.policy.output_dtype), cache
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:

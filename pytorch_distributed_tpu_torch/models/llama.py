@@ -35,6 +35,7 @@ from pytorch_distributed_tpu_torch.ops.attention import (
     apply_rope,
     attention,
     decode_cache,
+    init_layer_cache,
     rope_frequencies,
     validate_write_pos,
 )
@@ -77,7 +78,8 @@ class LlamaConfig:
     # position i sees keys in (i - window, i] only; None = full causal
     sliding_window: Optional[int] = None
     rope_scaling: Optional[RopeScaling] = None
-    # "int8" KV caches are not ported: the kernel takes fp pools only
+    # "int8": the dense decode cache rests quantized (lossy); int8 paged
+    # pools are not ported (the paged kernel takes fp pools, ROADMAP A9.1)
     kv_cache_quantize: Optional[str] = None
     # recompute each block's activations in the backward (models/scan.py)
     remat: bool = False
@@ -200,11 +202,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, *, device: DeviceLike = None,
                  policy: Policy = Policy()):
         super().__init__()
-        if config.kv_cache_quantize is not None:
-            raise NotImplementedError(
-                "int8 KV caches are not ported (the paged-attention kernel "
-                "takes fp pools only; see ROADMAP)"
-            )
         device = resolve_device(device)
         self.config = config
         self.policy = policy
@@ -225,7 +222,7 @@ class LlamaForCausalLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.weight.device
+        return self.final_norm.weight.device
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
@@ -248,13 +245,15 @@ class LlamaForCausalLM(nn.Module):
 
     def init_cache(self, batch: int, length: int) -> KVCache:
         """Zeroed per-layer (k, v) buffers [batch, length, Hkv, D] in the
-        compute dtype. The serving pool calls it with batch = page frames
-        and length = page size."""
+        compute dtype (with ``kv_cache_quantize="int8"``: int8 payloads
+        and f32 per-token scales). The serving pool calls it with batch =
+        page frames and length = page size."""
         cfg = self.config
-        shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-        kw = dict(device=self.device, dtype=self.policy.compute_dtype)
         return [
-            (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+            init_layer_cache(batch, length, cfg.num_kv_heads, cfg.head_dim,
+                             dtype=self.policy.compute_dtype,
+                             device=self.device,
+                             quantize=cfg.kv_cache_quantize)
             for _ in range(cfg.num_layers)
         ]
 
@@ -316,6 +315,10 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError("decode=True needs write_pos and positions")
         if not decode and (cache is not None or paged is not None):
             raise ValueError("a cache or paged view needs decode=True")
+        if paged is not None and cfg.kv_cache_quantize is not None:
+            raise NotImplementedError(
+                "int8 paged KV pools are not ported: the paged-attention "
+                "kernel takes fp pools (ROADMAP A9.1)")
         if segment_ids is not None and decode:
             raise ValueError(
                 "segment_ids (packed training) and decode (KV cache) are "

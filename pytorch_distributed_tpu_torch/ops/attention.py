@@ -163,7 +163,9 @@ def decode_cache(layer_cache, k, v, *, write_pos, paged: Optional[PagedView]):
     """Write this block's new K/V into its cache and return
     ``(k_all, v_all, offset)``; attend with ``q_offset=offset``.
 
-    ``layer_cache`` is ``(k_buf, v_buf)``. Without ``paged`` these are
+    ``layer_cache`` is ``(k_buf, v_buf)``, or the int8 cache's
+    ``(k_q8, v_q8, k_scale, v_scale)`` (:func:`_decode_cache_int8`; dense
+    only: int8 paged pools are ROADMAP A9.1). Without ``paged`` these are
     dense ``[B, T, H, D]`` buffers: row ``b``'s ``S`` new entries land at
     ``write_pos[b] .. write_pos[b] + S - 1`` (the start clamped so the
     write fits, as ``dynamic_update_slice`` clamps), and the returned
@@ -173,12 +175,17 @@ def decode_cache(layer_cache, k, v, *, write_pos, paged: Optional[PagedView]):
     ``keep=False`` write nothing) and the pool itself is returned for
     :func:`attention` to stream in place. Both forms write IN PLACE.
     """
-    k_buf, v_buf = layer_cache
     if write_pos is None:
         raise ValueError(
             "decode_cache needs per-row write_pos: the port has no "
             "lockstep cache_index form"
         )
+    if len(layer_cache) == 4:
+        if paged is not None:
+            raise NotImplementedError(
+                "int8 paged KV pools are not ported (ROADMAP A9.1)")
+        return _decode_cache_int8(layer_cache, k, v, write_pos)
+    k_buf, v_buf = layer_cache
     if paged is not None:
         if k_buf.shape[1] != paged.page_size:
             raise ValueError(
@@ -190,14 +197,97 @@ def decode_cache(layer_cache, k, v, *, write_pos, paged: Optional[PagedView]):
         for buf, new in ((k_buf, k), (v_buf, v)):
             paged_write(buf, new, paged.page_tables, write_pos, paged.keep)
         return k_buf, v_buf, write_pos
-    B, S = k.shape[0], k.shape[1]
-    T = k_buf.shape[1]
-    start = write_pos.long().clamp(0, T - S)
-    rows = torch.arange(B, device=k.device)[:, None]
-    cols = start[:, None] + torch.arange(S, device=k.device)
+    rows, cols = _write_index(k, k_buf.shape[1], write_pos)
     k_buf[rows, cols] = k.to(k_buf.dtype)
     v_buf[rows, cols] = v.to(v_buf.dtype)
     return k_buf, v_buf, write_pos
+
+
+def _write_index(k, T: int, write_pos):
+    """(rows, cols) of row ``b``'s ``S`` new entries: ``write_pos[b] ..
+    write_pos[b] + S - 1``, the start clamped so the write fits."""
+    B, S = k.shape[0], k.shape[1]
+    start = write_pos.long().clamp(0, T - S)
+    rows = torch.arange(B, device=k.device)[:, None]
+    cols = start[:, None] + torch.arange(S, device=k.device)
+    return rows, cols
+
+
+def _decode_cache_int8(layer_cache, k, v, write_pos):
+    """The int8 dense cache: ``(k_q8, v_q8, k_scale, v_scale)`` buffers
+    ``[B, T, H, D]`` int8 and ``[B, T, H, 1]`` f32. New entries quantize
+    per token (the scale reduces head_dim only: ``ops.quant.
+    symmetric_int8``, the weights' own core) at the write; the read
+    dequantizes the whole cache to ``k.dtype`` (f32 product, then the
+    cast, as the JAX package does). Lossy: about 1e-2 relative a
+    value."""
+    from pytorch_distributed_tpu_torch.ops.quant import symmetric_int8
+
+    kq, vq, ks, vs = layer_cache
+    rows, cols = _write_index(k, kq.shape[1], write_pos)
+    for buf, sbuf, new in ((kq, ks, k), (vq, vs, v)):
+        q, s = symmetric_int8(new, -1)
+        buf[rows, cols] = q
+        sbuf[rows, cols] = s
+    k_all = (kq.float() * ks).to(k.dtype)
+    v_all = (vq.float() * vs).to(v.dtype)
+    return k_all, v_all, write_pos
+
+
+#: the names of a layer's cache buffers, in the port's tuple order (the
+#: JAX package's ``cache`` collection names)
+CACHE_NAMES = {
+    2: ("cached_key", "cached_value"),
+    4: ("cached_key", "cached_value", "cached_key_scale",
+        "cached_value_scale"),
+}
+
+
+def init_layer_cache(batch: int, length: int, heads: int, head_dim: int, *,
+                     dtype, device, quantize: Optional[str] = None):
+    """One layer's zeroed dense cache: ``(k, v)`` in ``dtype``, or with
+    ``quantize="int8"`` int8 payloads and f32 per-token scales (ones, as
+    the JAX package initializes them)."""
+    shape = (batch, length, heads, head_dim)
+    if quantize is None:
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    if quantize != "int8":
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    sshape = shape[:-1] + (1,)
+    return (torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device))
+
+
+def cache_batch_axis(name: str, leaf: torch.Tensor) -> Optional[int]:
+    """Batch axis of a decode-cache buffer, or None for a shared one. KV
+    payloads are ``[B, T, H, D]`` and the int8 cache's per-token scales
+    ``[B, T, H, 1]``: the scales move with their payloads. Shared by
+    ``generate_beam`` (beam replicate and reorder) and anything that
+    moves rows of a cache."""
+    if name in CACHE_NAMES[4]:
+        return leaf.dim() - 4
+    return None
+
+
+def map_cache(fn, cache):
+    """``fn(buffer, batch_axis)`` applied to every per-row buffer of a
+    dense cache (a list of per-layer tuples), buffers without a batch
+    axis passed through."""
+    out = []
+    for layer in cache:
+        names = CACHE_NAMES[len(layer)]
+        out.append(tuple(
+            buf if (ax := cache_batch_axis(n, buf)) is None else fn(buf, ax)
+            for n, buf in zip(names, layer)))
+    return out
+
+
+def cache_bytes(cache) -> int:
+    """Resident bytes of a dense cache, scales included."""
+    return sum(b.numel() * b.element_size() for layer in cache for b in layer)
 
 
 def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,

@@ -29,7 +29,9 @@ part of ``pytorch_distributed_tpu/optim.py`` the training slice uses.
   the port's parameter names: every ``bias`` and every norm's weight,
   the JAX package's ``bias`` and ``scale`` leaves. BERT's free
   ``mlm_bias`` is a leaf of its own name there and decays, so it does
-  here.
+  here. Given a module, the optimizers take its trainable parameters
+  only: under LoRA the adapters (which decay, as their JAX leaves
+  ``.../kernel/a`` and ``/b`` do), never the frozen base.
 
 The JAX recipe's ``optax.adamw(lr)`` decays every parameter by its
 default 1e-4; this module's :func:`AdamW`, like the JAX package's
@@ -84,12 +86,13 @@ def _param_groups(params, weight_decay: float,
             return [dict(g) for g in params]
     if no_decay is None:
         if isinstance(params, torch.nn.Module):
-            params = params.parameters()
+            params = [p for p in params.parameters() if p.requires_grad]
         return [{"params": list(params), "weight_decay": weight_decay}]
     if not isinstance(params, torch.nn.Module):
         raise ValueError("no_decay needs the module, to read parameter names")
     decay = no_decay_mask(no_decay)(params)
-    named = dict(params.named_parameters())
+    # a module's frozen parameters (a LoRA base) are no optimizer's
+    named = {n: p for n, p in params.named_parameters() if p.requires_grad}
     return [
         {"params": [p for n, p in named.items() if decay[n]],
          "weight_decay": weight_decay},

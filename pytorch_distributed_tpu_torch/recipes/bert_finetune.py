@@ -23,7 +23,13 @@ one. ``--ckpt-dir`` checkpoints after every epoch in the format both
 packages read (the fp16 scaler's state included), restores the newest
 intact checkpoint first, and on SIGTERM checkpoints and exits
 ``EX_TEMPFAIL`` (75). ``--device cpu`` runs the plain PyTorch path on the
-CPU (with ``--tiny``; gloo). ``--lora`` raises naming ROADMAP A8.
+CPU (with ``--tiny``; gloo).
+
+``--lora RANK`` freezes the base and trains rank-RANK adapters on the
+attention and MLP kernels (``lora.LoRAModel``, adapters from seed + 1 as
+in the JAX recipe): the optimizer, DDP (without the BERT TP rules, as
+the JAX recipe's plain ``DataParallel()``) and the checkpoints hold the
+adapters only. It composes with ``--fp16`` and ``--mlm``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,12 @@ from pytorch_distributed_tpu_torch.models.bert import (
     BertConfig,
     BertForMaskedLM,
     BertForSequenceClassification,
+)
+from pytorch_distributed_tpu_torch.lora import LoRAModel, lora_param_count
+from pytorch_distributed_tpu_torch.ops.quant import (
+    QuantizedModel,
+    quantize_tree_int4,
+    quantize_tree_int8,
 )
 from pytorch_distributed_tpu_torch.optim import DEFAULT_NO_DECAY, AdamW
 from pytorch_distributed_tpu_torch.parallel import DataParallel
@@ -79,7 +91,8 @@ def parse_args(argv=None):
     p.add_argument("--fp16", action="store_true",
                    help="fp16 + real dynamic loss scaling instead of bf16")
     p.add_argument("--lora", type=int, default=0, metavar="RANK",
-                   help="LoRA fine-tune at this rank (not ported)")
+                   help="LoRA fine-tune at this rank: base weights frozen, "
+                        "only rank-R adapters (attention + MLP) train")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -91,9 +104,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    if args.lora:
-        raise NotImplementedError(
-            "--lora: LoRA adapters (lora.py) are not ported (ROADMAP A8)")
     seed_all(args.seed)
     device = dist.rank_device(args.device)
     own_group = not dist.is_initialized()
@@ -107,13 +117,16 @@ def main(argv=None) -> Trainer:
 
 
 def build_trainer(args, device, *, dataset=None, scaler=None,
-                  init_seed=None):
+                  init_seed=None, quantize=None):
     """``(model, trainer)`` as the recipe builds them from ``args``
     (``parse_args``'s): the model under ``autocast`` with seeded weights
-    (``init_seed``, else ``--seed``), in ``DataParallel``, its loss,
-    AdamW with the no-decay groups, the step with the scaler, the
-    loader over ``dataset`` (the synthetic rows unless given) and the
-    trainer. ``scaler`` replaces the recipe's ``GradScaler``."""
+    (``init_seed``, else ``--seed``), with ``--lora`` its adapters, in
+    ``DataParallel``, its loss, AdamW with the no-decay groups, the step
+    with the scaler, the loader over ``dataset`` (the synthetic rows
+    unless given) and the trainer. ``scaler`` replaces the recipe's
+    ``GradScaler``; ``quantize="int8"`` or ``"int4"`` (with ``--lora``)
+    quantizes the frozen base first (QLoRA). ``model`` is the
+    ``LoRAModel`` under ``--lora``."""
     MeshSpec(dp=args.dp).resolve(dist.get_world_size())
     cfg = BertConfig.tiny() if args.tiny else BertConfig.base()
     seq_len = min(args.seq_len, cfg.max_position_embeddings)
@@ -134,6 +147,21 @@ def build_trainer(args, device, *, dataset=None, scaler=None,
                 cfg, num_labels=args.num_labels, device=device)
     seed = args.seed if init_seed is None else init_seed
     model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    if quantize is not None and not args.lora:
+        raise ValueError("quantize= is the frozen base of a --lora run")
+    if args.lora:
+        # the base is frozen; the trainable tree (the optimizer state,
+        # the gradients, the checkpoints) is the adapter tree
+        n_frozen = sum(p.numel() for p in model.parameters())
+        base = model
+        if quantize is not None:
+            qtree = (quantize_tree_int8(model) if quantize == "int8"
+                     else quantize_tree_int4(model))
+            base = QuantizedModel(model, qtree)
+        model = LoRAModel(base, rank=args.lora, generator=torch.Generator(
+            device=device).manual_seed(seed + 1))
+        logger.info("lora rank=%d: %d trainable / %d frozen params",
+                    args.lora, lora_param_count(model.adapters()), n_frozen)
     strategy = DataParallel(device)
     net = strategy.wrap(model)
     if args.mlm:
@@ -163,10 +191,11 @@ def build_trainer(args, device, *, dataset=None, scaler=None,
 def _train(args, device) -> Trainer:
     model, trainer = build_trainer(args, device)
     scaled = trainer.state.scaler_state is not None
-    logger.info("BERT %s (%s): %d params on %s, batch %d x seq %d, %s over "
-                "%d rank(s)", "tiny" if args.tiny else "base",
+    logger.info("BERT %s (%s): %d trainable params on %s, batch %d x seq "
+                "%d, %s over %d rank(s)", "tiny" if args.tiny else "base",
                 "mlm" if args.mlm else f"{args.num_labels} labels",
-                sum(p.numel() for p in model.parameters()), device,
+                sum(p.numel() for p in model.parameters()
+                    if p.requires_grad), device,
                 args.batch_size, args.seq_len,
                 "fp16 + loss scaling" if scaled else "bf16",
                 dist.get_world_size())

@@ -28,8 +28,11 @@ eval. ``--ckpt-dir`` checkpoints after every epoch in the format both
 packages read, restores the newest intact checkpoint first, and on
 SIGTERM checkpoints and exits ``EX_TEMPFAIL`` (75). ``--device cpu``
 runs the plain PyTorch path on the CPU (at ``--size tiny``; gloo).
-``--sample`` (GPT-2 decode, ROADMAP A8), ``--strategy auto`` and
-``--pp`` (ROADMAP A10) raise.
+``--sample N`` ends the run by sampling N tokens after the first 8
+tokens of 2 eval rows (temperature 0.8, top-k 40, the run's seed; KV-cache
+decode through ``generation.generate``), logged as ids or, with
+``--text-file``, as text, and kept as ``trainer.sample``.
+``--strategy auto`` and ``--pp`` (ROADMAP A10) raise.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import argparse
 import dataclasses
 import logging
 
+import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.data import (
@@ -48,6 +52,7 @@ from pytorch_distributed_tpu_torch.data import (
     Tokenizer,
     pack_documents,
 )
+from pytorch_distributed_tpu_torch.generation import generate
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
 from pytorch_distributed_tpu_torch.parallel import DataParallel, ZeRO1
@@ -104,7 +109,8 @@ def parse_args(argv=None):
                    help="chunked-vocab loss: never form [B, S, V] logits")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--sample", type=int, default=0, metavar="N",
-                   help="generate N tokens at the end (not ported)")
+                   help="sample N tokens after 8-token prompts of 2 eval "
+                        "rows at the end")
     p.add_argument("--text-file", default=None,
                    help="train on this local text corpus (byte BPE)")
     return p.parse_args(argv)
@@ -120,10 +126,6 @@ def main(argv=None) -> Trainer:
     if args.pp > 1:
         raise NotImplementedError(
             "--pp: pipeline parallelism is not ported (ROADMAP A10)"
-        )
-    if args.sample:
-        raise NotImplementedError(
-            "--sample: GPT-2 KV-cache decode is not ported (ROADMAP A8)"
         )
     if args.pack and not args.text_file:
         raise SystemExit("--pack needs --text-file (documents to pack)")
@@ -231,7 +233,28 @@ def _train(args, device) -> Trainer:
     fit_elastic(trainer)
     logger.info("done: step=%d eval=%s", trainer.state.step,
                 trainer.last_eval_metrics)
+    trainer.sample = None
+    if args.sample:
+        trainer.sample = _sample(model, eval_ds, args, device, tokenizer)
     return trainer
+
+
+def _sample(model, eval_ds, args, device, tokenizer) -> torch.Tensor:
+    """The JAX recipe's closing sample: the first 8 tokens of 2 eval rows,
+    ``args.sample`` new tokens at temperature 0.8 and top-k 40 from a
+    generator seeded with the run's seed. Returns ``[2, 8 + N]`` ids."""
+    prompt = torch.as_tensor(np.stack(
+        [np.asarray(eval_ds[i]["input_ids"]) for i in range(2)])[:, :8])
+    out = generate(
+        model, prompt.to(device), max_new_tokens=args.sample,
+        temperature=0.8, top_k=40,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        device=device)
+    if tokenizer is not None:
+        logger.info("sample: %r", tokenizer.decode(out[0].cpu().numpy()))
+    else:
+        logger.info("sampled continuation ids: %s", out[0].tolist())
+    return out
 
 
 if __name__ == "__main__":

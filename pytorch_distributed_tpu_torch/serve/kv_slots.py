@@ -69,7 +69,11 @@ def auto_page_size(max_len: int, cap: int = 32) -> int:
 def init_page_cache(model, num_pages: int, page_size: int):
     """Zeroed page pool: the model's own per-layer cache buffers with
     batch = ``num_pages + 1`` frames and length = ``page_size``. Frame 0
-    is the reserved null page."""
+    is the reserved null page. int8 pools are not ported."""
+    if getattr(model.config, "kv_cache_quantize", None) is not None:
+        raise NotImplementedError(
+            "int8 paged KV pools are not ported: the paged-attention kernel "
+            "takes fp pools (ROADMAP A9.1)")
     return model.init_cache(num_pages + 1, page_size)
 
 

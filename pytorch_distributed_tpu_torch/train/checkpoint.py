@@ -38,6 +38,11 @@ box), so no leaf is ever gathered on one rank; under HSDP only the first
 replica of each shard writes. A restore reads each rank's rows back out
 of whatever boxes the writer's world cut, at any world size, and the
 JAX package reads the leaves whole.
+
+Under LoRA (``lora.LoRAModel``) the state is the adapter tree: the
+params are the adapters under the JAX leaves ``<kernel path>/a`` and
+``/b``, the moments theirs, and the frozen base is in no checkpoint (it
+comes from its seed, as in the JAX recipe).
 """
 
 from __future__ import annotations
@@ -211,6 +216,8 @@ def _plan(state: TrainState) -> List[_Leaf]:
     # rank's rows of every one)
     owned = {id(p) for p in _owned_params(state.optimizer)}
     for p_name, p in model.named_parameters():
+        if not p.requires_grad:   # a frozen base (LoRA): not in the state
+            continue
         slot = slots[p_name]
         shape = slot.leaf_shape(tuple(p.shape))
         for key, prefix in layout.moments.items():

@@ -10,7 +10,7 @@ packages restore.
   from the 0.01 decay.
 * ``--fp16 --ckpt-dir``: a second run with one more epoch restores the
   first run's checkpoint, the scaler's state included, and goes on.
-* ``--lora`` raises naming A8.
+* ``--lora`` trains adapters only and refuses a rank below 1.
 * An fp16 state's checkpoint (a skipped step among its steps, so the
   optimizer's count lags ``step``) written by the port restores in the
   JAX package into the JAX recipe's ``TrainState`` (``optim.AdamW`` with
@@ -107,8 +107,15 @@ def test_fp16_run_resumes_with_its_scaler_state(tmp_path):
 
 
 def test_lora_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A8"):
-        recipe.main(BASE + ["--lora", "4"])
+    """``--lora`` is ported (tests/test_torch_lora_recipe.py holds it): a
+    run trains the adapters alone, and a rank below 1 is refused."""
+    trainer = recipe.main(BASE + ["--lora", "4", "--steps-per-epoch", "1",
+                                  "--batch-size", "4", "--seq-len", "16"])
+    assert trainer.state.step == 1
+    assert all(n.endswith((".a", ".b")) for n, p in
+               trainer.state.model.named_parameters() if p.requires_grad)
+    with pytest.raises(ValueError, match="rank"):
+        recipe.main(BASE + ["--lora", "-1"])
 
 
 # -- fp16 checkpoints both packages restore -----------------------------------

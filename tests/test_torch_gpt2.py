@@ -155,8 +155,8 @@ def test_seeded_init_follows_flax_initializers():
 def test_refuses_what_is_not_ported():
     model = GPT2LMHead(GPT2Config.tiny(), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A8"):
-        model(ids, decode=True)
+    with pytest.raises(ValueError, match="write_pos"):
+        model(ids, decode=True)   # decode takes explicit write_pos/positions
     with pytest.raises(NotImplementedError, match="A10"):
         GPT2LMHead(dataclasses.replace(GPT2Config.tiny(), moe_experts=4),
                    device="cpu")

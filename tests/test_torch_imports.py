@@ -3,7 +3,8 @@
 * ``pytorch_distributed_tpu_torch`` imports (every module of it,
   the training slices' included), serves a tiny model, trains a tiny
   GPT-2, runs the ResNet-50 recipe, the Llama FSDP recipe and the BERT
-  recipe (fp16 with loss scaling) on the CPU, in a fresh
+  recipe (fp16 with loss scaling, and with LoRA) and generates (beam,
+  speculative, an int4 model) on the CPU, in a fresh
   interpreter where ``jax``, ``flax`` and
   the JAX package ``pytorch_distributed_tpu`` cannot be imported at all
   (the meta-path blocker idiom of tests/test_ckpt_shard.py).
@@ -70,7 +71,8 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "train.checkpoint", "train.elastic", "utils.integrity",
             "utils.native_build", "data.tokenizer", "recipes.llama_fsdp",
             "interop", "models.bert", "recipes.bert_finetune",
-            "runtime.precision"):
+            "runtime.precision", "generation", "speculative", "ops.quant",
+            "lora"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -100,6 +102,20 @@ trainer = bert_finetune.main(["--tiny", "--device", "cpu", "--fp16",
                               "--batch-size", "2", "--seq-len", "16",
                               "--steps-per-epoch", "1", "--log-every", "1"])
 assert trainer.state.step == 1 and trainer.state.scaler_state is not None
+trainer = bert_finetune.main(["--tiny", "--device", "cpu", "--lora", "2",
+                              "--batch-size", "2", "--seq-len", "16",
+                              "--steps-per-epoch", "1", "--log-every", "1"])
+assert trainer.state.step == 1
+g = ptt.GPT2LMHead(ptt.GPT2Config.tiny(), device="cpu")
+g.init_weights(torch.Generator().manual_seed(0))
+ids = torch.arange(1, 9).view(2, 4)
+assert ptt.generate_beam(g, ids, max_new_tokens=3, num_beams=2,
+                         device="cpu").shape == (2, 7)
+assert ptt.generate_speculative(g, g, ids, max_new_tokens=3,
+                                device="cpu").shape == (2, 7)
+from pytorch_distributed_tpu_torch import ops
+q = ops.QuantizedModel(g, ops.quantize_for_scan_dequant(g, "int4"))
+assert ptt.generate(q, ids, max_new_tokens=2, device="cpu").shape == (2, 6)
 bad = [m for m in sys.modules
        if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not bad, bad

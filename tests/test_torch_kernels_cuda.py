@@ -523,3 +523,111 @@ def test_bert_step_flash_matches_einsum_on_cuda(cuda, policy):
             err = ((g.float() - ref.float()).norm()
                    / ref.float().norm().clamp_min(1e-30)).item()
             assert err <= 2e-2, (n, err)
+
+
+def test_lora_step_flash_launches_on_cuda(cuda):
+    """One LoRA step of a small BERT classifier (``Policy.full()``, the
+    CUDA-core kernels, dropout off) with the flash kernels and with the
+    einsum attention: each flash kernel launches once a layer with the
+    base frozen (dq and dkv run for the q/k/v adapters alone), the base
+    gets no gradient, and the adapters' gradients agree to 1e-4 of their
+    largest magnitude (sums in another order)."""
+    from pytorch_distributed_tpu_torch import LoRAModel
+    from pytorch_distributed_tpu_torch.models.bert import (
+        BertConfig,
+        BertForSequenceClassification,
+    )
+    from pytorch_distributed_tpu_torch.train import (
+        text_classification_loss_fn,
+    )
+
+    cfg = dataclasses.replace(BertConfig.tiny(), hidden_size=256,
+                              num_heads=4, intermediate_size=512,
+                              dropout_rate=0.0)
+    gen = torch.Generator().manual_seed(5)
+    B, S = 8, 128
+    lengths = torch.randint(16, S + 1, (B,), generator=gen)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=gen).to(cuda),
+             "attention_mask": (torch.arange(S)[None, :]
+                                < lengths[:, None]).to(cuda),
+             "label": torch.randint(0, 2, (B,), generator=gen).to(cuda)}
+    grads = []
+    for impl in (None, "xla"):
+        base = BertForSequenceClassification(cfg, device=cuda,
+                                             policy=Policy.full())
+        base.init_weights(torch.Generator(device=cuda).manual_seed(0))
+        model = LoRAModel(base, rank=4, generator=torch.Generator(
+            device=cuda).manual_seed(1))
+        for ab in model.adapters().values():
+            with torch.no_grad():
+                ab["b"].normal_(0, 0.05, generator=torch.Generator(
+                    device=cuda).manual_seed(2))
+        before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+                  fa.flash_dkv.launches)
+        loss, _ = text_classification_loss_fn(model, attn_impl=impl)(
+            batch, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = tuple(n - b for n, b in zip(
+            (fa.flash_fwd.launches, fa.flash_dq.launches,
+             fa.flash_dkv.launches), before))
+        L = cfg.num_layers
+        assert launched == ((L, L, L) if impl is None else (0, 0, 0))
+        assert all(p.grad is None for p in base.parameters()
+                   if not p.requires_grad)
+        grads.append({n: p.grad for n, p in model.named_parameters()
+                      if p.requires_grad})
+    assert grads[0].keys() == grads[1].keys() and grads[0]
+    for n, g in grads[0].items():
+        _assert_close(g, grads[1][n], 1e-4, n)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quantized_decode_residency_on_cuda(cuda, kind):
+    """A bf16 Llama (width 1024, 4 layers) through ``QuantizedModel``
+    with ``quantize_for_scan_dequant``'s tree: the resident weights are
+    ``quantized_bytes`` exactly, the decode's peak above them stays under
+    one layer's bf16 weights (plus an f32 copy of the largest one, the
+    transient of its dequantization), the cache and the logits, and the
+    greedy tokens equal those of the same model with the dequantized
+    weights loaded as plain bf16 (the same products on the same
+    weights)."""
+    from pytorch_distributed_tpu_torch.ops import (
+        QuantizedModel,
+        dequantize_tree,
+        quantize_for_scan_dequant,
+        quantized_bytes,
+    )
+    from pytorch_distributed_tpu_torch.ops.attention import cache_bytes
+
+    cfg = LlamaConfig(vocab_size=4096, hidden_size=1024, num_layers=4,
+                      num_heads=8, num_kv_heads=2, intermediate_size=3584,
+                      max_seq_len=256)
+
+    def build():
+        m = LlamaForCausalLM(cfg, device=cuda)
+        return m.init_weights(torch.Generator(device=cuda).manual_seed(0))
+
+    tree = quantize_for_scan_dequant(build(), kind)
+    plain = build()
+    plain.load_state_dict(dequantize_tree(tree, torch.bfloat16))
+    ids = torch.randint(1, cfg.vocab_size, (4, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    want = generate(plain, ids, max_new_tokens=8)
+    layer = sum(p.numel() * 2 for p in plain.layers[0].parameters())
+    largest = max(p.numel() for p in plain.layers[0].parameters())
+    cache = cache_bytes(plain.init_cache(4, 72))
+    del plain
+    qm = QuantizedModel(build(), tree, dtype=torch.bfloat16)
+    resident = sum(t.numel() * t.element_size()
+                   for t in list(qm.parameters()) + list(qm.buffers()))
+    assert resident == quantized_bytes(tree)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = generate(qm, ids, max_new_tokens=8)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    logits = 3 * 4 * 64 * cfg.vocab_size * 4
+    assert peak <= layer + 4 * largest + cache + logits, (peak, layer)
+    assert torch.equal(got, want)

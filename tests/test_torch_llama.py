@@ -35,6 +35,7 @@ from pytorch_distributed_tpu_torch.models.llama import (
 )
 from pytorch_distributed_tpu_torch.ops.attention import rope_frequencies
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
+from pytorch_distributed_tpu_torch.serve.kv_slots import init_page_cache
 
 RTOL = 1e-5
 F32 = JaxPolicy(compute_dtype=jnp.float32)
@@ -151,8 +152,11 @@ def test_seeded_init_is_reproducible_and_refuses_int8_kv():
     assert a.embed.weight.dtype == torch.bfloat16  # the serving policy
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
-    with pytest.raises(NotImplementedError, match="int8"):
-        LlamaForCausalLM(
-            dataclasses.replace(LlamaConfig.tiny(), kv_cache_quantize="int8"),
-            device="cpu",
-        )
+    # the int8 dense cache is ported; int8 paged pools are not (A9.1)
+    q = LlamaForCausalLM(
+        dataclasses.replace(LlamaConfig.tiny(), kv_cache_quantize="int8"),
+        device="cpu",
+    )
+    assert q.init_cache(1, 4)[0][0].dtype == torch.int8
+    with pytest.raises(NotImplementedError, match="A9.1"):
+        init_page_cache(q, 4, 8)

@@ -319,6 +319,9 @@ def test_recipe_trains_on_cpu_and_refuses_the_unported():
     assert trainer.state.step == 2 and len(trainer.history) == 2
     assert all(np.isfinite(r["loss"]) for r in trainer.history)
     for extra, item in ((["--strategy", "auto"], "A10"), (["--pp", "2"],
-                        "A10"), (["--sample", "4"], "A8")):
+                        "A10")):
         with pytest.raises(NotImplementedError, match=item):
             gpt2_recipe.main(base + extra)
+    # --sample is ported (tests/test_torch_generation.py holds it)
+    sampled = gpt2_recipe.main(base + ["--sample", "4"]).sample
+    assert tuple(sampled.shape) == (2, 12)
