@@ -4,9 +4,11 @@ each against its plain PyTorch version, serve Llama-3-8B, train
 ResNet-50 data-parallel, run the JAX recipe's GPT-2-medium ZeRO-1
 configuration with checkpoints, train GPT-2-medium, run the JAX
 recipe's Llama-3-8B FSDP full-shard configuration at full width, and
-run the JAX recipe's BERT-base fine-tune in bf16 and fp16, and run
+run the JAX recipe's BERT-base fine-tune in bf16 and fp16, run
 generation (GPT-2 decode, beams, speculative decoding, the int8 KV
-cache), int8/int4 Llama-3-8B and BERT-base LoRA.
+cache), int8/int4 Llama-3-8B and BERT-base LoRA, and serve GPT-2-small
+through the rest of the serving stack (int8 pools, speculative ticks, a
+prefill/decode fleet behind the router).
 
     python3 chip_smoke.py [--seed N]
 
@@ -31,7 +33,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``gather`` versions, and bitwise equal over two launches; then its
    time (replayed from a CUDA graph, eager beside) next to the plain
    version's, a bytes bound, and ``scaled_dot_product_attention`` over
-   the same K/V gathered dense.
+   the same K/V gathered dense. Then the same at GPT-2-small's shape (12
+   heads of 64, one query head per kv head, 32 pages of 32): decode W=1,
+   verify W=5, a 1-page bucket and W=5 rows at a split boundary, timed
+   at W=1 and W=5.
 3. flash kernels: the forward, dq and dkv kernels against their plain
    versions (the backward ones fed the same dO, lse and delta), in bf16,
    fp16 and f32, at GPT-2-medium's training shapes (B=8, S=T=1024, 16 heads,
@@ -199,14 +204,33 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    prefill checks' plain forwards launch the flash forward) and
    ``lora`` (f).
 
-Serve, ResNet, 7a, train, 8a, 9 and each path of 10 set all four kernel
-counts to 0 just before their run and read all four just after; a
-kernel off the path that launched fails the run.
+11. serving GPT-2-small (after 4), at full width and depth, seeded bf16
+   weights, bench_serving's shape (8 slots, 32 requests of 64-token
+   prompts, 64 new): (11a) the paged solo engine (launches = ticks x 12,
+   every greedy token within ``GREEDY_MARGIN`` of a teacher-forced
+   forward) and the dense tick; (11b) int8 pools (no launch, the pool
+   at most ``KV8_POOL_RATIO`` of the f32 pool's bytes, tokens against
+   the int8 model's own teacher-forced forward); (11c) ``SpecConfig``
+   k=4, the target as its own draft (launches = verify ticks x 12, the
+   acceptance; streams part from 11a's only at near-ties); (11d) 32
+   requests sharing a 64-token prompt: a solo engine, then a 2 + 2
+   prefill/decode fleet behind the router with a prefix store, clean and
+   with one decode engine lost (``serve.engine_loss``): every stream
+   equal to the solo engine's, store puts = the prefix's pages, payload
+   bytes = frames x pages x ``frame_nbytes``. Paths ``serve_gpt2``,
+   ``serve_gpt2_dense``, ``serve_gpt2_int8``, ``serve_gpt2_spec``,
+   ``serve_gpt2_solo_ref``, ``serve_gpt2_fleet``,
+   ``serve_gpt2_fleet_loss``.
+
+Serve, ResNet, 7a, train, 8a, 9 and each path of 10 and 11 set all four
+kernel counts to 0 just before their run and read all four just after;
+a kernel off the path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
-``launches_by_path`` per path as read, and for the flash kernels their
-numbers ``at_llama_shape`` and ``at_bert_shape`` per dtype), then the
+``launches_by_path`` per path as read, for the flash kernels their
+numbers ``at_llama_shape`` and ``at_bert_shape`` per dtype, for the paged
+kernel ``at_gpt2_shape`` at W=1 and W=5), then the
 card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
 ``{"ok": true, "device": {...}}``.
@@ -546,25 +570,42 @@ def paged_cases(shape):
     )
 
 
-def kernel_phase(device, seed):
-    import torch
-    import torch.nn.functional as F
-
+def gpt2_paged_cases(shape):
+    """The paged checks at GPT-2-small's shape (12 heads of 64, one query
+    head per kv head): the decode tick, the speculative verify (W = k +
+    1 = 5), a one-page bucket, and W = 5 rows whose next split starts
+    just past lengths[b]."""
     from pytorch_distributed_tpu_torch.ops.paged_attention import (
-        gather_dense,
-        paged_attention,
         pages_per_split,
     )
 
-    gen = torch.Generator().manual_seed(seed)
-    shape = dict(B=8, Hq=32, Hkv=8, D=128, ps=32, n=64, max_len=2000)
-    checks = []
-    same = {}
-    main = None
+    B, n, ps = shape["B"], shape["n"], shape["ps"]
+    split_keys = pages_per_split(B, shape["Hkv"], n) * ps
+    return (
+        ("decode W=1", 1, None, n, None),
+        ("verify W=5", 5, None, n, None),
+        ("bucket n=1", 1, None, 1, None),
+        ("split sentinel W=5", 5, None, n,
+         [split_keys * (i % (n * ps // split_keys - 1) + 1) - 1
+          for i in range(B)]),
+    )
+
+
+def _paged_checks(gen, shape, cases, device, label=""):
+    """Every case in bf16 and f32 against ``stream`` and ``gather``, and
+    bitwise equal over two launches. Returns (checks, deterministic,
+    {case name: bf16 inputs})."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    checks, same, inputs = [], {}, {}
     for dtype, rtol in ((torch.bfloat16, BF16_RTOL), (torch.float32,
                                                        F32_RTOL)):
         dname = str(dtype).replace("torch.", "")
-        for name, W, window, n, lengths in paged_cases(shape):
+        for name, W, window, n, lengths in cases:
             max_len = min(shape["max_len"], n * shape["ps"] - W)
             q, kp, vp, tables, lengths = _paged_case(
                 gen, dtype=dtype, device=device,
@@ -573,7 +614,7 @@ def kernel_phase(device, seed):
             args = dict(page_tables=tables, lengths=lengths, window=window)
             out = paged_attention(q, kp, vp, **args)
             # two launches on the same inputs give the same bits
-            same[f"{name} {dname}"] = torch.equal(
+            same[f"{label}{name} {dname}"] = torch.equal(
                 out, paged_attention(q, kp, vp, **args))
             out = out.float()
             torch.cuda.synchronize()
@@ -583,33 +624,41 @@ def kernel_phase(device, seed):
                 scale = ref.abs().max().item()
                 ok = math.isfinite(err) and err <= rtol * scale
                 checks.append(dict(
-                    case=name, dtype=dname, plain=impl, max_abs_err=err,
-                    max_abs_ref=scale, tol=rtol * scale, ok=ok,
+                    case=label + name, dtype=dname, plain=impl,
+                    max_abs_err=err, max_abs_ref=scale, tol=rtol * scale,
+                    ok=ok,
                 ))
-                print(f"kernel {name} {dname} vs {impl}: max|err| "
+                print(f"kernel {label}{name} {dname} vs {impl}: max|err| "
                       f"{err:.3e} <= {rtol:g} * max|ref| {scale:.4f} -> "
                       f"{'ok' if ok else 'FAIL'}")
-            if dtype is torch.bfloat16 and name == "decode W=1":
-                main = (q, kp, vp, tables, lengths)
+            if dtype is torch.bfloat16:
+                inputs[name] = (q, kp, vp, tables, lengths)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    print(f"paged kernel bitwise equal over two launches: "
+    print(f"paged kernel {label}bitwise equal over two launches: "
           f"{all(same.values())}")
     if not all(same.values()):
         raise AssertionError(f"the paged kernel is not deterministic: {same}")
+    return checks, same, inputs
 
-    # time at the decode tick's shapes (bf16, W=1)
-    q, kp, vp, tables, lengths = main
+
+def _paged_times(q, kp, vp, tables, lengths, device):
+    """The kernel's time at these inputs (replayed from a CUDA graph,
+    eager beside), its plain ``stream`` version's, SDPA's over the same
+    K/V gathered dense, and the bound: max(bytes once / HBM rate, live
+    pairs' flops / bf16 peak)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.ops.paged_attention import (
+        gather_dense,
+        paged_attention,
+    )
+
     B, W, Hq, D = q.shape
     ps, Hkv = kp.shape[1], kp.shape[2]
     n = tables.shape[1]
-    pps = pages_per_split(B, Hkv, n)
-    ctas = Hkv * -(-(Hq // Hkv * W) // 16) * B * -(-n // pps)
-    print(f"split: {pps} pages ({pps * ps} keys) per CTA, grid of {ctas} "
-          f"CTAs (B x Hkv = {B * Hkv})")
-    if ctas <= B * Hkv:
-        raise AssertionError(f"the split leaves {ctas} CTAs <= B x Hkv")
     args = dict(page_tables=tables, lengths=lengths)
     # the kernel's device time, replayed from a CUDA graph as the library
     # call is; eager calls add the ctypes launches and the wrapper's checks
@@ -619,16 +668,18 @@ def kernel_phase(device, seed):
         lambda: paged_attention(q, kp, vp, impl="stream", **args), 5
     )
     # the library yardstick: SDPA over the same K/V gathered dense, with
-    # the ragged lengths as a boolean mask. Its default (cuDNN) backend
-    # lets the null page's large garbage through the mask, so the pages
-    # it reads are gathered with a zeroed null page.
+    # the ragged lengths as a boolean mask (query j sees keys <= length +
+    # j). Its default (cuDNN) backend lets the null page's large garbage
+    # through the mask, so the pages it reads are gathered with a zeroed
+    # null page.
     kp0, vp0 = kp.clone(), vp.clone()
     kp0[0], vp0[0] = 0, 0
     kd = gather_dense(kp0, tables).transpose(1, 2)         # [B, Hkv, T, D]
     vd = gather_dense(vp0, tables).transpose(1, 2)
     qd = q.transpose(1, 2)                                 # [B, Hq, W, D]
     kpos = torch.arange(n * ps, device=device)
-    mask = (kpos[None, :] <= lengths[:, None].long())[:, None, None, :]
+    qpos = lengths[:, None].long() + torch.arange(W, device=device)
+    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
     lib_out = F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True
     ).transpose(1, 2)
@@ -650,9 +701,58 @@ def kernel_phase(device, seed):
     nbytes = (sum(live) * Hkv * D * 2 * itemsize     # K and V, read once
               + 2 * q.numel() * itemsize              # q in, out
               + tables.numel() * 4 + lengths.numel() * 4)
-    flops = sum(live) * Hq * W * D * 4                # QK^T and PV
+    # QK^T and PV over each query's visible keys
+    pairs = sum(min(L + j + 1, n * ps) for L in lengths.tolist()
+                for j in range(W))
+    flops = pairs * Hq * D * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
+    out = dict(
+        ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms, bytes=nbytes, flops=flops, live_keys=live,
+        sdpa_max_abs_diff=lib_err,
+        sdpa_max_abs_diff_null_page_garbage=garbage_err,
+    )
+    print(f"kernel B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} n={n}: "
+          f"{kernel_ms:.4f} ms (graph replay; eager {eager_ms:.4f} ms; "
+          f"{nbytes / kernel_ms / 1e6:.0f} GB/s), plain (stream) "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max|diff| vs "
+          f"kernel {lib_err:.3e}; {garbage_err:.3e} with the null page's "
+          f"garbage left in), bound {out['bound_ms']:.4f} ms ({nbytes} "
+          f"bytes, {flops} flops)")
+    return out
+
+
+# GPT-2-small's paged attention (phase 11's model): 12 heads of 64, one
+# query head per kv head, 32-token pages, 32 pages (1024 positions)
+_GPT2_PAGED_SHAPE = dict(B=8, Hq=12, Hkv=12, D=64, ps=32, n=32, max_len=1000)
+
+
+def kernel_phase(device, seed):
+    import torch
+
+    from pytorch_distributed_tpu_torch.ops.paged_attention import (
+        pages_per_split,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    shape = dict(B=8, Hq=32, Hkv=8, D=128, ps=32, n=64, max_len=2000)
+    checks, same, inputs = _paged_checks(gen, shape, paged_cases(shape),
+                                         device)
+    # time at the decode tick's shapes (bf16, W=1)
+    q, kp, vp, tables, lengths = inputs["decode W=1"]
+    B, W, Hq, D = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    n = tables.shape[1]
+    pps = pages_per_split(B, Hkv, n)
+    ctas = Hkv * -(-(Hq // Hkv * W) // 16) * B * -(-n // pps)
+    print(f"split: {pps} pages ({pps * ps} keys) per CTA, grid of {ctas} "
+          f"CTAs (B x Hkv = {B * Hkv})")
+    if ctas <= B * Hkv:
+        raise AssertionError(f"the split leaves {ctas} CTAs <= B x Hkv")
+    times = _paged_times(q, kp, vp, tables, lengths, device)
     record = dict(
         name="paged_attention", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/paged_attention.cu",
@@ -661,21 +761,29 @@ def kernel_phase(device, seed):
         max_abs_err=max(c["max_abs_err"] for c in checks
                         if c["case"] == "decode W=1"
                         and c["dtype"] == "bfloat16"),
-        ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms,
+        **{k: times[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
     )
-    print(f"kernel time {kernel_ms:.4f} ms (graph replay; eager "
-          f"{eager_ms:.4f} ms; {nbytes / kernel_ms / 1e6:.0f} GB/s), plain "
-          f"(stream) {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max|diff| "
-          f"vs kernel {lib_err:.3e}; {garbage_err:.3e} with the null page's "
-          f"garbage left in), bound {record['bound_ms']:.4f} ms ({nbytes} "
-          f"bytes, {flops} flops)")
-    details = dict(checks=checks, deterministic=same, bytes=nbytes,
-                   flops=flops, live_keys=live, pages_per_split=pps,
-                   ctas=ctas, sdpa_max_abs_diff=lib_err,
-                   sdpa_max_abs_diff_null_page_garbage=garbage_err)
+    details = dict(checks=checks, deterministic=same, pages_per_split=pps,
+                   ctas=ctas, **times)
+
+    # GPT-2-small's shape: head_dim 64 and G = 1 (16-row m-tiles with W
+    # of them real), the decode tick and the speculative verify
+    g = _GPT2_PAGED_SHAPE
+    gchecks, gsame, ginputs = _paged_checks(
+        gen, g, gpt2_paged_cases(g), device, label="gpt2 ")
+    at_gpt2 = {}
+    for name in ("decode W=1", "verify W=5"):
+        t = _paged_times(*ginputs[name], device)
+        at_gpt2[name] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in gchecks
+                            if c["case"] == "gpt2 " + name
+                            and c["dtype"] == "bfloat16"),
+            **{k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")})
+        details[f"gpt2 {name}"] = t
+    record["at_gpt2_shape"] = at_gpt2
+    details.update(gpt2_checks=gchecks, gpt2_deterministic=gsame)
     return record, details
 
 
@@ -1454,6 +1562,391 @@ def serve_phase(device, seed):
     stats["dense"] = dict(greedy_exact=dexact, greedy_worst_gap=max(dgaps),
                           **dtiming)
     return counts, stats
+
+# --------------------------------------------------------------------------
+# phase 11: GPT-2-small through the rest of the serving stack
+# --------------------------------------------------------------------------
+
+# bench_serving's shape (bench.py:745): 8 slots, 32 requests of 64-token
+# prompts, 64 new tokens. max_len 128 in 32-token pages keeps every
+# decode tick in one length bucket (4 pages): lengths 64-127.
+GPT2_SERVE = dict(slots=8, requests=32, prompt=64, new=64, max_len=128,
+                  chunk=64)
+GPT2_SPEC_K = 4
+# 11d: a 64-token system prompt shared by every request (2 full pages),
+# a 16-token tail of its own (sub-page: the prefix's 2 pages are all a
+# request can publish), 48 new tokens: lengths 80-127, one bucket again.
+# The 64-token chunk is the prefix itself, so a request computes its
+# prefix and tail in the same chunks whether it shares the prefix or not.
+GPT2_FLEET = dict(prefix=64, tail=16, new=48, loss_after=40)
+# 11b: an int8 pool's bytes over the f32 pool of the same geometry:
+# (1 + 4/64) / 4 = 0.266 at GPT-2's head_dim (bench_disagg's 0.55 limit)
+KV8_POOL_RATIO = 0.55
+
+
+def _gpt2_small(device, seed, **kw):
+    """GPT-2-small at full width and depth, bf16 serving policy, seeded
+    weights, frozen."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import GPT2Config, GPT2LMHead
+
+    cfg = dataclasses.replace(GPT2Config.small(), dropout_rate=0.0, **kw)
+    model = GPT2LMHead(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model.requires_grad_(False)
+
+
+def _gpt2_serve_requests(seed, vocab):
+    import numpy as np
+
+    from pytorch_distributed_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    c = GPT2_SERVE
+    return [Request(rng.integers(1, vocab, size=c["prompt"]), c["new"],
+                    request_id=f"g{i}") for i in range(c["requests"])]
+
+
+def _gpt2_fleet_requests(seed, vocab):
+    """32 requests opening with one shared 64-token prompt, half of them
+    sampled (T 0.8, top_p 0.95)."""
+    import numpy as np
+
+    from pytorch_distributed_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(seed + 1)
+    f = GPT2_FLEET
+    shared = rng.integers(1, vocab, size=f["prefix"])
+    return [
+        Request(np.concatenate([shared,
+                                rng.integers(1, vocab, size=f["tail"])]),
+                f["new"], temperature=0.8 if i % 2 else 0.0,
+                top_p=0.95 if i % 2 else None, seed=300 + i,
+                request_id=f"f{i}")
+        for i in range(GPT2_SERVE["requests"])
+    ]
+
+
+def _serve_part(name, server, reqs, on, tick_span="serve.decode_tick"):
+    """One part of phase 11: warm ``server`` (an engine or a router) up,
+    set the four kernel counts to 0, serve ``reqs`` submitted at once,
+    read the counts (fail on an off-path launch) and check every request
+    finished with its full token count. Returns (streams, counts,
+    stats)."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch.runtime import tracing
+    from pytorch_distributed_tpu_torch.serve import RequestStatus, warm_up
+
+    if hasattr(server, "warm_up"):
+        server.warm_up(np.ones(1, np.int32))
+    else:
+        warm_up(server, np.ones(1, np.int32))
+    torch.cuda.synchronize()
+    spec = [getattr(server, k, 0) for k in
+            ("spec_verifies", "spec_drafted", "spec_accepted")]
+    kernel_counts(reset=True)
+    with tracing.enabled() as tracer:
+        t0 = time.perf_counter()
+        handles = [server.submit(r) for r in reqs]
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    off_path(counts, on)
+    for r, h in zip(reqs, handles):
+        if h.status is not RequestStatus.COMPLETED or len(h.tokens) != (
+            r.max_new_tokens
+        ):
+            raise AssertionError(f"{name} {r.request_id}: {h.status} with "
+                                 f"{len(h.tokens)} of {r.max_new_tokens}")
+    summary = (server.summary() if hasattr(server, "warm_up")
+               else server.telemetry.summary())
+    roll = tracer.rollups()
+    tokens = sum(len(h.tokens) for h in handles)
+    stats = dict(
+        wall_s=wall, tokens_per_s=tokens / wall, completed_tokens=tokens,
+        ttft_ms_p50=summary["ttft_ms_p50"], ttft_ms_p99=summary["ttft_ms_p99"],
+        decode_tick_ms=sum(roll[k]["mean_ms"]
+                           for k in (tick_span, "serve.token_fetch")),
+        decode_tick_ms_p50=sum(roll[k]["p50_ms"]
+                               for k in (tick_span, "serve.token_fetch")),
+        ticks=roll[tick_span]["count"],
+        prefill_chunk_ms=roll["serve.prefill_chunk"]["mean_ms"],
+        launches=counts,
+    )
+    if getattr(server, "spec", None) is not None:
+        # this run's counters, the warm-up's left out
+        stats.update(zip(("spec_verifies", "spec_drafted", "spec_accepted"),
+                         (getattr(server, k) - v for k, v in zip(
+                             ("spec_verifies", "spec_drafted",
+                              "spec_accepted"), spec))))
+    print(f"11 {name}: {tokens} tokens in {wall:.3f} s, "
+          f"{stats['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{stats['ttft_ms_p50']:.2f} ms p99 {stats['ttft_ms_p99']:.2f} ms, "
+          f"decode tick {stats['decode_tick_ms']:.3f} ms (p50 "
+          f"{stats['decode_tick_ms_p50']:.3f}) over {stats['ticks']} ticks, "
+          f"launches {counts}")
+    return [list(h.tokens) for h in handles], counts, stats
+
+
+def _forced_worst(model, reqs, streams, device, forward):
+    """(exact, worst gap): for every greedy token, ``forward``'s
+    teacher-forced max logit minus the chosen token's logit."""
+    import torch
+
+    gaps, exact = [], 0
+    with torch.no_grad():
+        for r, toks in zip(reqs, streams):
+            if r.temperature > 0:
+                continue
+            seq = torch.tensor(list(r.prompt_ids) + toks,
+                               device=device)[None].long()
+            logits = forward(seq)[0, r.prompt_len - 1:-1].float()
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{r.request_id}: non-finite logits")
+            t = torch.tensor(toks, device=device)
+            mine = logits.gather(1, t[:, None])[:, 0]
+            gaps.extend((logits.max(dim=-1).values - mine).tolist())
+            exact += int((logits.argmax(dim=-1) == t).sum())
+    return exact, len(gaps), max(gaps)
+
+
+def _margin(what, exact, n, worst):
+    print(f"11 {what} vs teacher-forced: {exact}/{n} exact argmax, worst "
+          f"logit gap {worst:.4f} (margin {GREEDY_MARGIN})")
+    if worst > GREEDY_MARGIN:
+        raise AssertionError(f"{what}: a greedy token sits {worst:.4f} below "
+                             f"the teacher-forced argmax")
+    return dict(greedy_exact=exact, greedy_tokens=n, greedy_worst_gap=worst)
+
+
+def _same_streams(what, got, want, reqs):
+    diff = [r.request_id for r, a, b in zip(reqs, got, want) if a != b]
+    print(f"11 {what}: {len(reqs) - len(diff)}/{len(reqs)} streams equal")
+    if diff:
+        raise AssertionError(f"{what}: streams differ for {diff}")
+
+
+def _forks(model, reqs, got, want, device):
+    """Where two greedy streams of one model part: for each stream pair
+    that differs, the first position j and the gap between the two
+    tokens chosen there, in a teacher-forced forward of the shared
+    prefix (einsum attention). Both tokens within ``GREEDY_MARGIN`` is
+    a near-tie that bf16 rounding (other GEMM shapes, another split of
+    the keys) may break either way; a wider gap is a wrong token."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for r, a, b in zip(reqs, got, want):
+            if a == b:
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            seq = torch.tensor(list(r.prompt_ids) + b[:j],
+                               device=device)[None].long()
+            logits = model(seq, attn_impl="xla")[0, -1].float()
+            gap = abs(float(logits[a[j]] - logits[b[j]]))
+            out.append(dict(request=r.request_id, position=j, gap=gap))
+    worst = max((f["gap"] for f in out), default=0.0)
+    print(f"11 forks: {len(out)}/{len(reqs)} streams part, widest gap "
+          f"between the two tokens {worst:.4f} (margin {GREEDY_MARGIN}): "
+          f"{out}")
+    if worst > GREEDY_MARGIN:
+        raise AssertionError(f"streams part at a gap of {worst:.4f}: {out}")
+    return out
+
+
+def serve_gpt2_phase(device, seed):
+    """Phase 11: GPT-2-small at full width through the serving stack:
+    (11a) the paged solo engine, with a dense-tick A/B; (11b) int8 pools;
+    (11c) speculative decoding (k = 4, the target as its own draft);
+    (11d) a 2 + 2 prefill/decode fleet behind the router with a prefix
+    store, then the same with one decode engine lost mid-run, both
+    against a solo engine's streams. Returns (stats, launches by path).
+    """
+    import contextlib
+    import gc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.runtime import faults
+    from pytorch_distributed_tpu_torch.serve import (
+        EngineConfig,
+        InProcPrefixStore,
+        Router,
+        ServeEngine,
+        SpecConfig,
+        frame_f32_nbytes,
+        frame_nbytes,
+    )
+
+    t_phase = time.perf_counter()
+    model = _gpt2_small(device, seed)
+    L = model.config.num_layers
+    c = GPT2_SERVE
+    ecfg = EngineConfig(num_slots=c["slots"], max_len=c["max_len"],
+                        prefill_chunk=c["chunk"], page_size=32)
+    reqs = _gpt2_serve_requests(seed, model.config.vocab_size)
+    stats, by_path = {}, {}
+    plain = lambda seq: model(seq, attn_impl="xla")  # noqa: E731
+
+    # 11a: the paged solo engine, then the dense tick on the same requests
+    engine = ServeEngine(model, ecfg, device=device)
+    streams_a, by_path["serve_gpt2"], st = _serve_part(
+        "11a paged", engine, reqs, on=("paged_attention",))
+    if by_path["serve_gpt2"]["paged_attention"] != st["ticks"] * L:
+        raise AssertionError(f"11a: {by_path['serve_gpt2']} launches over "
+                             f"{st['ticks']} ticks x {L} layers")
+    st.update(_margin("11a", *_forced_worst(model, reqs, streams_a, device,
+                                            plain)),
+              buckets=sorted(engine.decode_buckets))
+    stats["11a"] = st
+    dense = ServeEngine(model, dataclasses.replace(ecfg, decode_mode="dense"),
+                        device=device)
+    streams_dense, by_path["serve_gpt2_dense"], st = _serve_part(
+        "11a dense A/B", dense, reqs, on=())
+    st.update(_margin("11a dense", *_forced_worst(
+        model, reqs, streams_dense, device, plain)))
+    st["streams_equal_paged"] = sum(a == b for a, b in
+                                    zip(streams_dense, streams_a))
+    stats["11a_dense"] = st
+    del engine, dense
+
+    # 11b: int8 pools on the same weights: the gather path, no kernel
+    q8 = _gpt2_small(device, seed, kv_cache_quantize="int8")
+    q8.load_state_dict(model.state_dict())
+    engine = ServeEngine(q8, ecfg, device=device)
+    streams_b, by_path["serve_gpt2_int8"], st = _serve_part(
+        "11b int8 pools", engine, reqs, on=())
+    pool = engine.pool
+    f32_bytes = frame_f32_nbytes(pool.cache) * (pool.num_pages + 1)
+    ratio = pool.kv_bytes() / f32_bytes
+    print(f"11b pool {pool.kv_bytes()} B = {ratio:.4f} x the f32 pool's "
+          f"{f32_bytes} B (limit {KV8_POOL_RATIO})")
+    if ratio > KV8_POOL_RATIO:
+        raise AssertionError(f"11b: int8 pool at {ratio:.4f} x f32")
+
+    def int8_forced(seq):
+        T = seq.shape[1]
+        pos = torch.arange(T, device=device)[None]
+        logits, _ = q8(seq, pos, decode=True, cache_len=T,
+                       write_pos=torch.zeros(1, dtype=torch.int32,
+                                             device=device))
+        return logits
+
+    st.update(_margin("11b", *_forced_worst(q8, reqs, streams_b, device,
+                                            int8_forced)),
+              pool_bytes=pool.kv_bytes(), f32_pool_bytes=f32_bytes,
+              pool_ratio=ratio,
+              streams_equal_exact=sum(a == b for a, b in
+                                      zip(streams_b, streams_a)))
+    stats["11b"] = st
+    del engine, q8, pool
+
+    # 11c: speculative decoding, the target as its own draft, k = 4: the
+    # verify is the kernel at W = 5, once per layer per tick
+    k = GPT2_SPEC_K
+    engine = ServeEngine(
+        model, dataclasses.replace(ecfg, max_len=c["max_len"] + 32),
+        device=device, spec=SpecConfig(model, k))
+    streams_c, by_path["serve_gpt2_spec"], st = _serve_part(
+        "11c speculative", engine, reqs, on=("paged_attention",),
+        tick_span="serve.spec_tick")
+    verifies = st["spec_verifies"]
+    if by_path["serve_gpt2_spec"]["paged_attention"] != verifies * L:
+        raise AssertionError(f"11c: {by_path['serve_gpt2_spec']} launches "
+                             f"over {verifies} verify ticks x {L} layers")
+    accepted = st["spec_accepted"] / (st["spec_drafted"] // k)
+    print(f"11c: {verifies} verify ticks, {st['spec_accepted']} of "
+          f"{st['spec_drafted']} drafts accepted, {accepted:.3f} accepted "
+          f"tokens per row verify (of {k})")
+    st.update(_margin("11c", *_forced_worst(model, reqs, streams_c, device,
+                                            plain)),
+              accepted_per_row_verify=accepted,
+              buckets=sorted(engine.decode_buckets))
+    # the verify's [S, k + 1] products and its 5-page bucket round
+    # otherwise than 11a's [S, 1] tick in bf16: a stream may part from
+    # 11a's at a near-tie, and only there
+    st["forks_vs_11a"] = _forks(model, reqs, streams_c, streams_a, device)
+    st["streams_equal_11a"] = len(reqs) - len(st["forks_vs_11a"])
+    stats["11c"] = st
+    del engine
+
+    # 11d: the fleet against a solo engine on the same requests
+    f = GPT2_FLEET
+    freqs = _gpt2_fleet_requests(seed, model.config.vocab_size)
+    solo = ServeEngine(model, ecfg, device=device)
+    streams_solo, by_path["serve_gpt2_solo_ref"], st = _serve_part(
+        "11d solo reference", solo, freqs,
+        on=("paged_attention",))
+    stats["11d_solo"] = st
+    del solo
+    prefix_pages = f["prefix"] // ecfg.page_size
+
+    def fleet(loss):
+        store = InProcPrefixStore()
+        pre = [ServeEngine(model, dataclasses.replace(
+            ecfg, role="prefill", engine_id=f"p{i}"), device=device,
+            prefix_store=store)
+            for i in range(2)]
+        dec = [ServeEngine(model, dataclasses.replace(
+            ecfg, role="decode", engine_id=f"d{i}"), device=device)
+            for i in range(2)]
+        router = Router(prefill=pre, decode=dec, store=store)
+        what = "11d fleet, d1 lost" if loss else "11d fleet 2+2"
+        arm = (f"serve.engine_loss:mode=raise,match=d1,after="
+               f"{f['loss_after']}") if loss else None
+        with faults.injected(arm) if arm else contextlib.nullcontext():
+            streams, counts, st = _serve_part(
+                what, router, freqs, on=("paged_attention",))
+        ticks = st["ticks"]   # the decode tier's, the lost engine's included
+        if counts["paged_attention"] != ticks * L:
+            raise AssertionError(f"{what}: {counts} launches over {ticks} "
+                                 f"decode-tier ticks x {L} layers")
+        puts = store.stats()["puts"]
+        # every prompt spans the same pages; a replayed request migrates
+        # again
+        pages = router.migration_frames * -(-freqs[0].prompt_len
+                                             // ecfg.page_size)
+        want = pages * frame_nbytes(pre[0].pool.cache)
+        print(f"{what}: store puts {puts} (prefix pages {prefix_pages}), "
+              f"{router.migration_frames} frames, payload "
+              f"{router.migration_payload_bytes} B (= {pages} pages x "
+              f"frame_nbytes: {want}), wire {router.migration_bytes} B, "
+              f"replays {router.replays}, lost {router.lost_engines}")
+        if puts != prefix_pages:
+            raise AssertionError(f"{what}: {puts} store puts, want "
+                                 f"{prefix_pages} (once per fleet)")
+        if router.migration_payload_bytes != want:
+            raise AssertionError(f"{what}: payload "
+                                 f"{router.migration_payload_bytes} != {want}")
+        if not loss and router.migration_frames != len(freqs):
+            raise AssertionError(f"{what}: {router.migration_frames} "
+                                 f"frames for {len(freqs)} requests")
+        if loss and (router.lost_engines != ["d1"] or router.replays < 1):
+            raise AssertionError(f"{what}: lost {router.lost_engines}, "
+                                 f"replays {router.replays}")
+        _same_streams(f"{what} vs solo", streams, streams_solo, freqs)
+        st.update(store=store.stats(), frames=router.migration_frames,
+                  payload_bytes=router.migration_payload_bytes,
+                  wire_bytes=router.migration_bytes, replays=router.replays,
+                  lost=list(router.lost_engines), decode_ticks=ticks,
+                  adopted_pages=sum(e.store_adopted_pages for e in pre))
+        return counts, st
+
+    by_path["serve_gpt2_fleet"], stats["11d"] = fleet(False)
+    by_path["serve_gpt2_fleet_loss"], stats["11d_loss"] = fleet(True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["wall_s"] = time.perf_counter() - t_phase
+    stats["launches"] = by_path
+    print(f"phase 11: {stats['wall_s']:.1f} s; launches by path {by_path}")
+    return stats, by_path
+
 
 # --------------------------------------------------------------------------
 # ResNet-50 data-parallel training
@@ -3599,6 +4092,7 @@ def main(argv=None) -> int:
     # train and 8a inside their phases).
     serve_counts, stats = serve_phase(device, args.seed)
     torch.cuda.empty_cache()
+    s11, serve11_paths = serve_gpt2_phase(device, args.seed)
     kernel_counts(reset=True)
     rstats = resnet_phase(device, args.seed)
     # the ResNet path runs none of the four kernels
@@ -3641,7 +4135,7 @@ def main(argv=None) -> int:
     by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
                    zero1=zt["launches"], train=train_counts,
                    llama=lstats["launches"], bert=bstats["launches"],
-                   **gen_paths)
+                   **gen_paths, **serve11_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -3655,7 +4149,8 @@ def main(argv=None) -> int:
                                       train=tstats, serve=stats,
                                       resnet=rstats, zero1=zstats,
                                       llama=lstats, bert=bstats,
-                                      generation=gstats)}))
+                                      generation=gstats,
+                                      serve_gpt2=s11)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

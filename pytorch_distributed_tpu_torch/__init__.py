@@ -58,7 +58,11 @@ from pytorch_distributed_tpu_torch.data import (
     pack_documents,
     packed_loss_mask,
 )
-from pytorch_distributed_tpu_torch.generation import generate, generate_beam
+from pytorch_distributed_tpu_torch.generation import (
+    generate,
+    generate_beam,
+    sample_logits,
+)
 from pytorch_distributed_tpu_torch.interop import (
     bert_params_from_jax,
     bert_params_to_jax,
@@ -109,6 +113,7 @@ from pytorch_distributed_tpu_torch.runtime.device import (
 )
 from pytorch_distributed_tpu_torch.runtime.distributed import (
     ReduceOp,
+    all_gather,
     all_reduce,
     barrier,
     broadcast,
@@ -136,9 +141,12 @@ from pytorch_distributed_tpu_torch.runtime.prng import generator_for, seed_all
 from pytorch_distributed_tpu_torch.speculative import generate_speculative
 from pytorch_distributed_tpu_torch.serve import (
     EngineConfig,
+    InProcPrefixStore,
     Request,
     RequestStatus,
+    Router,
     ServeEngine,
+    SpecConfig,
 )
 from pytorch_distributed_tpu_torch.train import (
     EX_TEMPFAIL,
@@ -169,7 +177,7 @@ __all__ = [
     "SyntheticImageDataset", "SyntheticTextDataset", "TokenizedTextDataset",
     "Tokenizer", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
-    "packed_loss_mask", "generate", "generate_beam",
+    "packed_loss_mask", "generate", "generate_beam", "sample_logits",
     "generate_speculative", "LoRAModel", "lora_init", "lora_merge",
     "lora_param_count", "lora_params_from_jax", "lora_params_to_jax",
     "quantized_params_from_jax", "quantized_params_to_jax",
@@ -183,13 +191,15 @@ __all__ = [
     "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
     "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
-    "default_device", "device_info", "ReduceOp", "all_reduce", "barrier",
+    "default_device", "device_info", "ReduceOp", "all_gather",
+    "all_reduce", "barrier",
     "broadcast", "destroy_process_group", "get_backend", "get_rank",
     "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
     "data_axes", "make_mesh",
     "GradScaler", "Policy", "ScalerState", "autocast", "current_policy",
-    "use_policy", "generator_for", "seed_all", "EngineConfig", "Request",
-    "RequestStatus", "ServeEngine", "EX_TEMPFAIL", "CheckpointCorrupted",
+    "use_policy", "generator_for", "seed_all", "EngineConfig",
+    "InProcPrefixStore", "Request", "RequestStatus", "Router",
+    "ServeEngine", "SpecConfig", "EX_TEMPFAIL", "CheckpointCorrupted",
     "Preempted", "Trainer", "TrainerConfig", "TrainingDiverged",
     "TrainState", "accuracy", "build_train_step", "causal_lm_eval_step",
     "causal_lm_loss_fn", "classification_eval_step",

@@ -60,8 +60,8 @@ class GPT2Config:
     remat_policy: str = "full"  # full | dots | dots_no_batch
     # > 0 turns every FFN into a mixture of experts: not ported
     moe_experts: int = 0
-    # "int8" rests the decode KV cache quantized (ops/attention.py's
-    # _decode_cache_int8; lossy); None = exact
+    # "int8" rests the decode KV cache (dense or paged) quantized
+    # (ops/attention.py; lossy); None = exact
     kv_cache_quantize: Optional[str] = None
 
     def __post_init__(self):
@@ -192,7 +192,7 @@ class GPT2Block(nn.Module):
 
     def forward(self, x, segment_ids, *, train: bool, generator,
                 attn_impl: Optional[str] = None, layer_cache=None,
-                write_pos=None, kv_mask=None):
+                write_pos=None, kv_mask=None, paged=None):
         cfg = self.cfg
         B, S, D = x.shape
         H, hd = cfg.num_heads, cfg.head_dim
@@ -201,9 +201,9 @@ class GPT2Block(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if layer_cache is not None:
             k, v, offset = decode_cache(layer_cache, k, v,
-                                        write_pos=write_pos, paged=None)
+                                        write_pos=write_pos, paged=paged)
             attn = attention(q, k, v, causal=True, q_offset=offset,
-                             mask=kv_mask, impl=attn_impl)
+                             mask=kv_mask, paged=paged, impl=attn_impl)
         else:
             attn = attention(
                 q, k, v, causal=True, segment_ids=segment_ids,
@@ -311,9 +311,10 @@ class GPT2LMHead(nn.Module):
         left-padded rows count real tokens only), ``cache`` defaults to
         zeroed ``[B, cache_len]`` buffers, ``kv_mask`` [B, T] (left-padded
         prompts) is for decode only, and it returns ``(logits, cache)``.
-        The attention over the cache is the einsum path, as in the JAX
-        package (the cache offset is per row). There is no paged form
-        (ROADMAP A9)."""
+        The attention over a dense cache is the einsum path, as in the JAX
+        package (the cache offset is per row). With ``paged`` (the serving
+        engine's ``PagedView``) the cache is the page pool and attention
+        streams it through the paged-attention kernel, as Llama's does."""
         cfg = self.config
         B, S = input_ids.shape
         if S > cfg.n_positions:
@@ -321,10 +322,8 @@ class GPT2LMHead(nn.Module):
         if cache_len is not None and cache_len > cfg.n_positions:
             raise ValueError(
                 f"cache_len {cache_len} > n_positions {cfg.n_positions}")
-        if paged is not None:
-            raise NotImplementedError(
-                "paged GPT-2 decode (the serving engine's pools) is not "
-                "ported (ROADMAP A9)")
+        if paged is not None and not decode:
+            raise ValueError("a paged view needs decode=True")
         if segment_ids is not None and decode:
             raise ValueError(
                 "segment_ids (packed training) and decode (KV cache) are "
@@ -349,7 +348,7 @@ class GPT2LMHead(nn.Module):
             for block, layer_cache in zip(self.blocks, cache):
                 x = block(x, None, train=train, generator=generator,
                           attn_impl=attn_impl, layer_cache=layer_cache,
-                          write_pos=write_pos, kv_mask=kv_mask)
+                          write_pos=write_pos, kv_mask=kv_mask, paged=paged)
             x = self.ln_f(x)
             logits = tied_logits(x, self.wte.weight,
                                  self.policy.compute_dtype)

@@ -78,8 +78,8 @@ class LlamaConfig:
     # position i sees keys in (i - window, i] only; None = full causal
     sliding_window: Optional[int] = None
     rope_scaling: Optional[RopeScaling] = None
-    # "int8": the dense decode cache rests quantized (lossy); int8 paged
-    # pools are not ported (the paged kernel takes fp pools, ROADMAP A9.1)
+    # "int8": the decode cache (dense or paged) rests quantized (lossy);
+    # paged int8 pools attend on the gather path, not the kernel
     kv_cache_quantize: Optional[str] = None
     # recompute each block's activations in the backward (models/scan.py)
     remat: bool = False
@@ -315,10 +315,6 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError("decode=True needs write_pos and positions")
         if not decode and (cache is not None or paged is not None):
             raise ValueError("a cache or paged view needs decode=True")
-        if paged is not None and cfg.kv_cache_quantize is not None:
-            raise NotImplementedError(
-                "int8 paged KV pools are not ported: the paged-attention "
-                "kernel takes fp pools (ROADMAP A9.1)")
         if segment_ids is not None and decode:
             raise ValueError(
                 "segment_ids (packed training) and decode (KV cache) are "

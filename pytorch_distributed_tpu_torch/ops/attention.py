@@ -22,6 +22,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import (
+    PagedKVQuant,
     PagedView,
     paged_attention,
     paged_write,
@@ -164,8 +165,8 @@ def decode_cache(layer_cache, k, v, *, write_pos, paged: Optional[PagedView]):
     ``(k_all, v_all, offset)``; attend with ``q_offset=offset``.
 
     ``layer_cache`` is ``(k_buf, v_buf)``, or the int8 cache's
-    ``(k_q8, v_q8, k_scale, v_scale)`` (:func:`_decode_cache_int8`; dense
-    only: int8 paged pools are ROADMAP A9.1). Without ``paged`` these are
+    ``(k_q8, v_q8, k_scale, v_scale)`` (:func:`_decode_cache_int8`).
+    Without ``paged`` these are
     dense ``[B, T, H, D]`` buffers: row ``b``'s ``S`` new entries land at
     ``write_pos[b] .. write_pos[b] + S - 1`` (the start clamped so the
     write fits, as ``dynamic_update_slice`` clamps), and the returned
@@ -173,33 +174,51 @@ def decode_cache(layer_cache, k, v, *, write_pos, paged: Optional[PagedView]):
     ``[num_pages + 1, page_size, H, D]``: the write is a per-page write
     of only the W new positions (:func:`paged_write`; rows with
     ``keep=False`` write nothing) and the pool itself is returned for
-    :func:`attention` to stream in place. Both forms write IN PLACE.
+    :func:`attention` to stream in place (an int8 pool as a
+    :class:`PagedKVQuant` payload + scale pair per K and V, each new entry
+    quantized per token as the dense int8 cache quantizes it). Both forms
+    write IN PLACE.
     """
     if write_pos is None:
         raise ValueError(
             "decode_cache needs per-row write_pos: the port has no "
             "lockstep cache_index form"
         )
+    if paged is not None:
+        return _decode_cache_paged(layer_cache, k, v, write_pos, paged)
     if len(layer_cache) == 4:
-        if paged is not None:
-            raise NotImplementedError(
-                "int8 paged KV pools are not ported (ROADMAP A9.1)")
         return _decode_cache_int8(layer_cache, k, v, write_pos)
     k_buf, v_buf = layer_cache
-    if paged is not None:
-        if k_buf.shape[1] != paged.page_size:
-            raise ValueError(
-                f"paged decode needs a page-pool cache ([num_pages + 1, "
-                f"page_size={paged.page_size}, H, D], from "
-                f"serve.kv_slots.init_page_cache); found "
-                f"{tuple(k_buf.shape)}"
-            )
-        for buf, new in ((k_buf, k), (v_buf, v)):
-            paged_write(buf, new, paged.page_tables, write_pos, paged.keep)
-        return k_buf, v_buf, write_pos
     rows, cols = _write_index(k, k_buf.shape[1], write_pos)
     k_buf[rows, cols] = k.to(k_buf.dtype)
     v_buf[rows, cols] = v.to(v_buf.dtype)
+    return k_buf, v_buf, write_pos
+
+
+def _decode_cache_paged(layer_cache, k, v, write_pos, paged: PagedView):
+    """The page-pool form: per-page writes of only the W new positions,
+    the pool buffers returned for paged attention."""
+    k_buf = layer_cache[0]
+    if k_buf.shape[1] != paged.page_size:
+        raise ValueError(
+            f"paged decode needs a page-pool cache ([num_pages + 1, "
+            f"page_size={paged.page_size}, H, D], from "
+            f"serve.kv_slots.init_page_cache); found {tuple(k_buf.shape)}"
+        )
+    pt, keep = paged.page_tables, paged.keep
+    if len(layer_cache) == 4:
+        from pytorch_distributed_tpu_torch.ops.quant import symmetric_int8
+
+        kq, vq, ks, vs = layer_cache
+        for buf, sbuf, new in ((kq, ks, k), (vq, vs, v)):
+            q8, s = symmetric_int8(new, -1)
+            paged_write(buf, q8, pt, write_pos, keep)
+            paged_write(sbuf, s, pt, write_pos, keep)
+        return (PagedKVQuant(kq, ks, k.dtype), PagedKVQuant(vq, vs, v.dtype),
+                write_pos)
+    v_buf = layer_cache[1]
+    for buf, new in ((k_buf, k), (v_buf, v)):
+        paged_write(buf, new, pt, write_pos, keep)
     return k_buf, v_buf, write_pos
 
 
@@ -323,8 +342,10 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
                 "paged decode requires the per-row q_offset form "
                 "(decode_cache's write_pos return)"
             )
+        # GPT-2's q is a strided view of its fused qkv: the kernel reads
+        # contiguous rows
         return paged_attention(
-            q, k, v, page_tables=paged.page_tables,
+            q.contiguous(), k, v, page_tables=paged.page_tables,
             lengths=q_offset.to(torch.int32), scale=scale, window=window,
         )
     if mask is not None and mask.dim() != 2:

@@ -31,8 +31,13 @@ Three implementations:
 ``impl="gather"|"stream"`` select a plain version explicitly; on the
 card they serve the tests and ``chip_smoke.py``'s comparison only.
 
-int8 KV pools are not taken: the JAX kernel refuses them too, and
-routing them to a plain version on the card would be a fallback.
+int8 KV pools (``kv_cache_quantize="int8"``): payload and per-token scale
+pools ride together as :class:`PagedKVQuant`; ``gather`` and ``stream``
+dequantize per page with the dense cache's formula (int8 -> f32 x scale
+-> the compute dtype). The kernel takes fp pools only, so the dispatch
+sends a quantized pool to ``gather`` on every device, by design and not
+on failure, as the JAX dispatch does; an int8 form of the kernel is
+speed work (ROADMAP B item 4).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,6 +73,23 @@ class PagedView:
     page_tables: torch.Tensor  # [B, n_pages] int32
     keep: torch.Tensor         # [B] bool
     page_size: int
+
+
+class PagedKVQuant(NamedTuple):
+    """An int8 page pool and its per-token scale pool, moving as one.
+
+    ``decode_cache`` returns this pair in paged mode; the model passes it
+    to ``attention`` untouched, and the dispatch dequantizes per page."""
+
+    pages: torch.Tensor   # [P1, ps, H, D] int8
+    scale: torch.Tensor   # [P1, ps, H, 1] f32
+    dtype: torch.dtype    # the compute dtype attention sees
+
+
+def _unpack(kv):
+    if isinstance(kv, PagedKVQuant):
+        return kv.pages, kv.scale, kv.dtype
+    return kv, None, None
 
 
 # --------------------------------------------------------------------------
@@ -160,9 +182,9 @@ def _validate(q, k_pages, v_pages, page_tables, lengths, window):
 
 
 def paged_attention(
-    q: torch.Tensor,        # [B, W, Hq, D]
-    k_pages: torch.Tensor,  # [P1, ps, Hkv, D]
-    v_pages: torch.Tensor,  # [P1, ps, Hkv, D]
+    q: torch.Tensor,  # [B, W, Hq, D]
+    k_pages,          # [P1, ps, Hkv, D], or a PagedKVQuant
+    v_pages,          # [P1, ps, Hkv, D], or a PagedKVQuant
     *,
     page_tables: torch.Tensor,  # [B, n_pages] int32 (bucket-sliced)
     lengths: torch.Tensor,      # [B] int32: tokens cached BEFORE this call
@@ -185,19 +207,26 @@ def paged_attention(
     for CPU tensors; ``"gather"`` and ``"stream"`` select a plain version
     on any device. The kernel takes float32 or bfloat16, head_dim 64, 128
     or 256, and at most 64 query rows (G * W) per kv head; it raises on
-    anything else.
+    anything else. An int8 pool (:class:`PagedKVQuant`) goes to
+    ``"gather"`` with ``impl=None``: the kernel takes fp pools only.
     """
+    k_pages, k_scale, kdt = _unpack(k_pages)
+    v_pages, v_scale, _ = _unpack(v_pages)
     _validate(q, k_pages, v_pages, page_tables, lengths, window)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl is None and k_scale is not None:
+        impl = "gather"
     if impl == "gather":
         return _paged_gather(
-            q, k_pages, v_pages, page_tables, lengths, scale, window
+            q, k_pages, v_pages, page_tables, lengths, scale, window,
+            k_scale, v_scale, kdt,
         )
     if impl == "stream":
         return paged_attention_reference(
             q, k_pages, v_pages, page_tables=page_tables, lengths=lengths,
-            scale=scale, window=window,
+            scale=scale, window=window, k_scale=k_scale, v_scale=v_scale,
+            out_dtype=kdt,
         )
     if impl is not None:
         raise ValueError(
@@ -226,21 +255,29 @@ paged_attention.launches = 0
 # --------------------------------------------------------------------------
 
 
-def gather_dense(pages, tables):
-    """[P1, ps, H, D] + [B, n] tables -> [B, n*ps, H, D] dense slab."""
+def gather_dense(pages, tables, scale_pages=None, dtype=None):
+    """[P1, ps, H, D] + [B, n] tables -> [B, n*ps, H, D] dense slab,
+    dequantized with the dense int8 cache's formula (int8 -> f32 x scale
+    -> ``dtype``) when ``scale_pages`` ride."""
     B, n = tables.shape
     ps = pages.shape[1]
-    out = pages.index_select(0, tables.reshape(-1).long())
+    flat = tables.reshape(-1).long()
+    out = pages.index_select(0, flat)
+    if scale_pages is not None:
+        out = (out.float() * scale_pages.index_select(0, flat)).to(dtype)
     return out.reshape((B, n * ps) + tuple(pages.shape[2:]))
 
 
-def _paged_gather(q, k_pages, v_pages, tables, lengths, scale, window):
+def _paged_gather(q, k_pages, v_pages, tables, lengths, scale, window,
+                  k_scale=None, v_scale=None, kdt=None):
     from pytorch_distributed_tpu_torch.ops.attention import (
         dot_product_attention,
     )
 
+    dt = kdt or q.dtype
     return dot_product_attention(
-        q, gather_dense(k_pages, tables), gather_dense(v_pages, tables),
+        q, gather_dense(k_pages, tables, k_scale, dt),
+        gather_dense(v_pages, tables, v_scale, dt),
         causal=True, q_offset=lengths, scale=scale, window=window,
     )
 
@@ -251,11 +288,13 @@ def _paged_gather(q, k_pages, v_pages, tables, lengths, scale, window):
 
 
 def _carry_over_pages(qg, k_pages, v_pages, tables, qpos, scale, window,
-                      pages, lo=None, hi=None):
+                      pages, lo=None, hi=None, k_scale=None, v_scale=None,
+                      kdt=None):
     """The online-softmax carry (m, l, acc) in f32 over ``pages`` of every
     row's table, one page per step: logits in f32, keys a query cannot see
     at ``-1e30``, keys outside ``[lo, hi)`` (per row, when given) at
-    ``-inf``, probabilities rounded to the pool's dtype before P.V."""
+    ``-inf``, probabilities rounded to the pool's dtype before P.V (an
+    int8 pool's pages dequantized to ``kdt`` first)."""
     B, W, Hkv, G, D = qg.shape
     ps = k_pages.shape[1]
     dev = qg.device
@@ -264,8 +303,12 @@ def _carry_over_pages(qg, k_pages, v_pages, tables, qpos, scale, window,
     acc = torch.zeros((B, W, Hkv, G, D), device=dev)
     for i in pages:
         frames = tables[:, i]
-        k = k_pages.index_select(0, frames).float()   # [B, ps, Hkv, D]
+        k = k_pages.index_select(0, frames)           # [B, ps, Hkv, D]
         v = v_pages.index_select(0, frames)
+        if k_scale is not None:
+            k = (k.float() * k_scale.index_select(0, frames)).to(kdt)
+            v = (v.float() * v_scale.index_select(0, frames)).to(kdt)
+        k = k.float()
         s = torch.einsum("bwkgd,bpkd->bwkgp", qg, k) * scale
         kpos = i * ps + torch.arange(ps, device=dev)
         keep = qpos[:, :, None] >= kpos                # [B, W, ps]
@@ -298,12 +341,15 @@ def _grouped(q, k_pages, lengths):
 def paged_attention_reference(
     q, k_pages, v_pages, *, page_tables, lengths,
     scale: Optional[float] = None, window: Optional[int] = None,
+    k_scale=None, v_scale=None, out_dtype=None,
 ):
     """One page of K/V per step, online-softmax carry (m, l, acc) in f32.
 
     The semantics the kernel implements, step for step as the JAX
     ``"stream"`` reference: logits in f32, masked logits ``-1e30``,
     probabilities rounded to the pool's dtype before the P.V product.
+    ``k_scale``/``v_scale`` dequantize an int8 pool per page to
+    ``out_dtype`` (default q's dtype).
     """
     B, W, Hq, D = q.shape
     if scale is None:
@@ -311,7 +357,8 @@ def paged_attention_reference(
     qg, qpos = _grouped(q, k_pages, lengths)
     m, l, acc = _carry_over_pages(
         qg, k_pages, v_pages, page_tables.long(), qpos, scale, window,
-        range(page_tables.shape[1]),
+        range(page_tables.shape[1]), k_scale=k_scale, v_scale=v_scale,
+        kdt=out_dtype or q.dtype,
     )
     safe = torch.where(l > 0, l, torch.ones_like(l))
     out = (acc / safe[..., None]).to(q.dtype)

@@ -1,6 +1,6 @@
 """Deterministic, seeded fault injection at named sites: the port's own
 copy of the part of ``pytorch_distributed_tpu/runtime/faults.py`` that
-the serve engine and the checkpoint calls.
+the serve engine, the router and the checkpoint call.
 
 Production code calls :func:`check` at named sites; a chaos run arms a
 subset of them with seeded probability/count budgets. Unarmed (the
@@ -30,6 +30,15 @@ Sites:
                      (FAILED), the engine keeps serving
 ``serve.decode``     per request per decode tick, before its sampled
                      token is accepted — same evict-and-continue contract
+``serve.kv_migrate`` before a prefill-tier engine packs a finished
+                     request's page frames for migration (``path`` is the
+                     request id): the request is evicted (FAILED) on the
+                     prefill engine, which keeps serving
+``serve.engine_loss`` once per live engine per router step
+                     (``serve/router.py``; ``path`` is the engine id, so
+                     ``match=<engine_id>`` picks the victim): the router
+                     stops driving that engine and replays its live
+                     requests from scratch on a surviving peer
 ``ckpt.write_shard`` after each shard file is written and checksummed
                      (``train/ckpt_io.py``, ``train/checkpoint.py``);
                      raise/kill abort the save mid-write,
@@ -60,8 +69,9 @@ ENV_SEED = "PTD_FAULTS_SEED"
 #: exit status of ``mode=kill``
 KILLED_EXIT = 113
 
-KNOWN_SITES = ("serve.prefill", "serve.decode", "ckpt.write_shard",
-               "ckpt.swing", "ckpt.read_shard")
+KNOWN_SITES = ("serve.prefill", "serve.decode", "serve.kv_migrate",
+               "serve.engine_loss", "ckpt.write_shard", "ckpt.swing",
+               "ckpt.read_shard")
 _MODES = ("raise", "kill", "truncate", "bitflip")
 
 

@@ -18,9 +18,16 @@
 The host logic is a direct port and integer-exact against the JAX pool.
 The device side differs in one respect: the page pool is updated IN
 PLACE (``index_copy_``), where the JAX package rebinds a donated buffer.
-The migration frame codec (``extract_frames``/``splice_frames``) and
-``adopt_page`` serve the prefill/decode tiers and the prefix store,
-which are not ported yet.
+
+The frame codec (:func:`extract_frames`/:func:`splice_frames`) moves
+whole page frames as verbatim bytes for KV migration between engines and
+for the cross-engine prefix store (``adopt_page`` claims the page a
+splice lands in). Its layout is the JAX pool's: buffer-name-major in the
+JAX leaf order (``cached_key``, ``cached_key_scale``, ``cached_value``,
+``cached_value_scale``), each name's frames ``[layers, pages, ps, H, D]``
+in C order, as the JAX package's scan-stacked leaf holds them; so
+:func:`frame_signature` and the bytes of a pool with the same contents
+equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.ops.attention import CACHE_NAMES
 from pytorch_distributed_tpu_torch.ops.paged_attention import (
     gather_dense,
     write_positions,
@@ -45,6 +53,11 @@ logger = get_logger(__name__)
 
 # warn-once dedup for degenerate auto page sizes
 _warned_page_sizes: set = set()
+
+
+def reset_page_size_warnings() -> None:
+    """Clear the warn-once dedup (tests asserting the warning fires)."""
+    _warned_page_sizes.clear()
 
 
 def auto_page_size(max_len: int, cap: int = 32) -> int:
@@ -68,22 +81,22 @@ def auto_page_size(max_len: int, cap: int = 32) -> int:
 
 def init_page_cache(model, num_pages: int, page_size: int):
     """Zeroed page pool: the model's own per-layer cache buffers with
-    batch = ``num_pages + 1`` frames and length = ``page_size``. Frame 0
-    is the reserved null page. int8 pools are not ported."""
-    if getattr(model.config, "kv_cache_quantize", None) is not None:
-        raise NotImplementedError(
-            "int8 paged KV pools are not ported: the paged-attention kernel "
-            "takes fp pools (ROADMAP A9.1)")
-    return model.init_cache(num_pages + 1, page_size)
+    batch = ``num_pages + 1`` frames and length = ``page_size`` (an int8
+    model's with their per-token scale pools, zeroed as the JAX pool is).
+    Frame 0 is the reserved null page."""
+    cache = model.init_cache(num_pages + 1, page_size)
+    for layer in cache:
+        for buf in layer:
+            buf.zero_()
+    return cache
 
 
 def gather_pages(cache, page_tables):
     """Page pool + ``[B, n]`` tables -> dense ``[B, n * page_size]``
-    per-layer buffers, a valid decode cache for the model."""
-    return [
-        (gather_dense(k, page_tables), gather_dense(v, page_tables))
-        for k, v in cache
-    ]
+    per-layer buffers (int8 payloads and scales gathered as they rest), a
+    valid decode cache for the model."""
+    return [tuple(gather_dense(buf, page_tables) for buf in layer)
+            for layer in cache]
 
 
 def scatter_kv(cache, dense, page_tables, positions, keep):
@@ -96,9 +109,112 @@ def scatter_kv(cache, dense, page_tables, positions, keep):
     # stale positions of dropped rows may sit past the dense width: read
     # a clamped entry, the keep mask drops it anyway
     src = idx.clamp(max=dense[0][0].shape[1] - 1)
-    for (k, v), (dk, dv) in zip(cache, dense):
-        write_positions(k, page_tables, idx, dk[rows, src], keep)
-        write_positions(v, page_tables, idx, dv[rows, src], keep)
+    for layer, dlayer in zip(cache, dense):
+        for buf, dbuf in zip(layer, dlayer):
+            write_positions(buf, page_tables, idx, dbuf[rows, src], keep)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# the frame codec: whole page frames as verbatim bytes
+# --------------------------------------------------------------------------
+
+_NP_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+             torch.float16: "float16", torch.int8: "int8"}
+
+
+def _frame_leaves(cache):
+    """(name, per-layer buffers) for every KV buffer, in the JAX pool's
+    leaf order: the ONE order the frame codec is defined over."""
+    names = CACHE_NAMES[len(cache[0])]
+    return [(name, [layer[i] for layer in cache])
+            for i, name in sorted(enumerate(names), key=lambda t: t[1])]
+
+
+def frame_signature(cache, page_size: int) -> str:
+    """Geometry commitment for one page frame: buffer names, per-frame
+    shapes (layers first) and dtypes in codec order, plus the page size.
+    Two pools agree on it iff :func:`extract_frames` bytes from one
+    splice losslessly into the other (the migration handshake's DETAIL
+    string)."""
+    parts = [f"ps={page_size}"]
+    for name, bufs in _frame_leaves(cache):
+        frame = (len(bufs),) + tuple(bufs[0].shape[1:])
+        parts.append(f"{name}:{frame}:{_NP_NAMES[bufs[0].dtype]}")
+    return "|".join(parts)
+
+
+def frame_nbytes(cache) -> int:
+    """Bytes of ONE page frame across every layer's buffers: the exact
+    per-page payload :func:`extract_frames` produces (an int8 pool's
+    int8 K/V plus their f32 per-token scales)."""
+    return sum(
+        buf[0].numel() * buf.element_size()
+        for _, bufs in _frame_leaves(cache) for buf in bufs
+    )
+
+
+def frame_f32_nbytes(cache) -> int:
+    """Bytes ONE page frame would cost as an f32 cache: payload elements
+    at 4 bytes, no scales. An int8 pool's frames cost ``(1 + 4/D) / 4``
+    of this."""
+    return sum(
+        buf[0].numel() * 4
+        for name, bufs in _frame_leaves(cache)
+        if not name.endswith("_scale") for buf in bufs
+    )
+
+
+def _as_bytes(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.uint8).cpu().numpy().reshape(-1)
+
+
+def extract_frames(cache, pages) -> np.ndarray:
+    """Gather whole page frames into one flat ``uint8`` payload, in the
+    codec's layout: per buffer name, ``[layers, len(pages), ps, H, D]``
+    in C order and the native dtype. Verbatim bytes, so a splice into a
+    pool of the same geometry is lossless for any cache dtype."""
+    idx = torch.as_tensor(np.asarray(pages, np.int64).reshape(-1))
+    chunks = []
+    for _, bufs in _frame_leaves(cache):
+        i = idx.to(bufs[0].device)
+        chunks.append(_as_bytes(torch.stack(
+            [b.index_select(0, i) for b in bufs])))
+    return np.concatenate(chunks) if chunks else np.zeros(0, np.uint8)
+
+
+def splice_frames(cache, pages, payload):
+    """Inverse of :func:`extract_frames`: write frame bytes into the pool
+    at ``pages``, IN PLACE; returns ``cache``. Once per migrated request
+    or adopted page, never per tick. Raises before writing anything when
+    the payload's size disagrees with the pool's frame geometry (the
+    byte-level half of the fingerprint handshake)."""
+    idx = torch.as_tensor(np.asarray(pages, np.int64).reshape(-1))
+    n = int(idx.numel())
+    buf = np.ascontiguousarray(payload, np.uint8).reshape(-1)
+    plan, off = [], 0
+    for name, bufs in _frame_leaves(cache):
+        shape = (len(bufs), n) + tuple(bufs[0].shape[1:])
+        count = math.prod(shape) * bufs[0].element_size()
+        if off + count > buf.size:
+            raise ValueError(
+                f"migration payload too short: {name} needs bytes "
+                f"[{off}, {off + count}) of {buf.size}"
+            )
+        plan.append((bufs, shape, off, count))
+        off += count
+    if off != buf.size:
+        raise ValueError(
+            f"migration payload size mismatch: the pool's frames take "
+            f"{off} bytes, the payload holds {buf.size}: pool geometries "
+            f"disagree"
+        )
+    for bufs, shape, start, count in plan:
+        frames = torch.from_numpy(buf[start:start + count].copy()).view(
+            bufs[0].dtype).reshape(shape).to(bufs[0].device)
+        i = idx.to(bufs[0].device)
+        for layer, b in enumerate(bufs):
+            b.index_copy_(0, i, frames[layer])
     return cache
 
 
@@ -348,6 +464,33 @@ class PagedKVPool:
             self._page_key[page] = key
             self._ref[page] += 1
 
+    def adopt_page(self, key: bytes) -> Optional[int]:
+        """Claim one free page and register it under ``key``: the
+        bookkeeping half of pulling a prefix page from a cross-engine
+        store (``serve/prefix_store.py``). The caller splices the store's
+        frame bytes into the returned page, which from then on is a
+        registered prefix page like one this pool's own prefill wrote
+        (the registry holds its one reference). Returns the registered
+        page when ``key`` is known, and None when the prefix cache is off
+        or no page can be freed: adoption is an optimization."""
+        if not self.prefix_cache:
+            return None
+        cur = self._registry.get(key)
+        if cur is not None:
+            self._registry.move_to_end(key)
+            return cur
+        if not self._free_pages:
+            if not any(
+                self._ref[pg] == 1 for pg in self._registry.values()
+            ):
+                return None
+            self._evict_lru()
+        pg = heapq.heappop(self._free_pages)
+        self._ref[pg] = 1
+        self._registry[key] = pg
+        self._page_key[pg] = key
+        return pg
+
     def free(self, slot: int) -> None:
         """Retire a slot: drop its page references; pages nobody else
         holds return to the free list. No device writes."""
@@ -367,6 +510,10 @@ class PagedKVPool:
 
     # -- introspection -----------------------------------------------------
     @property
+    def num_free(self) -> int:
+        return len(self._free_slots)
+
+    @property
     def num_occupied(self) -> int:
         return self.num_slots - len(self._free_slots)
 
@@ -382,12 +529,22 @@ class PagedKVPool:
             if self.prompt_tokens else 0.0
         )
 
-    def frame_bytes(self) -> int:
-        """Bytes of ONE page frame across every layer's K and V."""
-        return sum(
-            k[0].numel() * k.element_size() + v[0].numel() * v.element_size()
-            for k, v in self.cache
-        )
+    def kv_bytes(self) -> int:
+        """Resident bytes of the page pool (null page and scales
+        included: both are allocated memory)."""
+        return sum(b.numel() * b.element_size()
+                   for layer in self.cache for b in layer)
+
+    def device_page_table(self, slot: int) -> np.ndarray:
+        return self.page_tables[slot].copy()
+
+    def valid_mask(self) -> np.ndarray:
+        """[S, max_len] bool over the dense view: True where a position
+        of an occupied slot holds a live token, the host statement of
+        what each row's causal mask lets attention read."""
+        mask = np.arange(self.max_len)[None, :] < self.lengths[:, None]
+        mask[~self._occupied] = False
+        return mask
 
     def check_consistency(self) -> None:
         """Audit the refcount/free-list/registry invariants; raises on

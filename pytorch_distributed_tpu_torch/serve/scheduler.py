@@ -33,7 +33,8 @@ class RequestStatus(enum.Enum):
     CANCELLED = "cancelled"
     EXPIRED = "expired"
     FAILED = "failed"
-    #: terminal on a prefill-tier engine (not ported yet)
+    #: terminal on a prefill-tier engine: its pages were packed and
+    #: shipped, and the request continues on a decode-tier peer
     MIGRATED = "migrated"
 
 
@@ -228,7 +229,8 @@ class Scheduler:
     def adopt(self, handle: RequestHandle, lease) -> None:
         """Bind an already-prefilled request to a slot, skipping the
         queue and the prefill plan: the decode-tier half of a KV
-        migration, whose engine side is not ported yet."""
+        migration (``ServeEngine.inject_migration``), whose pages arrive
+        spliced, so the handle enters DECODING directly."""
         handle.slot = lease.slot
         handle._lease = lease
         handle._dlease = None

@@ -256,9 +256,16 @@ def test_gpt2_decode_contract(gpt2):
     with pytest.raises(ValueError, match="cache_len"):
         model(ids, torch.arange(4)[None], decode=True, cache_len=65,
               write_pos=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A9"):
-        model(ids, torch.arange(4)[None], decode=True, paged=object(),
+    # a paged view needs the page pool, not the dense default cache
+    from pytorch_distributed_tpu_torch.ops.paged_attention import PagedView
+
+    view = PagedView(page_tables=torch.zeros(1, 1, dtype=torch.int32),
+                     keep=torch.ones(1, dtype=torch.bool), page_size=8)
+    with pytest.raises(ValueError, match="page-pool cache"):
+        model(ids, torch.arange(4)[None], decode=True, paged=view,
               write_pos=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="paged view needs decode"):
+        model(ids, paged=view)
 
 
 def test_int8_cache_moves_scales_with_payloads():

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone and runs on the card unless told not to.
 
 * ``pytorch_distributed_tpu_torch`` imports (every module of it,
-  the training slices' included), serves a tiny model, trains a tiny
+  the training slices' included), serves a tiny model (Llama; GPT-2
+  with int8 pools, speculative decoding, and a prefill/decode fleet
+  with a prefix store behind the router, also through
+  ``scripts/port_serve_loadgen.py``), trains a tiny
   GPT-2, runs the ResNet-50 recipe, the Llama FSDP recipe and the BERT
   recipe (fp16 with loss scaling, and with LoRA) and generates (beam,
   speculative, an int4 model) on the CPU, in a fresh
@@ -72,7 +75,8 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "utils.native_build", "data.tokenizer", "recipes.llama_fsdp",
             "interop", "models.bert", "recipes.bert_finetune",
             "runtime.precision", "generation", "speculative", "ops.quant",
-            "lora"):
+            "lora", "serve.disagg", "serve.prefix_store", "serve.router",
+            "serve.loadgen", "runtime.flightrec"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -81,6 +85,33 @@ engine = ptt.ServeEngine(model, ptt.EngineConfig(num_slots=2, max_len=32,
 h = engine.submit(ptt.Request(np.arange(1, 11), 4))
 engine.run_until_drained()
 assert len(h.tokens) == 4, h
+import dataclasses
+from pytorch_distributed_tpu_torch import serve
+g8 = ptt.GPT2LMHead(dataclasses.replace(ptt.GPT2Config.tiny(),
+                                        kv_cache_quantize="int8"),
+                    device="cpu")
+g8.init_weights(torch.Generator().manual_seed(0))
+cfg = ptt.EngineConfig(num_slots=2, max_len=32, prefill_chunk=8, page_size=8)
+engine = ptt.ServeEngine(g8, cfg, device="cpu", spec=ptt.SpecConfig(g8, 2))
+h = engine.submit(ptt.Request(np.arange(1, 11), 5))
+engine.run_until_drained()
+assert len(h.tokens) == 5 and engine.spec_verifies, h
+store = ptt.InProcPrefixStore()
+router = ptt.Router(
+    prefill=[ptt.ServeEngine(g8, dataclasses.replace(cfg, role="prefill"),
+                             device="cpu", prefix_store=store)],
+    decode=[ptt.ServeEngine(g8, dataclasses.replace(cfg, role="decode"),
+                            device="cpu")], store=store)
+rh = router.submit(ptt.Request(np.arange(1, 19), 3))
+router.run_until_drained()
+assert len(rh.tokens) == 3 and router.migration_frames == 1
+assert store.stats()["puts"] == 2
+sys.path.insert(0, "scripts")
+import port_serve_loadgen
+assert port_serve_loadgen.main(["--device", "cpu", "--requests", "4",
+                                "--engines", "2", "--disagg", "--store",
+                                "--prefix-share", "1", "--prefix-len", "8",
+                                "--page-size", "8", "--new-tokens", "3"]) == 0
 from pytorch_distributed_tpu_torch.recipes import gpt2
 trainer = gpt2.main(["--size", "tiny", "--device", "cpu", "--batch-size", "2",
                      "--accum-steps", "2", "--seq-len", "16",
@@ -160,6 +191,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         BertForSequenceClassification(BertConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bert_finetune.main(["--tiny", "--steps-per-epoch", "1"])
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import port_serve_loadgen
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_serve_loadgen.main(["--requests", "2"])
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

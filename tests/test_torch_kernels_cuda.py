@@ -16,10 +16,13 @@ import torch
 
 from pytorch_distributed_tpu_torch import (
     EngineConfig,
+    GPT2Config,
+    GPT2LMHead,
     LlamaConfig,
     LlamaForCausalLM,
     Request,
     ServeEngine,
+    SpecConfig,
     generate,
     paged_attention,
 )
@@ -122,6 +125,79 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     )
     with pytest.raises(ValueError, match="bfloat16"):
         paged_attention(q, kp, vp, page_tables=tables, lengths=lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("W", [1, 5])
+def test_kernel_at_gpt2_shape(cuda, dtype, W):
+    """GPT-2's decode attention: head_dim 64, one query head per kv head
+    (G = 1: a 16-row m-tile with W rows real), the decode tick (W = 1)
+    and the speculative verify (W = k + 1 = 5), against ``stream``."""
+    gen = torch.Generator().manual_seed(64 + W)
+    q, kp, vp, tables, lengths = _case(
+        gen, B=4, W=W, Hq=12, Hkv=12, D=64, ps=32, n=8,
+        dtype=getattr(torch, dtype), device=cuda,
+    )
+    args = dict(page_tables=tables, lengths=lengths)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, **args).float()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention(q, kp, vp, impl="stream", **args).float()
+    tol = RTOL[dtype] * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+
+
+def test_kernel_refuses_more_than_64_query_rows(cuda):
+    """G * W <= 64 query rows per kv head: Llama-3's G = 4 takes a
+    verify of W <= 16 (k <= 15). A wider one raises, launches nothing
+    and falls back to nothing."""
+    gen = torch.Generator().manual_seed(1)
+    for G, W in ((4, 17), (1, 65)):
+        q, kp, vp, tables, lengths = _case(
+            gen, B=2, W=W, Hq=2 * G, Hkv=2, D=128, ps=16, n=8,
+            dtype=torch.bfloat16, device=cuda,
+        )
+        before = paged_attention.launches
+        with pytest.raises(ValueError, match="query rows"):
+            paged_attention(q, kp, vp, page_tables=tables, lengths=lengths)
+        assert paged_attention.launches == before
+
+
+def test_gpt2_engine_on_cuda(cuda):
+    """A small f32 GPT-2 (head_dim 64, G = 1) through the engine on the
+    card: plain ticks equal solo generate with one launch a layer a
+    tick; the speculative tick (k = 4, the target as its own draft)
+    launches once a layer a verify and emits the same greedy streams;
+    int8 pools launch nothing (they attend on ``gather``)."""
+    cfg = GPT2Config(vocab_size=256, n_positions=128, hidden_size=128,
+                     num_layers=2, num_heads=2, dropout_rate=0.0)
+    model = GPT2LMHead(cfg, device=cuda, policy=Policy.full())
+    model.init_weights(torch.Generator(device=cuda).manual_seed(0))
+    model.requires_grad_(False)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(1, 256, size=p), n)
+            for p, n in ((5, 6), (17, 9), (30, 4), (3, 12))]
+    ecfg = EngineConfig(num_slots=3, max_len=64, prefill_chunk=8,
+                        page_size=8)
+    ref = [generate(model, r.prompt_ids[None], max_new_tokens=r.max_new_tokens
+                    )[0, r.prompt_len:].tolist() for r in reqs]
+    for spec in (None, SpecConfig(model, 4)):
+        engine = ServeEngine(model, ecfg, spec=spec)
+        paged_attention.launches = 0
+        handles = [engine.submit(r) for r in reqs]
+        engine.run_until_drained()
+        assert paged_attention.launches == engine.decode_ticks * 2
+        assert [h.tokens for h in handles] == ref
+    q8 = GPT2LMHead(dataclasses.replace(cfg, kv_cache_quantize="int8"),
+                    device=cuda, policy=Policy.full())
+    q8.load_state_dict(model.state_dict())
+    engine = ServeEngine(q8, ecfg)
+    paged_attention.launches = 0
+    handles = [engine.submit(r) for r in reqs]
+    engine.run_until_drained()
+    assert paged_attention.launches == 0
+    assert all(len(h.tokens) == r.max_new_tokens
+               for h, r in zip(handles, reqs))
 
 
 def test_engine_on_cuda_matches_generate(cuda):

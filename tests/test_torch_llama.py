@@ -152,11 +152,14 @@ def test_seeded_init_is_reproducible_and_refuses_int8_kv():
     assert a.embed.weight.dtype == torch.bfloat16  # the serving policy
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
-    # the int8 dense cache is ported; int8 paged pools are not (A9.1)
+    # the int8 cache, dense and paged: int8 payloads with f32 per-token
+    # scale pools, a page pool zeroed as the JAX one is
     q = LlamaForCausalLM(
         dataclasses.replace(LlamaConfig.tiny(), kv_cache_quantize="int8"),
         device="cpu",
     )
     assert q.init_cache(1, 4)[0][0].dtype == torch.int8
-    with pytest.raises(NotImplementedError, match="A9.1"):
-        init_page_cache(q, 4, 8)
+    pool = init_page_cache(q, 4, 8)
+    assert [b.dtype for b in pool[0]] == [torch.int8] * 2 + [torch.float32] * 2
+    assert tuple(pool[0][2].shape) == (5, 8, 2, 1)
+    assert all(not b.any() for layer in pool for b in layer)

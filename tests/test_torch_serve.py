@@ -335,18 +335,37 @@ def test_engine_matches_port_generate(models, decode_mode):
 
 
 def test_engine_refuses_what_is_not_ported(models):
+    """What the JAX engine refuses, the port refuses: speculation with a
+    fleet role or a prefix store, submissions to a decode-tier engine,
+    migrations into a prefill-tier one, and a request over max_len."""
+    from pytorch_distributed_tpu_torch.serve import (
+        InProcPrefixStore,
+        SpecConfig,
+    )
+
     _, _, model = models
-    with pytest.raises(NotImplementedError, match="A9.3"):
-        ServeEngine(model, EngineConfig(role="prefill"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        ServeEngine(model, CFG, device="cpu", spec=object())
-    with pytest.raises(NotImplementedError, match="A9.3"):
-        ServeEngine(model, CFG, device="cpu", prefix_store=object())
+    spec = SpecConfig(model, num_draft_tokens=2)
+    with pytest.raises(ValueError, match="solo-engine only"):
+        ServeEngine(model, dataclasses.replace(CFG, role="prefill"),
+                    device="cpu", spec=spec)
+    with pytest.raises(ValueError, match="prefix_store requires spec"):
+        ServeEngine(model, CFG, device="cpu", spec=spec,
+                    prefix_store=InProcPrefixStore())
+    dec = ServeEngine(model, dataclasses.replace(CFG, role="decode"),
+                      device="cpu")
+    with pytest.raises(RuntimeError, match="inject_migration"):
+        dec.submit(Request(np.arange(1, 9), 4))
+    pre = ServeEngine(model, dataclasses.replace(CFG, role="prefill"),
+                      device="cpu")
+    with pytest.raises(RuntimeError, match="outbox"):
+        pre.inject_migration(None)
     engine = ServeEngine(model, CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9.3"):
-        engine.inject_migration(None)
     with pytest.raises(ValueError, match="exceeds"):
         engine.submit(Request(np.arange(1, 60), 10))
+    with pytest.raises(ValueError, match="exceeds"):
+        ServeEngine(model, CFG, device="cpu",
+                    spec=SpecConfig(model, 4)).submit(
+                        Request(np.arange(1, 40), 24))
 
 
 def test_engine_telemetry_and_tracing(models, tmp_path):
