@@ -6,9 +6,12 @@ configuration with checkpoints, train GPT-2-medium, run the JAX
 recipe's Llama-3-8B FSDP full-shard configuration at full width, and
 run the JAX recipe's BERT-base fine-tune in bf16 and fp16, run
 generation (GPT-2 decode, beams, speculative decoding, the int8 KV
-cache), int8/int4 Llama-3-8B and BERT-base LoRA, and serve GPT-2-small
+cache), int8/int4 Llama-3-8B and BERT-base LoRA, serve GPT-2-small
 through the rest of the serving stack (int8 pools, speculative ticks, a
-prefill/decode fleet behind the router).
+prefill/decode fleet behind the router), and run the ResNet-18/CIFAR-10
+recipe and the rest of image training (the native pipeline's staging
+ring, EMA and the writers, image folders, ZeRO-1 for ResNet, the q8
+wire form).
 
     python3 chip_smoke.py [--seed N]
 
@@ -222,7 +225,31 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``serve_gpt2_solo_ref``, ``serve_gpt2_fleet``,
    ``serve_gpt2_fleet_loss``.
 
-Serve, ResNet, 7a, train, 8a, 9 and each path of 10 and 11 set all four
+12. image-classification training, complete (after 6, before 7; its
+   profile last): (12a) ``recipes/resnet18_cifar10.main`` at its
+   defaults (batch 128, ``ResNet18(stem="cifar")``, no cut) on
+   full-size CIFAR-10 pickles written from the seed (50,000 + 10,000
+   images, ~184 MB), ``--steps-per-epoch 50``, one epoch and its eval,
+   traced: step ms, images/s, ``ingest.fetch`` ms, the
+   ``train.data_wait`` share; its train feed through the staging ring
+   (pinned buffers reused behind each copy's CUDA event, each copy
+   queued behind a long matmul) bitwise equal to fresh allocations, the
+   ring reused; at the end ``torch.profiler`` over two of its steps
+   (device busy ms, idle share). (12b) ``recipes/resnet50_imagenet.main
+   --ema-decay 0.999 --tensorboard-dir --metrics-path`` (batch 64,
+   224^2, 10 steps): the JSONL and the event file read back, every CRC
+   checks, the evaluation on the shadow; where PIL imports, ``--data-dir``
+   on 640 PIL-written JPEGs in 10 classes, two of them damaged: images/s
+   beside the synthetic feed's, both damaged files quarantined (where PIL
+   does not import, a line says the folder path did not run). (12c)
+   ``--strategy zero1`` against ``dp`` at world 1, 5 steps, cuDNN
+   deterministic: losses within ``ZERO1_LOSS_RTOL``. (12d) the q8 round
+   trip on the card bitwise the CPU's; the compressed all-reduce the
+   identity in a world of one. Paths ``resnet18_cifar10``,
+   ``resnet50_ema``, ``resnet50_folders``, ``resnet50_dp_det``,
+   ``resnet50_zero1_det``: none of the four kernels runs on them.
+
+Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11 and 12 set all four
 kernel counts to 0 just before their run and read all four just after;
 a kernel off the path that launched fails the run.
 
@@ -4056,6 +4083,451 @@ def generation_phase(device, seed):
     return stats, by_path
 
 
+# -- 12. image-classification training, complete ---------------------------
+
+# (12a) the ResNet-18/CIFAR-10 recipe at its defaults, on full-size pickles
+CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
+CIFAR_STEPS = 50           # --steps-per-epoch, one epoch and its eval
+STAGING_BATCHES = 12       # (12a) loader batches held against fresh ones
+# (12b) the ResNet-50 recipe with EMA and the writers; its folder path
+IMAGE50_BATCH, IMAGE50_STEPS = 64, 10
+FOLDER_CLASSES, FOLDER_PER_CLASS = 10, 64   # 640 JPEGs, 2 of them corrupt
+# (12c) ZeRO-1 against DDP over the recipe's first steps, cuDNN kept to
+# deterministic algorithms so that the two runs' arithmetic is the same:
+# at world 1 ZeRO-1 steps every parameter itself, so the losses agree to
+# the f32 rounding of identical sums (read bitwise or near it)
+ZERO1_RESNET_STEPS = 5
+ZERO1_LOSS_RTOL = 1e-6
+# (12d) the q8 round trip on the card against the CPU, at ResNet-50's
+# largest leaf (2,359,296 = 512 x 512 x 3 x 3) plus a ragged tail
+Q8_CHECK_ELEMS = 2_359_296 + 93
+
+
+def _write_cifar(root, seed):
+    """Full-size CIFAR-10 pickles (``cifar-10-batches-py``, 5 x 10,000
+    train images and 10,000 test images, uint8, seeded)."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    rng = np.random.default_rng(seed)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name in names:
+        n = CIFAR_TEST if name == "test_batch" else CIFAR_TRAIN // 5
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072), np.uint8),
+                         b"labels": rng.integers(0, 10, n).tolist()}, f,
+                        protocol=4)
+    return sum(os.path.getsize(os.path.join(base, n)) for n in names)
+
+
+def _staging_check(device, root, seed):
+    """(12a) the recipe's train feed through the staging ring (pinned
+    buffers reused behind each copy's event) against the same pipeline on
+    fresh allocations: ``STAGING_BATCHES`` batches, each copy queued
+    behind a long matmul, bitwise equal."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.data import (
+        DataLoader,
+        ImageBatchPipeline,
+        load_cifar10,
+    )
+    from pytorch_distributed_tpu_torch.recipes.resnet18_cifar10 import (
+        CIFAR_MEAN,
+        CIFAR_STD,
+    )
+
+    ds = load_cifar10(root, train=True, raw_uint8=True)
+    kw = dict(train=True, pad=4, mean=CIFAR_MEAN, std=CIFAR_STD, seed=seed)
+    staged = ImageBatchPipeline(32, **kw)
+    fresh = ImageBatchPipeline(32, reuse_staging=False, **kw)
+    a = DataLoader(ds, 128, seed=seed, sharding=device, fetch=staged)
+    b = DataLoader(ds, 128, seed=seed, fetch=fresh)
+    big = torch.randn(4096, 4096, device=device)
+    held = []
+    for i, batch in enumerate(a):
+        if i == STAGING_BATCHES:
+            break
+        held.append(batch)      # on the card, never synchronized here
+        big = big @ big         # the next copy queues behind this
+        big = big / big.norm()
+    torch.cuda.synchronize(device)
+    ring = staged.staging_ring
+    bad = 0
+    for got, want in zip(held, b):
+        for k in want:
+            if not torch.equal(got[k].cpu(), want[k]):
+                bad += 1
+    stats = dict(batches=len(held), mismatched_leaves=bad,
+                 reused=ring.reused, one_shot=ring.one_shot,
+                 waits=ring.waits, depth=ring.depth)
+    print(f"(12a) staging ring: {len(held)} batches of 128 through "
+          f"{ring.depth} pinned buffers a leaf ({ring.reused} reuses, "
+          f"{ring.waits} waits on a copy's event, {ring.one_shot} one-shot "
+          f"buffers), each copy queued behind a 4096^3 matmul: "
+          f"{bad} leaves differ from fresh allocations (must be 0)")
+    if bad or not ring.reused:
+        raise AssertionError(f"staging ring check failed: {stats}")
+    return stats
+
+
+def _recipe_stats(trainer, roll, steps, batch, wall):
+    """A recipe run's readings from its per-step log: the first step
+    (cuDNN's autotuning, the pipeline's first pass) apart from the
+    steady steps after it."""
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    evals = trainer.last_eval_metrics
+    if trainer.state.step != steps or not all(
+            math.isfinite(x) for x in losses + list(evals.values())):
+        raise AssertionError(f"recipe ran {trainer.state.step} steps; "
+                             f"losses {losses}, eval {evals}")
+    times = [r["step_time_s"] for r in hist]   # logged every step
+    steady = sorted(times[1:])
+    wait = roll.get("train.data_wait", {})
+    fetch = roll.get("ingest.fetch", {})
+    return dict(images_per_s=(steps - 1) * batch / sum(times[1:]),
+                first_step_ms=1e3 * times[0],
+                step_ms=1e3 * steady[len(steady) // 2],
+                loop_s=sum(times), wall_s=wall,
+                data_wait_share=wait.get("total_ms", 0.0)
+                / (1e3 * sum(times)),
+                data_wait_p50_ms=wait.get("p50_ms"),
+                fetch_p50_ms=fetch.get("p50_ms"),
+                fetch_mean_ms=fetch.get("mean_ms"),
+                fetch_count=fetch.get("count"), losses=losses, eval=evals)
+
+
+def _cifar_recipe(device, seed, tmp):
+    """(12a) ``recipes/resnet18_cifar10.main`` at its defaults on the
+    pickles, traced; then the staging-ring check."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.recipes import resnet18_cifar10
+    from pytorch_distributed_tpu_torch.runtime import tracing
+
+    t0 = time.perf_counter()
+    nbytes = _write_cifar(tmp, seed)
+    print(f"(12a) CIFAR-10 pickles: {CIFAR_TRAIN} + {CIFAR_TEST} images, "
+          f"{nbytes / 1e6:.1f} MB written in {time.perf_counter() - t0:.2f} s")
+    kernel_counts(reset=True)
+    with tracing.enabled() as tracer:
+        t0 = time.perf_counter()
+        trainer = resnet18_cifar10.main([
+            "--data-dir", tmp, "--epochs", "1", "--steps-per-epoch",
+            str(CIFAR_STEPS), "--log-every", "1", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    off_path(launches, ())
+    dev = next(trainer.state.model.parameters()).device
+    if dev.type != device.type or trainer.train_loader.fetch is None:
+        raise AssertionError("the CIFAR recipe did not run the native "
+                             f"pipeline on the card ({dev})")
+    st = _recipe_stats(trainer, tracer.rollups(), CIFAR_STEPS, 128, wall)
+    print(f"(12a) resnet18_cifar10 at its defaults (batch 128, ResNet18 "
+          f"CIFAR stem, uint8 through ImageBatchPipeline, {CIFAR_STEPS} "
+          f"steps + eval): step {st['step_ms']:.2f} ms (median of steps 2-"
+          f"{CIFAR_STEPS}; the first {st['first_step_ms']:.0f} ms), "
+          f"{st['images_per_s']:.1f} images/s over steps 2-{CIFAR_STEPS}, "
+          f"ingest.fetch p50 {st['fetch_p50_ms']:.3f} ms a batch (mean "
+          f"{st['fetch_mean_ms']:.3f}, the first pads the set), "
+          f"train.data_wait p50 {st['data_wait_p50_ms']:.3f} ms, "
+          f"{100 * st['data_wait_share']:.2f}% of the whole loop; "
+          f"loss {st['losses'][0]:.4f} -> {st['losses'][-1]:.4f}; eval "
+          + " ".join(f"{k}={v:.4f}" for k, v in st["eval"].items())
+          + f"; launches {launches}")
+    st.update(launches=launches,
+              staging=_staging_check(device, tmp, seed))
+    # one of its batches, on the card, for the profile at the end
+    st["_profile_batch"] = next(iter(trainer.train_loader))
+    return st
+
+
+def _write_folder(root, seed):
+    """``FOLDER_CLASSES`` x ``FOLDER_PER_CLASS`` JPEGs of 160-200 x 120-160
+    pixels in ``root/train``, a tenth of that in ``root/val``; one train
+    JPEG cut in half, one emptied. Returns the damaged paths."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    damaged = []
+    for split, per in (("train", FOLDER_PER_CLASS),
+                       ("val", FOLDER_PER_CLASS // 10)):
+        for c in range(FOLDER_CLASSES):
+            d = os.path.join(root, split, f"n{c:03d}")
+            os.makedirs(d)
+            for i in range(per):
+                h, w = int(rng.integers(120, 161)), int(rng.integers(160, 201))
+                path = os.path.join(d, f"{i:04d}.jpg")
+                Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)
+                                ).save(path, quality=85)
+                if split == "train" and (c, i) in ((3, 5), (7, 11)):
+                    data = open(path, "rb").read()
+                    with open(path, "wb") as f:
+                        f.write(data[:len(data) // 2] if c == 3 else b"")
+                    damaged.append(path)
+    return sorted(damaged)
+
+
+def _image50(device, seed, tmp, by_path):
+    """(12b) the ResNet-50 recipe with EMA and both writers on the
+    synthetic feed and, where PIL imports, on image folders; (12c) ZeRO-1
+    against DDP."""
+    import glob
+    import os
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.recipes import resnet50_imagenet
+    from pytorch_distributed_tpu_torch.runtime import tracing
+    from pytorch_distributed_tpu_torch.train import read_metrics
+    from pytorch_distributed_tpu_torch.utils.tensorboard import read_records
+
+    base = ["--batch-size", str(IMAGE50_BATCH), "--epochs", "1",
+            "--log-every", "1", "--seed", str(seed), "--lr", "0.025"]
+    out = {}
+
+    def run(name, extra, steps):
+        kernel_counts(reset=True)
+        with tracing.enabled() as tracer:
+            t0 = time.perf_counter()
+            trainer = resnet50_imagenet.main(base + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_path[name] = kernel_counts()
+        off_path(by_path[name], ())
+        st = _recipe_stats(trainer, tracer.rollups(), steps, IMAGE50_BATCH,
+                           wall)
+        st["launches"] = by_path[name]
+        return trainer, st
+
+    tb, jsonl = os.path.join(tmp, "tb"), os.path.join(tmp, "m.jsonl")
+    trainer, st = run("resnet50_ema", [
+        "--steps-per-epoch", str(IMAGE50_STEPS), "--ema-decay", "0.999",
+        "--tensorboard-dir", tb, "--metrics-path", jsonl], IMAGE50_STEPS)
+    recs = read_metrics(jsonl, strict=True)
+    (events,) = glob.glob(os.path.join(tb, "events.out.tfevents.*"))
+    records = read_records(events)      # raises on a CRC that fails
+    splits = [r["split"] for r in recs]
+    want = (splits.count("train") == IMAGE50_STEPS
+            and splits.count("eval") == 1
+            and len(records) == 1 + IMAGE50_STEPS + 1
+            and trainer.state.ema_params is not None
+            and trainer.config.eval_with_ema)
+    print(f"(12b) resnet50_imagenet --ema-decay 0.999 --tensorboard-dir "
+          f"--metrics-path, batch {IMAGE50_BATCH} x 224^2, synthetic uint8: "
+          f"step {st['step_ms']:.2f} ms (the first {st['first_step_ms']:.0f}"
+          f"), {st['images_per_s']:.1f} images/s over steps 2-"
+          f"{IMAGE50_STEPS}; JSONL {len(recs)} records ({splits.count('train')} train, "
+          f"{splits.count('eval')} eval, {splits.count('trace')} trace), "
+          f"event file {len(records)} records, every CRC checked; eval on "
+          f"the shadow " + " ".join(
+              f"{k}={v:.4f}" for k, v in st["eval"].items()))
+    if not want:
+        raise AssertionError(f"the writers' files do not read back: "
+                             f"{splits} / {len(records)} events")
+    out["ema_writers"] = dict(st, jsonl_records=len(recs),
+                              event_records=len(records))
+    del trainer
+    try:
+        import PIL  # noqa: F401 - the folder path decodes with PIL
+    except ImportError as e:
+        print(f"(12b) --data-dir not run on the card: PIL does not import "
+              f"here ({e}); the folder decode is held on the CPU by "
+              f"tests/test_torch_image_folder.py")
+        out["folders"] = dict(run=False, reason=f"PIL: {e}")
+    else:
+        root = os.path.join(tmp, "imagenet")
+        t0 = time.perf_counter()
+        damaged = _write_folder(root, seed)
+        write_s = time.perf_counter() - t0
+        steps = FOLDER_CLASSES * FOLDER_PER_CLASS // IMAGE50_BATCH
+        trainer, fst = run("resnet50_folders", [
+            "--data-dir", root, "--bad-sample-budget", "4"], steps)
+        q = trainer.train_loader.fetch.quarantine
+        print(f"(12b) resnet50_imagenet --data-dir: "
+              f"{FOLDER_CLASSES * FOLDER_PER_CLASS} JPEGs in "
+              f"{FOLDER_CLASSES} classes (written in {write_s:.1f} s), "
+              f"PIL decode + random-resized crop on the host: step "
+              f"{fst['step_ms']:.2f} ms, {fst['images_per_s']:.1f} images/s "
+              f"(synthetic feed above: {st['images_per_s']:.1f}), ingest."
+              f"fetch p50 {fst['fetch_p50_ms']:.1f} ms a batch, "
+              f"train.data_wait p50 {fst['data_wait_p50_ms']:.1f} ms, "
+              f"{100 * fst['data_wait_share']:.1f}% of the loop; quarantined "
+              f"{len(q)} ({', '.join(os.path.basename(p) for p in q.paths)})")
+        if q.paths != damaged:
+            raise AssertionError(f"quarantine {q.paths} != {damaged}")
+        out["folders"] = dict(fst, run=True, quarantined=len(q))
+        del trainer
+    # (12c) ZeRO-1 against DDP
+    losses = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for strategy in ("dp", "zero1"):
+            trainer, zst = run(f"resnet50_{strategy}_det", [
+                "--steps-per-epoch", str(ZERO1_RESNET_STEPS), "--strategy",
+                strategy], ZERO1_RESNET_STEPS)
+            losses[strategy] = zst["losses"]
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = det
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["zero1"],
+                                                   losses["dp"]))
+    print(f"(12c) resnet50_imagenet --strategy zero1 vs dp, world 1, "
+          f"{ZERO1_RESNET_STEPS} steps (deterministic cuDNN): zero1 "
+          + " ".join(f"{x:.6f}" for x in losses["zero1"]) + "; dp "
+          + " ".join(f"{x:.6f}" for x in losses["dp"])
+          + f"; worst relative gap {worst:.2e} (<= {ZERO1_LOSS_RTOL:g}), "
+          f"{'bitwise' if losses['zero1'] == losses['dp'] else 'not bitwise'}")
+    if not worst <= ZERO1_LOSS_RTOL:
+        raise AssertionError("ZeRO-1 and DDP losses disagree")
+    out["zero1"] = dict(losses=losses, worst_rel=worst,
+                        bitwise=losses["zero1"] == losses["dp"])
+    return out
+
+
+def _wire_checks(device, seed):
+    """(12d) ``q8_local_roundtrip`` (and the codes and scales) on the card
+    against the CPU, bitwise; in a world of one (NCCL) ``ring_all_reduce``
+    returns its input, and one chunk through the two-stage routine's body
+    gives the owner's rounding: f32 and bf16 unchanged, q8 the quantized
+    round trip, and no byte on the wire."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch.parallel import overlap
+
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(Q8_CHECK_ELEMS) * 3).astype(np.float32)
+    x[256:512] = 0.0
+    x[1000] = np.nan
+    x[2000] = np.inf
+    cpu = overlap.q8_local_roundtrip(torch.from_numpy(x))
+    gpu = overlap.q8_local_roundtrip(torch.from_numpy(x).to(device)).cpu()
+    same = torch.equal(cpu.view(torch.int32), gpu.view(torch.int32))
+    q_cpu = overlap.q8_quantize(torch.from_numpy(x))
+    q_gpu = [t.cpu() for t in overlap.q8_quantize(
+        torch.from_numpy(x).to(device))]
+    codes_same = torch.equal(q_cpu[0], q_gpu[0]) and torch.equal(
+        q_cpu[1].view(torch.int32), q_gpu[1].view(torch.int32))
+    res = dict(roundtrip_bitwise=same, codes_bitwise=codes_same)
+    with _World1(device):
+        xt = torch.from_numpy(x[:300_000]).to(device)
+        xt = torch.where(torch.isfinite(xt), xt, torch.zeros_like(xt))
+        ident = all(torch.equal(overlap.ring_all_reduce(xt, q8=q8), xt)
+                    for q8 in (False, True))
+        stats = overlap.SyncStats()   # the facade's collectives
+        f32 = overlap._reduce_chunk(xt, False, stats)
+        b16 = overlap._reduce_chunk(xt.to(torch.bfloat16), False, stats)
+        q8 = overlap._reduce_chunk(xt, True, stats)
+        chunk_ok = (torch.equal(f32, xt)
+                    and torch.equal(b16, xt.to(torch.bfloat16))
+                    and torch.equal(q8, overlap.q8_local_roundtrip(xt)))
+    res.update(world1_identity=ident, world1_chunk=chunk_ok,
+               world1_wire_bytes=stats.wire_bytes)
+    print(f"(12d) q8 round trip of {Q8_CHECK_ELEMS} f32 (zero, NaN and inf "
+          f"blocks) on the card vs the CPU: values "
+          f"{'bitwise' if same else 'DIFFER'}, codes and scales "
+          f"{'bitwise' if codes_same else 'DIFFER'}; ring_all_reduce at "
+          f"world 1 the identity: {ident}; one chunk through the two-stage "
+          f"routine's body at world 1 (f32, bf16, q8): "
+          f"{'as the owner rounds' if chunk_ok else 'WRONG'} "
+          f"({stats.wire_bytes} wire bytes: none at world 1)")
+    if not (same and codes_same and ident and chunk_ok
+            and stats.wire_bytes == 0):
+        raise AssertionError(f"wire-form checks failed: {res}")
+    return res
+
+
+def image_phase(device, seed):
+    """Phase 12, (a)-(d); (a)'s profile is :func:`image_profile`, run
+    last. Returns (stats, launches by path)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = True
+    stats, by_path = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        stats["cifar"] = _cifar_recipe(device, seed, tmp)
+        by_path["resnet18_cifar10"] = stats["cifar"]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["resnet50"] = _image50(device, seed, tmp, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["wire"] = _wire_checks(device, seed)
+    stats["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: {stats['wall_s']:.1f} s; launches by path {by_path}")
+    return stats, by_path
+
+
+def image_profile(device, seed, stats):
+    """(12a) torch.profiler over two steps of the CIFAR recipe's step
+    (ResNet-18 CIFAR stem in DDP, the device normalizer, SGD with
+    Nesterov momentum), rebuilt in a live world of one (the recipe's own
+    was torn down) on one of its batches: device busy ms and the idle
+    share against the recipe's median step."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataParallel,
+        Policy,
+        ResNet18,
+        TrainState,
+        build_train_step,
+        classification_loss_fn,
+        optim,
+    )
+    from pytorch_distributed_tpu_torch.data import device_normalizer_for
+    from pytorch_distributed_tpu_torch.recipes.resnet18_cifar10 import (
+        CIFAR_MEAN,
+        CIFAR_STD,
+    )
+
+    batch = stats["cifar"].pop("_profile_batch")
+    with _World1(device):
+        model = ResNet18(10, stem="cifar", device=device,
+                         policy=Policy.train())
+        model.init_weights(torch.Generator(device=device).manual_seed(seed))
+        ddp = DataParallel(device).wrap(model)
+        step = build_train_step(
+            classification_loss_fn(ddp, weight_decay=5e-4),
+            batch_transform=device_normalizer_for(CIFAR_MEAN, CIFAR_STD))
+        state = TrainState(ddp, optim.SGD(
+            model, lr=optim.WarmupCosine(0.1, 0, 100), momentum=0.9,
+            nesterov=True))
+        for _ in range(5):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        total_us, rows = profile_step(step, state, batch)
+    step_ms = stats["cifar"]["step_ms"]
+    busy = total_us / 2e3
+    families = by_family(rows)
+    if total_us:
+        print(f"(12a) profile, 2 steps of resnet18_cifar10's step: device "
+              f"busy {busy:.3f} ms/step against the recipe's median step of "
+              f"{step_ms:.2f} ms (idle {100 * (1 - busy / step_ms):.1f}%)")
+        for name, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:9.3f} ms/step  {100 * ms / busy:5.1f}%  {name}")
+    else:
+        print("(12a) profiler: no device time recorded (not measured)")
+    return dict(device_busy_ms=busy,
+                idle_share=(1 - busy / step_ms) if total_us else None,
+                families=families)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4100,6 +4572,7 @@ def main(argv=None) -> int:
     print(f"ResNet path: launches of the four kernels "
           f"{rstats['kernel_launches']} (none on this path)")
     off_path(rstats["kernel_launches"], ())
+    istats, image_paths = image_phase(device, args.seed)
     zstats = zero1_phase(device, args.seed)
     gstats, gen_paths = generation_phase(device, args.seed)
     train_counts, tstats = train_phase(device, args.seed, flash_records)
@@ -4135,7 +4608,7 @@ def main(argv=None) -> int:
     by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
                    zero1=zt["launches"], train=train_counts,
                    llama=lstats["launches"], bert=bstats["launches"],
-                   **gen_paths, **serve11_paths)
+                   **gen_paths, **serve11_paths, **image_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -4143,6 +4616,7 @@ def main(argv=None) -> int:
         rec["launches"] = sum(rec["launches_by_path"].values())
     rstats["profile"] = resnet_profile(device, args.seed,
                                        rstats["bench"]["step_ms"])
+    istats["cifar"]["profile"] = image_profile(device, args.seed, istats)
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
@@ -4150,7 +4624,7 @@ def main(argv=None) -> int:
                                       resnet=rstats, zero1=zstats,
                                       llama=lstats, bert=bstats,
                                       generation=gstats,
-                                      serve_gpt2=s11)}))
+                                      serve_gpt2=s11, image=istats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,11 @@ either dtype at its padded, non-causal shape); and generation (GPT-2
 and Llama KV-cache decode with ragged prompts, penalties and an int8
 cache, beam search, speculative decoding), int8/int4 weight
 quantization (``ops.QuantizedModel``) and LoRA (``LoRAModel``, the BERT
-recipe's ``--lora``). Entry points
+recipe's ``--lora``); and image-classification training complete: the
+ResNet-18/CIFAR-10 recipe, the native augmenting pipeline over
+``native/prefetch.cpp``, image folders with a quarantine, compressed
+gradient sync (bf16, fp16, int8 with error feedback) as a DDP hook,
+ZeRO-1 for ResNet, EMA and the JSONL and TensorBoard writers. Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
 package.
@@ -36,6 +40,8 @@ package.
     torchrun --nproc-per-node 4 -m \
         pytorch_distributed_tpu_torch.recipes.resnet50_imagenet \
         --batch-size 512 --steps-per-epoch 20
+    python -m pytorch_distributed_tpu_torch.recipes.resnet18_cifar10 \
+        --data-dir /data --epochs 1
     torchrun --nproc-per-node 4 -m \
         pytorch_distributed_tpu_torch.recipes.llama_fsdp --size 8b \
         --fsdp 4 --batch-size 8 --seq-len 2048 --remat --vocab-chunk 8192
@@ -48,12 +54,17 @@ from pytorch_distributed_tpu_torch.data import (
     ArrayDataset,
     DataLoader,
     DistributedSampler,
+    FolderImagePipeline,
+    ImageBatchPipeline,
+    ImageFolderDataset,
+    SampleQuarantine,
     SyntheticImageDataset,
     SyntheticTextDataset,
     TokenizedTextDataset,
     Tokenizer,
     device_normalizer_for,
     host_flip_transform,
+    load_cifar10,
     make_device_normalizer,
     pack_documents,
     packed_loss_mask,
@@ -106,7 +117,13 @@ from pytorch_distributed_tpu_torch.models.resnet import (
 from pytorch_distributed_tpu_torch.ops.attention import attention
 from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import paged_attention
-from pytorch_distributed_tpu_torch.parallel import FSDP, DataParallel, ZeRO1
+from pytorch_distributed_tpu_torch.parallel import (
+    FSDP,
+    DataParallel,
+    ZeRO1,
+    compress_hook,
+    sync_grads,
+)
 from pytorch_distributed_tpu_torch.runtime.device import (
     default_device,
     device_info,
@@ -114,7 +131,10 @@ from pytorch_distributed_tpu_torch.runtime.device import (
 from pytorch_distributed_tpu_torch.runtime.distributed import (
     ReduceOp,
     all_gather,
+    all_gather_into_tensor,
     all_reduce,
+    all_to_all,
+    all_to_all_single,
     barrier,
     broadcast,
     destroy_process_group,
@@ -123,6 +143,8 @@ from pytorch_distributed_tpu_torch.runtime.distributed import (
     get_world_size,
     init_process_group,
     is_initialized,
+    reduce_scatter,
+    reduce_scatter_tensor,
 )
 from pytorch_distributed_tpu_torch.runtime.mesh import (
     MeshSpec,
@@ -151,6 +173,7 @@ from pytorch_distributed_tpu_torch.serve import (
 from pytorch_distributed_tpu_torch.train import (
     EX_TEMPFAIL,
     CheckpointCorrupted,
+    MetricsWriter,
     Preempted,
     Trainer,
     TrainerConfig,
@@ -165,6 +188,7 @@ from pytorch_distributed_tpu_torch.train import (
     cross_entropy,
     fit_elastic,
     masked_lm_loss_fn,
+    read_metrics,
     restore_checkpoint,
     save_checkpoint,
     text_classification_loss_fn,
@@ -174,6 +198,8 @@ from pytorch_distributed_tpu_torch.train import (
 
 __all__ = [
     "optim", "ArrayDataset", "DataLoader", "DistributedSampler",
+    "FolderImagePipeline", "ImageBatchPipeline", "ImageFolderDataset",
+    "SampleQuarantine", "load_cifar10",
     "SyntheticImageDataset", "SyntheticTextDataset", "TokenizedTextDataset",
     "Tokenizer", "device_normalizer_for",
     "host_flip_transform", "make_device_normalizer", "pack_documents",
@@ -191,8 +217,11 @@ __all__ = [
     "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
     "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
+    "compress_hook", "sync_grads",
     "default_device", "device_info", "ReduceOp", "all_gather",
-    "all_reduce", "barrier",
+    "all_gather_into_tensor", "all_reduce", "all_to_all",
+    "all_to_all_single", "reduce_scatter", "reduce_scatter_tensor",
+    "barrier",
     "broadcast", "destroy_process_group", "get_backend", "get_rank",
     "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
     "data_axes", "make_mesh",
@@ -200,6 +229,7 @@ __all__ = [
     "use_policy", "generator_for", "seed_all", "EngineConfig",
     "InProcPrefixStore", "Request", "RequestStatus", "Router",
     "ServeEngine", "SpecConfig", "EX_TEMPFAIL", "CheckpointCorrupted",
+    "MetricsWriter", "read_metrics",
     "Preempted", "Trainer", "TrainerConfig", "TrainingDiverged",
     "TrainState", "accuracy", "build_train_step", "causal_lm_eval_step",
     "causal_lm_loss_fn", "classification_eval_step",

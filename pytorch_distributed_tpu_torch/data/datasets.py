@@ -1,10 +1,13 @@
 """Datasets: the port's copy of the part of
 ``pytorch_distributed_tpu/data/datasets.py`` the GPT-2, Llama, BERT and
 ResNet recipes use. Items are dicts of numpy arrays, drawn exactly as
-the JAX package draws them."""
+the JAX package draws them. :func:`load_cifar10` reads the CIFAR-10
+pickles."""
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -113,3 +116,31 @@ class SyntheticImageDataset:
             "image": image,
             "label": np.int32(g.integers(self.num_classes)),
         }
+
+
+def load_cifar10(root: str, train: bool = True,
+                 raw_uint8: bool = False) -> Optional[ArrayDataset]:
+    """CIFAR-10 from ``root/cifar-10-batches-py`` (``data_batch_1`` to
+    ``_5``, or ``test_batch``), or None when the files are not there
+    (nothing is downloaded). Images are NHWC, f32 in [0, 1], or the raw
+    uint8 with ``raw_uint8`` (what ``ImageBatchPipeline`` takes); labels
+    int32. The pickles are unpickled: read only files this program's
+    users wrote or trust."""
+    base = os.path.join(root, "cifar-10-batches-py")
+    names = ([f"data_batch_{i}" for i in range(1, 6)] if train
+             else ["test_batch"])
+    paths = [os.path.join(base, n) for n in names]
+    if not all(os.path.exists(p) for p in paths):
+        return None
+    images, labels = [], []
+    for p in paths:
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        images.append(d[b"data"])
+        labels.extend(d[b"labels"])
+    x = np.concatenate(images).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    x = np.ascontiguousarray(x)
+    return ArrayDataset(
+        image=x if raw_uint8 else (x.astype(np.float32) / 255.0),
+        label=np.asarray(labels, np.int32),
+    )

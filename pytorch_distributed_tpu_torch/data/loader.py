@@ -13,8 +13,16 @@ and the copy runs on the compute stream ahead of the step that reads it.
 Without prefetch, a step of ResNet-50 at batch 128 would wait on about
 19 MB of numpy per batch.
 
-Not ported: the JAX loader's ``fetch``/``collate_fn`` hooks, iterable
-datasets and the native image pipeline (ROADMAP A2).
+``fetch(dataset, indices) -> batch`` replaces the default gather (the
+native ``ImageBatchPipeline``, the PIL ``FolderImagePipeline``);
+``collate_fn(samples) -> batch`` replaces only the stacking of the
+per-sample gather; the two are exclusive. ``set_epoch`` reaches a fetch
+that has one (its augmentation stream). A fetch with a staging ring,
+feeding a CUDA card, is marked device-fed with ``prefetch + 2`` buffers
+(one assembling, ``prefetch`` queued, one being copied): the consumer
+copies a ring buffer to the card, records a CUDA event behind the copy
+and registers it, and the ring hands that buffer out again only after
+the event. Iterable datasets are not ported (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -86,8 +94,18 @@ class DataLoader:
         sharding: Optional[torch.device] = None,
         prefetch: int = 2,
         transform: Optional[Callable[[Any], Any]] = None,
+        fetch: Optional[Callable[[Any, np.ndarray], Any]] = None,
+        collate_fn: Optional[Callable[[list], Any]] = None,
         shard: Optional[bool] = None,
     ):
+        if collate_fn is not None and fetch is not None:
+            raise ValueError(
+                "collate_fn and fetch both own batch assembly: pass one")
+        if collate_fn is not None:
+            def fetch(ds, idx):
+                return collate_fn([ds[int(i)] for i in idx])
+        self.fetch = fetch
+        self.collate_fn = collate_fn
         self.dataset = dataset
         self.sampler = sampler or GlobalBatchSampler(
             len(dataset), batch_size, shuffle=shuffle, seed=seed,
@@ -100,9 +118,14 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.transform = transform
         self._warned_remainder = False
+        if (self.device is not None and self.device.type == "cuda"
+                and hasattr(fetch, "mark_device_fed")):
+            fetch.mark_device_fed(depth=self.prefetch + 2)
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
+        if hasattr(self.fetch, "set_epoch"):
+            self.fetch.set_epoch(epoch)   # e.g. the augmentation stream
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -122,14 +145,39 @@ class DataLoader:
 
     def _host_batch(self, indices):
         with tracing.span("ingest.fetch"):
-            batch = _fetch(self.dataset, np.asarray(self._rank_slice(indices)))
+            batch = (self.fetch or _fetch)(
+                self.dataset, np.asarray(self._rank_slice(indices)))
             if self.transform is not None:
                 batch = self.transform(batch)
-            out = {k: torch.from_numpy(np.ascontiguousarray(v))
-                   for k, v in batch.items()}
-            if self.device is not None and self.device.type == "cuda":
-                out = {k: v.pin_memory() for k, v in out.items()}
+            cuda = self.device is not None and self.device.type == "cuda"
+            ring = getattr(self.fetch, "staging_ring", None)
+            out = {}
+            for k, v in batch.items():
+                staged = (ring.tensor_for(v) if ring is not None
+                          and isinstance(v, np.ndarray) else None)
+                if staged is not None:   # a ring buffer: pinned already
+                    out[k] = staged
+                    continue
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                out[k] = t.pin_memory() if cuda else t
             return out
+
+    def _place(self, item):
+        """The batch on the device; the copies out of staging-ring
+        buffers are registered with the ring behind a CUDA event."""
+        placed = {k: v.to(self.device, non_blocking=True)
+                  for k, v in item.items()}
+        ring = getattr(self.fetch, "staging_ring", None)
+        if ring is not None:
+            event = None
+            for k, v in item.items():
+                if not ring.holds(v):
+                    continue
+                if event is None and self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+                ring.register_transfer(v, placed[k], event)
+        return placed
 
     def _produce(self, out_q: queue.Queue, stop: threading.Event) -> None:
         try:
@@ -155,8 +203,7 @@ class DataLoader:
                 if isinstance(item, BaseException):
                     raise item
                 if self.device is not None:
-                    item = {k: v.to(self.device, non_blocking=True)
-                            for k, v in item.items()}
+                    item = self._place(item)
                 yield item
         finally:
             stop.set()

@@ -16,12 +16,20 @@ batch-axis mean lowers to a psum under SPMD); the port's
 so DDP does not broadcast buffers (``broadcast_buffers=False``): every
 rank's running statistics are already the global ones.
 
+``wrap(model, grad_compress=kind)`` registers ``parallel.ddp``'s
+compression hook (``bf16``, ``fp16`` or ``int8`` with error feedback:
+the JAX recipes' ``--grad-compress``) in place of DDP's f32 all-reduce;
+the hook is ``ddp.grad_compress_hook``.
+
 :class:`ZeRO1` is DDP for the gradients plus the optimizer state sharded
 over the ranks: :meth:`ZeRO1.optimizer` builds
 ``torch.distributed.optim.ZeroRedundancyOptimizer`` over the port's
 optimizer (the reference's own ZeRO-1, BASELINE.json:10). Each rank
 keeps the moments of whole parameters, about ``1/world`` of them, steps
-those, and broadcasts its updated parameters to the others.
+those, and broadcasts its updated parameters to the others. For ResNet
+the per-rank optimizer is the port's ``SGD`` (``optimizer_class=SGD``:
+its momentum traces sharded) and the BatchNorm statistics stay the
+global batch's, as under :class:`DataParallel`.
 
 :class:`FSDP` shards the parameters, their gradients and the optimizer
 state over the mesh's ``fsdp`` axis, as the JAX strategy does, on FSDP2:
@@ -42,7 +50,7 @@ batch is split over dp x fsdp, every rank its own share.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -69,12 +77,23 @@ class DataParallel:
             )
         self.device = resolve_device(device)
 
-    def wrap(self, model: torch.nn.Module) -> DistributedDataParallel:
-        """``model`` in DDP over the process group."""
+    def wrap(self, model: torch.nn.Module, *,
+             grad_compress: Optional[str] = None) -> DistributedDataParallel:
+        """``model`` in DDP over the process group; with ``grad_compress``
+        its gradients cross the ranks through ``ddp.compress_hook``."""
         ids = [self.device.index] if self.device.type == "cuda" else None
-        return DistributedDataParallel(
+        ddp = DistributedDataParallel(
             model, device_ids=ids, broadcast_buffers=False,
         )
+        ddp.grad_compress_hook = None
+        if grad_compress is not None:
+            from pytorch_distributed_tpu_torch.parallel.ddp import (
+                compress_hook,
+            )
+
+            ddp.grad_compress_hook = compress_hook(grad_compress).register(
+                ddp)
+        return ddp
 
     def batch_sharding(self) -> torch.device:
         """The loader's ``sharding``: batches go to this device; the

@@ -18,6 +18,15 @@ facade's result for the row ``x[r]``.
 
 The backend is NCCL when the device is a CUDA card and gloo on the CPU.
 Until a group exists, ``get_world_size()`` is 1 and ``get_rank()`` 0.
+
+The flat-tensor collectives follow torch's per-rank shapes, which are the
+JAX facade's under its multi-process backend: ``all_gather_into_tensor``
+concatenates the ranks' tensors along dim 0, ``reduce_scatter_tensor``
+returns this rank's reduced block of dim 0, ``reduce_scatter`` this
+rank's reduced row of a ``[world, ...]`` input, and ``all_to_all`` sends
+block ``j`` of dim 0 to rank ``j`` and returns the blocks it received in
+rank order (``all_to_all_single`` with split sizes, for blocks that
+differ in size).
 """
 
 from __future__ import annotations
@@ -166,3 +175,87 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty((get_world_size(),) + tuple(x.shape))
     dist.all_gather(list(out.unbind(0)), x.contiguous())   # views of out
     return out
+
+
+def _flat_collective(*names):
+    """The first of torch's names for a flat-tensor collective that this
+    torch has (newer releases rename ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` to ``*_single``)."""
+    for name in names:
+        fn = getattr(dist, name, None)
+        if fn is not None:
+            return fn
+    raise NotImplementedError(f"torch.distributed has none of {names}")
+
+
+def all_gather_into_tensor(x: torch.Tensor) -> torch.Tensor:
+    """``[world * x.shape[0], ...]``: every rank's ``x`` concatenated
+    along dim 0 in rank order (``x`` itself in a world of one)."""
+    if get_world_size() == 1:
+        return x.clone()
+    out = x.new_empty((get_world_size() * x.shape[0],) + tuple(x.shape[1:]))
+    _flat_collective("all_gather_single", "all_gather_into_tensor")(
+        out, x.contiguous())
+    return out
+
+
+def reduce_scatter_tensor(x: torch.Tensor,
+                          op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    """This rank's block of dim 0 of ``x`` (``[world * n, ...]``) reduced
+    over every rank: ``[n, ...]`` (``AVG``: the sum over the world size)."""
+    world = get_world_size()
+    if x.shape[0] % world:
+        raise ValueError(f"reduce_scatter_tensor input dim 0 ({x.shape[0]}) "
+                         f"must divide by world_size {world}")
+    if world == 1:
+        return x.clone()
+    out = x.new_empty((x.shape[0] // world,) + tuple(x.shape[1:]))
+    _flat_collective("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, x.contiguous(),
+        op=_TORCH_OPS[ReduceOp.SUM if op is ReduceOp.AVG else op])
+    if op is ReduceOp.AVG:
+        out = out / world
+    return out
+
+
+def reduce_scatter(x: torch.Tensor,
+                   op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    """Row ``rank`` of ``x`` (``[world, ...]``: row ``j`` is this rank's
+    contribution to rank ``j``) summed over every rank. SUM only, as in
+    the JAX facade."""
+    if op is not ReduceOp.SUM:
+        raise NotImplementedError("reduce_scatter supports SUM")
+    if x.shape[0] != get_world_size():
+        raise ValueError(f"reduce_scatter input has {x.shape[0]} rows for "
+                         f"world_size {get_world_size()}")
+    return reduce_scatter_tensor(x.reshape((-1,) + tuple(x.shape[2:]))
+                                 ).reshape(x.shape[1:])
+
+
+def all_to_all_single(x: torch.Tensor, output_split_sizes=None,
+                      input_split_sizes=None) -> torch.Tensor:
+    """Block ``j`` of ``x``'s dim 0 (``input_split_sizes[j]`` rows, equal
+    blocks unless given) goes to rank ``j``; returns the blocks received,
+    in rank order (``output_split_sizes[j]`` rows from rank ``j``)."""
+    world = get_world_size()
+    if output_split_sizes is None:
+        if x.shape[0] % world:
+            raise ValueError(f"all_to_all needs dim 0 ({x.shape[0]}) "
+                             f"divisible by world_size {world}")
+        rows = x.shape[0]
+    else:
+        if len(output_split_sizes) != world:
+            raise ValueError("output_split_sizes needs one size per rank")
+        rows = int(sum(output_split_sizes))
+    if world == 1:
+        return x.clone()
+    out = x.new_empty((rows,) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes,
+                           input_split_sizes)
+    return out
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """``all_to_all_single`` with equal blocks: the JAX facade's
+    ``all_to_all`` row for this rank."""
+    return all_to_all_single(x)

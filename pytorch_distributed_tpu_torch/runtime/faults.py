@@ -46,6 +46,11 @@ Sites:
 ``ckpt.swing``       inside the rename window of ``ckpt_io._swing``
                      (between ``final -> old`` and ``tmp -> final``)
 ``ckpt.read_shard``  before each shard is read on restore
+``data.fetch``       before an image file is opened
+                     (``data/image_folder.py``; ``path`` the file): a
+                     transient read error, retried
+``data.decode``      after an image file is opened, before it decodes:
+                     permanent rot, quarantined without a retry
 ================== ====================================================
 """
 
@@ -71,7 +76,7 @@ KILLED_EXIT = 113
 
 KNOWN_SITES = ("serve.prefill", "serve.decode", "serve.kv_migrate",
                "serve.engine_loss", "ckpt.write_shard", "ckpt.swing",
-               "ckpt.read_shard")
+               "ckpt.read_shard", "data.fetch", "data.decode")
 _MODES = ("raise", "kill", "truncate", "bitflip")
 
 

@@ -1,6 +1,7 @@
-"""The training slices: state, the causal-LM, classifier, text-classifier
-and masked-LM losses, the step builder (with fp16 loss scaling), the fit
-loop, checkpoints and preemption."""
+"""The training slices: state (with the EMA shadow), the causal-LM,
+classifier, text-classifier and masked-LM losses, the step builder
+(with fp16 loss scaling, compressed gradient sync and EMA), the fit
+loop, the metric writers, checkpoints and preemption."""
 
 from pytorch_distributed_tpu_torch.train.checkpoint import (
     CheckpointCorrupted,
@@ -27,6 +28,12 @@ from pytorch_distributed_tpu_torch.train.losses import (
     text_classification_loss_fn,
     topk_accuracy,
 )
+from pytorch_distributed_tpu_torch.train.metrics import (
+    MetricsWriter,
+    ScalarMeter,
+    TeeWriter,
+    read_metrics,
+)
 from pytorch_distributed_tpu_torch.train.train_state import TrainState
 from pytorch_distributed_tpu_torch.train.trainer import (
     Trainer,
@@ -42,6 +49,7 @@ __all__ = [
     "accuracy", "causal_lm_eval_step", "causal_lm_loss_fn",
     "classification_eval_step", "classification_loss_fn", "cross_entropy",
     "masked_lm_loss_fn", "text_classification_loss_fn", "topk_accuracy",
+    "MetricsWriter", "ScalarMeter", "TeeWriter", "read_metrics",
     "TrainState", "Trainer", "TrainerConfig", "TrainingDiverged",
     "build_train_step",
 ]

@@ -39,6 +39,12 @@ replica of each shard writes. A restore reads each rank's rows back out
 of whatever boxes the writer's world cut, at any world size, and the
 JAX package reads the leaves whole.
 
+The EMA shadow (``TrainState(..., ema=True)``) is the JAX state's
+``ema_params`` tree: ``ema_params_...`` leaves in the params' slots and
+layouts, f32, written by rank 0. A checkpoint without them (a run from
+before EMA) restores everything else, and the shadow is then seeded
+from the restored parameters, as the JAX trainer does.
+
 Under LoRA (``lora.LoRAModel``) the state is the adapter tree: the
 params are the adapters under the JAX leaves ``<kernel path>/a`` and
 ``/b``, the moments theirs, and the frozen base is in no checkpoint (it
@@ -246,6 +252,22 @@ def _plan(state: TrainState) -> List[_Leaf]:
             add(name, shape, np.float32, boxes,
                 writer(p, rank0 if zero is None else True))
 
+    for p_name, shadow in (state.ema_params or {}).items():
+        slot = slots.get(p_name)
+        if slot is None or slot.perm is not None:
+            raise NotImplementedError(
+                f"ema_params: no whole-leaf JAX slot for {p_name!r} (EMA "
+                "checkpoints cover unsharded models; ROADMAP A5)")
+        shape = slot.leaf_shape(tuple(shadow.shape))
+
+        def put_ema(x, shadow=shadow):
+            with torch.no_grad():
+                shadow.copy_(x.to(torch.float32))
+
+        add(interop.leaf_name("ema_params", *slot.path), shape, np.float32,
+            [_tensor_box(slot, lambda shadow=shadow: shadow, put_ema,
+                         shape)], rank0)
+
     def scalar(name, value_fn, put):
         add(name, (), np.int32,
             [_Box(0, (), (), lambda: np.asarray(value_fn(), np.int32),
@@ -357,11 +379,14 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, *,
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
     plan = _plan(state)
+    missing = {leaf.name for leaf in plan if leaf.name not in by_path}
+    reseed = bool(missing) and all(n.startswith("ema_params_")
+                                   for n in missing)
     # moments of parameters a (ZeRO) rank does not hold stay unread
     for leaf in plan:
         entry = by_path.get(leaf.name)
         if entry is None:
-            if strict:
+            if strict and not reseed:
                 raise ValueError(
                     f"state leaf {leaf.name!r} not found in checkpoint "
                     f"{final} (strict=True)")
@@ -377,6 +402,15 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, *,
     if unused:
         logger.warning("checkpoint has %d leaves the state lacks (ignored):"
                        " %s", len(unused), sorted(unused)[:5])
+    if reseed:
+        from pytorch_distributed_tpu_torch.train.train_state import (
+            shadow_params,
+        )
+
+        logger.warning("checkpoint %s has no ema_params (a run from before "
+                       "EMA): seeding the shadow from the restored params",
+                       final)
+        state.ema_params = shadow_params(state.model)
     return state
 
 

@@ -35,6 +35,19 @@ device's finite flag a step, as ``torch.cuda.amp.GradScaler.step``
 makes it. The metrics gain ``loss_scale`` (the new scale) and
 ``grads_finite`` (1.0 or 0.0).
 
+``build_train_step(..., grad_compression=k)`` (``bf16``, ``fp16`` or
+``int8``) compresses the gradient sync on the wire: a model in
+``DistributedDataParallel`` must carry the matching hook
+(``DataParallel.wrap(model, grad_compress=k)``), which runs inside its
+backward; a plain model in a process group of more than one rank has its
+summed gradients averaged by ``parallel.ddp.sync_grads`` after the
+microbatch loop (span ``train.grad_sync``), with the step's own q8
+error feedback.
+``build_train_step(..., ema_decay=d)`` (``0 <= d < 1``) moves
+``state.ema_params`` (``TrainState(..., ema=True)``) to ``d * ema +
+(1 - d) * p`` in f32 after every step, a skipped fp16 step included, as
+the JAX step does.
+
 ``Trainer.fit`` runs epochs of the loader, ``max_steps_per_epoch`` steps
 at most, times each wait for the next batch (``train.data_wait``), logs
 (and so synchronizes) every ``log_every`` steps, with the metrics
@@ -58,6 +71,17 @@ already taken, unfetched). With ``handle_preemption`` a SIGTERM makes
 the loop checkpoint at the next step boundary and raise
 ``elastic.Preempted``. Goodput accounting and the watchdog wait for
 ROADMAP A5.
+
+With ``metrics_path`` (a JSONL ``train/metrics.MetricsWriter``) and
+``tensorboard_dir`` (``utils/tensorboard.TensorBoardWriter``) rank 0
+writes every logged step (its metrics, ``samples_per_sec``,
+``step_time_ms`` and ``epoch``) and every evaluation (split ``eval``),
+the JAX trainer's records. ``eval_with_ema`` evaluates the EMA shadow
+(the parameters swapped in for the pass, the running statistics the
+model's own). ``trace`` arms the span tracer when the trainer is made;
+at the end of ``fit`` the span rollups go to the metrics writer (split
+``trace``) and the timeline to ``<trace>/trace.json`` (rank 0;
+``trace-rank<r>.json`` otherwise).
 """
 
 from __future__ import annotations
@@ -79,8 +103,13 @@ from pytorch_distributed_tpu_torch.runtime.precision import GradScaler
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for
 from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
 from pytorch_distributed_tpu_torch.train import elastic
+from pytorch_distributed_tpu_torch.train.metrics import (
+    MetricsWriter,
+    TeeWriter,
+)
 from pytorch_distributed_tpu_torch.train.train_state import TrainState
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
+from pytorch_distributed_tpu_torch.utils.tensorboard import TensorBoardWriter
 
 logger = get_logger(__name__)
 
@@ -128,19 +157,72 @@ def _sync_unless(model, accumulating: bool):
     return contextlib.nullcontext()
 
 
+def _grad_sync(model, grad_compression: Optional[str]):
+    """What the step does about a compressed sync: None (DDP's own
+    all-reduce or its hook runs it, or there is nothing to sync), else
+    ``sync(grads)`` averaging the summed gradients over the ranks."""
+    from pytorch_distributed_tpu_torch.parallel.ddp import sync_grads
+    from pytorch_distributed_tpu_torch.parallel.overlap import ErrorFeedback
+
+    if grad_compression is None:
+        return None
+    if isinstance(model, DistributedDataParallel):
+        hook = getattr(model, "grad_compress_hook", None)
+        if hook is None or hook.kind != grad_compression:
+            raise ValueError(
+                f"grad_compression={grad_compression!r} needs the DDP model "
+                "wrapped with DataParallel.wrap(model, grad_compress="
+                f"{grad_compression!r}); its hook is "
+                f"{getattr(hook, 'kind', None)!r}")
+        return None
+    feedback = ErrorFeedback()
+
+    def sync(grads):
+        return sync_grads(grads, grad_compression, feedback=feedback)
+
+    return sync
+
+
+def _update_ema(state: TrainState, decay: float) -> None:
+    from pytorch_distributed_tpu_torch.train.train_state import (
+        trainable_params,
+    )
+
+    if state.ema_params is None:
+        raise ValueError("ema_decay set but the state has no shadow params: "
+                         "make it with TrainState(..., ema=True)")
+    params = trainable_params(state.model)
+    ema = [state.ema_params[n] for n in params]
+    with torch.no_grad():
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [_local(p).to(torch.float32) for p in params.values()],
+            1.0 - decay))
+
+
 def build_train_step(
     loss_fn: Callable,
     *,
     accum_steps: int = 1,
     batch_transform: Optional[Callable] = None,
     scaler: Optional[GradScaler] = None,
+    grad_compression: Optional[str] = None,
+    ema_decay: Optional[float] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], tuple]:
     """``step(state, batch) -> (state, metrics)``; see the module
     docstring. The batch must already be on the model's device."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if ema_decay is not None and not 0.0 <= ema_decay < 1.0:
+        # d = 1 freezes the shadow at its seed; d > 1 diverges
+        raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
+    if grad_compression is not None:
+        from pytorch_distributed_tpu_torch.parallel.ddp import _check_kind
+
+        _check_kind(grad_compression)
     takes_rng = getattr(batch_transform, "_ptd_takes_rng", False)
     scaling = scaler is not None and scaler.enabled
+    syncs = {}   # model -> its sync (None: DDP or its hook runs it)
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
@@ -175,9 +257,22 @@ def build_train_step(
                 inv = 1.0 / accum_steps
                 torch._foreach_mul_([_local(g) for g in grads], inv)
                 sums = {k: v * inv for k, v in sums.items()}
-            apply = True
             if scaling:
                 scaler.unscale_grads(grads, state.scaler_state)
+            if id(model) not in syncs:
+                syncs[id(model)] = _grad_sync(model, grad_compression)
+            sync = syncs[id(model)]
+            if sync is not None and dist.get_world_size() > 1:
+                # after the 1/A scale and the unscale, as the JAX step
+                # syncs its averaged, unscaled gradients
+                with tracing.span("train.grad_sync"):
+                    live = [p for p in model.parameters()
+                            if p.grad is not None]
+                    for p, g in zip(live, sync([p.grad for p in live])):
+                        p.grad = g
+                grads = [p.grad for p in live]
+            apply = True
+            if scaling:
                 state.scaler_state, finite = scaler.functional_update(
                     grads, state.scaler_state)
                 sums["loss_scale"] = state.scaler_state.scale
@@ -186,9 +281,12 @@ def build_train_step(
             with tracing.span("train.optim"):
                 if apply:
                     opt.step()
+                if ema_decay is not None:
+                    _update_ema(state, ema_decay)
             state.step += 1
         return state, sums
 
+    step._ptd_ema_decay = ema_decay
     return step
 
 
@@ -203,6 +301,10 @@ class TrainerConfig:
     ckpt_every_steps: Optional[int] = None  # None: after each epoch only
     handle_preemption: bool = True  # SIGTERM -> checkpoint -> Preempted
     samples_axis: str = "image"  # batch leaf whose dim 0 counts samples
+    eval_with_ema: bool = False  # evaluate the EMA shadow parameters
+    metrics_path: Optional[str] = None  # JSONL scalar log (rank 0)
+    tensorboard_dir: Optional[str] = None  # TensorBoard event files (rank 0)
+    trace: Optional[str] = None  # span-tracer output dir (trace.json)
 
 
 class TrainingDiverged(RuntimeError):
@@ -217,12 +319,32 @@ class Trainer:
     def __init__(self, state: TrainState, train_step: Callable, train_loader,
                  *, eval_step: Optional[Callable] = None, eval_loader=None,
                  config: TrainerConfig = TrainerConfig()):
+        if config.eval_with_ema and getattr(
+                train_step, "_ptd_ema_decay", "custom") is None:
+            # a shadow the step never moves would score its seed weights
+            raise ValueError("eval_with_ema=True but the train step was built "
+                             "without ema_decay: pass build_train_step(..., "
+                             "ema_decay=...)")
         self.state = state
         self.train_step = train_step
         self.train_loader = train_loader
         self.eval_step = eval_step
         self.eval_loader = eval_loader
         self.config = config
+        self.metrics_writer = None
+        if dist.get_rank() == 0:
+            writers = []
+            if config.metrics_path:
+                writers.append(MetricsWriter(config.metrics_path))
+            if config.tensorboard_dir:
+                writers.append(TensorBoardWriter(config.tensorboard_dir))
+            if len(writers) == 1:
+                self.metrics_writer = writers[0]
+            elif writers:
+                self.metrics_writer = TeeWriter(writers)
+        # armed here, not in fit(): restore_checkpoint's span counts too
+        self._own_tracer = (tracing.configure(config.trace)
+                            if config.trace else None)
         self.host_step = 0
         self.history: List[dict] = []
         self.last_eval_metrics: Dict[str, float] = {}
@@ -351,6 +473,8 @@ class Trainer:
         cfg = self.config
         self._preemption = (elastic.PreemptionHandler().install()
                             if cfg.handle_preemption else None)
+        if cfg.trace and self._own_tracer is None:
+            self._own_tracer = tracing.configure(cfg.trace)   # a second fit
         try:
             for epoch in range(self._first_epoch, cfg.epochs):
                 self.train_loader.set_epoch(epoch)
@@ -365,7 +489,34 @@ class Trainer:
             if self._preemption is not None:
                 self._preemption.uninstall()
                 self._preemption = None
+            self._finish_observability()
+            if self.metrics_writer is not None:
+                self.metrics_writer.close()
         return self.state
+
+    def _finish_observability(self) -> None:
+        """The span rollups to the metrics writer and the timeline to
+        ``<trace>/trace.json``; then the tracer is disarmed. A failed
+        export is logged, never raised over the run's own exception."""
+        tracer, self._own_tracer = self._own_tracer, None
+        if tracer is None:
+            return
+        try:
+            if self.metrics_writer is not None:
+                for name, roll in tracer.rollups().items():
+                    self.metrics_writer.write(
+                        self.host_step,
+                        {"event": "span_rollup", "span": name, **roll},
+                        split="trace")
+            rank = dist.get_rank()
+            name = "trace.json" if rank == 0 else f"trace-rank{rank}.json"
+            path = tracer.export(os.path.join(self.config.trace, name))
+            logger.info("span trace written to %s", path)
+        except Exception:
+            logger.exception("trace export failed (ignored)")
+        finally:
+            if tracing._tracer is tracer:
+                tracing.clear()
 
     def _train_epoch(self, epoch: int) -> None:
         cfg = self.config
@@ -406,6 +557,10 @@ class Trainer:
                     step=self.host_step, epoch=epoch, step_time_s=dt,
                     samples_per_s=rate, **values,
                 ))
+                if self.metrics_writer is not None:
+                    self.metrics_writer.write(self.host_step, {
+                        **values, "samples_per_sec": rate,
+                        "step_time_ms": dt * 1e3, "epoch": epoch})
                 logger.info(
                     "epoch %d step %d %s (%.1f ms/step)", epoch,
                     self.host_step,
@@ -432,7 +587,13 @@ class Trainer:
         device = next(self.state.model.parameters()).device
         sums: Dict[str, torch.Tensor] = {}
         count = 0
-        with tracing.span("train.eval"):
+        shadow = contextlib.nullcontext()
+        if self.config.eval_with_ema:
+            if self.state.ema_params is None:
+                raise ValueError("eval_with_ema needs shadow params: make the "
+                                 "state with TrainState(..., ema=True)")
+            shadow = _swapped_params(self.state.model, self.state.ema_params)
+        with tracing.span("train.eval"), shadow:
             for batch in self.eval_loader:
                 batch = {k: v.to(device, non_blocking=True)
                          for k, v in batch.items()}
@@ -449,6 +610,9 @@ class Trainer:
         self.last_eval_metrics = means
         logger.info("eval epoch %d: %s", epoch,
                     " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+        if self.metrics_writer is not None:
+            self.metrics_writer.write(self.host_step, {**means, "epoch": epoch},
+                                      split="eval")
         return means
 
     def _check_finite(self, metrics: Dict[str, float], step: int) -> None:
@@ -470,6 +634,27 @@ class Trainer:
                 "from the last finite checkpoint with a lower LR (set "
                 "TrainerConfig(halt_on_nonfinite=0) to disable)"
             )
+
+
+@contextlib.contextmanager
+def _swapped_params(model, values: Dict[str, torch.Tensor]):
+    """The model's trainable parameters replaced by ``values`` (cast to
+    each parameter's dtype) inside the block, restored bitwise after."""
+    from pytorch_distributed_tpu_torch.train.train_state import (
+        trainable_params,
+    )
+
+    params = trainable_params(model)
+    saved = {n: p.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(values[n].to(p.dtype))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(saved[n])
 
 
 def _damaged(ckpt_dir: str) -> bool:

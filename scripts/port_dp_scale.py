@@ -26,6 +26,17 @@ card, under torchrun:
    each, rank 0's device ms a step by kernel family (``chip_smoke.py``'s
    ``profile_step`` and ``by_family``).
 
+With ``--grad-compress none,bf16,fp16,int8`` (any of the four, comma
+separated) the script runs, instead of 1-3, one **compress** phase per
+form: a fresh ResNet-50 from the seed in ``DataParallel`` with that
+form's DDP hook (``none``: DDP's own f32 all-reduce), SGD(0.1, momentum
+0.9), ``--compress-steps`` steps on one placed batch (the loss after
+them, against ``none``'s), then ``--steps`` timed steps: images/s per
+card, the bytes each rank put on the wire a step (the hook's count;
+for ``none`` a ring all-reduce's 2 (world - 1) / world of the f32
+gradient bytes), and whether every rank's parameters are bitwise equal
+(a digest of each rank's parameter bytes, gathered).
+
 Rank 0 prints each result, a JSON line, and ``nvidia-smi``'s name and
 power limit of the cards. ``--device cpu --image 32 --check-batch 8
 --batch-per-chip 4 --steps 2`` rehearses it on gloo.
@@ -200,6 +211,85 @@ def timing(args, device, dist, global_stats, profile=False):
                 peak_mem_gib=peak, global_stats=global_stats, loss=loss)
 
 
+def _param_digest(model) -> int:
+    """The first 8 bytes of a SHA-256 over every parameter's bytes, as an
+    int64: equal on two ranks exactly when their parameters are (short
+    of a collision)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+def compress(args, device, dist, form):
+    """One ``--grad-compress`` form: the loss after ``--compress-steps``
+    steps, images/s per card over ``--steps`` more, wire bytes a step,
+    and the ranks' parameters bitwise equal or not."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataParallel,
+        Policy,
+        TrainState,
+        build_train_step,
+        classification_loss_fn,
+        optim,
+    )
+
+    world = dist.get_world_size()
+    kind = None if form == "none" else form
+    model = _model(device, Policy.train(), args.seed)
+    strategy = DataParallel(device)
+    ddp = strategy.wrap(model, grad_compress=kind)
+    batch = strategy.shard_batch(_batch(np.random.default_rng(args.seed),
+                                        args.batch_per_chip * world,
+                                        args.image))
+    step = build_train_step(classification_loss_fn(ddp),
+                            grad_compression=kind)
+    state = TrainState(ddp, optim.SGD(model, lr=0.1, momentum=0.9))
+    losses = []
+    for _ in range(args.compress_steps):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    losses = [float(dist.all_reduce(x, dist.ReduceOp.AVG)) for x in losses]
+    hook = ddp.grad_compress_hook
+    sent0 = hook.stats.wire_bytes if hook is not None else 0
+    _sync(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        state, metrics = step(state, batch)
+    float(metrics["loss"])
+    dt = time.perf_counter() - t0
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if hook is not None:
+        wire = (hook.stats.wire_bytes - sent0) / args.steps
+    else:
+        wire = 2 * (world - 1) / world * grad_bytes
+    digests = dist.all_gather(torch.tensor(_param_digest(model),
+                                           device=device)).tolist()
+    equal = len(set(digests)) == 1
+    ips = args.batch_per_chip * args.steps / dt
+    if dist.get_rank() == 0:
+        print(f"compress {form}: world {world}, {ips:.2f} images/s per card "
+              f"(step {1e3 * dt / args.steps:.3f} ms, {args.batch_per_chip} x "
+              f"{args.image}^2 a card), {wire / 2**20:.2f} MiB on the wire a "
+              f"rank a step ({wire / grad_bytes:.3f} of the f32 gradients' "
+              f"{grad_bytes / 2**20:.2f} MiB), loss after "
+              f"{args.compress_steps} steps {losses[-1]:.6f} (first "
+              f"{losses[0]:.6f}), ranks' parameters "
+              f"{'bitwise equal' if equal else 'DIFFER'}", flush=True)
+    if not equal:
+        raise AssertionError(f"{form}: the ranks' parameters differ")
+    return dict(form=form, images_per_s_per_chip=ips,
+                step_ms=1e3 * dt / args.steps, wire_bytes_per_step=wire,
+                grad_bytes=grad_bytes, losses=losses,
+                params_bitwise_equal=equal)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
@@ -209,7 +299,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-per-chip", type=int, default=128)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grad-compress", default=None,
+                    help="comma-separated forms among none,bf16,fp16,int8: "
+                    "run the compress phase for each, instead of 1-3")
+    ap.add_argument("--compress-steps", type=int, default=20)
     args = ap.parse_args(argv)
+    forms = [] if args.grad_compress is None else args.grad_compress.split(",")
+    bad = set(forms) - {"none", "bf16", "fp16", "int8"}
+    if bad:
+        ap.error(f"unknown --grad-compress form(s) {sorted(bad)}")
 
     import torch
 
@@ -221,13 +319,24 @@ def main(argv=None) -> int:
     try:
         if device.type == "cuda":
             torch.backends.cudnn.benchmark = True
-        out = dict(world=dist.get_world_size(),
-                   check=check(args, device, dist), timing=[])
-        for global_stats in (True, False, False, True):
-            out["timing"].append(timing(args, device, dist, global_stats))
-        if device.type == "cuda":   # last: the profiler slows the host
-            out["profile"] = [timing(args, device, dist, g, profile=True)
-                              for g in (True, False)]
+        out = dict(world=dist.get_world_size())
+        if forms:
+            out["compress"] = [compress(args, device, dist, f) for f in forms]
+            ref = out["compress"][0]["losses"][-1]
+            if dist.get_rank() == 0:
+                print("compress: loss after "
+                      f"{args.compress_steps} steps against {forms[0]}'s: "
+                      + ", ".join(f"{c['form']} {c['losses'][-1] - ref:+.2e}"
+                                  for c in out["compress"]), flush=True)
+        else:
+            out.update(check=check(args, device, dist), timing=[])
+            for global_stats in (True, False, False, True):
+                out["timing"].append(timing(args, device, dist,
+                                            global_stats))
+            if device.type == "cuda":   # last: the profiler slows the host
+                out["profile"] = [timing(args, device, dist, g,
+                                         profile=True)
+                                  for g in (True, False)]
         if dist.get_rank() == 0:
             print(json.dumps({"port_dp_scale": out}))
             if device.type == "cuda":

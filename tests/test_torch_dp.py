@@ -22,7 +22,9 @@
   tests/test_torch_train.py.
 * With gradient accumulation, DDP's allreduce runs once a step.
 * The ResNet-50 recipe trains alone (a world of one, gloo) on the CPU,
-  and the unported strategies, flags and mesh axes refuse by name.
+  also with each flag ported since it first refused (``--strategy
+  zero1``, ``--data-dir``, ``--ema-decay``, ``--tensorboard-dir``), and
+  the unported strategies and mesh axes refuse by name.
 
 Every world is joined under a timeout that fails the test.
 """
@@ -42,6 +44,7 @@ from pytorch_distributed_tpu_torch.runtime.mesh import (
     make_mesh,
 )
 from tests import torch_dp_workers as workers
+from tests.torch_image_files import write_image_folder
 from tests.torch_parity import assert_close, assert_close_ulps
 
 LOSS_RTOL, PARAM_RTOL, STATS_RTOL = 1e-5, 1e-4, 1e-5
@@ -142,22 +145,45 @@ def test_accumulation_syncs_gradients_once_a_step():
         dist.destroy_process_group()
 
 
-def test_resnet_recipe_trains_alone_and_refuses_the_unported():
-    base = ["--device", "cpu", "--image-size", "32", "--batch-size", "4",
-            "--steps-per-epoch", "2", "--log-every", "1", "--epochs", "1"]
+def test_resnet_recipe_trains_alone_and_refuses_the_unported(tmp_path):
+    # the ranks' two intra-op threads here too: the test workers share
+    # the host's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(workers.RANK_THREADS)
+    try:
+        _recipe_runs(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _recipe_runs(tmp_path):
+    def argv(steps):
+        return ["--device", "cpu", "--image-size", "32", "--batch-size",
+                "4", "--steps-per-epoch", str(steps), "--log-every", "1",
+                "--epochs", "1"]
+
+    base = argv(2)
     trainer = resnet50_imagenet.main(base)
     assert trainer.state.step == 2 and len(trainer.history) == 2
     assert all(np.isfinite(r["loss"]) for r in trainer.history)
     assert set(trainer.last_eval_metrics) == {"loss", "accuracy",
                                               "top5_accuracy"}
     assert not dist.is_initialized()   # its own world, torn down
-    for extra, item in ((["--strategy", "zero1"], "A6"),
-                        (["--strategy", "auto"], "A10"),
-                        (["--data-dir", "imagenet"], "A2"),
-                        (["--ema-decay", "0.999"], "A5"),
-                        (["--tensorboard-dir", "tb"], "A5")):
-        with pytest.raises(NotImplementedError, match=item):
-            resnet50_imagenet.main(base + extra)
+    # the flags this refused until they were ported (ROADMAP A6, A2, A5)
+    # now train: one step each
+    folders = str(tmp_path / "imagenet")
+    for split, n in (("train", 2), ("val", 1)):
+        write_image_folder(f"{folders}/{split}", classes=2, per_class=n,
+                           size=(40, 36))
+    for extra in (["--strategy", "zero1"], ["--data-dir", folders],
+                  ["--ema-decay", "0.999"],
+                  ["--tensorboard-dir", str(tmp_path / "tb")]):
+        trainer = resnet50_imagenet.main(argv(1) + extra)
+        assert trainer.state.step == 1, extra
+        assert np.isfinite(trainer.history[0]["loss"]), extra
+        assert not dist.is_initialized()
+    with pytest.raises(NotImplementedError, match="A10"):
+        resnet50_imagenet.main(base + ["--strategy", "auto"])
     with pytest.raises(NotImplementedError, match="A10"):
         gpt2_recipe.main(["--device", "cpu", "--strategy", "auto"])
 

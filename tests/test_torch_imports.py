@@ -5,7 +5,9 @@
   with int8 pools, speculative decoding, and a prefill/decode fleet
   with a prefix store behind the router, also through
   ``scripts/port_serve_loadgen.py``), trains a tiny
-  GPT-2, runs the ResNet-50 recipe, the Llama FSDP recipe and the BERT
+  GPT-2, runs the ResNet-50 recipe (with ZeRO-1, EMA and TensorBoard),
+  the ResNet-18/CIFAR-10 recipe (through the native pipeline, with
+  int8 gradient compression), the Llama FSDP recipe and the BERT
   recipe (fp16 with loss scaling, and with LoRA) and generates (beam,
   speculative, an int4 model) on the CPU, in a fresh
   interpreter where ``jax``, ``flax`` and
@@ -44,13 +46,14 @@ from pytorch_distributed_tpu_torch.recipes import gpt2 as gpt2_recipe
 from pytorch_distributed_tpu_torch.recipes import (
     bert_finetune,
     llama_fsdp,
+    resnet18_cifar10,
     resnet50_imagenet,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_RUN = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 BLOCKED = ("jax", "flax", "pytorch_distributed_tpu")
 class _Block:
     def find_spec(self, name, *a, **k):
@@ -59,6 +62,7 @@ class _Block:
         return None
 sys.meta_path.insert(0, _Block())
 import numpy as np, torch
+torch.set_num_threads(2)   # the test workers share the host's cores
 import pytorch_distributed_tpu_torch as ptt
 names = set()
 for m in pkgutil.walk_packages(ptt.__path__, ptt.__name__ + "."):
@@ -76,7 +80,9 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "interop", "models.bert", "recipes.bert_finetune",
             "runtime.precision", "generation", "speculative", "ops.quant",
             "lora", "serve.disagg", "serve.prefix_store", "serve.router",
-            "serve.loadgen", "runtime.flightrec"):
+            "serve.loadgen", "runtime.flightrec", "parallel.overlap",
+            "parallel.ddp", "data.image_folder", "train.metrics",
+            "utils.tensorboard", "recipes.resnet18_cifar10"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -122,6 +128,27 @@ trainer = resnet50_imagenet.main(["--device", "cpu", "--image-size", "32",
                                   "--batch-size", "2", "--steps-per-epoch",
                                   "1", "--epochs", "1"])
 assert trainer.state.step == 1 and trainer.last_eval_metrics
+import tempfile
+tmp = tempfile.mkdtemp()
+trainer = resnet50_imagenet.main(["--device", "cpu", "--image-size", "32",
+                                  "--batch-size", "2", "--steps-per-epoch",
+                                  "1", "--epochs", "1", "--strategy", "zero1",
+                                  "--ema-decay", "0.9", "--tensorboard-dir",
+                                  tmp + "/tb"])
+assert trainer.state.step == 1 and trainer.state.ema_params
+import pickle
+os.makedirs(tmp + "/cifar-10-batches-py")
+rng = np.random.default_rng(0)
+for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+    with open(tmp + "/cifar-10-batches-py/" + name, "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (4, 3072), np.uint8),
+                     b"labels": [1, 2, 3, 4]}, f)
+from pytorch_distributed_tpu_torch.recipes import resnet18_cifar10
+trainer = resnet18_cifar10.main(["--device", "cpu", "--data-dir", tmp,
+                                 "--batch-size", "4", "--steps-per-epoch",
+                                 "1", "--epochs", "1", "--grad-compress",
+                                 "int8"])
+assert trainer.state.step == 1 and trainer.train_loader.fetch is not None
 from pytorch_distributed_tpu_torch.recipes import llama_fsdp
 trainer = llama_fsdp.main(["--size", "tiny", "--device", "cpu",
                            "--batch-size", "2", "--seq-len", "16",
@@ -183,6 +210,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ResNet50()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resnet50_imagenet.main(["--steps-per-epoch", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet18_cifar10.main(["--synthetic", "--steps-per-epoch", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_process_group()
     with pytest.raises(RuntimeError, match="no CUDA device"):
