@@ -8,10 +8,12 @@ run the JAX recipe's BERT-base fine-tune in bf16 and fp16, run
 generation (GPT-2 decode, beams, speculative decoding, the int8 KV
 cache), int8/int4 Llama-3-8B and BERT-base LoRA, serve GPT-2-small
 through the rest of the serving stack (int8 pools, speculative ticks, a
-prefill/decode fleet behind the router), and run the ResNet-18/CIFAR-10
+prefill/decode fleet behind the router), run the ResNet-18/CIFAR-10
 recipe and the rest of image training (the native pipeline's staging
 ring, EMA and the writers, image folders, ZeRO-1 for ResNet, the q8
-wire form).
+wire form), and run the trainer's lifecycle (Adafactor on the Llama
+recipe, async/pruned/best checkpoints, MFU, goodput, the profiler
+window, the watchdog).
 
     python3 chip_smoke.py [--seed N]
 
@@ -249,9 +251,35 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``resnet50_ema``, ``resnet50_folders``, ``resnet50_dp_det``,
    ``resnet50_zero1_det``: none of the four kernels runs on them.
 
-Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11 and 12 set all four
-kernel counts to 0 just before their run and read all four just after;
-a kernel off the path that launched fails the run.
+13. the trainer's lifecycle and the optimizer library, after 9 (13c
+   last of all, after the profiles): (13a) the Llama recipe's
+   ``--optimizer adafactor`` at 8a's cut (4 of 32 layers, 8 x 2048,
+   Adafactor(1e-2) alone on one repeated batch, ``log_mfu``): step ms,
+   tokens/s, peak memory and the optimizer state's exact bytes beside
+   8a's AdamW, the loss falling, MFU over ``peak_flops()`` with the
+   flash kernels' FLOPs in it, a checkpoint at 3 restored into another
+   model to the bit (Adafactor's state included) and steps 4-6 equal;
+   launches 48/24/24. (13b) the GPT-2 recipe's ZeRO-1 trainer at
+   GPT-2-medium's width and ``LIFE_LAYERS`` layers, 2 epochs of 3 steps,
+   a step tag every 2 steps with 2 kept, ``best`` on the eval loss
+   (min), early stopping: once with async saves (the main path), once
+   with sync ones; each leaves tags ``[4, 6]`` and ``best`` at the best
+   eval's step, goodput buckets summing to wall; the two runs' losses
+   equal; the async run's last 'latest' CRCs equal to a sync save of
+   the same state; the ``train.checkpoint`` span and the median step
+   with each. (13c) ``recipes/resnet50_imagenet.py`` through its
+   ``RecipeConfig`` at batch 64 with ``--log-mfu --profile-dir
+   --keep-checkpoints 2 --async-checkpoint --keep-best accuracy``: MFU
+   beside the card's name and peak, the profiler's Chrome trace parsed
+   (device kernels in it), goodput summing to wall. (13d) one 1.8 s
+   stall in a batch fetch against ``stall_timeout_s`` 1.0: the
+   watchdog fires once and goodput's ``stalled`` holds it. Paths
+   ``llama_adafactor``, ``gpt2_lifecycle``, ``gpt2_lifecycle_sync``
+   (B1-B3), ``resnet50_recipe_config``, ``watchdog`` (none).
+
+Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12 and 13 set all
+four kernel counts to 0 just before their run and read all four just
+after; a kernel off the path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
@@ -269,6 +297,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import sys
 import time
@@ -2930,14 +2959,18 @@ LLAMA_FAMILIES = (
 )
 
 
-def _llama_trainer(device, seed, ckpt_dir, *, init_seed=None):
+def _llama_trainer(device, seed, ckpt_dir, *, init_seed=None,
+                   optimizer="adamw", lr=1e-4, log_mfu=False, rows=None,
+                   epochs=1, steps=None):
     """Llama-3-8B at full width and ``LLAMA_LAYERS`` layers as the recipe
     builds it with ``--strategy fsdp --remat --vocab-chunk 8192``:
     ``Policy.train()``, FSDP full-shard at world 1 (made on the meta
     device, each rank drawing its own rows), clip(1.0) then adamw(1e-4,
-    decay 1e-4), batch 8 x 2048 in one microbatch, checkpoints every
-    ``LLAMA_CKPT_AT`` steps into ``ckpt_dir``. The data follows ``seed``,
-    the weights ``init_seed`` (``seed`` unless given)."""
+    decay 1e-4) (``optimizer="adafactor"``: the recipe's Adafactor(lr)
+    alone), batch 8 x 2048 in one microbatch, checkpoints every
+    ``LLAMA_CKPT_AT`` steps into ``ckpt_dir``. The data follows ``seed``
+    (``rows`` rows, ``steps`` a epoch, ``epochs`` of them), the weights
+    ``init_seed`` (``seed`` unless given)."""
     import dataclasses as dc
 
     from pytorch_distributed_tpu_torch import (
@@ -2957,6 +2990,7 @@ def _llama_trainer(device, seed, ckpt_dir, *, init_seed=None):
     from pytorch_distributed_tpu_torch.recipes.llama_fsdp import (
         ADAMW_WEIGHT_DECAY,
         build_model,
+        build_optimizer,
     )
 
     cfg = dc.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA_LAYERS,
@@ -2965,36 +2999,62 @@ def _llama_trainer(device, seed, ckpt_dir, *, init_seed=None):
     strategy = FSDP(device, MeshSpec(dp=1, fsdp=-1))
     model, net = build_model(cfg, strategy, device,
                              seed if init_seed is None else init_seed, policy)
-    opt = optim.clip_grad_norm(strategy.optimizer(
-        model, optim.AdamW, lr=1e-4, weight_decay=ADAMW_WEIGHT_DECAY), 1.0)
-    ds = SyntheticTextDataset(n=LLAMA_STEPS * LLAMA_BATCH, seq_len=LLAMA_SEQ,
-                              vocab_size=cfg.vocab_size, seed=seed)
+    if optimizer == "adafactor":
+        opt = build_optimizer("adafactor", model, strategy, lr)
+    else:
+        opt = optim.clip_grad_norm(strategy.optimizer(
+            model, optim.AdamW, lr=lr, weight_decay=ADAMW_WEIGHT_DECAY), 1.0)
+    steps = steps or LLAMA_STEPS
+    ds = SyntheticTextDataset(n=rows or steps * LLAMA_BATCH,
+                              seq_len=LLAMA_SEQ, vocab_size=cfg.vocab_size,
+                              seed=seed)
     trainer = Trainer(
         TrainState(net, opt, policy=policy),
         build_train_step(causal_lm_loss_fn(net,
                                            vocab_chunk_size=LLAMA_CHUNK)),
         DataLoader(ds, LLAMA_BATCH, seed=seed,
                    sharding=strategy.batch_sharding()),
-        config=TrainerConfig(log_every=1, max_steps_per_epoch=LLAMA_STEPS,
-                             ckpt_dir=ckpt_dir,
-                             ckpt_every_steps=LLAMA_CKPT_AT))
+        config=TrainerConfig(epochs=epochs, log_every=1,
+                             max_steps_per_epoch=steps, ckpt_dir=ckpt_dir,
+                             ckpt_every_steps=(LLAMA_CKPT_AT if epochs == 1
+                                               else None),
+                             log_mfu=log_mfu))
     return model, trainer
 
 
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _llama_snapshot(model, trainer):
-    """Host copies of this rank's rows of every parameter and both
-    moments, the step and the cursor."""
+    """Host copies of this rank's rows of every parameter and of every
+    optimizer state tensor (AdamW's moments; Adafactor's ``v``, its
+    leaves' ``v_row``/``v_col`` and every ``step``), the step and the
+    cursor."""
     from pytorch_distributed_tpu_torch.interop import unwrap_optimizer
 
-    _, adam, _ = unwrap_optimizer(trainer.state.optimizer)
+    _, local, _ = unwrap_optimizer(trainer.state.optimizer)
+    adam = not hasattr(local, "leaves")
     out = {}
     for n, p in model.named_parameters():
-        out[n] = p.to_local().detach().to("cpu", copy=True)
-        for k, v in adam.state.get(p, {}).items():
-            if k != "step":
-                out[f"{n}.{k}"] = v.to_local().to("cpu", copy=True)
+        out[n] = _local(p).detach().to("cpu", copy=True)
+        for k, v in local.state.get(p, {}).items():
+            if not (adam and k == "step"):
+                out[f"{n}.{k}"] = _local(v).to("cpu", copy=True)
     return dict(tensors=out, step=trainer.state.step,
                 cursor=(trainer._cursor_epoch, trainer._cursor_offset))
+
+
+def _opt_state_bytes(optimizer) -> int:
+    """The bytes of this rank's optimizer state: the sum of its state
+    tensors' ``nbytes`` (their local shards under FSDP)."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.interop import unwrap_optimizer
+
+    _, local, _ = unwrap_optimizer(optimizer)
+    return sum(_local(t).nbytes for st in local.state.values()
+               for t in st.values() if torch.is_tensor(t))
 
 
 def llama_phase(device, seed):
@@ -3038,6 +3098,7 @@ def llama_phase(device, seed):
             wall = time.perf_counter() - t0
         counts = kernel_counts()
         peak = torch.cuda.max_memory_allocated(device) / 2**30
+        state_bytes = _opt_state_bytes(trainer.state.optimizer)
         roll = tracer.rollups()
         losses = [r["loss"] for r in trainer.history]
         step_s = [r["step_time_s"] for r in trainer.history]
@@ -3058,13 +3119,15 @@ def llama_phase(device, seed):
               + f", median of steps 2-{LLAMA_STEPS} {step_ms:.2f} ms = "
               f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
               f"{peak:.2f} GiB; losses " + " ".join(f"{x:.4f}" for x in losses)
-              + f"; launches {counts} (want {want} and no paged kernel)")
+              + f"; launches {counts} (want {want} and no paged kernel); "
+              f"AdamW state {state_bytes} bytes")
         if len(losses) != LLAMA_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"Llama losses {losses}")
         if launches != want:
             raise AssertionError(f"flash launches {launches} != {want}")
         off_path(counts, FLASH)
         stats.update(params=n_params, layers=LLAMA_LAYERS, losses=losses,
+                     opt_state_bytes=state_bytes,
                      step_ms=[1e3 * x for x in step_s], step_ms_median=step_ms,
                      tokens_per_s=tokens / step_ms * 1e3, peak_mem_gib=peak,
                      launches=counts, wall_s=wall,
@@ -4528,6 +4591,527 @@ def image_profile(device, seed, stats):
                 families=families)
 
 
+# -- 13. the trainer's lifecycle and the optimizer library ----------------
+
+ADAFACTOR_LR = 1e-2      # (13a) a relative step of ~1% of each leaf's RMS
+LIFE_LAYERS = 2          # (13b) of GPT-2-medium's 24: the saves, not the
+# step, are the subject; the embedding (51.5M of the 78M params) remains
+LIFE_EPOCHS, LIFE_STEPS, LIFE_EVAL_BATCHES = 2, 3, 2
+LIFE_EVERY, LIFE_KEEP = 2, 2
+MFU_RESNET_BATCH, MFU_RESNET_STEPS = 64, 3   # (13c)
+STALL_LIMIT_S, STALL_S = 1.0, 1.8            # (13d)
+
+
+def _peak_gib(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _reset_peak(device):
+    import torch
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+
+
+def _median_ms(hist):
+    steady = sorted(r["step_time_s"] for r in hist[1:])
+    return 1e3 * steady[len(steady) // 2]
+
+
+def _adafactor_phase(device, seed, adamw):
+    """(13a) the Llama recipe's ``--optimizer adafactor`` at 8a's cut: 6
+    steps (one repeated batch, so the loss must fall) with ``log_mfu``, a
+    checkpoint at 3 restored into another model and compared to the
+    bit (Adafactor's state included), steps 4-6 again."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.runtime import tracing
+    from pytorch_distributed_tpu_torch.runtime.device import peak_flops
+
+    kw = dict(optimizer="adafactor", lr=ADAFACTOR_LR, rows=LLAMA_BATCH,
+              epochs=LLAMA_STEPS, steps=1)
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="ptd_adafactor_") as tmp:
+        model, trainer = _llama_trainer(device, seed, tmp, log_mfu=True,
+                                        **kw)
+        n_params = sum(p.numel() for p in model.parameters())
+        snap = {}
+        save = trainer.save_checkpoint
+
+        def save_at_ckpt_step(tag="latest"):
+            # one save (7.7 GB of parameters and a few MB of state)
+            if trainer.host_step != LLAMA_CKPT_AT or "state" in snap:
+                return None
+            path = save(tag)
+            snap["state"] = _llama_snapshot(model, trainer)
+            return path
+
+        trainer.save_checkpoint = save_at_ckpt_step
+        _reset_peak(device)
+        kernel_counts(reset=True)
+        with tracing.enabled() as tracer:   # the main path
+            t0 = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = _peak_gib(device)
+        state_bytes = _opt_state_bytes(trainer.state.optimizer)
+        roll = tracer.rollups()
+        hist = trainer.history
+        losses = [r["loss"] for r in hist]
+        step_ms = _median_ms(hist)
+        tokens = LLAMA_BATCH * LLAMA_SEQ
+        L = model.config.num_layers * LLAMA_STEPS
+        want = dict(flash_fwd=2 * L, flash_dq=L, flash_dkv=L)
+        launches = {k: counts[k] for k in FLASH}
+        flops, flash_flops = trainer._step_flops, trainer._step_flash_flops
+        peak_flop = peak_flops(device)
+        mfu = flops / (step_ms / 1e3) / peak_flop if peak_flop else None
+        ckpt = roll.get("train.checkpoint", {})
+        opt = trainer.state.optimizer
+        factored = sum(1 for leaf in opt.leaves if opt.factored(leaf))
+        print(f"(13a) Llama-3-8B width, {model.config.num_layers} layers, "
+              f"{n_params} params, FSDP at world 1, remat, vocab chunk "
+              f"{LLAMA_CHUNK}, batch {LLAMA_BATCH} x {LLAMA_SEQ}, "
+              f"--optimizer adafactor (lr {ADAFACTOR_LR}, no clip; "
+              f"{factored} of {len(opt.leaves)} JAX leaves factored): "
+              f"{LLAMA_STEPS} steps in {wall:.2f} s incl. "
+              f"{ckpt.get('count', 0)} checkpoint(s) of "
+              f"{ckpt.get('mean_ms', 0.0):.0f} ms; step ms "
+              + " ".join(f"{r['step_time_s'] * 1e3:.2f}" for r in hist)
+              + f", median of steps 2-{LLAMA_STEPS} {step_ms:.2f} ms = "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+              f"{peak:.2f} GiB; optimizer state {state_bytes} bytes "
+              f"({state_bytes / 2**20:.2f} MiB); losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; launches {counts} (want {want})")
+        print(f"(13a) AdamW at the same cut (8a, this run): "
+              f"{adamw['step_ms_median']:.2f} ms/step, "
+              f"{adamw['tokens_per_s']:.0f} tokens/s, peak "
+              f"{adamw['peak_mem_gib']:.2f} GiB, optimizer state "
+              f"{adamw['opt_state_bytes']} bytes "
+              f"({adamw['opt_state_bytes'] / 1e9:.2f} GB); Adafactor keeps "
+              f"{state_bytes / max(adamw['opt_state_bytes'], 1):.2e} of it")
+        print(f"(13a) log_mfu: {flops:.4g} FLOPs a step counted in step 1 "
+              f"({flash_flops:.4g} of them the flash kernels', "
+              f"{100 * flash_flops / flops:.1f}%; remat's recompute "
+              f"included): {flops / step_ms / 1e9:.1f} TFLOP/s at the "
+              f"median step, MFU "
+              + (f"{100 * mfu:.2f}% of {peak_flop / 1e12:.0f} TFLOP/s"
+                 if mfu else "off (no peak for this device)"))
+        if len(losses) != LLAMA_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"Adafactor losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"Adafactor's loss did not fall: {losses}")
+        if launches != want:
+            raise AssertionError(f"flash launches {launches} != {want}")
+        off_path(counts, FLASH)
+        if not flash_flops > 0:
+            raise AssertionError("log_mfu counted no attention FLOPs")
+        if not all("tflops" in r for r in hist):
+            raise AssertionError("log_mfu logged no TFLOP/s")
+        stats.update(params=n_params, losses=losses, step_ms_median=step_ms,
+                     step_ms=[1e3 * r["step_time_s"] for r in hist],
+                     tokens_per_s=tokens / step_ms * 1e3, peak_mem_gib=peak,
+                     opt_state_bytes=state_bytes,
+                     adamw_opt_state_bytes=adamw["opt_state_bytes"],
+                     launches=counts, wall_s=wall, step_flops=flops,
+                     flash_flops=flash_flops, mfu=mfu,
+                     peak_flops=peak_flop, factored_leaves=factored,
+                     leaves=len(opt.leaves),
+                     ckpt_save_ms=ckpt.get("mean_ms"))
+        saved = snap["state"]
+        del model, trainer, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model, trainer = _llama_trainer(device, seed, tmp,
+                                        init_seed=seed + 1, **kw)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if not trainer.restore_checkpoint():
+            raise AssertionError("nothing restored")
+        torch.cuda.synchronize(device)
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        got = _llama_snapshot(model, trainer)
+        bad = [k for k, v in saved["tensors"].items()
+               if k not in got["tensors"] or not torch.equal(
+                   v, got["tensors"][k])]
+        if (bad or set(got["tensors"]) != set(saved["tensors"])
+                or got["step"] != saved["step"]
+                or got["cursor"] != saved["cursor"]):
+            raise AssertionError(
+                f"restored state differs: {bad[:5]} step {got['step']} vs "
+                f"{saved['step']} cursor {got['cursor']} vs "
+                f"{saved['cursor']}")
+        kinds = sorted({k.rsplit(".", 1)[1] for k in saved["tensors"]
+                        if k.rsplit(".", 1)[1] in (
+                            "v", "v_row", "v_col", "v_leaf", "step")})
+        trainer.config = dataclasses.replace(trainer.config, ckpt_dir=None)
+        trainer.fit()
+        resumed = [r["loss"] for r in trainer.history]
+        print(f"(13a) restore of step {LLAMA_CKPT_AT} in {restore_ms:.0f} ms:"
+              f" {len(saved['tensors'])} tensors (parameters and Adafactor's "
+              f"{'/'.join(kinds)}), step and cursor equal to the bit; steps "
+              f"4-6 " + " ".join(f"{x:.6f}" for x in resumed) + " against "
+              + " ".join(f"{x:.6f}" for x in losses[LLAMA_CKPT_AT:]))
+        if resumed != losses[LLAMA_CKPT_AT:]:
+            raise AssertionError("the resumed run left the uninterrupted one")
+        stats.update(restore_ms=restore_ms, resumed_losses=resumed)
+        del model, trainer, saved, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _lifecycle_trainer(device, seed, ckpt_dir, metrics, *, async_save):
+    """(13b) the GPT-2 recipe's ZeRO-1 trainer (GPT-2-medium's width,
+    ``LIFE_LAYERS`` layers, remat, vocab chunk 8192, batch 8 x 1024 in 2
+    microbatches, adamw(3e-4)) with the JAX recipe's checkpoint
+    lifecycle: a step tag every ``LIFE_EVERY`` steps, the newest
+    ``LIFE_KEEP`` kept, ``best`` on the eval loss (min), early stopping
+    after one eval without improvement, async or sync saves."""
+    import dataclasses as dc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataLoader,
+        GPT2Config,
+        GPT2LMHead,
+        Policy,
+        SyntheticTextDataset,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        ZeRO1,
+        build_train_step,
+        causal_lm_loss_fn,
+        optim,
+    )
+    from pytorch_distributed_tpu_torch.train import causal_lm_eval_step
+
+    cfg = dc.replace(GPT2Config.medium(), remat=True, num_layers=LIFE_LAYERS)
+    policy = Policy.train()
+    model = GPT2LMHead(cfg, device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    strategy = ZeRO1(device)
+    opt = optim.clip_grad_norm(strategy.optimizer(
+        model, optim.AdamW, lr=3e-4, weight_decay=1e-4), 1.0)
+    net = strategy.wrap(model)
+    seq = 1024
+    ds = SyntheticTextDataset(n=LIFE_STEPS * 8, seq_len=seq,
+                              vocab_size=cfg.vocab_size, seed=seed)
+    eval_ds = SyntheticTextDataset(n=LIFE_EVAL_BATCHES * 8, seq_len=seq,
+                                   vocab_size=cfg.vocab_size, seed=seed + 1)
+    trainer = Trainer(
+        TrainState(net, opt, policy=policy),
+        build_train_step(causal_lm_loss_fn(net, vocab_chunk_size=ZERO_CHUNK),
+                         accum_steps=2),
+        DataLoader(ds, 8, seed=seed, sharding=device),
+        eval_step=causal_lm_eval_step(net, vocab_chunk_size=ZERO_CHUNK),
+        eval_loader=DataLoader(eval_ds, 8, shuffle=False, sharding=device),
+        config=TrainerConfig(
+            epochs=LIFE_EPOCHS, log_every=1, max_steps_per_epoch=LIFE_STEPS,
+            ckpt_dir=ckpt_dir, ckpt_every_steps=LIFE_EVERY,
+            keep_checkpoints=LIFE_KEEP, async_checkpoint=async_save,
+            keep_best="loss", best_mode="min", early_stop_patience=1,
+            metrics_path=metrics))
+    return model, trainer
+
+
+def _crcs(final):
+    with open(os.path.join(final, "manifest.json")) as f:
+        return {e["path"]: [s.get("checksum") for s in e["shards"]]
+                for e in json.load(f)["leaves"]}
+
+
+def _lifecycle_run(device, seed, tmp, async_save):
+    import torch
+
+    from pytorch_distributed_tpu_torch.runtime import tracing
+    from pytorch_distributed_tpu_torch.train import read_metrics
+
+    name = "async" if async_save else "sync"
+    ck, metrics = os.path.join(tmp, name), os.path.join(tmp, name + ".jsonl")
+    model, trainer = _lifecycle_trainer(device, seed, ck, metrics,
+                                        async_save=async_save)
+    _reset_peak(device)
+    kernel_counts(reset=True)
+    with tracing.enabled() as tracer:   # this path
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    roll = tracer.rollups()
+    recs = read_metrics(metrics)
+    evals = [(r["step"], r["loss"]) for r in recs if r["split"] == "eval"]
+    return dict(model=model, trainer=trainer, ck=ck, wall=wall,
+                counts=counts, roll=roll, evals=evals,
+                losses=[r["loss"] for r in trainer.history],
+                step_ms=_median_ms(trainer.history),
+                ckpt_ms=roll["train.checkpoint"]["mean_ms"],
+                ckpt_count=roll["train.checkpoint"]["count"],
+                goodput=trainer.last_goodput, peak=_peak_gib(device),
+                name=name)
+
+
+def _lifecycle_phase(device, seed):
+    """(13b): the async run (the main path), then the sync one."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.train import save_checkpoint
+    from pytorch_distributed_tpu_torch.train.ckpt_io import (
+        checkpoint_step,
+        step_tags,
+    )
+
+    by_path, stats = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ptd_life_") as tmp:
+        runs = {}
+        for async_save in (True, False):
+            r = _lifecycle_run(device, seed, tmp, async_save)
+            L = r["model"].config.num_layers
+            steps = r["trainer"].host_step
+            n_evals = len(r["evals"])
+            per = L * steps * 2          # layers x steps x microbatches
+            want = dict(flash_fwd=2 * per + L * LIFE_EVAL_BATCHES * n_evals,
+                        flash_dq=per, flash_dkv=per)
+            launches = {k: r["counts"][k] for k in FLASH}
+            tags = step_tags(r["ck"])
+            best_step = checkpoint_step(r["ck"], "best")
+            best_eval, best = None, None
+            for step, loss in r["evals"]:   # the trainer's own rule
+                if math.isfinite(loss) and (best is None or loss < best):
+                    best_eval, best = step, loss
+            g = r["goodput"]
+            buckets = sum(v for k, v in g.items()
+                          if k.endswith("_s") and k != "wall_s")
+            print(f"(13b) GPT-2-medium width, {L} layers, ZeRO-1, remat, "
+                  f"vocab chunk {ZERO_CHUNK}, {r['name']} saves: {steps} "
+                  f"steps in {r['wall']:.2f} s, {r['ckpt_count']} saves "
+                  f"(train.checkpoint {r['ckpt_ms']:.0f} ms mean on the "
+                  f"loop), median step {r['step_ms']:.2f} ms; step tags "
+                  f"left {tags}, best at step {best_step} (the best eval's:"
+                  f" {best_eval}; evals {r['evals']}); goodput "
+                  f"{g['goodput_pct']:.1f}% of {g['wall_s']:.2f} s "
+                  f"(productive {g['productive_s']:.2f}, checkpoint "
+                  f"{g['checkpoint_s']:.2f}, other {g['other_s']:.2f}; "
+                  f"buckets sum {buckets:.6f}); losses "
+                  + " ".join(f"{x:.4f}" for x in r["losses"])
+                  + f"; launches {r['counts']} (want {want})")
+            if len(tags) != LIFE_KEEP or tags != sorted(tags)[-LIFE_KEEP:]:
+                raise AssertionError(f"step tags left {tags}")
+            if best_step != best_eval:
+                raise AssertionError(f"best at {best_step}, best eval at "
+                                     f"{best_eval}")
+            if launches != want:
+                raise AssertionError(f"flash launches {launches} != {want}")
+            off_path(r["counts"], FLASH)
+            if not math.isclose(buckets, g["wall_s"], rel_tol=1e-6):
+                raise AssertionError(f"goodput buckets {buckets} != wall "
+                                     f"{g['wall_s']}")
+            if not all(map(math.isfinite, r["losses"])):
+                raise AssertionError(f"losses {r['losses']}")
+            by_path["gpt2_lifecycle" if async_save
+                    else "gpt2_lifecycle_sync"] = r["counts"]
+            runs[r["name"]] = r
+        a, s = runs["async"], runs["sync"]
+        if a["losses"] != s["losses"]:
+            raise AssertionError("async saves moved the training: "
+                                 f"{a['losses']} vs {s['losses']}")
+        # the async run's last save against a sync save of its final state,
+        # and each step tag against the sync run's: step-4 was written while
+        # steps 5-6 changed the state under the writer thread
+        final = a["trainer"]
+        save_checkpoint(os.path.join(tmp, "same"), final.state, tag="sync")
+        pairs = {"latest": (os.path.join(a["ck"], "latest"),
+                            os.path.join(tmp, "same", "sync"))}
+        for x in step_tags(a["ck"]):
+            pairs[f"step-{x}"] = (os.path.join(a["ck"], f"step-{x}"),
+                                  os.path.join(s["ck"], f"step-{x}"))
+        same = {k: _crcs(p) == _crcs(q) for k, (p, q) in pairs.items()}
+        n_leaves = len(_crcs(pairs["latest"][0]))
+        print(f"(13b) async vs sync saves: train.checkpoint "
+              f"{a['ckpt_ms']:.0f} vs {s['ckpt_ms']:.0f} ms a save on the "
+              f"loop, median step {a['step_ms']:.2f} vs {s['step_ms']:.2f} "
+              f"ms, fit {a['wall']:.2f} vs {s['wall']:.2f} s; CRCs equal to "
+              f"the sync ones ({n_leaves} leaves): {same} ('latest' against "
+              f"a sync save of the same state, each step tag against the "
+              f"sync run's)")
+        if len(same) != 1 + LIFE_KEEP or not all(same.values()):
+            raise AssertionError(f"async and sync saves differ: {same}")
+        for r in (a, s):
+            stats[r["name"]] = dict(
+                wall_s=r["wall"], ckpt_ms=r["ckpt_ms"],
+                saves=r["ckpt_count"], step_ms_median=r["step_ms"],
+                losses=r["losses"], evals=r["evals"], goodput=r["goodput"],
+                launches=r["counts"], peak_mem_gib=r["peak"])
+        stats["crc_equal"] = same
+        del runs, a, s, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, by_path
+
+
+def _watchdog_phase(device, seed):
+    """(13d) one stall in the loop, longer than ``stall_timeout_s``,
+    injected in a step's batch fetch: the watchdog fires once and
+    goodput's ``stalled`` holds its window."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        build_train_step,
+        optim,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = torch.nn.Linear(1024, 1024, device=device)
+    batches = [{"x": torch.randn(256, 1024, device=device, generator=gen)}
+               for _ in range(4)]
+
+    class Loader:
+        def set_epoch(self, epoch):
+            pass
+
+        def __len__(self):
+            return len(batches)
+
+        def __iter__(self):
+            for i, b in enumerate(batches):
+                if i == 2:
+                    time.sleep(STALL_S)   # the stall
+                yield b
+
+    def loss_fn(batch, generator):
+        loss = model(batch["x"]).square().mean()
+        return loss, {"metrics": {"loss": loss.detach()}}
+
+    trainer = Trainer(TrainState(model, optim.AdamW(model, lr=1e-3)),
+                      build_train_step(loss_fn), Loader(),
+                      config=TrainerConfig(log_every=1,
+                                           stall_timeout_s=STALL_LIMIT_S))
+    fired = []
+    note = trainer._note_stall
+    trainer._note_stall = lambda idle: (fired.append(idle), note(idle))
+    kernel_counts(reset=True)
+    trainer.fit()
+    counts = kernel_counts()
+    g = trainer.last_goodput
+    print(f"(13d) watchdog (limit {STALL_LIMIT_S} s) over a {STALL_S} s stall"
+          f" in step 3's fetch: fired {len(fired)} time(s) at idle "
+          + " ".join(f"{x:.2f} s" for x in fired)
+          + f"; goodput stalled {g['stalled_s']:.2f} s of "
+          f"{g['wall_s']:.2f} s; launches {counts}")
+    if len(fired) != 1 or not g["stalled_s"] >= STALL_LIMIT_S:
+        raise AssertionError(f"watchdog fired {fired}, stalled "
+                             f"{g['stalled_s']}")
+    off_path(counts, ())
+    return dict(fired=fired, goodput=g), counts
+
+
+def lifecycle_phase(device, seed, adamw):
+    """Phase 13 (a, b, d) in its own NCCL world of one: the Llama
+    recipe's Adafactor, the GPT-2 ZeRO-1 trainer's checkpoint lifecycle
+    and the watchdog. Returns (stats, launches by path)."""
+    with _World1(device):
+        kernel_counts(reset=True)
+        a = _adafactor_phase(device, seed, adamw)
+        by_path = {"llama_adafactor": a["launches"]}
+        b, paths = _lifecycle_phase(device, seed)
+        by_path.update(paths)
+        d, counts = _watchdog_phase(device, seed)
+        by_path["watchdog"] = counts
+    return dict(adafactor=a, lifecycle=b, watchdog=d), by_path
+
+
+def recipe_config_phase(device, seed):
+    """(13c) the ResNet-50 recipe through its ``RecipeConfig`` at batch
+    64 with ``--log-mfu --profile-dir --keep-checkpoints
+    --async-checkpoint --keep-best``: MFU beside the card's peak, the
+    whole fit's profiler trace parsed, the goodput record summing to its
+    wall. Run last: the profiler slows the host after it."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.recipes import resnet50_imagenet
+    from pytorch_distributed_tpu_torch.runtime.device import peak_flops
+    from pytorch_distributed_tpu_torch.train import read_metrics
+
+    with tempfile.TemporaryDirectory(prefix="ptd_r50cfg_") as tmp:
+        ck, prof = os.path.join(tmp, "ck"), os.path.join(tmp, "prof")
+        metrics = os.path.join(tmp, "m.jsonl")
+        argv = ["--batch-size", str(MFU_RESNET_BATCH), "--epochs", "2",
+                "--steps-per-epoch", str(MFU_RESNET_STEPS),
+                "--log-every", "1", "--seed", str(seed), "--lr", "0.025",
+                "--ckpt-dir", ck, "--ckpt-every-steps", "2",
+                "--keep-checkpoints", "2", "--async-checkpoint",
+                "--keep-best", "accuracy", "--log-mfu",
+                "--profile-dir", prof, "--metrics-path", metrics]
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        trainer = resnet50_imagenet.main(argv)
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        hist = trainer.history
+        flops = trainer._step_flops
+        step_ms = _median_ms(hist)
+        peak = peak_flops(device)
+        mfu = flops / (step_ms / 1e3) / peak if peak else None
+        (trace,) = glob.glob(os.path.join(prof, "*.json"))
+        t1 = time.perf_counter()
+        with open(trace) as f:
+            doc = json.load(f)
+        parse_s = time.perf_counter() - t1
+        kernels = sum(1 for e in doc.get("traceEvents", ())
+                      if e.get("cat") == "kernel")
+        (g,) = [r for r in read_metrics(metrics) if r["split"] == "goodput"]
+        buckets = sum(v for k, v in g.items()
+                      if k.endswith("_s") and k != "wall_s")
+        tags = sorted(d for d in os.listdir(ck) if d.startswith("step-"))
+        name = torch.cuda.get_device_name(device)
+        print(f"(13c) ResNet-50 recipe via RecipeConfig, batch "
+              f"{MFU_RESNET_BATCH}, {trainer.state.step} steps in "
+              f"{wall:.2f} s under --profile-dir: {flops:.4g} FLOPs a step, "
+              f"median step {step_ms:.2f} ms = "
+              f"{flops / step_ms / 1e9:.1f} TFLOP/s, MFU "
+              + (f"{100 * mfu:.2f}% of {peak / 1e12:.0f} TFLOP/s ({name}'s "
+                 f"dense bf16 peak)" if mfu else "off")
+              + f"; trace {os.path.basename(trace)} "
+              f"{os.path.getsize(trace) / 2**20:.1f} MiB, "
+              f"{len(doc.get('traceEvents', ()))} events ({kernels} device "
+              f"kernels) parsed in {parse_s:.2f} s; goodput "
+              f"{g['goodput_pct']:.1f}% of {g['wall_s']:.2f} s, buckets sum "
+              f"{buckets:.6f}; step tags {tags}, best "
+              f"{os.path.isdir(os.path.join(ck, 'best'))}; launches {counts}")
+        if not math.isclose(buckets, g["wall_s"], rel_tol=1e-6):
+            raise AssertionError("goodput buckets do not sum to wall")
+        if not kernels:
+            raise AssertionError("the profiler trace holds no device kernel")
+        if len(tags) != 2 or not os.path.isdir(os.path.join(ck, "best")):
+            raise AssertionError(f"checkpoints {os.listdir(ck)}")
+        off_path(counts, ())
+        del trainer, doc
+    return dict(mfu=mfu, step_flops=flops, step_ms_median=step_ms,
+                peak_flops=peak, trace_events=kernels, goodput=g,
+                wall_s=wall, launches=counts), counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4578,6 +5162,7 @@ def main(argv=None) -> int:
     train_counts, tstats = train_phase(device, args.seed, flash_records)
     lstats = llama_phase(device, args.seed)
     bstats = bert_phase(device, args.seed)
+    life_stats, life_paths = lifecycle_phase(device, args.seed, lstats)
     zt = zstats["train"]
     print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
@@ -4605,18 +5190,30 @@ def main(argv=None) -> int:
           f"{lo['peak_mem_gib']:.2f} GiB (the full fine-tune above: "
           f"{bstats['bf16']['peak_mem_gib']:.2f}), optimizer state "
           f"{lo['optimizer_state_bytes'] / 2**20:.2f} MiB")
+    a13 = life_stats["adafactor"]
+    print(f"(13) Llama-3-8B width, {LLAMA_LAYERS} layers, batch "
+          f"{LLAMA_BATCH} x {LLAMA_SEQ}: AdamW {lstats['step_ms_median']:.2f}"
+          f" ms/step, {lstats['tokens_per_s']:.0f} tokens/s, peak "
+          f"{lstats['peak_mem_gib']:.2f} GiB, optimizer state "
+          f"{lstats['opt_state_bytes']} bytes; Adafactor "
+          f"{a13['step_ms_median']:.2f} ms/step, {a13['tokens_per_s']:.0f} "
+          f"tokens/s, peak {a13['peak_mem_gib']:.2f} GiB, optimizer state "
+          f"{a13['opt_state_bytes']} bytes")
+    rstats["profile"] = resnet_profile(device, args.seed,
+                                       rstats["bench"]["step_ms"])
+    istats["cifar"]["profile"] = image_profile(device, args.seed, istats)
+    cfg_stats, cfg_counts = recipe_config_phase(device, args.seed)
+    life_stats["recipe_config"] = cfg_stats
     by_path = dict(serve=serve_counts, resnet=rstats["kernel_launches"],
                    zero1=zt["launches"], train=train_counts,
                    llama=lstats["launches"], bert=bstats["launches"],
-                   **gen_paths, **serve11_paths, **image_paths)
+                   **gen_paths, **serve11_paths, **image_paths,
+                   **life_paths, resnet50_recipe_config=cfg_counts)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
                                    for path, counts in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
-    rstats["profile"] = resnet_profile(device, args.seed,
-                                       rstats["bench"]["step_ms"])
-    istats["cifar"]["profile"] = image_profile(device, args.seed, istats)
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
@@ -4624,7 +5221,8 @@ def main(argv=None) -> int:
                                       resnet=rstats, zero1=zstats,
                                       llama=lstats, bert=bstats,
                                       generation=gstats,
-                                      serve_gpt2=s11, image=istats)}))
+                                      serve_gpt2=s11, image=istats,
+                                      lifecycle=life_stats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax`,
 :func:`bert_params_to_jax` and
 :func:`resnet_params_to_jax` are the inverses of the converters above,
 and :func:`optimizer_layout` names the optax state (``mu``, ``nu``,
-``count``, ``trace``) that a port optimizer's state stands for.
+``count``, ``trace``, Adafactor's ``v_row``/``v_col``/``v``, LARS's
+``v``) that a port optimizer's state stands for.
 """
 
 from __future__ import annotations
@@ -660,13 +661,18 @@ class OptimizerLayout:
     ``moments`` maps the torch per-parameter state key to the JAX path
     prefix its per-parameter tree hangs under (``exp_avg`` ->
     ``opt_state/1/0/mu`` for ``chain(clip_by_global_norm, adamw)``);
-    ``count`` is the path of the optax update count (one scalar, where
-    torch keeps a ``step`` per parameter), ``schedule_count`` that of a
-    learning-rate schedule's own count, when there is one."""
+    ``per_leaf`` does the same for state an optimizer keeps once per JAX
+    leaf, whole, in the leaf's own layout (Adafactor's factored
+    ``v_row``/``v_col``); ``count`` is the path of the optax update count
+    (one scalar, where torch keeps a ``step`` per parameter),
+    ``schedule_count`` that of a learning-rate schedule's own count,
+    when there is one."""
 
     moments: Dict[str, Tuple[str, ...]]
     count: Optional[Tuple[str, ...]]
     schedule_count: Optional[Tuple[str, ...]]
+    per_leaf: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
 
 
 def unwrap_optimizer(optimizer):
@@ -683,12 +689,26 @@ def unwrap_optimizer(optimizer):
 
 
 def optimizer_layout(optimizer) -> OptimizerLayout:
-    """The optax state a port optimizer stands for:
-    ``AdamW`` is ``optax.adamw`` (``chain(scale_by_adam,
-    add_decayed_weights, scale_by_learning_rate)``), ``SGD`` is
-    ``optax.sgd`` (``chain(trace, scale_by_learning_rate)``), and
-    ``clip_grad_norm`` puts either second in
-    ``chain(clip_by_global_norm, ...)``."""
+    """The optax state a port optimizer stands for (the JAX package's
+    ``optim`` constructor of the same name), with ``clip_grad_norm`` or
+    ``clip_grad_value`` putting it second in ``chain(clip, ...)``:
+
+    * ``AdamW``: ``optax.adamw`` = ``chain(scale_by_adam,
+      add_decayed_weights, scale_by_learning_rate)``;
+    * ``Adam``: ``chain([add_decayed_weights,] optax.adam)``, the adam
+      itself ``chain(scale_by_adam, scale_by_learning_rate)``;
+    * ``SGD``: ``optax.sgd`` = ``chain(trace, scale_by_learning_rate)``;
+    * ``Adafactor``: ``optax.adafactor`` = ``chain(scale_by_factored_rms,
+      clip_by_block_rms, scale_by_learning_rate, ...)``, its
+      ``FactoredState`` (``count``, ``v_row``, ``v_col``, ``v``) first;
+    * ``LARS``: the JAX package's own ``{"v", "count"}`` state;
+    * ``LAMB``: ``optax.lamb`` = ``chain(scale_by_adam,
+      add_decayed_weights, scale_by_trust_ratio,
+      scale_by_learning_rate)``.
+
+    Any other optimizer raises, naming its class."""
+    from pytorch_distributed_tpu_torch import optim
+
     clipped, local, _ = unwrap_optimizer(optimizer)
     base = ("opt_state", "1") if clipped else ("opt_state",)
     sched = getattr(local, "schedule", None) is not None
@@ -697,14 +717,34 @@ def optimizer_layout(optimizer) -> OptimizerLayout:
         return OptimizerLayout(
             {"exp_avg": adam + ("mu",), "exp_avg_sq": adam + ("nu",)},
             adam + ("count",), base + ("2", "count") if sched else None)
+    if isinstance(local, optim.Adam):
+        inner = base + (("1",) if local.defaults["weight_decay"] else ("0",))
+        adam = inner + ("0",)
+        return OptimizerLayout(
+            {"exp_avg": adam + ("mu",), "exp_avg_sq": adam + ("nu",)},
+            adam + ("count",), inner + ("1", "count") if sched else None)
     if isinstance(local, torch.optim.SGD):
         momentum = local.param_groups[0]["momentum"]
         return OptimizerLayout(
             {"momentum_buffer": base + ("0", "trace")} if momentum else {},
             None, base + ("1", "count") if sched else None)
+    if isinstance(local, optim.Adafactor):
+        rms = base + ("0",)
+        return OptimizerLayout(
+            {"v": rms + ("v",)}, rms + ("count",),
+            base + ("2", "count") if sched else None,
+            per_leaf={"v_row": rms + ("v_row",), "v_col": rms + ("v_col",),
+                      "v_leaf": rms + ("v",)})
+    if isinstance(local, optim.LARS):
+        return OptimizerLayout({"v": base + ("v",)}, base + ("count",), None)
+    if isinstance(local, optim.LAMB):
+        adam = base + ("0",)
+        return OptimizerLayout(
+            {"exp_avg": adam + ("mu",), "exp_avg_sq": adam + ("nu",)},
+            adam + ("count",), base + ("3", "count") if sched else None)
     raise NotImplementedError(
         f"no optax layout for {type(local).__name__}: checkpoints cover "
-        "AdamW and SGD (ROADMAP A4)")
+        "AdamW, Adam, SGD, Adafactor, LARS and LAMB (ROADMAP A4)")
 
 
 def leaf_name(*path: str) -> str:

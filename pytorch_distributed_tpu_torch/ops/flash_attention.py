@@ -33,10 +33,16 @@ outputs over the group.
 
 Rows whose keys are all masked get finite but undefined outputs, as in
 the JAX package.
+
+:func:`count_flops` arms a :class:`FlopLedger` to which every kernel
+launch of the autograd Function adds its FLOPs (``torch.utils.
+flop_counter`` cannot see a ctypes launch): the trainer's ``log_mfu``
+adds it to the ATen count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional
@@ -133,6 +139,60 @@ def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+class FlopLedger:
+    """FLOPs the flash kernels ran while :func:`count_flops` was armed:
+    ``torch.utils.flop_counter`` sees ATen ops only, and a kernel launch
+    through ctypes is none. Each launch adds what its shapes and masks
+    need: the live (query, key) pairs over every query head times
+    ``head_dim``, times 4 for the forward (two products) and 10 for the
+    backward (dq's two and dkv's three)."""
+
+    def __init__(self):
+        self.flops = 0
+
+
+_ledger: Optional[FlopLedger] = None
+
+
+@contextlib.contextmanager
+def count_flops():
+    """Arm a :class:`FlopLedger` for the block (the kernels' launches add
+    to it; the plain versions are ATen ops, which a ``FlopCounterMode``
+    counts itself)."""
+    global _ledger
+    prev, _ledger = _ledger, FlopLedger()
+    try:
+        yield _ledger
+    finally:
+        _ledger = prev
+
+
+def live_pairs(B, S, T, Hq, causal, bias, seg) -> int:
+    """(query, key) pairs the masks leave live, over every query head:
+    the work this call's data needs (a host read of the masks)."""
+    if bias is None and seg is None:
+        per = S * T if not causal else sum(min(i + 1, T) for i in range(S))
+        return B * Hq * per
+    dev = bias.device if bias is not None else seg.device
+    keep = torch.ones(B, S, T, dtype=torch.bool, device=dev)
+    if causal:
+        keep &= (torch.arange(S, device=dev)[:, None]
+                 >= torch.arange(T, device=dev)[None, :])
+    if bias is not None:
+        keep &= (bias == 0)[:, None, :]
+    if seg is not None:
+        keep &= seg[:, :, None] == seg[:, None, :]
+    return int(keep.sum().item()) * Hq
+
+
+def _ledger_add(q, k, bias, seg, causal, per_pair: int) -> None:
+    ledger = _ledger
+    if ledger is not None:
+        B, S, Hq, D = q.shape
+        ledger.flops += per_pair * D * live_pairs(B, S, k.shape[1], Hq,
+                                                  causal, bias, seg)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seg, sm_scale, causal, block_q, block_k,
@@ -140,6 +200,7 @@ class _FlashAttention(torch.autograd.Function):
         if kernel:
             out, lse = flash_fwd(q, k, v, bias, seg, sm_scale=sm_scale,
                                  causal=causal)
+            _ledger_add(q, k, bias, seg, causal, 4)
         else:
             out, lse = _flash_fwd_plain(q, k, v, bias, seg, sm_scale=sm_scale,
                                         causal=causal, block_k=block_k)
@@ -158,6 +219,7 @@ class _FlashAttention(torch.autograd.Function):
         if kernel:
             dq = flash_dq(*args, **kw)
             dk, dv = flash_dkv(*args, **kw)
+            _ledger_add(q, k, bias, seg, causal, 10)
         else:
             dq = _flash_dq_plain(*args, block_k=block_k, **kw)
             dk, dv = _flash_dkv_plain(*args, block_q=block_q, **kw)

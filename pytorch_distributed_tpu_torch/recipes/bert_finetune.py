@@ -30,6 +30,7 @@ attention and MLP kernels (``lora.LoRAModel``, adapters from seed + 1 as
 in the JAX recipe): the optimizer, DDP (without the BERT TP rules, as
 the JAX recipe's plain ``DataParallel()``) and the checkpoints hold the
 adapters only. It composes with ``--fp16`` and ``--mlm``.
+``--backend`` is ``nccl`` or ``gloo`` (the device's own unless given).
 """
 
 from __future__ import annotations
@@ -99,6 +100,9 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default=None,
                    help="the CUDA card unless given (e.g. 'cpu')")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend (the device's own unless "
+                        "given)")
     return p.parse_args(argv)
 
 
@@ -108,7 +112,7 @@ def main(argv=None) -> Trainer:
     device = dist.rank_device(args.device)
     own_group = not dist.is_initialized()
     if own_group:
-        dist.init_process_group(device=device)
+        dist.init_process_group(args.backend, device=device)
     try:
         return _train(args, device)
     finally:

@@ -32,7 +32,10 @@ runs the plain PyTorch path on the CPU (at ``--size tiny``; gloo).
 tokens of 2 eval rows (temperature 0.8, top-k 40, the run's seed; KV-cache
 decode through ``generation.generate``), logged as ids or, with
 ``--text-file``, as text, and kept as ``trainer.sample``.
-``--strategy auto`` and ``--pp`` (ROADMAP A10) raise.
+``--backend`` is ``nccl`` or ``gloo`` (the device's own unless given),
+``--dp`` the data-parallel width the world must hold (-1: every rank),
+as in the JAX recipe. ``--strategy auto`` and ``--pp`` (ROADMAP A10)
+raise.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
 from pytorch_distributed_tpu_torch.parallel import DataParallel, ZeRO1
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
+from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 from pytorch_distributed_tpu_torch.runtime.prng import seed_all
 from pytorch_distributed_tpu_torch.train import (
@@ -94,6 +98,11 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default=None,
                    help="the CUDA card unless given (e.g. 'cpu')")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend (the device's own unless "
+                        "given)")
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel width (-1: every rank)")
     p.add_argument("--strategy", choices=("zero1", "dp", "single", "auto"),
                    default="zero1")
     p.add_argument("--pp", type=int, default=1, help="pipeline stages")
@@ -133,7 +142,7 @@ def main(argv=None) -> Trainer:
     device = dist.rank_device(args.device)
     own_group = args.strategy != "single" and not dist.is_initialized()
     if own_group:
-        dist.init_process_group(device=device)
+        dist.init_process_group(args.backend, device=device)
     try:
         return _train(args, device)
     finally:
@@ -191,6 +200,9 @@ def _train(args, device) -> Trainer:
         cfg = dataclasses.replace(cfg, remat=True,
                                   remat_policy=args.remat_policy)
     seq_len = min(args.seq_len, cfg.n_positions)
+    # the JAX recipe's mesh is dp alone (its tp and pp are A10)
+    MeshSpec(dp=args.dp).resolve(dist.get_world_size()
+                                 if dist.is_initialized() else 1)
     cfg, ds, eval_ds, tokenizer = _datasets(args, cfg, seq_len)
     policy = Policy.train()
     model = GPT2LMHead(cfg, device=device, policy=policy)

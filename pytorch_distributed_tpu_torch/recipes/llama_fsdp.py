@@ -2,10 +2,13 @@
 ``recipes/llama_fsdp.py``'s ``fsdp``, ``dp`` and ``zero1`` strategies.
 
 Synthetic token rows (``SyntheticTextDataset``, as the JAX recipe),
-``Policy.train()`` (f32 weights and AdamW state, bf16 products),
+``Policy.train()`` (f32 weights and optimizer state, bf16 products),
 gradient clipping at 1.0 by the global norm then ``adamw(lr)`` with
-optax's default weight decay of 1e-4, as the JAX recipe chains them,
-microbatch accumulation with ``--accum-steps``. Attention runs through
+optax's default weight decay of 1e-4, as the JAX recipe chains them, or
+with ``--optimizer adafactor`` Adafactor alone (``optim.Adafactor``:
+``optax.adafactor(lr)``, no global clip; its factored second moment
+keeps a few MB of state where AdamW keeps two f32 copies of the
+weights), microbatch accumulation with ``--accum-steps``. Attention runs through
 the flash kernels on the card. ``main`` returns the ``Trainer``.
 
     python -m pytorch_distributed_tpu_torch.recipes.llama_fsdp --size 8b \\
@@ -29,7 +32,9 @@ checkpoint first, and on SIGTERM checkpoints and exits ``EX_TEMPFAIL``
 (75). ``--device cpu`` runs the plain PyTorch path on the CPU (at
 ``--size tiny``; gloo). Tensor and sequence parallelism (``--tp``,
 ``--sp`` above 1, ``--sp-mode``) and ``--strategy auto`` raise naming
-ROADMAP A10, ``--optimizer adafactor`` naming A4.
+ROADMAP A10; ``--optimizer adafactor`` with ``--strategy zero1`` (its
+leaves split over the ranks) names A4. ``--backend`` is ``nccl`` or
+``gloo`` (the device's own unless given).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from pytorch_distributed_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
 )
-from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
+from pytorch_distributed_tpu_torch.optim import Adafactor, AdamW, clip_grad_norm
 from pytorch_distributed_tpu_torch.parallel import FSDP, DataParallel, ZeRO1
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec
@@ -97,6 +102,9 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=5)
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend (the device's own unless "
+                        "given)")
     p.add_argument("--device", default=None,
                    help="the CUDA card unless given (e.g. 'cpu')")
     return p.parse_args(argv)
@@ -111,9 +119,10 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--strategy auto: the cost-model planner is not ported "
             "(ROADMAP A10)")
-    if args.optimizer == "adafactor":
+    if args.optimizer == "adafactor" and args.strategy == "zero1":
         raise NotImplementedError(
-            "--optimizer adafactor is not ported (ROADMAP A4)")
+            "--optimizer adafactor --strategy zero1: ZeRO-1 would split "
+            "Adafactor's JAX leaves over the ranks (ROADMAP A4)")
 
 
 def main(argv=None) -> Trainer:
@@ -123,7 +132,7 @@ def main(argv=None) -> Trainer:
     device = dist.rank_device(args.device)
     own_group = not dist.is_initialized()
     if own_group:
-        dist.init_process_group(device=device)
+        dist.init_process_group(args.backend, device=device)
     try:
         return _train(args, device)
     finally:
@@ -149,6 +158,22 @@ def build_model(cfg: LlamaConfig, strategy, device, seed: int,
     return model, strategy.wrap(model)
 
 
+def build_optimizer(name: str, model, strategy, lr: float):
+    """The JAX recipe's optimizer: ``clip_by_global_norm(1.0)`` then
+    ``adamw(lr)`` (decay 1e-4), or ``Adafactor(lr)`` alone (it clips its
+    own updates by their block RMS)."""
+    if name == "adafactor":
+        if isinstance(strategy, FSDP):
+            return strategy.optimizer(model, Adafactor, lr=lr)
+        return Adafactor(model, lr=lr)
+    if isinstance(strategy, (ZeRO1, FSDP)):
+        optimizer = strategy.optimizer(model, AdamW, lr=lr,
+                                       weight_decay=ADAMW_WEIGHT_DECAY)
+    else:
+        optimizer = AdamW(model, lr=lr, weight_decay=ADAMW_WEIGHT_DECAY)
+    return clip_grad_norm(optimizer, 1.0)
+
+
 def _train(args, device) -> Trainer:
     cfg = SIZES[args.size]()
     if args.remat or args.remat_policy != "full":
@@ -165,12 +190,7 @@ def _train(args, device) -> Trainer:
         strategy = (ZeRO1 if args.strategy == "zero1" else DataParallel)(
             device)
     model, net = build_model(cfg, strategy, device, args.seed, policy)
-    if isinstance(strategy, (ZeRO1, FSDP)):
-        optimizer = strategy.optimizer(model, AdamW, lr=args.lr,
-                                       weight_decay=ADAMW_WEIGHT_DECAY)
-    else:
-        optimizer = AdamW(model, lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY)
-    optimizer = clip_grad_norm(optimizer, 1.0)
+    optimizer = build_optimizer(args.optimizer, model, strategy, args.lr)
     n = (args.steps_per_epoch or 50) * args.batch_size
     ds = SyntheticTextDataset(n=n, seq_len=seq_len, vocab_size=cfg.vocab_size,
                               seed=args.seed)
@@ -189,9 +209,9 @@ def _train(args, device) -> Trainer:
     )
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Llama %s: %d params on %s, batch %d x seq %d, accum %d, "
-                "%s over %d rank(s), remat %s, vocab chunk %s", args.size,
+                "%s over %d rank(s), %s, remat %s, vocab chunk %s", args.size,
                 n_params, device, args.batch_size, seq_len, args.accum_steps,
-                args.strategy, dist.get_world_size(),
+                args.strategy, dist.get_world_size(), args.optimizer,
                 cfg.remat_policy if cfg.remat else "off", args.vocab_chunk)
     trainer.restore_checkpoint()
     fit_elastic(trainer)

@@ -31,16 +31,23 @@ checkpoints after every epoch (with the sampler cursor), in the format
 both packages read, restores the newest intact checkpoint first, and on
 SIGTERM checkpoints and exits ``EX_TEMPFAIL`` (75).
 ``--metrics-path`` and ``--tensorboard-dir`` write the scalars (rank
-0), ``--trace-dir`` the span trace, ``--grad-compress`` compresses the
-gradient sync. ``--strategy auto`` is not ported and raises (ROADMAP
-A10); the checkpoint-lifecycle flags (ROADMAP A5) are not parsed.
+0), ``--trace-dir`` the span trace, ``--profile-dir`` a
+``torch.profiler`` trace of the whole fit, ``--grad-compress``
+compresses the gradient sync, ``--log-mfu`` logs TFLOP/s and MFU.
+The flags are the fields of :class:`Config` (``utils/config.py``'s
+``RecipeConfig`` and the JAX recipe's own): ``--ckpt-every-steps``,
+``--keep-checkpoints``, ``--keep-best``/``--best-mode`` and
+``--async-checkpoint`` drive the Trainer's checkpoint lifecycle.
+``--strategy auto``, ``--fsdp`` and ``--tp`` above 1 are not ported and
+raise (ROADMAP A10).
 """
 
 from __future__ import annotations
 
-import argparse
+import dataclasses
 import logging
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,7 +79,9 @@ from pytorch_distributed_tpu_torch.train.losses import (
     classification_eval_step,
     classification_loss_fn,
 )
+from pytorch_distributed_tpu_torch.utils.config import RecipeConfig, parse_cli
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
+from pytorch_distributed_tpu_torch.utils.profiler import maybe_trace
 
 logger = get_logger(__name__)
 
@@ -80,68 +89,66 @@ logger = get_logger(__name__)
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--epochs", type=int, default=90)
-    p.add_argument("--batch-size", type=int, default=1024,
-                   help="global batch, split over the ranks")
-    p.add_argument("--lr", type=float, default=0.4,
-                   help="peak lr (linear scaling: 0.1 * batch / 256)")
-    p.add_argument("--momentum", type=float, default=0.9)
-    p.add_argument("--weight-decay", type=float, default=1e-4,
-                   help="L2 on conv and linear kernels")
-    p.add_argument("--label-smoothing", type=float, default=0.1)
-    p.add_argument("--warmup-epochs", type=int, default=5)
-    p.add_argument("--image-size", type=int, default=224)
-    p.add_argument("--train-samples", type=int, default=1_281_167)
-    p.add_argument("--eval-samples", type=int, default=50_000)
-    p.add_argument("--no-flip-augment", dest="flip_augment",
-                   action="store_false")
-    p.add_argument("--stem", choices=("imagenet", "s2d"), default="imagenet")
-    p.add_argument("--no-device-normalize", dest="device_normalize",
-                   action="store_false",
-                   help="ship f32 batches normalized on the host")
-    p.add_argument("--steps-per-epoch", type=int, default=None,
-                   help="truncate epochs (sizes the synthetic sets)")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--log-every", type=int, default=50)
-    p.add_argument("--device", default=None,
-                   help="this rank's card unless given (e.g. 'cpu')")
-    p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel width (-1: every rank)")
-    p.add_argument("--strategy", choices=("dp", "zero1", "auto"),
-                   default="dp")
-    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
-                   help="nccl on cards, gloo anywhere (default: by device)")
-    p.add_argument("--data-dir", default=None,
-                   help="image folders train/ and val/ (else synthetic)")
-    p.add_argument("--synthetic", action="store_true",
-                   help="synthetic data even where --data-dir has folders")
-    p.add_argument("--io-retries", type=int, default=2,
-                   help="transient read retries a sample (--data-dir)")
-    p.add_argument("--bad-sample-budget", type=int, default=100,
-                   help="undecodable samples quarantined before a hard "
-                   "error (--data-dir)")
-    p.add_argument("--ema-decay", type=float, default=0.0,
-                   help="EMA of the parameters (0: off); evaluations use it")
-    p.add_argument("--grad-compress", default=None,
-                   choices=("bf16", "fp16", "int8"),
-                   help="compress the multi-process gradient sync")
-    p.add_argument("--metrics-path", default=None,
-                   help="JSONL scalar metrics log (rank 0)")
-    p.add_argument("--tensorboard-dir", default=None,
-                   help="TensorBoard event files (rank 0)")
-    p.add_argument("--trace-dir", default=None,
-                   help="span trace output dir (trace.json)")
-    p.add_argument("--ckpt-dir", default=None)
-    return p.parse_args(argv)
+@dataclasses.dataclass
+class Config(RecipeConfig):
+    """The JAX recipe's ``Config``: every field of its ``RecipeConfig`` and
+    its own, with the port's ``device`` and ``grad_compress`` beside
+    them."""
+
+    epochs: int = 90  # doc: standard ImageNet schedule
+    batch_size: int = 1024  # doc: global batch (split over dp)
+    lr: float = 0.4  # doc: peak LR (linear-scaling rule: 0.1 * batch/256)
+    momentum: float = 0.9  # doc: SGD momentum
+    weight_decay: float = 1e-4  # doc: L2 on conv/linear kernels
+    label_smoothing: float = 0.1  # doc: softmax label smoothing
+    warmup_epochs: int = 5  # doc: linear LR warmup epochs
+    image_size: int = 224  # doc: square input resolution
+    train_samples: int = 1_281_167  # doc: synthetic train-set size
+    eval_samples: int = 50_000  # doc: synthetic eval-set size
+    flip_augment: bool = True  # doc: random horizontal flip augmentation
+    stem: str = "imagenet"  # doc: stem variant: imagenet | s2d
+    log_mfu: bool = False  # doc: append achieved TFLOP/s + MFU to step logs
+    device_normalize: bool = True  # doc: ship uint8 batches, normalize on the card (--no-device-normalize: f32 from the host)
+    ema_decay: float = 0.0  # doc: EMA of the parameters (0 disables); evals use the shadow
+    tensorboard_dir: str = ""  # doc: TensorBoard event-file dir (rank 0)
+    io_retries: int = 2  # doc: transient read retries per sample (--data-dir)
+    bad_sample_budget: int = 100  # doc: max quarantined (undecodable) samples before a hard error
+    strategy: str = "dp"  # doc: parallel strategy: dp | zero1 (auto: ROADMAP A10)
+    plan_path: str = "plan.json"  # doc: --strategy auto's report (not ported)
+    costmodel: str = "costmodel.json"  # doc: --strategy auto's cost model (not ported)
+    device: Optional[str] = None  # doc: this rank's card unless given (e.g. 'cpu')
+    grad_compress: Optional[str] = None  # doc: bf16|fp16|int8: compress the multi-process gradient sync
+
+
+def parse_args(argv=None) -> Config:
+    cfg = parse_cli(Config, argv, description=__doc__.splitlines()[0])
+    if cfg.strategy not in ("dp", "zero1", "auto"):
+        raise SystemExit(f"--strategy must be dp, zero1 or auto, got "
+                         f"{cfg.strategy!r}")
+    if cfg.stem not in ("imagenet", "s2d"):
+        raise SystemExit(f"--stem must be imagenet or s2d, got {cfg.stem!r}")
+    if cfg.backend not in (None, "nccl", "gloo"):
+        raise SystemExit(f"--backend must be nccl or gloo, got "
+                         f"{cfg.backend!r}")
+    if cfg.grad_compress not in (None, "bf16", "fp16", "int8"):
+        raise SystemExit(f"--grad-compress must be bf16, fp16 or int8, got "
+                         f"{cfg.grad_compress!r}")
+    return cfg
+
+
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.strategy == "auto":
+        raise NotImplementedError("--strategy auto: the cost-model planner "
+                                  "is not ported (ROADMAP A10)")
+    if cfg.fsdp > 1 or cfg.tp > 1:
+        raise NotImplementedError(
+            "--fsdp/--tp above 1: the ResNet recipe is data-parallel in the "
+            "port; sharded and tensor-parallel meshes are ROADMAP A10")
 
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    if args.strategy == "auto":
-        raise NotImplementedError("--strategy auto: the cost-model planner "
-                                  "is not ported (ROADMAP A10)")
+    _refuse_unported(args)
     seed_all(args.seed)
     device = dist.rank_device(args.device)
     own_group = not dist.is_initialized()
@@ -266,13 +273,20 @@ def _train(args, device: torch.device) -> Trainer:
         config=TrainerConfig(epochs=args.epochs, log_every=args.log_every,
                              max_steps_per_epoch=args.steps_per_epoch,
                              ckpt_dir=args.ckpt_dir,
+                             ckpt_every_steps=args.ckpt_every_steps,
+                             keep_checkpoints=args.keep_checkpoints,
+                             keep_best=args.keep_best,
+                             best_mode=args.best_mode,
+                             async_checkpoint=args.async_checkpoint,
                              metrics_path=args.metrics_path,
-                             tensorboard_dir=args.tensorboard_dir,
-                             eval_with_ema=ema, trace=args.trace_dir),
+                             tensorboard_dir=args.tensorboard_dir or None,
+                             eval_with_ema=ema, log_mfu=args.log_mfu,
+                             trace=args.trace_dir),
     )
     trainer.restore_checkpoint()
     try:
-        fit_elastic(trainer)
+        with maybe_trace(args.profile_dir, device=device):
+            fit_elastic(trainer)
     finally:
         for fetch in (train_fetch, eval_fetch):
             if fetch is not None:

@@ -58,6 +58,7 @@ import glob
 import json
 import os
 import shutil
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -67,6 +68,7 @@ from torch.distributed.tensor import DTensor
 from pytorch_distributed_tpu_torch import interop
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime.mesh import row_shard
+from pytorch_distributed_tpu_torch.train.elastic import deferred_signals
 from pytorch_distributed_tpu_torch.train.ckpt_io import (  # noqa: F401
     _MANIFEST,
     CheckpointCorrupted,
@@ -74,7 +76,9 @@ from pytorch_distributed_tpu_torch.train.ckpt_io import (  # noqa: F401
     _swing,
     checkpoint_exists,
     checkpoint_step,
+    load_best_checkpoint,
     load_checkpoint,
+    prune_checkpoints,
     recover_stranded_checkpoints,
     resolve_tag,
     restore_candidates,
@@ -227,6 +231,8 @@ def _plan(state: TrainState) -> List[_Leaf]:
         slot = slots[p_name]
         shape = slot.leaf_shape(tuple(p.shape))
         for key, prefix in layout.moments.items():
+            if not getattr(local, "keeps_per_tensor", lambda p: True)(p):
+                continue   # kept per leaf (a factored Adafactor leaf)
             name = interop.leaf_name(*prefix, *slot.path)
             if id(p) not in owned:
                 add(name, shape, np.float32, [], False)
@@ -251,6 +257,31 @@ def _plan(state: TrainState) -> List[_Leaf]:
                 boxes = [_tensor_box(slot, get, put, shape)]
             add(name, shape, np.float32, boxes,
                 writer(p, rank0 if zero is None else True))
+
+    # state kept once per JAX leaf, whole and replicated: rank 0's
+    for leaf in (getattr(local, "leaves", None) or ()) if layout.per_leaf \
+            else ():
+        if leaf.geoms[0] is None:
+            raise NotImplementedError(
+                f"leaf {leaf.path}: an optimizer built on bare tensors has "
+                "no JAX leaf to checkpoint under; build it on the model")
+        held = local.leaf_state(leaf)
+        for key, prefix in layout.per_leaf.items():
+            if key not in held:
+                continue
+            t = held[key]
+
+            def put_leaf(x, t=t):
+                with torch.no_grad():
+                    t.copy_(x.to(t.dtype))
+
+            add(interop.leaf_name(*prefix, *leaf.path.split("/")),
+                tuple(t.shape), np.float32,
+                [_Box(0, (0,) * t.dim(), tuple(t.shape),
+                      lambda t=t: _numpy(t),
+                      lambda arr, put_leaf=put_leaf: put_leaf(
+                          torch.from_numpy(np.ascontiguousarray(arr))))],
+                rank0)
 
     for p_name, shadow in (state.ema_params or {}).items():
         slot = slots.get(p_name)
@@ -310,16 +341,29 @@ def _plan(state: TrainState) -> List[_Leaf]:
     return [leaves[k] for k in sorted(leaves)]
 
 
-def _write_rank_files(tmp: str, plan: List[_Leaf], rank: int,
-                      step: int) -> None:
+def _host_copy(plan: List[_Leaf]) -> Dict[Tuple[int, int], np.ndarray]:
+    """Every box this rank writes, copied to host memory now (waiting on
+    the card's stream), C-ordered as the writer lays it out: the state
+    may change as soon as this returns."""
+    return {(i, j): np.array(b.read(), leaf.dtype, order="C", copy=True)
+            for i, leaf in enumerate(plan) if leaf.writes
+            for j, b in enumerate(leaf.boxes)}
+
+
+def _write_rank_files(tmp: str, plan: List[_Leaf], rank: int, step: int,
+                      arrays=None) -> None:
+    """This rank's shard files and manifest: the boxes read now, or
+    ``arrays`` (a :func:`_host_copy`) when given."""
     entries = []
     for i, leaf in enumerate(plan):
         if not leaf.writes:
             continue
         shards = [
             write_shard(tmp, f"{i:05d}_{leaf.name[:72]}.p{rank}s{b.index}.npy",
-                        np.asarray(b.read(), leaf.dtype), b.start, b.stop)
-            for b in leaf.boxes
+                        arrays[i, j] if arrays is not None
+                        else np.asarray(b.read(), leaf.dtype),
+                        b.start, b.stop)
+            for j, b in enumerate(leaf.boxes)
         ]
         if shards:
             entries.append({"path": leaf.name, "shape": list(leaf.shape),
@@ -343,28 +387,82 @@ def _merge_manifests(tmp: str) -> List[dict]:
     return [merged[k] for k in sorted(merged)]
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, *,
-                    tag: str = "latest") -> str:
-    """Write ``state`` under ``ckpt_dir/tag``; returns the path. In a
-    process group every rank must call it (each writes its own boxes;
-    rank 0 commits)."""
-    plan = _plan(state)
+def _save(ckpt_dir: str, tag: str, plan: List[_Leaf], step: int,
+          arrays=None) -> str:
     rank = dist.get_rank()
     final = os.path.join(ckpt_dir, tag)
     tmp = final + ".tmp"
-    step = int(state.step)
     if rank == 0:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp, exist_ok=True)
     dist.barrier()
-    _write_rank_files(tmp, plan, rank, step)
+    _write_rank_files(tmp, plan, rank, step, arrays)
     dist.barrier()
     if rank == 0:
-        write_manifest_and_commit(tmp, _merge_manifests(tmp), step)
-        _swing(ckpt_dir, tag, tmp)
+        # a SIGTERM inside the commit waits for the swing to land
+        with deferred_signals():
+            write_manifest_and_commit(tmp, _merge_manifests(tmp), step)
+            _swing(ckpt_dir, tag, tmp)
     dist.barrier()
     return final
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, *,
+                    tag: str = "latest") -> str:
+    """Write ``state`` under ``ckpt_dir/tag``; returns the path. In a
+    process group every rank must call it (each writes its own boxes;
+    rank 0 commits)."""
+    return _save(ckpt_dir, tag, _plan(state), int(state.step))
+
+
+class AsyncCheckpointer:
+    """Checkpoint IO overlapped with training: :meth:`save` copies every
+    box this rank writes to host memory on the caller's thread (the copy
+    waits on the card's stream, so it reads the state as the step left
+    it; the next step may then change it), and writes the files, the
+    manifest, the COMMIT and the swing on one background thread. At
+    most one save is in flight: a new save, :meth:`wait` or a
+    preemption joins the previous one first, so the swings land in
+    order. The files are byte for byte a sync save's of the same state.
+    In a process group of more than one rank the save is synchronous
+    (its barriers are collectives, which belong on the main thread), as
+    the JAX package's is on more than one process."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, ckpt_dir: str, state: TrainState, *,
+             tag: str = "latest") -> str:
+        self.wait()
+        plan = _plan(state)
+        step = int(state.step)
+        if dist.get_world_size() > 1:
+            return _save(ckpt_dir, tag, plan, step)
+        arrays = _host_copy(plan)
+        os.makedirs(ckpt_dir, exist_ok=True)   # the cursor lands beside it
+
+        def write():
+            try:
+                _save(ckpt_dir, tag, plan, step, arrays)
+            except BaseException as e:   # raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, name="ptd-ckpt-writer",
+                                        daemon=True)
+        self._thread.start()
+        return os.path.join(ckpt_dir, tag)
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) has landed; raise its
+        error if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
 
 
 def restore_checkpoint(ckpt_dir: str, state: TrainState, *,
@@ -441,6 +539,40 @@ def checkpoint_diff(ckpt_dir: str, state: TrainState, *,
                                             - want).max()))
         out[leaf.name] = err
     return out
+
+
+def average_checkpoints(ckpt_dir: str, state: TrainState,
+                        tags) -> TrainState:
+    """The equal-weight average of the parameters of checkpoints
+    ``tags`` (fairseq's ``average_checkpoints.py``, torch's
+    ``swa_utils.AveragedModel``), into ``state`` in place: a running
+    mean in f32 on the host, one checkpoint restored at a time, cast
+    back to each parameter's dtype; everything else (step, optimizer
+    state, statistics, the EMA shadow) is the newest tag's, by step. A
+    BatchNorm model's statistics are the newest tag's too: re-estimate
+    them before trusting an evaluation."""
+    if not tags:
+        raise ValueError("average_checkpoints needs at least one tag")
+    model = getattr(state.model, "module", state.model)
+    acc = None
+    newest_tag, newest_step = None, None
+    for i, tag in enumerate(tags, start=1):
+        restore_checkpoint(ckpt_dir, state, tag=tag)
+        if newest_step is None or state.step > newest_step:
+            newest_tag, newest_step = tag, state.step
+        p32 = {n: _numpy(row_shard(p)[0]).astype(np.float32)
+               for n, p in model.named_parameters()}
+        if acc is None:
+            acc = p32
+        else:
+            acc = {n: a + (p32[n] - a) / np.float32(i)
+                   for n, a in acc.items()}
+    restore_checkpoint(ckpt_dir, state, tag=newest_tag)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            local = row_shard(p)[0]
+            local.copy_(torch.from_numpy(acc[n]).to(local.dtype))
+    return state
 
 
 _SAMPLER_CURSOR = "sampler_cursor.json"

@@ -19,6 +19,13 @@ ported (ROADMAP A11): this module reads such a directory as absent,
 and garbage-collects a ``.tmp`` of one that never got its
 ``WORLD_COMMIT``, as the JAX reader's two-phase rule does.
 
+Retention: :func:`prune_checkpoints` deletes the oldest ``step-<N>``
+tags beyond ``keep`` (never ``latest``, ``best`` or the last restorable
+one), and :func:`load_best_checkpoint` loads the newest candidate that
+passes its checks, counting the ones it walked back over: the JAX
+package's tags and rules, so either package prunes or picks the other's
+directories.
+
 Fault sites: ``ckpt.write_shard`` after each shard file,
 ``ckpt.swing`` inside the rename window, ``ckpt.read_shard`` before
 each shard read.
@@ -290,6 +297,49 @@ def recover_stranded_checkpoints(ckpt_dir: str) -> List[str]:
     return recovered
 
 
+def prune_checkpoints(ckpt_dir: str, *, keep: int) -> List[str]:
+    """Delete the oldest ``step-<N>`` checkpoints beyond the newest
+    ``keep`` (0 allowed: the save about to happen is the survivor);
+    ``latest``, ``best`` and other tags are never pruned. Returns the
+    removed paths. Never deletes the last restorable checkpoint: when no
+    survivor (``latest`` included) restores, the newest restorable
+    doomed tag is spared, loudly. Orphaned ``step-<N>.tmp`` of tags no
+    longer live go too (a killed save leaves them, and a step tag is
+    never saved twice). Call on the commit owner (rank 0) only."""
+    if keep < 0:
+        raise ValueError(f"keep must be >= 0, got {keep}")
+    steps = step_tags(ckpt_dir)
+    doomed = list(steps if keep == 0 else steps[:-keep])
+    if doomed:
+        gone = set(doomed)
+        survivors = ["latest"] + [f"step-{x}" for x in steps
+                                  if x not in gone]
+        if not any(checkpoint_step(ckpt_dir, t) is not None
+                   for t in survivors):
+            for x in reversed(doomed):
+                if checkpoint_step(ckpt_dir, f"step-{x}") is not None:
+                    logger.warning(
+                        "prune(keep=%d) would delete the only restorable "
+                        "checkpoint under %s: sparing step-%d", keep,
+                        ckpt_dir, x)
+                    doomed.remove(x)
+                    break
+    removed = []
+    for x in doomed:
+        path = os.path.join(ckpt_dir, f"step-{x}")
+        shutil.rmtree(path, ignore_errors=True)
+        removed.append(path)
+    live = {f"step-{x}" for x in step_tags(ckpt_dir)}
+    if os.path.isdir(ckpt_dir):
+        for name in sorted(os.listdir(ckpt_dir)):
+            if (name.startswith("step-") and name.endswith(".tmp")
+                    and name[:-len(".tmp")] not in live):
+                path = os.path.join(ckpt_dir, name)
+                shutil.rmtree(path, ignore_errors=True)
+                removed.append(path)
+    return removed
+
+
 def _swing(ckpt_dir: str, tag: str, tmp: str) -> str:
     """Replace ``ckpt_dir/tag`` with the fully written ``tmp``."""
     final = os.path.join(ckpt_dir, tag)
@@ -431,6 +481,7 @@ class LoadedCheckpoint:
     leaves: Dict[str, np.ndarray]
     step: int
     tag: str = ""
+    walked_back: int = 0   # candidates skipped before this one loaded
 
 
 def load_checkpoint(final: str) -> LoadedCheckpoint:
@@ -447,3 +498,31 @@ def load_checkpoint(final: str) -> LoadedCheckpoint:
         leaves={e["path"]: _read_entry(final, e)
                 for e in manifest["leaves"]},
         step=int(manifest["step"]))
+
+
+def load_best_checkpoint(ckpt_dir: str, tag: str = "latest"
+                         ) -> Optional[LoadedCheckpoint]:
+    """The newest of :func:`restore_candidates` that loads whole (every
+    shard's length and checksum), with ``walked_back`` the candidates
+    skipped before it. None when there is no candidate (a fresh run);
+    ``CheckpointCorrupted`` when candidates exist and none loads."""
+    cands = restore_candidates(ckpt_dir, tag)
+    errors: List[str] = []
+    for walked, name in enumerate(cands):
+        final = os.path.join(ckpt_dir, name)
+        try:
+            loaded = load_checkpoint(final)
+        except (CheckpointCorrupted, OSError, ValueError, KeyError,
+                faults.InjectedFault) as e:
+            logger.warning("checkpoint %s failed to load (%s): walking back "
+                           "to the next candidate", final, e)
+            errors.append(f"{name}: {e}")
+            continue
+        loaded.tag = name
+        loaded.walked_back = walked
+        return loaded
+    if cands:
+        raise CheckpointCorrupted(
+            f"checkpoints exist under {ckpt_dir} but none loads: "
+            f"{'; '.join(errors)}")
+    return None

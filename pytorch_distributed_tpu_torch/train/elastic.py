@@ -9,20 +9,57 @@
   supervisor restarts the job and ``Trainer.restore_checkpoint`` resumes
   it.
 
-The watchdog, the in-process elastic world and its
-``deferred_signals`` are not ported (ROADMAP A5, A11).
+* :class:`Watchdog` notices a loop that stops ticking: no tick for
+  ``stall_timeout_s`` (the first one gets a grace window) logs, dumps
+  every thread's stack, calls ``on_stall(idle_s)`` (the Trainer counts
+  the window as goodput's ``stalled``) and, when ``fatal``, aborts the
+  process for a supervisor to restart.
+* :func:`deferred_signals` holds SIGTERM/SIGINT across a block (a
+  checkpoint's commit) and delivers them after it.
+
+The in-process elastic world and ``PeerLost`` are not ported
+(ROADMAP A11).
 """
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
 import logging
+import os
 import signal
 import sys
 import threading
+import time
+from typing import Callable, Optional
 
 logger = logging.getLogger(__name__)
 
 EX_TEMPFAIL = 75  # exit code: "transient failure, restart me"
+
+
+@contextlib.contextmanager
+def deferred_signals(signums=(signal.SIGTERM, signal.SIGINT)):
+    """Latch the given signals for the block and deliver any that came
+    (``os.kill`` of this process) once it exits, so a few renames that
+    must land together (a checkpoint's commit and swing) are not cut in
+    two. Off the main thread, where handlers cannot be set, the block
+    runs unprotected."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    pending = []
+    previous = {s: signal.signal(s, lambda sig, frame: pending.append(sig))
+                for s in signums}
+    try:
+        yield
+    finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
+        for s in pending:
+            logger.warning("re-delivering signal %s deferred across the "
+                           "commit window", s)
+            os.kill(os.getpid(), s)
 
 
 class Preempted(RuntimeError):
@@ -86,3 +123,82 @@ def fit_elastic(trainer):
         logger.warning("exiting %d after the preemption checkpoint (step %d)",
                        EX_TEMPFAIL, e.step)
         sys.exit(EX_TEMPFAIL)
+
+
+class Watchdog:
+    """A thread that reports a loop which stops calling :meth:`tick`:
+    after ``stall_timeout_s`` without a tick (``first_grace_s`` before
+    the first one, which takes the first step's compiles and warm-up) it
+    logs, dumps every thread's stack, calls ``on_stall(idle_s)`` and,
+    when ``fatal``, aborts the process (SIGABRT) for a supervisor to
+    restart. One report per stall: the next tick re-arms it."""
+
+    def __init__(self, stall_timeout_s: float, *, fatal: bool = False,
+                 on_stall: Optional[Callable[[float], None]] = None,
+                 poll_s: Optional[float] = None,
+                 first_grace_s: float = 900.0):
+        self.stall_timeout_s = float(stall_timeout_s)
+        self.fatal = fatal
+        self.on_stall = on_stall
+        self._poll_s = poll_s or max(0.5, self.stall_timeout_s / 10.0)
+        self._last = time.monotonic()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.stalled = False
+        self.stalls = 0
+        self.last_step: Optional[int] = None
+        self.first_grace_s = max(float(first_grace_s), self.stall_timeout_s)
+        self._armed = False
+
+    def tick(self, step: Optional[int] = None) -> None:
+        """Progress: re-arms the watchdog and clears ``stalled``."""
+        self._armed = True
+        if step is not None:
+            self.last_step = step
+        self.stalled = False
+        self._last = time.monotonic()
+
+    def _watch(self) -> None:
+        while not self._stop.wait(self._poll_s):
+            idle = time.monotonic() - self._last
+            limit = self.stall_timeout_s if self._armed else \
+                self.first_grace_s
+            if idle <= limit:
+                continue
+            self.stalled = True
+            self.stalls += 1
+            logger.error("watchdog: no train step for %.1f s (limit %.1f s; "
+                         "last step %s): dumping stacks", idle,
+                         self.stall_timeout_s,
+                         "<none>" if self.last_step is None
+                         else self.last_step)
+            try:
+                faulthandler.dump_traceback(file=sys.stderr)
+            except Exception:   # a closed stderr must not kill the thread
+                pass
+            if self.on_stall is not None:
+                self.on_stall(idle)
+            if self.fatal:
+                os.kill(os.getpid(), signal.SIGABRT)
+            self._last = time.monotonic()
+
+    def start(self) -> "Watchdog":
+        if self._thread is None:
+            self._last = time.monotonic()
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._watch,
+                                            name="ptd-watchdog", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()

@@ -1,7 +1,10 @@
 """Losses and metrics: the port of ``causal_lm_loss_fn`` (full logits
 or the chunked-vocab loss of ``ops/lm_loss.py``), ``causal_lm_eval_step``,
 the classifier losses, ``text_classification_loss_fn`` and
-``masked_lm_loss_fn`` in ``pytorch_distributed_tpu/train/losses.py``.
+``masked_lm_loss_fn`` in ``pytorch_distributed_tpu/train/losses.py``,
+and of its MixUp/CutMix (``mixup_cutmix``, split into its draws and its
+mixing, and ``mixup_classification_loss_fn``), ``distillation_loss_fn``,
+``text_classification_eval_step`` and ``f1_finalize``.
 
 A loss function here is ``loss_fn(batch, generator) -> (loss, aux)``
 with ``aux = {"metrics": {...}}``. It closes over the module, whose
@@ -348,3 +351,232 @@ def masked_lm_loss_fn(
         }}
 
     return loss_fn
+
+
+# -- MixUp / CutMix --------------------------------------------------------
+
+
+def _beta(generator, alpha: torch.Tensor) -> torch.Tensor:
+    """One Beta(alpha, alpha) draw from two Gamma(alpha) draws, on the
+    generator's device (no host sync)."""
+    g = torch._standard_gamma(alpha.expand(2).contiguous(),
+                              generator=generator)
+    return g[0] / (g[0] + g[1])
+
+
+def mixup_cutmix_draw(generator, batch_size: int, *,
+                      mixup_alpha: float = 0.2, cutmix_alpha: float = 0.0,
+                      switch_prob: float = 0.5) -> Dict[str, torch.Tensor]:
+    """The random part of :func:`mixup_cutmix`, from ``generator`` on its
+    device: the partner permutation ``perm``, ``use_cutmix`` (with both
+    alphas > 0, CutMix with probability ``switch_prob``), ``lam`` ~
+    Beta(alpha, alpha) of the chosen branch, and the CutMix box's centre
+    as fractions of the height and width (``cy``, ``cx`` in [0, 1))."""
+    if mixup_alpha <= 0.0 and cutmix_alpha <= 0.0:
+        raise ValueError(
+            "mixup_cutmix needs mixup_alpha > 0 or cutmix_alpha > 0 "
+            "(both zero would still mix with an implicit Beta(1,1) lam)")
+    dev = generator.device
+    perm = torch.randperm(batch_size, generator=generator, device=dev)
+    if mixup_alpha > 0.0 and cutmix_alpha > 0.0:
+        use_cutmix = torch.rand((), generator=generator,
+                                device=dev) < switch_prob
+    else:
+        use_cutmix = torch.tensor(cutmix_alpha > 0.0, device=dev)
+    alpha = torch.where(use_cutmix,
+                        torch.tensor(cutmix_alpha or 1.0, device=dev),
+                        torch.tensor(mixup_alpha or 1.0, device=dev))
+    lam = _beta(generator, alpha.float())
+    centre = torch.rand(2, generator=generator, device=dev)
+    return {"perm": perm, "use_cutmix": use_cutmix, "lam": lam,
+            "cy": centre[0], "cx": centre[1]}
+
+
+def mixup_cutmix_apply(imgs: torch.Tensor, draw: Dict[str, torch.Tensor]):
+    """The mixing of :func:`mixup_cutmix` given its draws, on NHWC images:
+    ``(mixed, perm, lam)``. MixUp is ``lam * imgs + (1 - lam) *
+    imgs[perm]``; CutMix pastes the partner's pixels inside a box of
+    ratio ``sqrt(1 - lam)`` around the drawn centre, clamped to the
+    image, and ``lam`` becomes the share of pixels kept. Static shapes
+    (masks from index ramps), as the JAX version's."""
+    b, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    perm, lam = draw["perm"], draw["lam"].float()
+    partner = imgs[perm]
+    mixed_up = lam * imgs + (1.0 - lam) * partner
+    cut = torch.sqrt(1.0 - lam)
+    bh, bw = cut * h, cut * w
+    cy, cx = draw["cy"].float() * h, draw["cx"].float() * w
+    y0, y1 = (cy - bh / 2).clamp(0, h), (cy + bh / 2).clamp(0, h)
+    x0, x1 = (cx - bw / 2).clamp(0, w), (cx + bw / 2).clamp(0, w)
+    rows = torch.arange(h, dtype=torch.float32, device=imgs.device)[:, None]
+    cols = torch.arange(w, dtype=torch.float32, device=imgs.device)[None, :]
+    in_box = (rows >= y0) & (rows < y1) & (cols >= x0) & (cols < x1)
+    cut_mixed = torch.where(in_box[None, :, :, None], partner, imgs)
+    lam_cut = 1.0 - in_box.float().mean()
+    use = draw["use_cutmix"]
+    mixed = torch.where(use, cut_mixed.to(imgs.dtype),
+                        mixed_up.to(imgs.dtype))
+    return mixed, perm, torch.where(use, lam_cut, lam)
+
+
+def mixup_cutmix(generator, imgs: torch.Tensor, *, mixup_alpha: float = 0.2,
+                 cutmix_alpha: float = 0.0, switch_prob: float = 0.5):
+    """Batch-level MixUp/CutMix (timm's ``mode='batch'``): one ``lam`` and
+    one partner permutation per call; ``(mixed, perm, lam)``. The draws
+    (:func:`mixup_cutmix_draw`) come from ``generator``, the mixing is
+    :func:`mixup_cutmix_apply`."""
+    draw = mixup_cutmix_draw(generator, imgs.shape[0],
+                             mixup_alpha=mixup_alpha,
+                             cutmix_alpha=cutmix_alpha,
+                             switch_prob=switch_prob)
+    return mixup_cutmix_apply(imgs, draw)
+
+
+#: the mixing stream's tag inside a step's generator ("mix")
+MIX_TAG = 0x6D6978
+
+
+def mixup_classification_loss_fn(
+    model,
+    *,
+    mixup_alpha: float = 0.2,
+    cutmix_alpha: float = 0.0,
+    switch_prob: float = 0.5,
+    image_key: str = "image",
+    label_key: str = "label",
+    label_smoothing: float = 0.0,
+    weight_decay: float = 0.0,
+) -> Callable:
+    """:func:`classification_loss_fn` with MixUp/CutMix on the card: the
+    images mixed with their partners (:func:`mixup_cutmix`, drawn from a
+    generator seeded from the step's), the loss ``lam * CE(labels) +
+    (1 - lam) * CE(labels[perm])`` plus the L2 penalty; metrics
+    ``loss``, ``accuracy`` on the primary labels and ``lam``."""
+    if mixup_alpha <= 0.0 and cutmix_alpha <= 0.0:
+        raise ValueError(
+            "mixup_classification_loss_fn needs mixup_alpha > 0 or "
+            "cutmix_alpha > 0; for neither, use classification_loss_fn")
+
+    def loss_fn(batch, generator):
+        imgs, labels = batch[image_key], batch[label_key]
+        if generator is None:
+            raise ValueError("mixup needs the step's generator")
+        mixed, perm, lam = mixup_cutmix(
+            generator, imgs, mixup_alpha=mixup_alpha,
+            cutmix_alpha=cutmix_alpha, switch_prob=switch_prob)
+        logits = model(mixed, train=True)
+        loss = lam * cross_entropy(logits, labels, label_smoothing) + (
+            1.0 - lam) * cross_entropy(logits, labels[perm], label_smoothing)
+        if weight_decay:
+            loss = loss + l2_penalty(model, weight_decay)
+        return loss, {"metrics": {
+            "loss": loss.detach(),
+            "accuracy": accuracy(logits.detach(), labels),
+            "lam": lam.detach(),
+        }}
+
+    return loss_fn
+
+
+# -- distillation ----------------------------------------------------------
+
+
+def distillation_loss_fn(
+    student,
+    teacher,
+    *,
+    temperature: float = 2.0,
+    alpha: float = 0.5,
+    ids_key: str = "input_ids",
+) -> Callable:
+    """Knowledge distillation for causal LMs: ``alpha * CE(student,
+    labels) + (1 - alpha) * T^2 * KL(teacher_T || student_T)`` over the
+    shifted next-token positions, both masked at document boundaries and
+    padding of packed batches. The teacher (a frozen module) runs in
+    eval mode without gradients. Metrics ``loss``, ``ce``, ``kl``."""
+    if not 0.0 <= alpha <= 1.0:
+        raise ValueError(f"alpha must be in [0, 1], got {alpha}")
+    if temperature <= 0.0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+
+    def loss_fn(batch, generator):
+        ids = batch[ids_key]
+        seg = batch.get("segment_ids")
+        extra = _packed_extra(batch)
+        s_logits = student(ids, train=True, generator=generator, **extra)
+        with torch.no_grad():
+            t_logits = teacher(ids, train=False, **extra)
+        s = s_logits[:, :-1].float()
+        t = t_logits[:, :-1].float()
+        labels = ids[:, 1:].long()
+        tok_ce = F.cross_entropy(s.reshape(-1, s.shape[-1]),
+                                 labels.reshape(-1), reduction="none"
+                                 ).reshape(labels.shape)
+        t_logp = F.log_softmax(t / temperature, -1)
+        s_logp = F.log_softmax(s / temperature, -1)
+        tok_kl = (t_logp.exp() * (t_logp - s_logp)).sum(-1)
+        ce = masked_token_mean(tok_ce, seg)
+        kl = masked_token_mean(tok_kl, seg)
+        loss = alpha * ce + (1.0 - alpha) * (temperature ** 2) * kl
+        return loss, {"metrics": {"loss": loss.detach(), "ce": ce.detach(),
+                                  "kl": kl.detach()}}
+
+    return loss_fn
+
+
+# -- sequence-classification evaluation and its F1 --------------------------
+
+
+def text_classification_eval_step(
+    model,
+    *,
+    binary_metrics: bool = False,
+    ids_key: str = "input_ids",
+    label_key: str = "label",
+    attn_impl: Optional[str] = None,
+) -> Callable:
+    """``eval_step(state, batch) -> metrics`` for sequence classification:
+    ``accuracy``, and with ``binary_metrics`` the confusion rates
+    ``tp_rate``/``fp_rate``/``fn_rate``/``tn_rate`` (shares of the batch;
+    positive = label 1), which average linearly under the Trainer's
+    sample-weighted mean, so :func:`f1_finalize` derives the dataset's
+    F1 and MCC from them."""
+
+    @torch.no_grad()
+    def eval_step(state, batch) -> Dict[str, torch.Tensor]:
+        logits = model(batch[ids_key], batch.get("attention_mask"),
+                       batch.get("token_type_ids"), train=False,
+                       attn_impl=attn_impl)
+        labels = batch[label_key]
+        pred = logits.argmax(-1)
+        out = {"accuracy": accuracy(logits, labels)}
+        if binary_metrics:
+            p, y = pred == 1, labels == 1
+            out["tp_rate"] = (p & y).float().mean()
+            out["fp_rate"] = (p & ~y).float().mean()
+            out["fn_rate"] = (~p & y).float().mean()
+            out["tn_rate"] = (~p & ~y).float().mean()
+        return out
+
+    return eval_step
+
+
+def f1_finalize(means: Dict[str, float]) -> Dict[str, float]:
+    """Precision, recall, F1 and MCC from aggregated confusion rates (the
+    ratios are scale-free, so the mean rates give the dataset's values);
+    0.0 where a denominator is 0, as sklearn. A plain accuracy eval
+    passes through."""
+    out = dict(means)
+    try:
+        tp, fp = means["tp_rate"], means["fp_rate"]
+        fn, tn = means["fn_rate"], means["tn_rate"]
+    except KeyError:
+        return out
+    prec = tp / (tp + fp) if tp + fp > 0 else 0.0
+    rec = tp / (tp + fn) if tp + fn > 0 else 0.0
+    out["precision"] = prec
+    out["recall"] = rec
+    out["f1"] = 2 * prec * rec / (prec + rec) if prec + rec > 0 else 0.0
+    denom = ((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)) ** 0.5
+    out["mcc"] = (tp * tn - fp * fn) / denom if denom > 0 else 0.0
+    return out

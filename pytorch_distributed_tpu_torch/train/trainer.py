@@ -69,8 +69,32 @@ restores the newest candidate that passes verification, and the next
 ``fit`` starts at the cursor's batch (the sampler skips the batches
 already taken, unfetched). With ``handle_preemption`` a SIGTERM makes
 the loop checkpoint at the next step boundary and raise
-``elastic.Preempted``. Goodput accounting and the watchdog wait for
-ROADMAP A5.
+``elastic.Preempted``. ``async_checkpoint`` writes the files on a
+background thread (``checkpoint.AsyncCheckpointer``; the fit waits for
+the last one); ``keep_checkpoints`` N (with ``ckpt_every_steps``) saves
+``step-<N>`` tags and prunes all but the newest N before each save;
+``keep_best`` (an eval metric, ``best_mode`` ``max`` or ``min``) saves
+the tag ``best`` whenever it improves, with ``best_metric.json`` beside
+it so a resumed run keeps its best; ``early_stop_patience`` stops the
+fit after that many evaluations without improvement of the same
+metric. ``eval_every_epochs`` spaces the evaluations and
+``eval_finalize`` transforms their means (``losses.f1_finalize``).
+
+The JAX trainer's lifecycle around the step: a goodput account
+(``tracing.GoodputAccount``: ``productive`` steps, evaluations and
+metric reads, ``checkpoint`` saves, ``recovering`` restores,
+``stalled`` what the watchdog saw, the rest ``other``), written at the
+end of ``fit`` as a ``split="goodput"`` record of the JSONL stream and
+read as ``goodput_pct`` in every logged record; ``stall_timeout_s`` arms the
+``elastic.Watchdog``, whose stall is goodput's ``stalled`` and a
+``watchdog.stall`` marker on the span timeline; ``trace_dir`` with
+``trace_steps`` ``(start, stop)`` runs ``torch.profiler`` over those
+host steps and writes its Chrome trace there; ``log_mfu`` counts the
+step's FLOPs while the first step runs (``utils.profiler.aten_flops``
+for ATen ops, plus the flash kernels' own count, ``ops.flash_attention
+.count_flops``) and logs TFLOP/s and, where the card's peak is known
+(``runtime.device.peak_flops``), MFU per card. The JAX trainer's
+``donate_batch`` (XLA's buffer donation) has no counterpart.
 
 With ``metrics_path`` (a JSONL ``train/metrics.MetricsWriter``) and
 ``tensorboard_dir`` (``utils/tensorboard.TensorBoardWriter``) rank 0
@@ -88,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
 import os
 import time
@@ -305,6 +330,19 @@ class TrainerConfig:
     metrics_path: Optional[str] = None  # JSONL scalar log (rank 0)
     tensorboard_dir: Optional[str] = None  # TensorBoard event files (rank 0)
     trace: Optional[str] = None  # span-tracer output dir (trace.json)
+    eval_every_epochs: int = 1
+    async_checkpoint: bool = False  # file writes on a background thread
+    stall_timeout_s: Optional[float] = None  # the watchdog's limit
+    log_mfu: bool = False  # TFLOP/s and MFU in the logged records
+    keep_checkpoints: Optional[int] = None  # with ckpt_every_steps:
+    # step-<N> tags, the newest N kept (latest and best untouched)
+    keep_best: Optional[str] = None  # eval metric: tag 'best' on improvement
+    best_mode: str = "max"  # 'max' (accuracy-like) or 'min' (loss-like)
+    early_stop_patience: Optional[int] = None  # evals without improvement
+    # of keep_best before fit() stops; needs keep_best and an eval_step
+    eval_finalize: Optional[Callable] = None  # means -> means after eval
+    trace_dir: Optional[str] = None  # with trace_steps: torch.profiler out
+    trace_steps: Optional[tuple] = None  # (start, stop) host steps profiled
 
 
 class TrainingDiverged(RuntimeError):
@@ -348,6 +386,7 @@ class Trainer:
         self.host_step = 0
         self.history: List[dict] = []
         self.last_eval_metrics: Dict[str, float] = {}
+        self.last_goodput: Dict[str, float] = {}
         self._nonfinite_logs = 0
         # where fit() starts (restore_checkpoint moves it) and the cursor
         # a checkpoint records: the epoch and the batches it has taken
@@ -356,22 +395,116 @@ class Trainer:
         self._cursor_epoch = 0
         self._cursor_offset = 0
         self._preemption: Optional[elastic.PreemptionHandler] = None
+        self._watchdog: Optional[elastic.Watchdog] = None
+        # the goodput clock starts here: set-up before the first step is
+        # honestly "other", not productive time
+        self._goodput = tracing.GoodputAccount()
+        self._step_flops: Optional[float] = None   # log_mfu, set lazily
+        self._step_flash_flops = 0.0               # its flash kernels' part
+        self._best_value: Optional[float] = None   # keep_best
+        self._es_best: Optional[float] = None      # early stopping
+        self._es_stale = 0
+        self._profiler = None                      # the trace_steps window
+        self._check_config(eval_step)
+        self._async_ckpt = (ckpt.AsyncCheckpointer()
+                            if config.async_checkpoint else None)
+
+    def _check_config(self, eval_step) -> None:
+        cfg = self.config
+        if cfg.best_mode not in ("max", "min"):
+            raise ValueError(f"best_mode must be 'max' or 'min', got "
+                             f"{cfg.best_mode!r}")
+        if cfg.keep_checkpoints is not None:
+            if cfg.keep_checkpoints < 1:
+                raise ValueError(f"keep_checkpoints must be >= 1, got "
+                                 f"{cfg.keep_checkpoints}")
+            if not cfg.ckpt_every_steps:
+                raise ValueError(
+                    "keep_checkpoints requires ckpt_every_steps: retention "
+                    "prunes step-tagged checkpoints, which only the "
+                    "ckpt_every_steps cadence writes")
+        if cfg.early_stop_patience is not None:
+            if cfg.early_stop_patience < 1:
+                raise ValueError(f"early_stop_patience must be >= 1, got "
+                                 f"{cfg.early_stop_patience}")
+            if cfg.keep_best is None or eval_step is None:
+                raise ValueError("early_stop_patience requires keep_best (the "
+                                 "watched metric name) and an eval_step")
+        if (cfg.trace_steps is None) != (cfg.trace_dir is None):
+            raise ValueError("trace_dir and trace_steps come together: "
+                             "profile host steps [start, stop) into the dir")
+        if cfg.trace_steps is not None:
+            a, b = cfg.trace_steps
+            if not 0 <= a < b:
+                raise ValueError(f"trace_steps must be (start, stop) with 0 "
+                                 f"<= start < stop, got {cfg.trace_steps}")
+        if cfg.halt_on_nonfinite < 0:
+            raise ValueError(f"halt_on_nonfinite must be >= 0 (0 disables),"
+                             f" got {cfg.halt_on_nonfinite}")
+        if cfg.eval_every_epochs < 1:
+            raise ValueError(f"eval_every_epochs must be >= 1, got "
+                             f"{cfg.eval_every_epochs}")
+
+    @contextlib.contextmanager
+    def _accounted(self, span_name: Optional[str], bucket: str, **span_args):
+        """A trace span (none for ``None``: the train step emits its own)
+        and a goodput bucket around one section. A watchdog stall that
+        ends inside it was a slow section, not a hang: its seconds leave
+        ``stalled`` (the section has them)."""
+        t0 = time.perf_counter()
+        stalled0 = self._goodput.buckets.get("stalled", 0.0)
+        try:
+            with (tracing.span(span_name, **span_args) if span_name
+                  else contextlib.nullcontext()):
+                yield
+        finally:
+            self._goodput.add(bucket, time.perf_counter() - t0)
+            self._goodput.retract(
+                "stalled", self._goodput.buckets.get("stalled", 0.0)
+                - stalled0)
 
     # -- checkpoints --------------------------------------------------------
     def save_checkpoint(self, tag: str = "latest") -> Optional[str]:
         """Checkpoint the state under ``ckpt_dir/tag`` (every rank takes
-        part) and the sampler cursor beside it (rank 0)."""
+        part; with ``async_checkpoint`` the files land on a background
+        thread) and the sampler cursor beside it (rank 0)."""
         cfg = self.config
         if cfg.ckpt_dir is None:
             return None
-        with tracing.span("train.checkpoint", tag=tag):
-            path = ckpt.save_checkpoint(cfg.ckpt_dir, self.state, tag=tag)
+        with self._accounted("train.checkpoint", "checkpoint", tag=tag):
+            if self._async_ckpt is not None:
+                path = self._async_ckpt.save(cfg.ckpt_dir, self.state,
+                                             tag=tag)
+            else:
+                path = ckpt.save_checkpoint(cfg.ckpt_dir, self.state,
+                                            tag=tag)
             if dist.get_rank() == 0:
                 ckpt.save_sampler_cursor(
                     cfg.ckpt_dir, step=self.host_step,
                     epoch=self._cursor_epoch, offset=self._cursor_offset)
         logger.info("checkpoint saved: %s (step %d)", path, self.host_step)
+        if self._watchdog is not None:
+            self._watchdog.tick()   # a slow save is not a hang
         return path
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until an async save in flight has landed."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+
+    def _prune_checkpoints(self) -> None:
+        """Before a ``step-<N>`` save: keep the newest ``keep - 1`` step
+        tags (the save supplies the newest survivor; never below one),
+        on rank 0, once the previous async save has landed."""
+        cfg = self.config
+        if not (cfg.keep_checkpoints and cfg.ckpt_dir):
+            return
+        if dist.get_rank() != 0:
+            return
+        self.wait_for_checkpoint()
+        for path in ckpt.prune_checkpoints(
+                cfg.ckpt_dir, keep=max(cfg.keep_checkpoints - 1, 1)):
+            logger.info("pruned checkpoint: %s", path)
 
     def restore_checkpoint(self, tag: str = "latest") -> bool:
         """Restore the newest intact checkpoint for ``tag``: rank 0 first
@@ -380,7 +513,7 @@ class Trainer:
         shared, so every rank skips the same ones). False when there is
         nothing to restore; ``CheckpointCorrupted`` when checkpoints
         exist and none is restorable."""
-        with tracing.span("train.restore", tag=tag):
+        with self._accounted("train.restore", "recovering", tag=tag):
             return self._restore(tag)
 
     def _restore(self, tag: str) -> bool:
@@ -458,12 +591,14 @@ class Trainer:
             epoch, offset = divmod(step, epoch_len) if epoch_len else (0, 0)
         self._first_epoch = self._cursor_epoch = epoch
         self._resume_skip_batches = self._cursor_offset = offset
+        self._load_best_record()   # the best before the restart stands
         logger.info("resumed %r at step %d (epoch %d, skipping %d batches)",
                     tag, step, epoch, offset)
 
     def _check_preemption(self) -> None:
         if self._preemption is not None and self._preemption.requested:
             self.save_checkpoint()
+            self.wait_for_checkpoint()   # the restart reads it next
             logger.warning("preemption checkpoint written at step %d: "
                            "exiting for a restart", self.host_step)
             raise elastic.Preempted(self.host_step)
@@ -473,6 +608,9 @@ class Trainer:
         cfg = self.config
         self._preemption = (elastic.PreemptionHandler().install()
                             if cfg.handle_preemption else None)
+        self._watchdog = (elastic.Watchdog(
+            cfg.stall_timeout_s, on_stall=self._note_stall).start()
+            if cfg.stall_timeout_s else None)
         if cfg.trace and self._own_tracer is None:
             self._own_tracer = tracing.configure(cfg.trace)   # a second fit
         try:
@@ -482,22 +620,58 @@ class Trainer:
                 # the epoch is taken: a checkpoint from here on resumes at
                 # the next epoch's first batch
                 self._cursor_epoch, self._cursor_offset = epoch + 1, 0
-                if self.eval_step is not None:
-                    self.evaluate(epoch)
+                if self.eval_step is not None and (
+                        (epoch + 1) % cfg.eval_every_epochs == 0):
+                    means = self.evaluate(epoch)
+                    if self._early_stop_triggered(means):
+                        self.save_checkpoint()
+                        logger.info(
+                            "early stop at epoch %d: %s has not improved for "
+                            "%d evals (best %s)", epoch, cfg.keep_best,
+                            self._es_stale, self._es_best)
+                        break
                 self.save_checkpoint()
         finally:
-            if self._preemption is not None:
-                self._preemption.uninstall()
-                self._preemption = None
-            self._finish_observability()
-            if self.metrics_writer is not None:
-                self.metrics_writer.close()
+            if self._profiler is not None:
+                self._stop_profiler(early=True)
+            try:
+                self.wait_for_checkpoint()   # the last save lands first
+            finally:
+                if self._preemption is not None:
+                    self._preemption.uninstall()
+                    self._preemption = None
+                if self._watchdog is not None:
+                    self._watchdog.stop()
+                    self._watchdog = None
+                self._finish_observability()
+                if self.metrics_writer is not None:
+                    self.metrics_writer.close()
         return self.state
 
+    def _note_stall(self, idle_s: float) -> None:
+        """The watchdog's stall: goodput's ``stalled`` and a marker."""
+        self._goodput.add("stalled", idle_s)
+        tracing.instant("watchdog.stall", idle_s=idle_s,
+                        step=self.host_step)
+
     def _finish_observability(self) -> None:
-        """The span rollups to the metrics writer and the timeline to
-        ``<trace>/trace.json``; then the tracer is disarmed. A failed
-        export is logged, never raised over the run's own exception."""
+        """The goodput record and the span rollups to the metrics writer,
+        the timeline to ``<trace>/trace.json``; then the tracer is
+        disarmed. A failed export is logged, never raised over the run's
+        own exception."""
+        self.last_goodput = self._goodput.summary()
+        writers = getattr(self.metrics_writer, "writers",
+                          [self.metrics_writer])
+        # the JSONL stream, which summarize_goodput reads (a TensorBoard
+        # file keeps its per-step scalars)
+        for w in writers:
+            if isinstance(w, MetricsWriter):
+                try:
+                    w.write(self.host_step,
+                            {"event": "goodput", **self.last_goodput},
+                            split="goodput")
+                except Exception:
+                    logger.exception("goodput record failed (ignored)")
         tracer, self._own_tracer = self._own_tracer, None
         if tracer is None:
             return
@@ -541,37 +715,110 @@ class Trainer:
             taken += 1
             self._cursor_offset = taken
             samples += self._batch_samples(batch)
-            self.state, metrics = self.train_step(self.state, batch)
+            self._trace_tick()
+            counting = (cfg.log_mfu and cfg.log_every
+                        and self._step_flops is None)
+            with self._accounted(None, "productive"), (
+                    _counting_flops(self) if counting
+                    else contextlib.nullcontext()):
+                self.state, metrics = self.train_step(self.state, batch)
             self.host_step += 1
+            if self._watchdog is not None:
+                self._watchdog.tick(self.host_step)
             self._check_preemption()
             since_log += 1
             if cfg.log_every and self.host_step % cfg.log_every == 0:
                 # the sync point: pull the metrics off the card
-                values = _rank_mean(metrics)
+                with self._accounted("train.metric_fetch", "productive"):
+                    values = _rank_mean(metrics)
                 now = time.perf_counter()
                 rate = samples * dist.get_world_size() / (now - t_last)
                 dt = (now - t_last) / since_log
                 t_last, since_log, samples = now, 0, 0
                 self._check_finite(values, self.host_step)
+                extra = self._mfu_fields(dt)
                 self.history.append(dict(
                     step=self.host_step, epoch=epoch, step_time_s=dt,
-                    samples_per_s=rate, **values,
+                    samples_per_s=rate, **values, **extra,
                 ))
                 if self.metrics_writer is not None:
                     self.metrics_writer.write(self.host_step, {
                         **values, "samples_per_sec": rate,
-                        "step_time_ms": dt * 1e3, "epoch": epoch})
+                        "step_time_ms": dt * 1e3, "epoch": epoch, **extra,
+                        "goodput_pct": round(self._goodput.goodput_pct(), 2)})
                 logger.info(
-                    "epoch %d step %d %s (%.1f ms/step)", epoch,
+                    "epoch %d step %d %s (%.1f ms/step)%s", epoch,
                     self.host_step,
                     " ".join(f"{k}={v:.4f}" for k, v in values.items()),
-                    dt * 1e3,
+                    dt * 1e3, "".join(
+                        f" {k}={v:.4g}" for k, v in extra.items()),
                 )
             if cfg.ckpt_every_steps and (
                     self.host_step % cfg.ckpt_every_steps == 0):
                 t_save = time.perf_counter()
-                self.save_checkpoint()
+                if cfg.keep_checkpoints:
+                    self._prune_checkpoints()   # before the save: overlap
+                    self.save_checkpoint(tag=f"step-{self.host_step}")
+                else:
+                    self.save_checkpoint()
                 t_last += time.perf_counter() - t_save   # no step's time
+
+    def _mfu_fields(self, dt: float) -> Dict[str, float]:
+        """``tflops`` (this rank's) and, with the card's peak, ``mfu``."""
+        if not self._step_flops:
+            return {}
+        from pytorch_distributed_tpu_torch.runtime.device import peak_flops
+
+        achieved = self._step_flops / dt
+        out = {"tflops": achieved / 1e12}
+        peak = peak_flops(next(self.state.model.parameters()).device)
+        if peak:
+            out["mfu"] = achieved / peak
+        return out
+
+    # -- the torch.profiler window -------------------------------------------
+    def _trace_tick(self) -> None:
+        """Start the profiler before the first step of ``trace_steps``
+        (a resumed run inside the window captures its remainder) and stop
+        it before the step at ``stop``, after the card has finished the
+        traced steps."""
+        cfg = self.config
+        if cfg.trace_steps is None:
+            return
+        start, stop = cfg.trace_steps
+        if self._profiler is None and start <= self.host_step < stop:
+            from pytorch_distributed_tpu_torch.utils.profiler import (
+                trace_activities,
+            )
+
+            device = next(self.state.model.parameters()).device
+            self._profiler = torch.profiler.profile(
+                activities=trace_activities(device))
+            self._profiler.__enter__()
+        elif self._profiler is not None and self.host_step >= stop:
+            self._stop_profiler()
+
+    def _stop_profiler(self, early: bool = False) -> None:
+        from pytorch_distributed_tpu_torch.utils.profiler import export_trace
+
+        prof, self._profiler = self._profiler, None
+        device = next(self.state.model.parameters()).device
+        try:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            prof.__exit__(None, None, None)
+            path = export_trace(prof, self.config.trace_dir)
+            logger.info("profiler trace of steps %s written to %s",
+                        self.config.trace_steps, path)
+            if early:
+                logger.warning(
+                    "trace window %s outlived training (last step %d): the "
+                    "trace holds end-of-epoch work", self.config.trace_steps,
+                    self.host_step)
+        except Exception:
+            if not early:
+                raise
+            logger.exception("profiler export failed (ignored)")
 
     def _batch_samples(self, batch) -> int:
         """This rank's samples in ``batch``: the leading dim of its
@@ -593,7 +840,8 @@ class Trainer:
                 raise ValueError("eval_with_ema needs shadow params: make the "
                                  "state with TrainState(..., ema=True)")
             shadow = _swapped_params(self.state.model, self.state.ema_params)
-        with tracing.span("train.eval"), shadow:
+        # evaluation is useful work: goodput's productive
+        with self._accounted("train.eval", "productive"), shadow:
             for batch in self.eval_loader:
                 batch = {k: v.to(device, non_blocking=True)
                          for k, v in batch.items()}
@@ -607,13 +855,89 @@ class Trainer:
                                               dtype=torch.float64)])
             vec = dist.all_reduce(vec).tolist()
         means = {k: v / max(vec[-1], 1.0) for k, v in zip(keys, vec)}
+        if self.config.eval_finalize is not None:
+            means = self.config.eval_finalize(means)
         self.last_eval_metrics = means
         logger.info("eval epoch %d: %s", epoch,
                     " ".join(f"{k}={v:.4f}" for k, v in means.items()))
         if self.metrics_writer is not None:
             self.metrics_writer.write(self.host_step, {**means, "epoch": epoch},
                                       split="eval")
+        self._maybe_save_best(means)
         return means
+
+    # -- best checkpoint and early stopping ----------------------------------
+    def _improved(self, value: float, best: Optional[float]) -> bool:
+        """The one comparator best-saving and early stopping share."""
+        return (best is None
+                or (self.config.best_mode == "max" and value > best)
+                or (self.config.best_mode == "min" and value < best))
+
+    def _early_stop_triggered(self, means: Dict[str, float]) -> bool:
+        cfg = self.config
+        if cfg.early_stop_patience is None:
+            return False
+        value = means.get(cfg.keep_best)
+        if value is None:
+            raise ValueError(f"early-stop metric {cfg.keep_best!r} not in "
+                             f"eval metrics {sorted(means)}")
+        if not math.isfinite(value):   # NaN shows no improvement
+            self._es_stale += 1
+        elif self._improved(value, self._es_best):
+            self._es_best, self._es_stale = value, 0
+            return False
+        else:
+            self._es_stale += 1
+        return self._es_stale >= cfg.early_stop_patience
+
+    def _maybe_save_best(self, means: Dict[str, float]) -> None:
+        """Save tag ``best`` whenever the watched metric improves."""
+        cfg = self.config
+        if cfg.keep_best is None or cfg.ckpt_dir is None:
+            return
+        if cfg.keep_best not in means:
+            logger.warning("keep_best metric %r not in eval metrics %s: "
+                           "skipping", cfg.keep_best, sorted(means))
+            return
+        value = means[cfg.keep_best]
+        if not math.isfinite(value):   # a NaN best would never be beaten
+            return
+        if self._improved(value, self._best_value):
+            self._best_value = value
+            self.save_checkpoint(tag="best")
+            self._write_best_record(value)
+            logger.info("new best %s=%.4f (step %d)", cfg.keep_best, value,
+                        self.host_step)
+
+    def _best_record_path(self) -> str:
+        return os.path.join(self.config.ckpt_dir, "best_metric.json")
+
+    def _write_best_record(self, value: float) -> None:
+        """The best value on disk (the JAX trainer's ``best_metric.json``),
+        so a resumed run cannot demote ``best``."""
+        if dist.get_rank() != 0:
+            return
+        tmp = self._best_record_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"metric": self.config.keep_best,
+                       "mode": self.config.best_mode, "value": value,
+                       "step": self.host_step}, f)
+        os.replace(tmp, self._best_record_path())
+
+    def _load_best_record(self) -> None:
+        cfg = self.config
+        if cfg.keep_best is None or cfg.ckpt_dir is None:
+            return
+        try:
+            with open(self._best_record_path()) as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            return
+        if rec.get("metric") == cfg.keep_best and \
+                rec.get("mode") == cfg.best_mode:
+            self._best_value = rec.get("value")
+            logger.info("resumed best %s=%.4f (step %s)", cfg.keep_best,
+                        self._best_value, rec.get("step"))
 
     def _check_finite(self, metrics: Dict[str, float], step: int) -> None:
         n = self.config.halt_on_nonfinite
@@ -634,6 +958,30 @@ class Trainer:
                 "from the last finite checkpoint with a lower LR (set "
                 "TrainerConfig(halt_on_nonfinite=0) to disable)"
             )
+
+
+@contextlib.contextmanager
+def _counting_flops(trainer: Trainer):
+    """Count the FLOPs of the step run inside (``log_mfu``): the ATen ops
+    (``utils.profiler.aten_flops``, which leaves every result as it is)
+    and the flash kernels' own ledger. The count is this rank's, remat's
+    recompute included (the JAX count of the compiled step's HLO counts
+    it too); its host work falls in the first logging window's time."""
+    from pytorch_distributed_tpu_torch.ops.flash_attention import count_flops
+    from pytorch_distributed_tpu_torch.runtime.device import peak_flops
+    from pytorch_distributed_tpu_torch.utils.profiler import aten_flops
+
+    with aten_flops() as counter, count_flops() as ledger:
+        yield
+    trainer._step_flops = float(counter.flops + ledger.flops)
+    trainer._step_flash_flops = float(ledger.flops)
+    device = next(trainer.state.model.parameters()).device
+    peak = peak_flops(device)
+    logger.info(
+        "log_mfu: %.4g FLOPs a step on this rank (%.4g of them the flash "
+        "kernels'); %s", trainer._step_flops, float(ledger.flops),
+        f"MFU against {peak / 1e12:.0f} TFLOP/s" if peak else
+        f"MFU off: no peak for {device} (runtime.device.peak_flops)")
 
 
 @contextlib.contextmanager

@@ -35,6 +35,12 @@ process per card, under torchrun:
    and must equal the files to the bit too; then every rank joins a
    world of all ranks again, where rank 0 learns the worst difference.
 
+``--optimizer adafactor`` times the recipe's Adafactor instead
+(unclipped; the optimizer state's bytes per rank printed beside the
+peak memory); ``--phases`` picks which of ``timing``, ``parity`` and
+``reshard`` run (all three by default; parity and re-sharding keep
+AdamW).
+
 Rank 0 prints each result, a JSON line, and ``nvidia-smi``'s name and
 power limit of the cards, and exits non-zero when a check fails.
 ``--device cpu --size tiny --seq 16 --batch-per-chip 2 --check-batch 8
@@ -102,9 +108,10 @@ def _config(args, *, check):
 
 
 def _build(cfg, device, strategy, *, seed, policy, chunk, attn_impl=None,
-           accum=1):
+           accum=1, optimizer="adamw"):
     """(model, step, state): ``strategy`` "fsdp" (full shard over every
-    rank) or "dp" (DDP)."""
+    rank) or "dp" (DDP); ``optimizer`` the recipe's ``adamw`` (clipped)
+    or ``adafactor`` (alone)."""
     from pytorch_distributed_tpu_torch import (
         FSDP,
         DataParallel,
@@ -116,16 +123,20 @@ def _build(cfg, device, strategy, *, seed, policy, chunk, attn_impl=None,
     from pytorch_distributed_tpu_torch.recipes.llama_fsdp import (
         ADAMW_WEIGHT_DECAY,
         build_model,
+        build_optimizer,
     )
 
     par = FSDP(device) if strategy == "fsdp" else DataParallel(device)
     model, net = build_model(cfg, par, device, seed, policy)
-    if strategy == "fsdp":
+    if optimizer == "adafactor":
+        opt = build_optimizer("adafactor", model, par, 1e-4)
+    elif strategy == "fsdp":
         opt = par.optimizer(model, optim.AdamW, lr=1e-4,
                             weight_decay=ADAMW_WEIGHT_DECAY)
     else:
         opt = optim.AdamW(model, lr=1e-4, weight_decay=ADAMW_WEIGHT_DECAY)
-    opt = optim.clip_grad_norm(opt, 1.0)
+    if optimizer != "adafactor":
+        opt = optim.clip_grad_norm(opt, 1.0)
     step = build_train_step(
         causal_lm_loss_fn(net, vocab_chunk_size=chunk, attn_impl=attn_impl),
         accum_steps=accum)
@@ -149,7 +160,8 @@ def timing(args, device, dist):
     world, rank = dist.get_world_size(), dist.get_rank()
     t0 = time.perf_counter()
     model, step, state, par = _build(cfg, device, "fsdp", seed=args.seed,
-                                     policy=Policy.train(), chunk=CHUNK)
+                                     policy=Policy.train(), chunk=CHUNK,
+                                     optimizer=args.optimizer)
     _sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -183,7 +195,23 @@ def timing(args, device, dist):
                   f"{args.steps} steps), loss {loss:.4f}", flush=True)
     peak = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else 0.0
     peaks = dist.all_gather(torch.tensor([peak], device=device))
+    from chip_smoke import _opt_state_bytes
+    from pytorch_distributed_tpu_torch.interop import unwrap_optimizer
+
+    state_bytes = dist.all_gather(torch.tensor(
+        [float(_opt_state_bytes(state.optimizer))], device=device))
+    paths = ""
+    if args.optimizer == "adafactor":
+        # the factored leaves' path: each rank's rows layer by layer (the
+        # partial means all-reduced), or the whole leaf on every rank
+        opt = unwrap_optimizer(state.optimizer)[1]
+        fac = [leaf for leaf in opt.leaves if opt.factored(leaf)]
+        rows = sum(1 for leaf in fac if opt.per_layer(leaf))
+        paths = (f"; factored leaves {len(fac)}: {rows} on each rank's rows,"
+                 f" {len(fac) - rows} assembled whole")
     out = dict(layers=cfg.num_layers, params=n_params, world=world,
+               optimizer=args.optimizer, factored_paths=paths[2:] or None,
+               opt_state_bytes_by_rank=state_bytes[:, 0].tolist(),
                batch_per_chip=args.batch_per_chip, seq=args.seq,
                init_s=init_s, warmup_losses=losses, windows=windows,
                peak_mem_gib_by_rank=peaks[:, 0].tolist() if on_card else None)
@@ -192,8 +220,10 @@ def timing(args, device, dist):
               f" parameters, FSDP full-shard over {world} ranks, remat, "
               f"vocab chunk {CHUNK}, {args.batch_per_chip} x {args.seq} a "
               f"rank, one placed batch (its loss {losses[0]:.4f} at the "
-              f"first warm-up step); init {init_s:.1f} s; peak memory by "
-              f"rank "
+              f"first warm-up step); {args.optimizer}, optimizer state "
+              f"by rank "
+              + ", ".join(f"{b:.0f}" for b in out["opt_state_bytes_by_rank"])
+              + f" bytes{paths}; init {init_s:.1f} s; peak memory by rank "
               + (", ".join(f"{p:.3f}" for p in out["peak_mem_gib_by_rank"])
                  + " GiB" if on_card else "not measured"), flush=True)
     if on_card:
@@ -390,6 +420,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--optimizer", choices=("adamw", "adafactor"),
+                    default="adamw",
+                    help="the timing's optimizer (the recipe's)")
+    ap.add_argument("--phases", default="timing,parity,reshard",
+                    help="which of timing, parity, reshard to run")
     args = ap.parse_args(argv)
 
     from pytorch_distributed_tpu_torch.runtime import distributed as dist
@@ -402,12 +437,18 @@ def main(argv=None) -> int:
                             f"ptd_fsdp_scale_{os.environ.get('MASTER_PORT')}")
     ok = False
     try:
-        out = dict(world=world, timing=timing(args, device, dist))
-        out["parity"] = parity(args, device, dist)
-        out["reshard"] = reshard(args, device, dist, ckpt_dir)
-        ok = (out["parity"]["ok"]
-              and out["reshard"]["restore_max_abs_diff"] == 0.0
-              and out["reshard"]["written_state_vs_files"] == 0.0)
+        phases = args.phases.split(",")
+        out = dict(world=world)
+        ok = True
+        if "timing" in phases:
+            out["timing"] = timing(args, device, dist)
+        if "parity" in phases:
+            out["parity"] = parity(args, device, dist)
+            ok = ok and out["parity"]["ok"]
+        if "reshard" in phases:
+            out["reshard"] = reshard(args, device, dist, ckpt_dir)
+            ok = (ok and out["reshard"]["restore_max_abs_diff"] == 0.0
+                  and out["reshard"]["written_state_vs_files"] == 0.0)
         out["ok"] = ok
         if rank == 0:
             print(json.dumps({"port_fsdp_scale": out}))

@@ -8,9 +8,11 @@
   GPT-2, runs the ResNet-50 recipe (with ZeRO-1, EMA and TensorBoard),
   the ResNet-18/CIFAR-10 recipe (through the native pipeline, with
   int8 gradient compression), the Llama FSDP recipe and the BERT
-  recipe (fp16 with loss scaling, and with LoRA) and generates (beam,
+  recipe (fp16 with loss scaling, and with LoRA), the Llama recipe
+  with Adafactor and the ResNet-50 recipe with the checkpoint lifecycle,
+  MFU and the profiler, and generates (beam,
   speculative, an int4 model) on the CPU, in a fresh
-  interpreter where ``jax``, ``flax`` and
+  interpreter where ``jax``, ``flax``, ``optax`` and
   the JAX package ``pytorch_distributed_tpu`` cannot be imported at all
   (the meta-path blocker idiom of tests/test_ckpt_shard.py).
 * Its entry points default to the CUDA card and raise without one,
@@ -54,7 +56,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_RUN = """
 import importlib, os, pkgutil, sys
-BLOCKED = ("jax", "flax", "pytorch_distributed_tpu")
+BLOCKED = ("jax", "flax", "optax", "pytorch_distributed_tpu")
 class _Block:
     def find_spec(self, name, *a, **k):
         if any(name == b or name.startswith(b + ".") for b in BLOCKED):
@@ -82,7 +84,9 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "lora", "serve.disagg", "serve.prefix_store", "serve.router",
             "serve.loadgen", "runtime.flightrec", "parallel.overlap",
             "parallel.ddp", "data.image_folder", "train.metrics",
-            "utils.tensorboard", "recipes.resnet18_cifar10"):
+            "utils.tensorboard", "recipes.resnet18_cifar10",
+            "utils.config", "utils.profiler", "runtime.tracing",
+            "runtime.device"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -155,6 +159,21 @@ trainer = llama_fsdp.main(["--size", "tiny", "--device", "cpu",
                            "--steps-per-epoch", "1", "--log-every", "1",
                            "--remat", "--vocab-chunk", "100"])
 assert trainer.state.step == 1, trainer.state.step
+trainer = llama_fsdp.main(["--size", "tiny", "--device", "cpu",
+                           "--batch-size", "2", "--seq-len", "16",
+                           "--steps-per-epoch", "1", "--log-every", "1",
+                           "--optimizer", "adafactor", "--backend", "gloo"])
+assert type(trainer.state.optimizer).__name__ == "Adafactor"
+trainer = resnet50_imagenet.main(["--device", "cpu", "--image-size", "32",
+                                  "--batch-size", "2", "--steps-per-epoch",
+                                  "2", "--epochs", "1", "--log-every", "1",
+                                  "--ckpt-dir", tmp + "/ck",
+                                  "--ckpt-every-steps", "1",
+                                  "--keep-checkpoints", "1", "--keep-best",
+                                  "accuracy", "--async-checkpoint",
+                                  "--log-mfu", "--profile-dir",
+                                  tmp + "/prof"])
+assert os.path.isdir(tmp + "/ck/best") and os.listdir(tmp + "/prof")
 from pytorch_distributed_tpu_torch.recipes import bert_finetune
 trainer = bert_finetune.main(["--tiny", "--device", "cpu", "--fp16",
                               "--batch-size", "2", "--seq-len", "16",

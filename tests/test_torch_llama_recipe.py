@@ -13,7 +13,10 @@ recipe's flags, at ``--device cpu --size tiny``:
   sums over other shares of the batch);
 * ``--strategy dp`` and ``zero1`` train 2 steps;
 * the optimizer decays by 1e-4 (optax.adamw's default) in every group;
-* the flags the port does not have raise naming their ROADMAP item.
+* ``--optimizer adafactor`` trains under ``fsdp`` and ``dp`` (with
+  ``--backend gloo``);
+* the flags the port does not have raise naming their ROADMAP item
+  (``--optimizer adafactor`` only with ``--strategy zero1``).
 """
 
 import numpy as np
@@ -69,7 +72,21 @@ def test_other_strategies_train(strategy):
 @pytest.mark.parametrize("flags, item", [
     (["--tp", "2"], "A10"), (["--sp", "2"], "A10"),
     (["--sp-mode", "ulysses"], "A10"), (["--strategy", "auto"], "A10"),
-    (["--optimizer", "adafactor"], "A4")])
+    (["--optimizer", "adafactor", "--strategy", "zero1"], "A4")])
 def test_unported_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         recipe.main(BASE + flags)
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "dp"])
+def test_adafactor_trains(strategy):
+    """``--optimizer adafactor``: Adafactor alone, no global clip (the
+    JAX recipe's; held step by step against it in
+    tests/test_torch_adafactor.py)."""
+    from pytorch_distributed_tpu_torch.optim import Adafactor
+
+    trainer = recipe.main(BASE + ["--optimizer", "adafactor", "--strategy",
+                                  strategy, "--backend", "gloo"])
+    assert trainer.state.step == 2
+    assert isinstance(trainer.state.optimizer, Adafactor)
+    assert all(np.isfinite(r["loss"]) for r in trainer.history)

@@ -224,3 +224,45 @@ def llama_recipe(rank, world, port, argv, out):
                           for g in trainer.state.optimizer.param_groups}}
 
     _run(rank, out, body)
+
+
+def adafactor_steps(rank, world, port, spec, out):
+    """Adafactor (``min_dim_size_to_factor`` 8, so the stacked kernels
+    factor) over ``CFG`` under FSDP at ``world``: ``STEPS`` steps of the
+    chunked loss; the parameters (gathered, the JAX layout) and each
+    leaf's ``v_row``/``v_col`` and ``v`` after."""
+    from pytorch_distributed_tpu_torch import optim
+    from pytorch_distributed_tpu_torch.interop import llama_params_to_jax
+    from pytorch_distributed_tpu_torch.parallel import FSDP
+    from pytorch_distributed_tpu_torch.recipes.llama_fsdp import build_model
+    from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec
+    from pytorch_distributed_tpu_torch.runtime.precision import Policy
+    from pytorch_distributed_tpu_torch.train import TrainState
+
+    def body():
+        _join(rank, world, port)
+        strategy = FSDP("cpu", MeshSpec(**spec))
+        model, _ = build_model(config(), strategy, "cpu", 0, Policy.full())
+        opt = strategy.optimizer(model, optim.Adafactor, lr=LR,
+                                 min_dim_size_to_factor=8)
+        state = TrainState(model, opt, policy=Policy.full())
+        losses = run_steps(model, state, strategy, batches(), 1)
+        named = dict(model.named_parameters())
+        res = {"losses": losses, "params": llama_params_to_jax(
+            {n: torch.from_numpy(full(p)) for n, p in named.items()},
+            model.config)}
+        from pytorch_distributed_tpu_torch.optim import _RowBox
+
+        res["per_layer"] = {leaf.path: all(
+            _RowBox(p, g).ok for p, g in zip(leaf.params, leaf.geoms))
+            for leaf in opt.leaves if opt.factored(leaf)}
+        for leaf in opt.leaves:
+            held = opt.leaf_state(leaf)
+            res[leaf.path] = {k: held[k].numpy().copy()
+                              for k in ("v_row", "v_col")}
+            if opt.factored(leaf) is None:
+                res[leaf.path]["v"] = np.stack(
+                    [full(opt.state[p]["v"]) for p in leaf.params])
+        return res
+
+    _run(rank, out, body)
