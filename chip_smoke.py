@@ -11,9 +11,12 @@ through the rest of the serving stack (int8 pools, speculative ticks, a
 prefill/decode fleet behind the router), run the ResNet-18/CIFAR-10
 recipe and the rest of image training (the native pipeline's staging
 ring, EMA and the writers, image folders, ZeRO-1 for ResNet, the q8
-wire form), and run the trainer's lifecycle (Adafactor on the Llama
+wire form), run the trainer's lifecycle (Adafactor on the Llama
 recipe, async/pruned/best checkpoints, MFU, goodput, the profiler
-window, the watchdog).
+window, the watchdog), and run the model families (Gemma, Mistral,
+Qwen2, Qwen3, Phi-3, tied Llama-3.2 through the paged engine, Pythia-1B
+through generate, Gemma-2B width through the Trainer, HF weights loaded
+and exported) with the kernels at head_dim 96 and 256.
 
     python3 chip_smoke.py [--seed N]
 
@@ -276,16 +279,44 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    watchdog fires once and goodput's ``stalled`` holds it. Paths
    ``llama_adafactor``, ``gpt2_lifecycle``, ``gpt2_lifecycle_sync``
    (B1-B3), ``resnet50_recipe_config``, ``watchdog`` (none).
+14. the model families, after 13a/b/d and before the profiles, seeded
+   bf16 weights at published widths: (14a) ``ServeEngine`` (8 slots,
+   32-token pages, phase 4's request mix) on Gemma-2B at full depth
+   (head_dim 256, 8 query heads over 1 kv head, the tied 256k head),
+   Qwen2-7B (groups of 7, q/k/v biases), Qwen3-8B (QK norms), Phi-3-mini
+   (head_dim 96) and Mistral-7B at ``FAMILY_LAYERS`` of their layers,
+   Llama-3.2-1B (tied) at full depth, and Mistral again with its window
+   cut to ``MISTRAL_CUT_WINDOW`` so that the band masks inside the
+   prompts: every request completes, the paged kernel launches ticks x
+   layers, greedy tokens within ``GREEDY_MARGIN`` of the teacher-forced
+   einsum forward; then the paged kernel at those decode ticks against
+   ``stream`` and ``gather`` (and Mistral's window), timed beside its
+   bound, plain version and SDPA. (14b) Pythia-1B (NeoX, head_dim 256)
+   at full depth through ``generate`` on its dense cache, 8 x 256 + 64
+   greedy tokens within the margin of an uncached forward, which runs
+   the flash forward once a layer. (14c) the flash kernels at Phi-3-mini's
+   (4 x 2048, 32 heads of 96), Gemma-2B's (8 over 1 of 256) and
+   Pythia-1B's (8 of 256) causal training shapes against their plain
+   versions, timed beside SDPA and the bound in bf16 and fp16; then 6
+   Trainer steps of Gemma-2B width at ``FAMILY_LAYERS`` layers (remat,
+   the chunked loss through the tied head, 8 x 1024 packed rows): the
+   loss falls, B1-B3 launch 48/24/24. (14d) a seeded HF-named dict of
+   Qwen2 at 7B width and of Phi-3-mini (fused projections), 2 layers
+   each, loaded on the CPU and on the card in f32: logits within 1e-5
+   of their largest magnitude, the export bitwise equal to the input.
+   Paths ``family_<model>`` (the paged kernel), ``family_pythia_1b``
+   (the flash forward), ``family_gemma_2b_train`` (B1-B3).
 
-Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12 and 13 set all
+Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13 and 14 set all
 four kernel counts to 0 just before their run and read all four just
 after; a kernel off the path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
 ``launches_by_path`` per path as read, for the flash kernels their
-numbers ``at_llama_shape`` and ``at_bert_shape`` per dtype, for the paged
-kernel ``at_gpt2_shape`` at W=1 and W=5), then the
+numbers ``at_llama_shape``, ``at_bert_shape`` and ``at_family_shapes``
+per dtype, for the paged kernel ``at_gpt2_shape`` at W=1 and W=5 and
+``at_family_shapes``), then the
 card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
 ``{"ok": true, "device": {...}}``.
@@ -457,7 +488,7 @@ _MANGLED_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
 
 _TC_KERNELS = ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
                "flash_dkv_kernel_tc")
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _TC_DTYPES = ("bfloat16", "float16")
 
 
@@ -506,7 +537,7 @@ _PAGED_KERNEL = re.compile(
     r"(paged_(?:decode_kernel(?:_tc)?|combine_kernel))"
     r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?"
 )
-_PAGED_HEAD_DIMS = (64, 128, 256)
+_PAGED_HEAD_DIMS = (64, 96, 128, 256)
 
 
 def paged_label(fn):
@@ -934,6 +965,56 @@ def _live_pairs(B, S, T, Hq, causal, bias, seg):
     return int(keep.sum().item()) * Hq
 
 
+def _flash_check(gen, seed, name, shape, causal, extras, dname, device):
+    """The forward, dq and dkv kernels against their plain versions on
+    one case (the backward ones fed the same dO, lse and delta): a row
+    per tensor with its max and norm-relative errors and limits."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dname)
+    tol = FLASH_TOL[dname]
+    q, k, v, bias, seg = _flash_inputs(gen, seed, shape, dtype, device,
+                                       extras)
+    kw = dict(sm_scale=extras.get("sm_scale", shape["D"] ** -0.5),
+              causal=causal)
+    out, lse = fa.flash_fwd(q, k, v, bias, seg, **kw)
+    ref, ref_lse = fa._flash_fwd_plain(q, k, v, bias, seg, **kw)
+    dout = torch.randn(out.shape, generator=gen).to(device, dtype)
+    delta = fa._delta(dout, out)
+    args = (q, k, v, dout, lse, delta, bias, seg)
+    dq = fa.flash_dq(*args, **kw)
+    dk, dv = fa.flash_dkv(*args, **kw)
+    ref_dk, ref_dv = fa._flash_dkv_plain(*args, **kw)
+    pairs = (
+        ("out", out, ref, tol["out"]),
+        ("lse", lse, ref_lse, LSE_TOL),
+        ("dq", dq, fa._flash_dq_plain(*args, **kw), tol["grad"]),
+        ("dk", dk, ref_dk, tol["grad"]),
+        ("dv", dv, ref_dv, tol["grad"]),
+    )
+    torch.cuda.synchronize()
+    rows = []
+    for what, got, want, lim in pairs:
+        want = want.float()
+        diff = got.float() - want
+        err = diff.abs().max().item()
+        scale = want.abs().max().item()
+        norm = (diff.norm() / want.norm()).item()
+        ok = (math.isfinite(err) and err <= lim["max"] * scale
+              and norm <= lim["norm"])
+        rows.append(dict(case=name, dtype=dname, what=what,
+                         max_abs_err=err, max_abs_ref=scale,
+                         tol=lim["max"] * scale, norm_rel_err=norm,
+                         norm_tol=lim["norm"], ok=ok))
+        print(f"flash {name} {dname} {what}: max|err| {err:.3e} <= "
+              f"{lim['max']:g} * max|ref| {scale:.4f}, norm "
+              f"{norm:.3e} <= {lim['norm']:g} -> "
+              f"{'ok' if ok else 'FAIL'}")
+    return rows
+
+
 def flash_phase(device, seed):
     import torch
     import torch.nn.functional as F
@@ -945,48 +1026,12 @@ def flash_phase(device, seed):
     checks = []
     worst = {}
     for dname in FLASH_DTYPES:
-        dtype = getattr(torch, dname)
-        tol = FLASH_TOL[dname]
         for name, shape, causal, extras in FLASH_CASES:
-            q, k, v, bias, seg = _flash_inputs(gen, seed, shape, dtype,
-                                               device, extras)
-            kw = dict(sm_scale=extras.get("sm_scale",
-                                          shape["D"] ** -0.5),
-                      causal=causal)
-            out, lse = fa.flash_fwd(q, k, v, bias, seg, **kw)
-            ref, ref_lse = fa._flash_fwd_plain(q, k, v, bias, seg, **kw)
-            dout = torch.randn(out.shape, generator=gen).to(device, dtype)
-            delta = fa._delta(dout, out)
-            args = (q, k, v, dout, lse, delta, bias, seg)
-            dq = fa.flash_dq(*args, **kw)
-            dk, dv = fa.flash_dkv(*args, **kw)
-            ref_dk, ref_dv = fa._flash_dkv_plain(*args, **kw)
-            pairs = (
-                ("out", out, ref, tol["out"]),
-                ("lse", lse, ref_lse, LSE_TOL),
-                ("dq", dq, fa._flash_dq_plain(*args, **kw), tol["grad"]),
-                ("dk", dk, ref_dk, tol["grad"]),
-                ("dv", dv, ref_dv, tol["grad"]),
-            )
-            torch.cuda.synchronize()
-            for what, got, want, lim in pairs:
-                want = want.float()
-                diff = got.float() - want
-                err = diff.abs().max().item()
-                scale = want.abs().max().item()
-                norm = (diff.norm() / want.norm()).item()
-                ok = (math.isfinite(err) and err <= lim["max"] * scale
-                      and norm <= lim["norm"])
-                checks.append(dict(case=name, dtype=dname, what=what,
-                                   max_abs_err=err, max_abs_ref=scale,
-                                   tol=lim["max"] * scale, norm_rel_err=norm,
-                                   norm_tol=lim["norm"], ok=ok))
-                print(f"flash {name} {dname} {what}: max|err| {err:.3e} <= "
-                      f"{lim['max']:g} * max|ref| {scale:.4f}, norm "
-                      f"{norm:.3e} <= {lim['norm']:g} -> "
-                      f"{'ok' if ok else 'FAIL'}")
-                worst.setdefault(dname, {}).setdefault(name, {})[what] = err
-            del q, k, v, out, ref, dout, dq, dk, dv, ref_dk, ref_dv, pairs
+            rows = _flash_check(gen, seed, name, shape, causal, extras,
+                                dname, device)
+            checks += rows
+            worst.setdefault(dname, {})[name] = {
+                r["what"]: r["max_abs_err"] for r in rows}
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with plain: {bad}")
@@ -1028,7 +1073,8 @@ def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
     ``scaled_dot_product_attention``'s. Without a mask the yardstick is
     SDPA's flash backend (K/V expanded to the query heads outside the
     timed region when the shape has GQA: that backend takes equal head
-    counts); with one it is the memory-efficient backend, the one that
+    counts; the memory-efficient backend where the flash one refuses the
+    head dim); with one it is the memory-efficient backend, the one that
     takes an additive bias, given the mask as a ``[B, H, S, T]`` bias in
     the input dtype (made outside the timed region)."""
     import torch
@@ -1088,10 +1134,16 @@ def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
     gout = torch.empty(B, Hq, S, D, dtype=dtype,
                        device=device).copy_(dout.transpose(1, 2))
     scale = kw["sm_scale"]
-    if bias is None:
-        backend = "flash"
-        lib = aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, causal, False, scale=scale)
+    backend = "flash" if bias is None else "efficient"
+    if backend == "flash":
+        try:
+            lib = aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal, False, scale=scale)
+        except RuntimeError as e:   # a head dim the backend lacks
+            print(f"sdpa's flash backend refuses {shape}: {e}; timing its "
+                  "memory-efficient one")
+            backend = "efficient"
+    if backend == "flash":
         lo, llse, cum_q, cum_k, max_q, max_k, seed_t, offset_t = lib[:8]
 
         def sdpa_fwd():
@@ -1107,23 +1159,20 @@ def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
             lib_fwd = _graph_ms(sdpa_fwd, 20)
             lib_out = sdpa_fwd()
     else:
-        backend = "efficient"
-        if causal:
-            raise ValueError("the masked yardstick is non-causal")
-        abias = bias.to(dtype)[:, None, None, :].expand(
-            B, Hq, S, T).contiguous()
+        abias = None if bias is None else bias.to(dtype)[
+            :, None, None, :].expand(B, Hq, S, T).contiguous()
         lo, llse, seed_t, offset_t = (
             aten._scaled_dot_product_efficient_attention(
-                qt, kt, vt, abias, True, 0.0, False, scale=scale))
+                qt, kt, vt, abias, True, 0.0, causal, scale=scale))
 
         def sdpa_fwd():
             return aten._scaled_dot_product_efficient_attention(
-                qt, kt, vt, abias, False, 0.0, False, scale=scale)[0]
+                qt, kt, vt, abias, False, 0.0, causal, scale=scale)[0]
 
         def sdpa_bwd():
             return aten._scaled_dot_product_efficient_attention_backward(
                 gout, qt, kt, vt, abias, lo, llse, seed_t, offset_t, 0.0,
-                [True, True, True, False], False, scale=scale)
+                [True, True, True, False], causal, scale=scale)
 
         lib_fwd = _graph_ms(sdpa_fwd, 20)
         lib_out = sdpa_fwd()
@@ -5112,6 +5161,462 @@ def recipe_config_phase(device, seed):
                 wall_s=wall, launches=counts), counts
 
 
+# --------------------------------------------------------------------------
+# phase 14: the model families (Gemma, Mistral, Qwen2, Qwen3, Phi-3, tied
+# Llama-3.2, GPT-NeoX/Pythia), HF interop, and the flash and paged kernels
+# at the head dims and groups they bring
+# --------------------------------------------------------------------------
+
+# (14a) a 7-8B family's layers cut to this many (Gemma-2B and
+# Llama-3.2-1B run at full depth): widths stay published
+FAMILY_LAYERS = 4
+# (14a) Mistral again with its 4,096-token window cut to this, so that
+# the band masks inside the 64-1024-token prompts
+MISTRAL_CUT_WINDOW = 256
+# (14a) the engine: 8 slots, 32-token pages, room for 1024 + 64 tokens
+FAMILY_ENGINE = dict(num_slots=8, max_len=1152, prefill_chunk=256,
+                     page_size=32)
+# (14b) Pythia-1B through generate: rows, prompt and new tokens
+PYTHIA_ROWS, PYTHIA_PROMPT, PYTHIA_NEW = 8, 256, 64
+# (14c) the flash kernels at the families' training shapes, causal
+FAMILY_FLASH_SHAPES = (
+    ("phi3_mini", dict(B=4, S=2048, T=2048, Hq=32, Hkv=32, D=96)),
+    ("gemma_2b", dict(B=4, S=2048, T=2048, Hq=8, Hkv=1, D=256)),
+    ("pythia_1b", dict(B=4, S=2048, T=2048, Hq=8, Hkv=8, D=256)),
+)
+# (14c) Gemma-2B width at FAMILY_LAYERS layers through the Trainer
+GEMMA_STEPS, GEMMA_BATCH, GEMMA_SEQ, GEMMA_CHUNK = 6, 8, 1024, 8192
+# (14a) the paged kernel at the families' decode ticks: 8 rows, 36 pages
+# of 32 (the engine's 1152 positions), head shapes of Phi-3-mini,
+# Qwen2-7B (G = 7) and Gemma-2B (G = 8, one kv head), and Mistral's
+# window in Mistral-7B's heads
+FAMILY_PAGED_SHAPES = (
+    ("phi3_mini", dict(B=8, Hq=32, Hkv=32, D=96, ps=32, n=36,
+                       max_len=1100)),
+    ("qwen2_7b", dict(B=8, Hq=28, Hkv=4, D=128, ps=32, n=36, max_len=1100)),
+    ("gemma_2b", dict(B=8, Hq=8, Hkv=1, D=256, ps=32, n=36, max_len=1100)),
+    ("mistral_7b", dict(B=8, Hq=32, Hkv=8, D=128, ps=32, n=36,
+                        max_len=1100)),
+)
+# (14d) the HF round trip: f32 on the CPU and on the card, so the logits
+# are held as tests/test_torch_llama.py holds them (1e-5 of their largest
+# magnitude: the two sum in other orders)
+HF_LAYERS = 2
+HF_LOGIT_RTOL = 1e-5
+
+
+def family_paged_cases(shape, window):
+    """The paged checks at a family's decode tick: W = 1, the verify
+    block W = 5, and (with ``window``) the band inside the rows."""
+    n = shape["n"]
+    cases = [("decode W=1", 1, None, n, None), ("verify W=5", 5, None, n,
+                                                None)]
+    if window:
+        cases.append((f"window {window}", 1, window, n, None))
+    return tuple(cases)
+
+
+def _family_models():
+    """(name, config) of 14a's models: published widths, seeded bf16."""
+    import dataclasses as dc
+
+    from pytorch_distributed_tpu_torch.models import (
+        GemmaConfig,
+        LlamaConfig,
+        MistralConfig,
+        Phi3Config,
+        Qwen2Config,
+        Qwen3Config,
+    )
+
+    cut = lambda cfg: dc.replace(cfg, num_layers=FAMILY_LAYERS)  # noqa: E731
+    mistral = cut(MistralConfig.mistral_7b())
+    return (
+        ("gemma_2b", GemmaConfig.gemma_2b()),
+        ("qwen2_7b", cut(Qwen2Config.qwen2_7b())),
+        ("qwen3_8b", cut(Qwen3Config.qwen3_8b())),
+        ("phi3_mini", cut(Phi3Config.phi3_mini())),
+        ("llama3_2_1b", LlamaConfig.llama3_2_1b()),
+        ("mistral_7b", mistral),
+        ("mistral_7b_window256",
+         dc.replace(mistral, sliding_window=MISTRAL_CUT_WINDOW)),
+    )
+
+
+def _family_class(cfg):
+    from pytorch_distributed_tpu_torch import models
+
+    return getattr(models, type(cfg).__name__.replace("Config",
+                                                      "ForCausalLM"))
+
+
+def _family_serve(device, seed, name, cfg):
+    """(14a) one family through the paged engine at phase 4's request mix:
+    every request completes, the paged kernel launches once a layer a
+    decode tick, every greedy token lies within ``GREEDY_MARGIN`` of a
+    teacher-forced forward's argmax (einsum attention: no kernel)."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import EngineConfig, ServeEngine
+    from pytorch_distributed_tpu_torch.serve import Request
+
+    t0 = time.perf_counter()
+    model = _family_class(cfg)(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    ecfg = EngineConfig(**FAMILY_ENGINE)
+    warm = ServeEngine(model, ecfg)
+    warm.submit(Request(prompt_ids=list(range(1, 40)), max_new_tokens=4))
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    reqs = _requests(seed, cfg.vocab_size)
+    kernel_counts(reset=True)
+    engine, handles, timing = _drive(model, ecfg, reqs)   # the main path
+    counts = kernel_counts()
+    off_path(counts, ("paged_attention",))
+    ticks = engine.decode_ticks
+    if counts["paged_attention"] != ticks * cfg.num_layers:
+        raise AssertionError(
+            f"(14a) {name}: paged_attention launched "
+            f"{counts['paged_attention']} times over {ticks} ticks x "
+            f"{cfg.num_layers} layers")
+    if engine.pool.prefix_hits < 1:
+        raise AssertionError(f"(14a) {name}: the shared prefix was not "
+                             "shared")
+    exact, gaps = _teacher_gaps(model, reqs, handles, device)
+    worst = max(gaps)
+    summary = engine.telemetry.summary()
+    print(f"(14a) {name}: {n_params} params bf16, {cfg.num_layers} layers, "
+          f"head_dim {cfg.head_dim}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, window {cfg.sliding_window}; {ticks} decode ticks, "
+          f"{counts['paged_attention']} paged launches (= ticks x "
+          f"{cfg.num_layers}), decode tick {timing['decode_tick_ms']:.2f} "
+          f"ms, {summary['tokens_per_sec']:.1f} tokens/s; greedy vs "
+          f"teacher-forced {exact}/{len(gaps)} exact, worst gap "
+          f"{worst:.4f} (margin {GREEDY_MARGIN}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if worst > GREEDY_MARGIN:
+        raise AssertionError(f"(14a) {name}: a greedy token sits {worst:.4f}"
+                             f" below the teacher-forced argmax")
+    return counts, dict(
+        params=n_params, layers=cfg.num_layers, head_dim=cfg.head_dim,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        window=cfg.sliding_window, decode_ticks=ticks,
+        launches=counts["paged_attention"],
+        tokens_per_s=summary["tokens_per_sec"], greedy_exact=exact,
+        greedy_tokens=len(gaps), greedy_worst_gap=worst,
+        prefix_hits=engine.pool.prefix_hits, **timing)
+
+
+def _family_paged(device, seed):
+    """(14a) the paged kernel at the families' decode-tick shapes against
+    ``stream`` and ``gather`` (bf16 and f32, bitwise over two launches),
+    and its time at W = 1 beside its bound, plain version and SDPA."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed + 14)
+    out = {}
+    for name, shape in FAMILY_PAGED_SHAPES:
+        window = MISTRAL_CUT_WINDOW if name == "mistral_7b" else None
+        checks, same, inputs = _paged_checks(
+            gen, shape, family_paged_cases(shape, window), device,
+            label=f"{name} ")
+        t = _paged_times(*inputs["decode W=1"], device)
+        out[name] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in checks
+                            if c["case"] == f"{name} decode W=1"
+                            and c["dtype"] == "bfloat16"),
+            checks=checks, deterministic=same,
+            **{k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "bytes",
+                                 "flops")})
+    return out
+
+
+def _pythia_generate(device, seed):
+    """(14b) Pythia-1B at full depth through ``generate`` on its dense
+    cache: greedy tokens within ``GREEDY_MARGIN`` of an uncached forward's
+    argmax, and that forward (the plain entry point) through the flash
+    forward kernel at head_dim 256, once a layer."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import NeoXConfig, NeoXForCausalLM
+
+    cfg = NeoXConfig.pythia_1b()
+    model = NeoXForCausalLM(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    model.requires_grad_(False)
+    rng = np.random.default_rng(seed + 15)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (PYTHIA_ROWS, PYTHIA_PROMPT))).to(device)
+    kernel_counts(reset=True)
+    out, pre_ms, dec_ms, tok_s = _decode_times(model, prompt, None,
+                                               PYTHIA_NEW)
+    gen_counts = kernel_counts()
+    off_path(gen_counts, ())   # decode attends on the einsum path
+    kernel_counts(reset=True)
+    with torch.no_grad():
+        logits = model(out[:, :-1])[:, PYTHIA_PROMPT - 1:]
+    fwd_counts = kernel_counts()
+    off_path(fwd_counts, ("flash_fwd",))
+    if fwd_counts["flash_fwd"] != cfg.num_layers:
+        raise AssertionError(f"(14b) the uncached forward launched "
+                             f"{fwd_counts} (want flash_fwd x "
+                             f"{cfg.num_layers})")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("(14b) non-finite logits")
+    toks = out[:, PYTHIA_PROMPT:]
+    gaps = (logits.max(-1).values
+            - logits.gather(2, toks[..., None])[..., 0]).flatten()
+    exact = int((logits.argmax(-1) == toks).sum())
+    worst = float(gaps.max())
+    print(f"(14b) Pythia-1B, {cfg.num_layers} layers, head_dim "
+          f"{cfg.head_dim}: generate {PYTHIA_ROWS} x {PYTHIA_PROMPT} + "
+          f"{PYTHIA_NEW}: prefill {pre_ms:.2f} ms, decode {dec_ms:.2f} ms a "
+          f"token, {tok_s:.1f} tokens/s (launches {gen_counts}); the "
+          f"uncached forward launched {fwd_counts}; greedy vs it "
+          f"{exact}/{toks.numel()} exact, worst gap {worst:.4f} (margin "
+          f"{GREEDY_MARGIN})")
+    if worst > GREEDY_MARGIN:
+        raise AssertionError(f"(14b) a greedy token sits {worst:.4f} below "
+                             "the uncached forward's argmax")
+    return fwd_counts, dict(prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
+                            tokens_per_s=tok_s, generate_launches=gen_counts,
+                            greedy_exact=exact, greedy_tokens=toks.numel(),
+                            greedy_worst_gap=worst)
+
+
+def _family_flash(device, seed):
+    """(14c) the flash kernels at the families' head dims against their
+    plain versions and timed (CUDA-graph replays) beside SDPA and the
+    bound, bf16 and fp16, causal."""
+    import torch
+
+    out, checks = {}, []
+    for name, shape in FAMILY_FLASH_SHAPES:
+        for dname in ("bfloat16", "float16"):
+            gen = torch.Generator().manual_seed(seed + 16)
+            rows = _flash_check(gen, seed, name, shape, True, {}, dname,
+                                device)
+            checks += rows
+            worst = {r["what"]: r["max_abs_err"] for r in rows}
+            gen = torch.Generator().manual_seed(seed + 16)
+            records, details = _flash_times(gen, seed, shape, device, worst,
+                                            dtype=getattr(torch, dname))
+            out.setdefault(name, {})[dname] = dict(
+                records={r["name"]: {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")} for r in records}, details=details)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"(14c) flash kernels disagree with plain: "
+                             f"{bad}")
+    return out, checks
+
+
+def _gemma_train(device, seed):
+    """(14c) Gemma-2B width at ``FAMILY_LAYERS`` layers through the
+    Trainer: ``Policy.train()``, remat, the chunked loss through the tied
+    head, clip(1.0) then AdamW, one repeated batch of packed rows. The
+    loss must fall; B1-B3 launch at head_dim 256 (the forward twice a
+    layer and step: remat)."""
+    import dataclasses as dc
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        ArrayDataset,
+        DataLoader,
+        GemmaConfig,
+        GemmaForCausalLM,
+        Policy,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        build_train_step,
+        causal_lm_loss_fn,
+        optim,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dc.replace(GemmaConfig.gemma_2b(), num_layers=FAMILY_LAYERS,
+                     remat=True)
+    policy = Policy.train()
+    model = GemmaForCausalLM(cfg, device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    opt = optim.clip_grad_norm(optim.AdamW(model, lr=1e-4,
+                                           weight_decay=1e-4), 1.0)
+    packed = _packed_rows(seed, GEMMA_BATCH, GEMMA_SEQ, cfg.vocab_size)
+    loader = DataLoader(ArrayDataset(**{
+        k: np.tile(v, (GEMMA_STEPS, 1)) for k, v in packed.items()}),
+        GEMMA_BATCH, shuffle=False)
+    step = build_train_step(causal_lm_loss_fn(
+        model, vocab_chunk_size=GEMMA_CHUNK))
+    _reset_peak(device)
+    kernel_counts(reset=True)
+    trainer = Trainer(TrainState(model, opt, policy=policy), step, loader,
+                      config=TrainerConfig(log_every=1))
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    off_path(counts, FLASH)
+    want = {"flash_fwd": 2 * cfg.num_layers * GEMMA_STEPS,
+            "flash_dq": cfg.num_layers * GEMMA_STEPS,
+            "flash_dkv": cfg.num_layers * GEMMA_STEPS}
+    if {k: counts[k] for k in FLASH} != want:
+        raise AssertionError(f"(14c) Gemma launches {counts}, want {want}")
+    losses = [r["loss"] for r in trainer.history]
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"(14c) Gemma's loss did not fall: {losses}")
+    step_ms = _median_ms(trainer.history)
+    peak = _peak_gib(device)
+    print(f"(14c) Gemma-2B width, {cfg.num_layers} layers, remat, chunked "
+          f"loss through the tied head, {GEMMA_BATCH} x {GEMMA_SEQ} packed:"
+          f" {GEMMA_STEPS} steps in {wall:.1f} s, median {step_ms:.2f} ms, "
+          f"peak {peak:.2f} GiB; losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; launches {counts}")
+    return counts, dict(losses=losses, step_ms_median=step_ms,
+                        peak_mem_gib=peak, wall_s=wall,
+                        tokens_per_s=GEMMA_BATCH * GEMMA_SEQ / step_ms * 1e3)
+
+
+def _hf_dict(cfg, seed, fused: bool):
+    """A seeded HF-named Llama-body state_dict (numpy f32): norms about
+    one, every other tensor 0.02 x normal; ``fused`` gives Phi-3's
+    ``qkv_proj`` and ``gate_up_proj``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def draw(*shape, norm=False):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        return x + np.float32(1.0) if norm else x
+
+    sd = {"model.embed_tokens.weight": draw(V, D),
+          "model.norm.weight": draw(D, norm=True),
+          "lm_head.weight": draw(V, D)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = draw(D, norm=True)
+        sd[p + "post_attention_layernorm.weight"] = draw(D, norm=True)
+        sd[p + "self_attn.o_proj.weight"] = draw(D, q)
+        sd[p + "mlp.down_proj.weight"] = draw(D, I)
+        if fused:
+            sd[p + "self_attn.qkv_proj.weight"] = draw(q + 2 * kv, D)
+            sd[p + "mlp.gate_up_proj.weight"] = draw(2 * I, D)
+            continue
+        for name, rows in (("q", q), ("k", kv), ("v", kv)):
+            sd[p + f"self_attn.{name}_proj.weight"] = draw(rows, D)
+            if cfg.attention_bias:
+                sd[p + f"self_attn.{name}_proj.bias"] = draw(rows)
+        sd[p + "mlp.gate_proj.weight"] = draw(I, D)
+        sd[p + "mlp.up_proj.weight"] = draw(I, D)
+    return sd
+
+
+def _hf_round_trip(device, seed):
+    """(14d) a seeded HF-named dict of Qwen2 at 7B width and of
+    Phi-3-mini, ``HF_LAYERS`` layers each, loaded on the CPU and on the
+    card (f32, TF32 off): logits equal within ``HF_LOGIT_RTOL``; the
+    card model's export equals the input dict bit for bit."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import Phi3Config, Policy, Qwen2Config
+    from pytorch_distributed_tpu_torch import interop
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name, cfg, conv, fused in (
+                ("qwen2_7b", Qwen2Config.qwen2_7b(), "qwen2", False),
+                ("phi3_mini", Phi3Config.phi3_mini(), "phi3", True)):
+            cfg = dc.replace(cfg, num_layers=HF_LAYERS)
+            t0 = time.perf_counter()
+            hf = _hf_dict(cfg, seed + 17, fused)
+            sd = getattr(interop, f"load_{conv}_weights")(hf, cfg)
+            cls = _family_class(cfg)
+            cpu = cls(cfg, device="meta", policy=Policy.full())
+            cpu.load_state_dict(sd, assign=True)
+            card = cls(cfg, device="meta", policy=Policy.full())
+            card.load_state_dict({k: v.to(device) for k, v in sd.items()},
+                                 assign=True)
+            ids = torch.from_numpy(np.random.default_rng(seed + 18).integers(
+                0, cfg.vocab_size, (2, 16)))
+            with torch.no_grad():
+                ref = cpu(ids)
+                got = card(ids.to(device)).cpu()
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            back = getattr(interop, f"export_{conv}_weights")(
+                card.state_dict(), cfg)
+            same = sorted(back) == sorted(hf) and all(
+                np.array_equal(back[k], hf[k]) for k in hf)
+            print(f"(14d) {name} ({HF_LAYERS} layers, "
+                  f"{sum(v.size for v in hf.values())} HF values): card vs "
+                  f"CPU logits max|err| {err:.3e} <= {HF_LOGIT_RTOL:g} * "
+                  f"max|ref| {scale:.4f}; export bitwise equal to the input"
+                  f": {same}; {time.perf_counter() - t0:.1f} s")
+            if not (err <= HF_LOGIT_RTOL * scale and same):
+                raise AssertionError(f"(14d) {name}: logits {err} vs "
+                                     f"{HF_LOGIT_RTOL * scale}, export "
+                                     f"equal {same}")
+            out[name] = dict(max_abs_err=err, max_abs_ref=scale,
+                             export_bitwise=same)
+            del hf, sd, cpu, card, back
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def family_phase(device, seed):
+    """Phase 14: 14a the families through the paged engine (and B4 at
+    their head shapes), 14b Pythia-1B through generate, 14c the flash
+    kernels at head_dim 96 and 256 and Gemma-2B width through the
+    Trainer, 14d the HF round trip. Returns (stats, launches by path,
+    per-kernel records at the families' shapes)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    by_path, serve = {}, {}
+    for name, cfg in _family_models():
+        counts, serve[name] = _family_serve(device, seed, name, cfg)
+        by_path[f"family_{name}"] = counts
+        gc.collect()
+        torch.cuda.empty_cache()
+    paged = _family_paged(device, seed)
+    counts, pythia = _pythia_generate(device, seed)
+    by_path["family_pythia_1b"] = counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash, fchecks = _family_flash(device, seed)
+    counts, gemma = _gemma_train(device, seed)
+    by_path["family_gemma_2b_train"] = counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf = _hf_round_trip(device, seed)
+    print(f"(14) phase 14 in {time.perf_counter() - t0:.1f} s; launches by "
+          f"path {by_path}")
+    stats = dict(serve=serve, paged=paged, pythia=pythia, flash=flash,
+                 flash_checks=fchecks, gemma_train=gemma, hf=hf)
+    return stats, by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5163,6 +5668,7 @@ def main(argv=None) -> int:
     lstats = llama_phase(device, args.seed)
     bstats = bert_phase(device, args.seed)
     life_stats, life_paths = lifecycle_phase(device, args.seed, lstats)
+    fam_stats, fam_paths = family_phase(device, args.seed)
     zt = zstats["train"]
     print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
@@ -5208,12 +5714,25 @@ def main(argv=None) -> int:
                    zero1=zt["launches"], train=train_counts,
                    llama=lstats["launches"], bert=bstats["launches"],
                    **gen_paths, **serve11_paths, **image_paths,
-                   **life_paths, resnet50_recipe_config=cfg_counts)
+                   **life_paths, resnet50_recipe_config=cfg_counts,
+                   **fam_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
                                    for path, counts in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+    # phase 14's shapes beside each record: B4 at the families' decode
+    # ticks, B1-B3 at their training shapes in bf16 and fp16
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    record["at_family_shapes"] = {
+        name: {k: t[k] for k in keys}
+        for name, t in fam_stats["paged"].items()}
+    for rec in flash_records:
+        rec["at_family_shapes"] = {
+            name: {dname: d["records"][rec["name"]]
+                   for dname, d in by_dtype.items()}
+            for name, by_dtype in fam_stats["flash"].items()}
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
@@ -5222,7 +5741,8 @@ def main(argv=None) -> int:
                                       llama=lstats, bert=bstats,
                                       generation=gstats,
                                       serve_gpt2=s11, image=istats,
-                                      lifecycle=life_stats)}))
+                                      lifecycle=life_stats,
+                                      family=fam_stats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -77,12 +77,30 @@ from pytorch_distributed_tpu_torch.generation import (
 from pytorch_distributed_tpu_torch.interop import (
     bert_params_from_jax,
     bert_params_to_jax,
+    export_gemma_weights,
+    export_gpt2_weights,
+    export_llama_weights,
+    export_mistral_weights,
+    export_neox_weights,
+    export_phi3_weights,
+    export_qwen2_weights,
+    export_qwen3_weights,
     gpt2_params_from_jax,
     gpt2_params_to_jax,
     llama_params_from_jax,
     llama_params_to_jax,
+    load_gemma_weights,
+    load_gpt2_weights,
+    load_llama_weights,
+    load_mistral_weights,
+    load_neox_weights,
+    load_phi3_weights,
+    load_qwen2_weights,
+    load_qwen3_weights,
     lora_params_from_jax,
     lora_params_to_jax,
+    neox_params_from_jax,
+    neox_params_to_jax,
     quantized_params_from_jax,
     quantized_params_to_jax,
     resnet_params_from_jax,
@@ -101,11 +119,23 @@ from pytorch_distributed_tpu_torch.models.bert import (
     BertModel,
     mask_tokens,
 )
-from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
-from pytorch_distributed_tpu_torch.models.llama import (
+from pytorch_distributed_tpu_torch.models import (
+    GemmaConfig,
+    GemmaForCausalLM,
     LlamaConfig,
     LlamaForCausalLM,
+    MistralConfig,
+    MistralForCausalLM,
+    NeoXConfig,
+    NeoXForCausalLM,
+    Phi3Config,
+    Phi3ForCausalLM,
+    Qwen2Config,
+    Qwen2ForCausalLM,
+    Qwen3Config,
+    Qwen3ForCausalLM,
 )
+from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.resnet import (
     ResNet,
     ResNet18,
@@ -210,6 +240,16 @@ __all__ = [
     "bert_params_from_jax",
     "bert_params_to_jax", "gpt2_params_from_jax",
     "gpt2_params_to_jax", "llama_params_from_jax", "llama_params_to_jax",
+    "neox_params_from_jax", "neox_params_to_jax", "load_gpt2_weights",
+    "export_gpt2_weights", "load_llama_weights", "export_llama_weights",
+    "load_mistral_weights", "export_mistral_weights", "load_qwen2_weights",
+    "export_qwen2_weights", "load_qwen3_weights", "export_qwen3_weights",
+    "load_gemma_weights", "export_gemma_weights", "load_phi3_weights",
+    "export_phi3_weights", "load_neox_weights", "export_neox_weights",
+    "GemmaConfig", "GemmaForCausalLM", "MistralConfig",
+    "MistralForCausalLM", "NeoXConfig", "NeoXForCausalLM", "Phi3Config",
+    "Phi3ForCausalLM", "Qwen2Config", "Qwen2ForCausalLM", "Qwen3Config",
+    "Qwen3ForCausalLM",
     "resnet_params_from_jax",
     "resnet_params_to_jax", "BertConfig", "BertForMaskedLM",
     "BertForSequenceClassification", "BertModel", "mask_tokens",

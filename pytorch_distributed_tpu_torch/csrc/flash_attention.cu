@@ -75,11 +75,19 @@
 //    casts do, for the loss scaler to see.
 //    Head dim 128 halves dq's and dkv's streamed tile (32 rows) and runs at
 //    the occupancy its registers allow (two CTAs per SM for the forward).
-//  * f32 inputs: the first version. 64 x 64 tiles staged in shared memory
-//    as f32 (rows padded to D + 1 floats, so the score loops read without
-//    bank conflicts) from 16-byte global loads; 256 threads each own a
-//    4 x 4 block of scores and 4 rows x D/16 columns of the output
-//    accumulators; products on the CUDA cores in f32, which holds f32
+//    Head dims 16, 32, 64, 96, 128 and 256 are instantiated (96: Phi-3,
+//    six depth steps, twelve column tiles; no loop assumes a power of
+//    two). At 256 (Gemma, Pythia-1B) an accumulator row of 16 x 256 f32
+//    is 128 registers a lane: the forward and dq re-read their Q (and dO)
+//    fragments from shared memory at each depth step instead of holding
+//    them, the forward streams 32-key tiles, and dkv splits dK and dV's
+//    columns over two CTAs (blockIdx.z), each recomputing S^T and dP^T.
+//  * f32 inputs: the first version. 64 x 64 tiles (32 x 32 at D = 256,
+//    where four 64-row f32 tiles would pass a block's shared memory)
+//    staged in shared memory as f32 (rows padded to D + 1 floats, so the
+//    score loops read without bank conflicts) from 16-byte global loads;
+//    256 threads each own a 4 x 4 block of scores (2 x 2 at D = 256) and
+//    4 (2) rows x D/16 columns of the output accumulators; products on the CUDA cores in f32, which holds f32
 //    inputs to f32 accuracy (TF32 would not).
 
 #include <cuda_bf16.h>
@@ -118,7 +126,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 64;   // query rows and key rows per tile
-constexpr int kLDP = kTile + 1;
+// the CUDA-core kernels' tile: 64 rows, or 32 at D = 256, where four f32
+// tiles of 64 rows would not fit in a block's shared memory
+__host__ __device__ constexpr int f32_tile(int D) {
+  return D <= 128 ? kTile : kTile / 2;
+}
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -142,9 +154,9 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + 64) of head h of batch b into dst[64][D + 1] as
-// f32; rows at or past n are zero.
-template <typename T, int D>
+// Stage rows [row0, row0 + ROWS) of head h of batch b into
+// dst[ROWS][D + 1] as f32; rows at or past n are zero.
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const void* src,
                                           const int64_t* st, int b, int h,
                                           int row0, int n) {
@@ -152,7 +164,7 @@ __device__ __forceinline__ void load_tile(float* dst, const void* src,
   constexpr int kVecPerRow = D / kVec;
   const T* base = static_cast<const T*>(src) + (int64_t)b * st[0] +
                   (int64_t)h * st[2];
-  for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
     float vals[kVec];
@@ -193,75 +205,76 @@ __device__ __forceinline__ int key_end(const FlashParams& p, int q0,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   constexpr int LD = D + 1;
+  constexpr int TL = f32_tile(D), R = TL / 16, LDP = TL + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
-  float* q_s = smem;                  // [64][LD]
-  float* k_s = q_s + kTile * LD;      // [64][LD]
-  float* v_s = k_s + kTile * LD;      // [64][LD]
-  float* p_s = v_s + kTile * LD;      // [64][kLDP]
-  float* bias_s = p_s + kTile * kLDP; // [64]
-  int* kseg_s = reinterpret_cast<int*>(bias_s + kTile);  // [64]
+  float* q_s = smem;                  // [TL][LD]
+  float* k_s = q_s + TL * LD;      // [TL][LD]
+  float* v_s = k_s + TL * LD;      // [TL][LD]
+  float* p_s = v_s + TL * LD;      // [TL][LDP]
+  float* bias_s = p_s + TL * LDP; // [TL]
+  int* kseg_s = reinterpret_cast<int*>(bias_s + TL);  // [TL]
 
-  const int n_qt = (p.S + kTile - 1) / kTile;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kTile;  // longest first
+  const int n_qt = (p.S + TL - 1) / TL;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * TL;  // longest first
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = hq / (p.Hq / p.Hkv);
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  load_tile<T, D>(q_s, p.q, p.q_stride, b, hq, q0, p.S);
-  int qseg[4];
+  load_tile<T, D, TL>(q_s, p.q, p.q_stride, b, hq, q0, p.S);
+  int qseg[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + R * ty + i;
     qseg[i] = (p.seg && qi < p.S) ? p.seg[(int64_t)b * p.S + qi] : 0;
   }
-  float m[4], l[4], acc[4][NJ];
+  float m[R], l[R], acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int end = key_end(p, q0);
-  for (int k0 = 0; k0 < end; k0 += kTile) {
+  const int end = key_end(p, q0, TL);
+  for (int k0 = 0; k0 < end; k0 += TL) {
     __syncthreads();  // the previous tile's k_s / v_s / p_s reads are done
-    load_tile<T, D>(k_s, p.k, p.k_stride, b, hk, k0, p.T);
-    load_tile<T, D>(v_s, p.v, p.v_stride, b, hk, k0, p.T);
-    if (tid < kTile) {
+    load_tile<T, D, TL>(k_s, p.k, p.k_stride, b, hk, k0, p.T);
+    load_tile<T, D, TL>(v_s, p.v, p.v_stride, b, hk, k0, p.T);
+    if (tid < TL) {
       const int kj = k0 + tid;
       bias_s[tid] = (p.bias && kj < p.T) ? p.bias[(int64_t)b * p.T + kj] : 0.f;
       kseg_s[tid] = (p.seg && kj < p.T) ? p.seg[(int64_t)b * p.S + kj] : 0;
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
+      float a[R], kk[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[(4 * ty + i) * LD + d];
+      for (int i = 0; i < R; ++i) a[i] = q_s[(R * ty + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = k_s[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < R; ++j) kk[j] = k_s[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + R * ty + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
         const int kj = k0 + c;
         s[i][j] = kj < p.T ? masked_score(p, s[i][j], bias_s[c], qseg[i],
@@ -273,10 +286,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float pv = expf(s[i][j] - m_new);
         sum += pv;
-        p_s[(4 * ty + i) * kLDP + tx + 16 * j] = pv;
+        p_s[(R * ty + i) * LDP + tx + 16 * j] = pv;
       }
       l[i] = l[i] * alpha + row_sum16(sum);
       m[i] = m_new;
@@ -286,22 +299,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pp[4], vv[NJ];
+    for (int c = 0; c < TL; ++c) {
+      float pp[R], vv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pp[i] = p_s[(4 * ty + i) * kLDP + c];
+      for (int i = 0; i < R; ++i) pp[i] = p_s[(R * ty + i) * LDP + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) vv[j] = v_s[c * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pp[i], vv[j], acc[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + R * ty + i;
     if (qi >= p.S) continue;
     const float safe = l[i] > 0.f ? l[i] : 1.f;
     T* orow = static_cast<T*>(p.out) + (((int64_t)b * p.S + qi) * p.Hq + hq) * D;
@@ -315,31 +328,32 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
   constexpr int LD = D + 1;
+  constexpr int TL = f32_tile(D), R = TL / 16, LDP = TL + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
-  float* q_s = smem;                   // [64][LD]
-  float* do_s = q_s + kTile * LD;      // [64][LD]
-  float* k_s = do_s + kTile * LD;      // [64][LD]
-  float* v_s = k_s + kTile * LD;       // [64][LD]
-  float* ds_s = v_s + kTile * LD;      // [64][kLDP]
-  float* bias_s = ds_s + kTile * kLDP; // [64]
-  int* kseg_s = reinterpret_cast<int*>(bias_s + kTile);
+  float* q_s = smem;                   // [TL][LD]
+  float* do_s = q_s + TL * LD;      // [TL][LD]
+  float* k_s = do_s + TL * LD;      // [TL][LD]
+  float* v_s = k_s + TL * LD;       // [TL][LD]
+  float* ds_s = v_s + TL * LD;      // [TL][LDP]
+  float* bias_s = ds_s + TL * LDP; // [TL]
+  int* kseg_s = reinterpret_cast<int*>(bias_s + TL);
 
-  const int n_qt = (p.S + kTile - 1) / kTile;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kTile;
+  const int n_qt = (p.S + TL - 1) / TL;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * TL;
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = hq / (p.Hq / p.Hkv);
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  load_tile<T, D>(q_s, p.q, p.q_stride, b, hq, q0, p.S);
-  load_tile<T, D>(do_s, p.dout, p.do_stride, b, hq, q0, p.S);
-  int qseg[4];
-  float lse[4], delta[4], acc[4][NJ];
+  load_tile<T, D, TL>(q_s, p.q, p.q_stride, b, hq, q0, p.S);
+  load_tile<T, D, TL>(do_s, p.dout, p.do_stride, b, hq, q0, p.S);
+  int qseg[R];
+  float lse[R], delta[R], acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + R * ty + i;
     const bool in = qi < p.S;
     const int64_t row = ((int64_t)b * p.Hq + hq) * p.S + qi;
     qseg[i] = (p.seg && in) ? p.seg[(int64_t)b * p.S + qi] : 0;
@@ -349,49 +363,49 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int end = key_end(p, q0);
-  for (int k0 = 0; k0 < end; k0 += kTile) {
+  const int end = key_end(p, q0, TL);
+  for (int k0 = 0; k0 < end; k0 += TL) {
     __syncthreads();
-    load_tile<T, D>(k_s, p.k, p.k_stride, b, hk, k0, p.T);
-    load_tile<T, D>(v_s, p.v, p.v_stride, b, hk, k0, p.T);
-    if (tid < kTile) {
+    load_tile<T, D, TL>(k_s, p.k, p.k_stride, b, hk, k0, p.T);
+    load_tile<T, D, TL>(v_s, p.v, p.v_stride, b, hk, k0, p.T);
+    if (tid < TL) {
       const int kj = k0 + tid;
       bias_s[tid] = (p.bias && kj < p.T) ? p.bias[(int64_t)b * p.T + kj] : 0.f;
       kseg_s[tid] = (p.seg && kj < p.T) ? p.seg[(int64_t)b * p.S + kj] : 0;
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], kk[4], vv[4];
+      float a[R], g[R], kk[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = q_s[(4 * ty + i) * LD + d];
-        g[i] = do_s[(4 * ty + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        a[i] = q_s[(R * ty + i) * LD + d];
+        g[i] = do_s[(R * ty + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         kk[j] = k_s[(tx + 16 * j) * LD + d];
         vv[j] = v_s[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(a[i], kk[j], s[i][j]);
           dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + R * ty + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
         const int kj = k0 + c;
         float pv = 0.f;
@@ -399,28 +413,28 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
           pv = expf(masked_score(p, s[i][j], bias_s[c], qseg[i], kseg_s[c],
                                  qi, kj) - lse[i]);
         const float ds = pv * (dp[i][j] - delta[i]) * p.scale;
-        ds_s[(4 * ty + i) * kLDP + c] = ds;
+        ds_s[(R * ty + i) * LDP + c] = ds;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dd[4], kk[NJ];
+    for (int c = 0; c < TL; ++c) {
+      float dd[R], kk[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dd[i] = ds_s[(4 * ty + i) * kLDP + c];
+      for (int i = 0; i < R; ++i) dd[i] = ds_s[(R * ty + i) * LDP + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) kk[j] = k_s[c * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(dd[i], kk[j], acc[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + R * ty + i;
     if (qi >= p.S) continue;
     T* row = static_cast<T*>(p.dq) + (((int64_t)b * p.S + qi) * p.Hq + hq) * D;
 #pragma unroll
@@ -431,33 +445,34 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   constexpr int LD = D + 1;
+  constexpr int TL = f32_tile(D), R = TL / 16, LDP = TL + 1;
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
-  float* k_s = smem;                    // [64 keys][LD]
-  float* v_s = k_s + kTile * LD;        // [64 keys][LD]
-  float* q_s = v_s + kTile * LD;        // [64 queries][LD]
-  float* do_s = q_s + kTile * LD;       // [64 queries][LD]
-  float* pt_s = do_s + kTile * LD;      // [64 keys][kLDP]: P^T in f32
-  float* dst_s = pt_s + kTile * kLDP;   // [64 keys][kLDP]: dS^T, rounded
-  float* lse_s = dst_s + kTile * kLDP;  // [64 queries]
-  float* delta_s = lse_s + kTile;       // [64 queries]
-  int* qseg_s = reinterpret_cast<int*>(delta_s + kTile);
+  float* k_s = smem;                    // [TL keys][LD]
+  float* v_s = k_s + TL * LD;        // [TL keys][LD]
+  float* q_s = v_s + TL * LD;        // [TL queries][LD]
+  float* do_s = q_s + TL * LD;       // [TL queries][LD]
+  float* pt_s = do_s + TL * LD;      // [TL keys][LDP]: P^T in f32
+  float* dst_s = pt_s + TL * LDP;   // [TL keys][LDP]: dS^T, rounded
+  float* lse_s = dst_s + TL * LDP;  // [TL queries]
+  float* delta_s = lse_s + TL;       // [TL queries]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + TL);
 
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * TL;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = p.Hq / p.Hkv;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  load_tile<T, D>(k_s, p.k, p.k_stride, b, hk, k0, p.T);
-  load_tile<T, D>(v_s, p.v, p.v_stride, b, hk, k0, p.T);
-  float kbias[4];
-  int kseg[4];
-  float dk[4][NJ], dv[4][NJ];
+  load_tile<T, D, TL>(k_s, p.k, p.k_stride, b, hk, k0, p.T);
+  load_tile<T, D, TL>(v_s, p.v, p.v_stride, b, hk, k0, p.T);
+  float kbias[R];
+  int kseg[R];
+  float dk[R][NJ], dv[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + R * ty + i;
     const bool in = kj < p.T;
     kbias[i] = (p.bias && in) ? p.bias[(int64_t)b * p.T + kj] : 0.f;
     kseg[i] = (p.seg && in) ? p.seg[(int64_t)b * p.S + kj] : 0;
@@ -465,17 +480,17 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
   }
 
-  const int n_qt = (p.S + kTile - 1) / kTile;
+  const int n_qt = (p.S + TL - 1) / TL;
   // with causal, the first q tile whose last row reaches this tile's keys
-  const int qt0 = p.causal ? min(k0 / kTile, n_qt) : 0;
+  const int qt0 = p.causal ? min(k0 / TL, n_qt) : 0;
   for (int g = 0; g < G; ++g) {
     const int hq = hk * G + g;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
+      const int q0 = qt * TL;
       __syncthreads();  // the previous q tile's reads are done
-      load_tile<T, D>(q_s, p.q, p.q_stride, b, hq, q0, p.S);
-      load_tile<T, D>(do_s, p.dout, p.do_stride, b, hq, q0, p.S);
-      if (tid < kTile) {
+      load_tile<T, D, TL>(q_s, p.q, p.q_stride, b, hq, q0, p.S);
+      load_tile<T, D, TL>(do_s, p.dout, p.do_stride, b, hq, q0, p.S);
+      if (tid < TL) {
         const int qi = q0 + tid;
         const bool in = qi < p.S;
         const int64_t row = ((int64_t)b * p.Hq + hq) * p.S + qi;
@@ -486,37 +501,37 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
       __syncthreads();
 
       // transposed tiles: rows are this thread's keys, columns queries
-      float st[4][4], dpt[4][4];
+      float st[R][R], dpt[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kk[4], vv[4], a[4], gg[4];
+        float kk[R], vv[R], a[R], gg[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = k_s[(4 * ty + i) * LD + d];
-          vv[i] = v_s[(4 * ty + i) * LD + d];
+        for (int i = 0; i < R; ++i) {
+          kk[i] = k_s[(R * ty + i) * LD + d];
+          vv[i] = v_s[(R * ty + i) * LD + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           a[j] = q_s[(tx + 16 * j) * LD + d];
           gg[j] = do_s[(tx + 16 * j) * LD + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             st[i][j] = fmaf(kk[i], a[j], st[i][j]);
             dpt[i][j] = fmaf(vv[i], gg[j], dpt[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kj = k0 + 4 * ty + i;
+      for (int i = 0; i < R; ++i) {
+        const int kj = k0 + R * ty + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int r = tx + 16 * j;
           const int qi = q0 + r;
           float pv = 0.f;
@@ -524,19 +539,19 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
             pv = expf(masked_score(p, st[i][j], kbias[i], qseg_s[r], kseg[i],
                                    qi, kj) - lse_s[r]);
           const float ds = pv * (dpt[i][j] - delta_s[r]) * p.scale;
-          pt_s[(4 * ty + i) * kLDP + r] = pv;
-          dst_s[(4 * ty + i) * kLDP + r] = ds;
+          pt_s[(R * ty + i) * LDP + r] = pv;
+          dst_s[(R * ty + i) * LDP + r] = ds;
         }
       }
       __syncthreads();
 
 #pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pp[4], dd[4], gg[NJ], a[NJ];
+      for (int r = 0; r < TL; ++r) {
+        float pp[R], dd[R], gg[NJ], a[NJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pp[i] = pt_s[(4 * ty + i) * kLDP + r];
-          dd[i] = dst_s[(4 * ty + i) * kLDP + r];
+        for (int i = 0; i < R; ++i) {
+          pp[i] = pt_s[(R * ty + i) * LDP + r];
+          dd[i] = dst_s[(R * ty + i) * LDP + r];
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -544,7 +559,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
           a[j] = q_s[r * LD + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
             dv[i][j] = fmaf(pp[i], gg[j], dv[i][j]);
@@ -555,8 +570,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + R * ty + i;
     if (kj >= p.T) continue;
     const int64_t off = (((int64_t)b * p.T + kj) * p.Hkv + hk) * D;
     T* dkr = static_cast<T*>(p.dk) + off;
@@ -679,12 +694,16 @@ __device__ __forceinline__ float tc_score2(const FlashParams& p, float dot,
 // ldmatrix addresses are 32-bit shared-window offsets with the lane's part
 // computed once. Up to D = 64 this fits 168 registers without spills,
 // three CTAs per SM (on an H100 at the training shapes 0.117 ms; 32-key
-// steps at four CTAs spill, at three they took 0.121 ms; PERF.md).
+// steps at four CTAs spill, at three they took 0.121 ms; PERF.md). At
+// D = 256 the O accumulator alone is 128 floats a lane, so the Q fragments
+// (64 more) are re-read from shared memory at each key tile instead of
+// held (kQRegs), as the paged kernel does at that width.
 template <int D>
 struct FwdTc {
   static constexpr int BM = 64;
-  static constexpr int BN = 64;
+  static constexpr int BN = D <= 128 ? 64 : 32;  // two CTAs an SM at 256
   static constexpr int CTAS = D <= 64 ? 3 : 2;  // per SM, for ptxas
+  static constexpr bool kQRegs = D <= 128;
   static constexpr int LDS = D + 8;
   static constexpr size_t smem =
       (size_t)BM * LDS * sizeof(bf16)                 // Q
@@ -756,11 +775,12 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
 
   cp_async_wait<kStages - 2>();  // Q and the first key tile
   __syncthreads();
-  uint32_t qf[KD][4];
+  const E* q_lane = q_s + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+  uint32_t qf[C::kQRegs ? KD : 1][4];
+  if constexpr (C::kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * LDS + kk * 16 +
-                        (lane >> 4) * 8);
+    for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], q_lane + kk * 16);
+  }
   // the online-softmax carry of rows g and g + 8, m in log2 units; l is
   // this lane's share of the row sum (its quad's columns), summed over the
   // quad at the end
@@ -797,12 +817,14 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      const int qk = C::kQRegs ? kk : 0;
+      if constexpr (!C::kQRegs) ldsm_x4(qf[0], q_lane + kk * 16);
 #pragma unroll
       for (int np = 0; np < NB / 2; ++np) {
         uint32_t bk[4];
         ldsm_x4(bk, k_addr + k_lane + np * 16 * ROW + kk * 32);
-        mma<E>(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma<E>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma<E>(s[2 * np], qf[qk], bk[0], bk[1]);
+        mma<E>(s[2 * np + 1], qf[qk], bk[2], bk[3]);
       }
     }
 
@@ -896,13 +918,16 @@ __global__ void __launch_bounds__(kTcThreads, FwdTc<D>::CTAS)
 // taken SUB keys at a time, so S and dP of 16 x SUB stay small. Up to
 // D = 64 that fits 128 registers without spills: four CTAs per SM (on an
 // H100 at the training shapes 0.18 ms, where 64-key steps took 242
-// registers, two CTAs and 0.29 ms; PERF.md).
+// registers, two CTAs and 0.29 ms; PERF.md). At D = 256 dQ's accumulator
+// is 128 floats a lane, so the Q and dO fragments are re-read from shared
+// memory at each depth step instead of held (kQRegs).
 template <int D>
 struct DqTc {
   static constexpr int BM = 64;
   static constexpr int BN = D <= 64 ? 64 : 32;
   static constexpr int SUB = 32;
   static constexpr int CTAS = D <= 64 ? 4 : 1;  // per SM, for ptxas
+  static constexpr bool kQRegs = D <= 128;
   static constexpr int LDS = D + 8;
   static constexpr size_t smem =
       (size_t)2 * BM * LDS * sizeof(bf16)             // Q, dO
@@ -974,13 +999,14 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
 
   cp_async_wait<kStages - 2>();  // Q, dO and the first key tile
   __syncthreads();
-  uint32_t qf[KD][4], dof[KD][4];
+  const int a_lane = (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+  uint32_t qf[C::kQRegs ? KD : 1][4], dof[C::kQRegs ? KD : 1][4];
+  if constexpr (C::kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int off =
-        (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
-    ldsm_x4(qf[kk], q_s + off);
-    ldsm_x4(dof[kk], do_s + off);
+    for (int kk = 0; kk < KD; ++kk) {
+      ldsm_x4(qf[kk], q_s + a_lane + kk * 16);
+      ldsm_x4(dof[kk], do_s + a_lane + kk * 16);
+    }
   }
   float acc[ND][4];
 #pragma unroll
@@ -1016,6 +1042,11 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
+        const int qk = C::kQRegs ? kk : 0;
+        if constexpr (!C::kQRegs) {
+          ldsm_x4(qf[0], q_s + a_lane + kk * 16);
+          ldsm_x4(dof[0], do_s + a_lane + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < NB / 2; ++np) {
           const int off = (np * 16 + r8 + (mi >> 1) * 8) * LDS + kk * 16 +
@@ -1023,10 +1054,10 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
           uint32_t bk[4], bv[4];
           ldsm_x4(bk, k_s + off);
           ldsm_x4(bv, v_s + off);
-          mma<E>(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma<E>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-          mma<E>(dp[2 * np], dof[kk], bv[0], bv[1]);
-          mma<E>(dp[2 * np + 1], dof[kk], bv[2], bv[3]);
+          mma<E>(s[2 * np], qf[qk], bk[0], bk[1]);
+          mma<E>(s[2 * np + 1], qf[qk], bk[2], bk[3]);
+          mma<E>(dp[2 * np], dof[qk], bv[0], bv[1]);
+          mma<E>(dp[2 * np + 1], dof[qk], bv[2], bv[3]);
         }
       }
 
@@ -1078,13 +1109,17 @@ __global__ void __launch_bounds__(kTcThreads, DqTc<D>::CTAS)
 // queries at a time. dK and dV hold 2 x 16 x D f32 per warp, so SUB = 16
 // is what fits three CTAs per SM (<= 168 registers) without spills up to
 // D = 64 (H100, training shapes: 0.27 ms, where 64-query steps took 218
-// registers, two CTAs and 0.34 ms; four CTAs spill).
+// registers, two CTAs and 0.34 ms; four CTAs spill). At D = 256, dK and dV
+// of 16 keys would be 256 floats a lane, more than a thread has: the head
+// dim's columns split over blockIdx.z, DC = 128 to a CTA, and each CTA
+// recomputes S^T and dP^T over the whole head dim for its half.
 template <int D>
 struct DkvTc {
   static constexpr int BN = 64;
   static constexpr int BM = D <= 64 ? 64 : 32;
   static constexpr int SUB = 16;
   static constexpr int CTAS = D <= 64 ? 3 : 1;  // per SM, for ptxas
+  static constexpr int DC = D <= 128 ? D : 128;  // dK, dV columns a CTA
   static constexpr int LDS = D + 8;
   static constexpr size_t smem =
       (size_t)2 * BN * LDS * sizeof(bf16)             // K, V
@@ -1101,7 +1136,7 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
   constexpr int KD = D / 16;   // depth steps over head_dim (S^T, dP^T)
   constexpr int NQ = SUB / 8;  // query column tiles of S^T and dP^T
   constexpr int KQ = SUB / 16; // depth steps over queries (dK, dV)
-  constexpr int ND = D / 8;    // head_dim column tiles of dK and dV
+  constexpr int ND = C::DC / 8;  // this CTA's column tiles of dK and dV
   extern __shared__ __align__(16) unsigned char tc_smem[];
   E* k_s = reinterpret_cast<E*>(tc_smem);  // [BN][LDS]
   E* v_s = k_s + BN * LDS;                    // [BN][LDS]
@@ -1113,6 +1148,7 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
 
   const int hk = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv;
   const int k0 = blockIdx.y * BN;  // with causal, tile 0 has the most work
+  const int c_lo = blockIdx.z * C::DC;  // this CTA's first dK, dV column
   const int G = p.Hq / p.Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1234,8 +1270,8 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
       for (int kk = 0; kk < KQ; ++kk) {
 #pragma unroll
         for (int np = 0; np < ND / 2; ++np) {
-          const int off = (kk * 16 + r8 + (mi & 1) * 8) * LDS + np * 16 +
-                          (mi >> 1) * 8;
+          const int off = (kk * 16 + r8 + (mi & 1) * 8) * LDS + c_lo +
+                          np * 16 + (mi >> 1) * 8;
           uint32_t bd[4], bq[4];
           ldsm_x4_t(bd, do_s + off);
           mma<E>(dv[2 * np], ph[kk], bd[0], bd[1]);
@@ -1255,7 +1291,7 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
   for (int h = 0; h < 2; ++h) {
     const int kj = k0 + warp * 16 + g + 8 * h;
     if (kj >= p.T) continue;
-    const int64_t off = (((int64_t)b * p.T + kj) * p.Hkv + hk) * D;
+    const int64_t off = (((int64_t)b * p.T + kj) * p.Hkv + hk) * D + c_lo;
     E* dkr = static_cast<E*>(p.dk) + off;
     E* dvr = static_cast<E*>(p.dv) + off;
 #pragma unroll
@@ -1270,15 +1306,15 @@ __global__ void __launch_bounds__(kTcThreads, DkvTc<D>::CTAS)
 // launch
 // --------------------------------------------------------------------------
 
-// shared memory of each CUDA-core kernel, in floats
-constexpr size_t fwd_smem(int D) {
-  return (size_t)3 * kTile * (D + 1) + (size_t)kTile * kLDP + 2 * kTile;
+// shared memory of each CUDA-core kernel, in floats (tiles of L rows)
+constexpr size_t fwd_smem(int D, int L) {
+  return (size_t)3 * L * (D + 1) + (size_t)L * (L + 1) + 2 * L;
 }
-constexpr size_t dq_smem(int D) {
-  return (size_t)4 * kTile * (D + 1) + (size_t)kTile * kLDP + 2 * kTile;
+constexpr size_t dq_smem(int D, int L) {
+  return (size_t)4 * L * (D + 1) + (size_t)L * (L + 1) + 2 * L;
 }
-constexpr size_t dkv_smem(int D) {
-  return (size_t)4 * kTile * (D + 1) + (size_t)2 * kTile * kLDP + 3 * kTile;
+constexpr size_t dkv_smem(int D, int L) {
+  return (size_t)4 * L * (D + 1) + (size_t)2 * L * (L + 1) + 3 * L;
 }
 
 template <typename Kernel>
@@ -1299,8 +1335,9 @@ template <typename T, int D>
 int run(Which which, const FlashParams& p, cudaStream_t s) {
   constexpr bool tc =
       std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
-  const dim3 q_grid((p.S + kTile - 1) / kTile, p.Hq, p.B);
-  const dim3 kv_grid((p.T + kTile - 1) / kTile, p.Hkv, p.B);
+  constexpr int TL = f32_tile(D);
+  const dim3 q_grid((p.S + TL - 1) / TL, p.Hq, p.B);
+  const dim3 kv_grid((p.T + TL - 1) / TL, p.Hkv, p.B);
   constexpr size_t F = sizeof(float);
   switch (which) {
     case kFwd:
@@ -1309,7 +1346,7 @@ int run(Which which, const FlashParams& p, cudaStream_t s) {
         return launch(flash_fwd_kernel_tc<T, D>, kTcThreads, FwdTc<D>::smem,
                       dim3(p.B * p.Hq, (p.S + BM - 1) / BM), p, s);
       } else {
-        return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem(D) * F,
+        return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem(D, TL) * F,
                       q_grid, p, s);
       }
     case kDq:
@@ -1318,16 +1355,16 @@ int run(Which which, const FlashParams& p, cudaStream_t s) {
         return launch(flash_dq_kernel_tc<T, D>, kTcThreads, DqTc<D>::smem,
                       dim3(p.B * p.Hq, (p.S + BM - 1) / BM), p, s);
       } else {
-        return launch(flash_dq_kernel<T, D>, kThreads, dq_smem(D) * F, q_grid,
-                      p, s);
+        return launch(flash_dq_kernel<T, D>, kThreads, dq_smem(D, TL) * F,
+                      q_grid, p, s);
       }
     case kDkv:
       if constexpr (tc) {
-        constexpr int BN = DkvTc<D>::BN;
+        constexpr int BN = DkvTc<D>::BN, DC = DkvTc<D>::DC;
         return launch(flash_dkv_kernel_tc<T, D>, kTcThreads, DkvTc<D>::smem,
-                      dim3(p.B * p.Hkv, (p.T + BN - 1) / BN), p, s);
+                      dim3(p.B * p.Hkv, (p.T + BN - 1) / BN, D / DC), p, s);
       } else {
-        return launch(flash_dkv_kernel<T, D>, kThreads, dkv_smem(D) * F,
+        return launch(flash_dkv_kernel<T, D>, kThreads, dkv_smem(D, TL) * F,
                       kv_grid, p, s);
       }
   }
@@ -1340,7 +1377,9 @@ int run_d(Which which, const FlashParams& p, cudaStream_t s) {
     case 16: return run<T, 16>(which, p, s);
     case 32: return run<T, 32>(which, p, s);
     case 64: return run<T, 64>(which, p, s);
+    case 96: return run<T, 96>(which, p, s);
     case 128: return run<T, 128>(which, p, s);
+    case 256: return run<T, 256>(which, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1364,7 +1403,7 @@ int dispatch(Which which, const FlashParams* p, void* stream) {
 extern "C" {
 
 int flash_supports_head_dim(int D) {
-  return D == 16 || D == 32 || D == 64 || D == 128;
+  return D == 16 || D == 32 || D == 64 || D == 96 || D == 128 || D == 256;
 }
 int flash_params_size() { return (int)sizeof(FlashParams); }
 

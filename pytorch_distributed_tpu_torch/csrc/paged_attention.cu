@@ -50,7 +50,10 @@
 //    Q fragments stay in registers; at D = 256 they are re-read from
 //    shared memory per tile, so that acc (128 floats a lane) fits without
 //    spills at one CTA per SM. __launch_bounds__: three CTAs per SM at
-//    D = 64, two at 128, one at 256, as shared memory allows.
+//    D = 64, two at 96 and 128, one at 256, as shared memory allows. No
+//    loop assumes a power of two: D = 96 is 6 depth steps and 12 column
+//    tiles, and a kv head's G * W rows (7 for Qwen2-7B, 8 for Gemma-2B
+//    at W = 1) pad to one 16-row m-tile.
 //  * f32 (paged_decode_kernel<float>) keeps CUDA-core products (the f32
 //    limit, 1e-5, is below TF32's precision) over the same split and
 //    combine: chunks of keys staged in shared memory as f32 from 16-byte
@@ -386,8 +389,10 @@ struct Cfg {
   static constexpr int kVecElems = 16 / sizeof(T);       // per 16-byte load
   static constexpr int kVecPerRow = D / kVecElems;       // per key row
   static constexpr int kChunkBytes = 16384;              // K bytes per chunk
-  static constexpr int KC0 = kChunkBytes / (D * (int)sizeof(T));
-  static constexpr int KC = KC0 < 32 ? 32 : KC0;         // keys per chunk
+  // keys per chunk: whole warps of keys (at D = 96 the 16 KB chunk
+  // holds 42 f32 keys, so 32)
+  static constexpr int KC0 = kChunkBytes / (D * (int)sizeof(T)) / 32 * 32;
+  static constexpr int KC = KC0 < 32 ? 32 : KC0;
   static constexpr int kKeysPerLane = KC / 32;
   static constexpr int kVecPerThread = KC * kVecPerRow / kThreads;
   static_assert(D % kVecElems == 0, "D must fill 16-byte vectors");
@@ -623,6 +628,7 @@ template <typename T>
 int dispatch_d(const PagedParams& p, cudaStream_t stream) {
   switch (p.D) {
     case 64: return run<T, 64>(p, stream);
+    case 96: return run<T, 96>(p, stream);
     case 128: return run<T, 128>(p, stream);
     case 256: return run<T, 256>(p, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -638,7 +644,7 @@ extern "C" {
 // Head dims the kernel is instantiated for, and its row limit per kv head.
 int paged_attention_max_rows() { return kMaxRows; }
 int paged_attention_supports_head_dim(int D) {
-  return D == 64 || D == 128 || D == 256;
+  return D == 64 || D == 96 || D == 128 || D == 256;
 }
 
 // f32 entries of the workspace a call needs: each split's partial

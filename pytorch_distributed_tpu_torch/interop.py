@@ -10,11 +10,14 @@ layout: ``nn.Linear`` weights are ``[out, in]`` and conv weights
 as their own axes) and ``[kh, kw, I, O]``.
 
 Every converter accounts for every leaf of the tree it is given
-(:class:`_Leaves`): a leaf it does not map, such as the q/k/v biases of
-an ``attention_bias`` Llama, the ``q_norm``/``k_norm`` scales of a
-``qk_norm`` one or the experts of a mixture-of-experts GPT-2, is an error
-that names the leaf and the ROADMAP item that would port it, never a
-weight silently left behind.
+(:class:`_Leaves`): a leaf it does not map, such as the experts of a
+mixture-of-experts GPT-2 or a leaf the config does not enable (q/k/v
+biases without ``attention_bias``), is an error that names the leaf and
+the ROADMAP item, never a weight silently left behind. The Llama
+converters carry every Llama-body family (the q/k/v biases, the
+``q_norm``/``k_norm`` scales, a tied tree without ``lm_head``), and
+:func:`neox_params_from_jax`/:func:`neox_params_to_jax`/
+:func:`neox_slots` carry GPT-NeoX.
 
 :func:`bert_params_from_jax` does the same for a JAX
 ``BertForSequenceClassification`` or ``BertForMaskedLM`` tree (its
@@ -22,8 +25,8 @@ unscanned ``layer{i}`` layout), through the same slots as the
 checkpoints below.
 
 The other direction serves the checkpoints both packages read:
-:func:`gpt2_slots`, :func:`llama_slots`, :func:`bert_slots`,
-:func:`resnet_slots` and
+:func:`gpt2_slots`, :func:`llama_slots`, :func:`neox_slots`,
+:func:`bert_slots`, :func:`resnet_slots` and
 :func:`model_slots` place every port tensor at its JAX ``TrainState``
 leaf (path, layer of a scan-stacked leaf, layout map; a Llama slot also
 maps any range of the port tensor's rows, an FSDP shard, to boxes of the
@@ -33,11 +36,23 @@ JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax`,
 and :func:`optimizer_layout` names the optax state (``mu``, ``nu``,
 ``count``, ``trace``, Adafactor's ``v_row``/``v_col``/``v``, LARS's
 ``v``) that a port optimizer's state stands for.
+
+Hugging Face layouts (the JAX package's ``load_*``/``export_*``): the
+``load_*`` functions take an HF-named state_dict (numpy arrays or
+tensors, e.g. ``torch.load("model.pt")``) and return the port model's
+state_dict, each tensor in the dtype it came in; the ``export_*``
+functions take the port's state_dict and return the HF-named one as
+numpy arrays (f32 for floating tensors). GPT-2, the Llama body (with
+its Mistral, Qwen2, Qwen3 and Gemma aliases), Phi-3 (fused ``qkv_proj``
+and ``gate_up_proj``) and GPT-NeoX. The port's layouts are HF's own
+``[out, in]`` ones, so the maps are renames (GPT-2's ``Conv1D`` weights
+transposed, Phi-3's fused ones split).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -102,44 +117,50 @@ def _layer_getter(leaves: _Leaves, stack: str, prefix: str):
     return lambda i, sub: leaves.take(f"{prefix}{i}/{sub}")
 
 
-def llama_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
-    """JAX Llama params -> the port's ``LlamaForCausalLM`` state_dict.
-
-    Kernel layouts on the JAX side: q/k/v ``[D, H, hd]``, o
-    ``[H, hd, D]``, gate/up ``[D, I]``, down ``[I, D]``,
-    ``embed/embedding [V, D]``, ``lm_head/kernel [D, V]``. Returned
-    tensors are f32 CPU tensors; ``load_state_dict`` casts and moves
-    them to the module's dtype and device. A tied tree (no ``lm_head``)
-    and leaves the port's Llama has no place for (q/k/v biases,
-    ``q_norm``/``k_norm``) raise ``NotImplementedError`` naming A7.
-    """
-    leaves = _Leaves(params, "llama_params_from_jax", "A7")
-    if not leaves.has("lm_head"):
-        raise NotImplementedError(
-            "llama_params_from_jax: the tree has no lm_head — tied word "
-            "embeddings (the head is embed/embedding) are not ported "
-            "(ROADMAP A7)"
-        )
-    D = cfg.hidden_size
-    sd = {
-        "embed.weight": _t(leaves.take("embed/embedding")),
-        "final_norm.weight": _t(leaves.take("final_norm/scale")),
-        "lm_head.weight": _t(leaves.take("lm_head/kernel").T),
-    }
-    get = _layer_getter(leaves, "layers", "layer")
-    for i in range(cfg.num_layers):
-        p = f"layers.{i}."
-        sd[p + "attn_norm.weight"] = _t(get(i, "attn_norm/scale"))
-        sd[p + "mlp_norm.weight"] = _t(get(i, "mlp_norm/scale"))
-        for name in ("q", "k", "v"):
-            kern = get(i, f"{name}/kernel")                 # [D, H, hd]
-            sd[p + f"{name}.weight"] = _t(kern.reshape(D, -1).T)
-        o = get(i, "o/kernel")                               # [H, hd, D]
-        sd[p + "o.weight"] = _t(o.reshape(-1, D).T)
-        for name in ("gate", "up", "down"):
-            sd[p + f"{name}.weight"] = _t(get(i, f"{name}/kernel").T)
+def _params_from_slots(params, slots, what: str, stack: str,
+                       prefix: str) -> Dict[str, torch.Tensor]:
+    """A JAX variable tree (scan-stacked ``{stack}/block/...`` or unrolled
+    ``{prefix}{i}/...``) -> the port's state_dict through ``slots``, every
+    leaf accounted for."""
+    leaves = _Leaves(params, what, "A7")
+    get = _layer_getter(leaves, stack, prefix)
+    sd = {}
+    for name, slot in slots.items():
+        if slot.layer is None:
+            arr = leaves.take("/".join(slot.path))
+        else:   # ("layers", "block", module, leaf)
+            arr = get(slot.layer, "/".join(slot.path[2:]))
+        sd[name] = _t(slot.from_jax(arr))
     leaves.finish()
     return sd
+
+
+def llama_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX Llama-body params (Llama, Gemma, Mistral, Qwen2, Qwen3, Phi-3)
+    -> the port's ``LlamaForCausalLM`` state_dict.
+
+    Kernel layouts on the JAX side: q/k/v ``[D, H, hd]`` (biases
+    ``[H, hd]`` with ``attention_bias``), o ``[H, hd, D]``, gate/up
+    ``[D, I]``, down ``[I, D]``, ``embed/embedding [V, D]``,
+    ``lm_head/kernel [D, V]`` (none when ``tie_word_embeddings``: the
+    head is the embedding), ``q_norm``/``k_norm`` ``[hd]`` scales with
+    ``qk_norm``. Either layout of the layers (scan-stacked or unrolled).
+    Returned tensors are f32 CPU tensors; ``load_state_dict`` casts and
+    moves them to the module's dtype and device. A leaf the config does
+    not enable, or one it needs and the tree lacks, raises
+    ``NotImplementedError`` naming it.
+    """
+    return _params_from_slots(params, llama_slots(cfg),
+                              "llama_params_from_jax", "layers", "layer")
+
+
+def neox_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``NeoXForCausalLM`` params -> the port's state_dict: ``qkv``
+    ``[D, H, 3, hd]`` (bias ``[H, 3, hd]``), ``attn_out`` ``[H, hd, D]``,
+    ``mlp_up``/``mlp_down``/``embed_out`` ``[in, out]``, LayerNorm
+    ``scale``/``bias``; f32 CPU tensors, either layout of the layers."""
+    return _params_from_slots(params, neox_slots(cfg),
+                              "neox_params_from_jax", "layers", "layer")
 
 
 def gpt2_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
@@ -372,10 +393,12 @@ def gpt2_slots(cfg) -> Dict[str, Slot]:
 def llama_slots(cfg) -> Dict[str, Slot]:
     """``{port name: Slot}`` for ``LlamaForCausalLM``: the scan-stacked
     JAX layout (``layers/block/...`` with a leading ``[L]``), the one the
-    JAX recipe trains. q/k/v ``[H * hd, D]`` are ``[D, H, hd]`` kernels,
-    o ``[D, H * hd]`` an ``[H, hd, D]`` one, gate/up/down and the head
-    ``[out, in]`` ``[in, out]`` kernels, the embedding and the norms'
-    scales as they are."""
+    JAX recipe trains. q/k/v ``[H * hd, D]`` are ``[D, H, hd]`` kernels
+    (their biases ``[H * hd]`` ``[H, hd]`` leaves), o ``[D, H * hd]`` an
+    ``[H, hd, D]`` one, gate/up/down and the head ``[out, in]``
+    ``[in, out]`` kernels, the embedding and the norms' scales
+    (``q_norm``/``k_norm`` too) as they are. A tied config has no head
+    slot: its head is ``embed.weight``, the JAX ``embed/embedding``."""
     D, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
     H, Hkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
         cfg.num_layers
@@ -384,9 +407,10 @@ def llama_slots(cfg) -> Dict[str, Slot]:
                                   (V, D), (0, 1)),
         "final_norm.weight": _permuted("params", ("final_norm", "scale"),
                                        None, 0, (D,), (0,)),
-        "lm_head.weight": _permuted("params", ("lm_head", "kernel"), None, 0,
-                                    (D, V), (1, 0)),
     }
+    if not cfg.tie_word_embeddings:
+        slots["lm_head.weight"] = _permuted(
+            "params", ("lm_head", "kernel"), None, 0, (D, V), (1, 0))
     per_layer = {
         "attn_norm.weight": ("attn_norm", "scale", (D,), (0,), 1),
         "mlp_norm.weight": ("mlp_norm", "scale", (D,), (0,), 1),
@@ -398,11 +422,62 @@ def llama_slots(cfg) -> Dict[str, Slot]:
         "up.weight": ("up", "kernel", (D, I), (1, 0), 1),
         "down.weight": ("down", "kernel", (I, D), (1, 0), 1),
     }
+    if cfg.attention_bias:
+        for name, heads in (("q", H), ("k", Hkv), ("v", Hkv)):
+            per_layer[f"{name}.bias"] = (name, "bias", (heads, hd), (0, 1),
+                                         2)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            per_layer[f"{name}.weight"] = (name, "scale", (hd,), (0,), 1)
     for i in range(L):
         for sub, (mod, leaf, js, perm, rows) in per_layer.items():
             slots[f"layers.{i}.{sub}"] = _permuted(
                 "params", ("layers", "block", mod, leaf), i, L, js, perm,
                 rows)
+    return slots
+
+
+def neox_slots(cfg) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``NeoXForCausalLM``: the scan-stacked
+    JAX layout (``layers/block/...``). ``qkv.weight`` ``[H * 3 * hd, D]``
+    is the ``[D, H, 3, hd]`` kernel (HF's per-head q, k, v order) and its
+    bias the ``[H, 3, hd]`` leaf, ``attn_out.weight`` ``[D, H * hd]`` an
+    ``[H, hd, D]`` kernel, the MLP and ``embed_out`` ``[out, in]``
+    ``[in, out]`` kernels, LayerNorm weights ``scale`` leaves."""
+    D, H, hd, L = (cfg.hidden_size, cfg.num_heads, cfg.head_dim,
+                   cfg.num_layers)
+    T = (lambda a: a.T, lambda a: a.T)  # [out, in] <-> [in, out]
+    same = (_same, _same)
+    top = {
+        "embed.weight": (("embed", "embedding"), same),
+        "final_norm.weight": (("final_norm", "scale"), same),
+        "final_norm.bias": (("final_norm", "bias"), same),
+        "embed_out.weight": (("embed_out", "kernel"), T),
+    }
+    slots = {k: Slot("params", path, None, 0, *maps)
+             for k, (path, maps) in top.items()}
+    per_layer = {
+        "ln1.weight": ("ln1", "scale", same),
+        "ln1.bias": ("ln1", "bias", same),
+        "ln2.weight": ("ln2", "scale", same),
+        "ln2.bias": ("ln2", "bias", same),
+        "qkv.weight": ("qkv", "kernel", (lambda w: w.T.reshape(D, H, 3, hd),
+                                         lambda k: k.reshape(D, -1).T)),
+        "qkv.bias": ("qkv", "bias", (lambda b: b.reshape(H, 3, hd),
+                                     lambda b: b.reshape(-1))),
+        "attn_out.weight": ("attn_out", "kernel",
+                            (lambda w: w.T.reshape(H, hd, D),
+                             lambda k: k.reshape(-1, D).T)),
+        "attn_out.bias": ("attn_out", "bias", same),
+        "mlp_up.weight": ("mlp_up", "kernel", T),
+        "mlp_up.bias": ("mlp_up", "bias", same),
+        "mlp_down.weight": ("mlp_down", "kernel", T),
+        "mlp_down.bias": ("mlp_down", "bias", same),
+    }
+    for i in range(L):
+        for sub, (mod, leaf, maps) in per_layer.items():
+            slots[f"layers.{i}.{sub}"] = Slot(
+                "params", ("layers", "block", mod, leaf), i, L, *maps)
     return slots
 
 
@@ -478,14 +553,8 @@ def bert_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
 def bert_params_to_jax(state_dict, cfg) -> dict:
     """The inverse of :func:`bert_params_from_jax`: the port's BERT
     state_dict as JAX params (f32 numpy, ``bert/layer{i}``)."""
-    slots = bert_slots(cfg, _bert_head(state_dict))
-    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
-    if left or missing:
-        raise NotImplementedError(
-            f"bert_params_to_jax: tensors the JAX model has no leaf for: "
-            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
-            "(ROADMAP A7)")
-    return _stacked(state_dict, slots, "params")
+    return _params_to_jax(state_dict, bert_slots(cfg, _bert_head(state_dict)),
+                          "bert_params_to_jax")
 
 
 _RESNET_JAX_NAMES = {short: jax for jax, short in _RESNET_NAMES.items()}
@@ -525,7 +594,8 @@ def resnet_slots(names) -> Dict[str, Slot]:
 
 
 def model_slots(model) -> Dict[str, Slot]:
-    """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM``, a BERT
+    """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM`` (any
+    Llama-body family), a ``NeoXForCausalLM``, a BERT
     (``BertForSequenceClassification``, ``BertForMaskedLM``) or a
     ``ResNet`` (or one inside ``DistributedDataParallel``): every entry
     of its ``state_dict``."""
@@ -535,6 +605,7 @@ def model_slots(model) -> Dict[str, Slot]:
     )
     from pytorch_distributed_tpu_torch.models.gpt2 import GPT2LMHead
     from pytorch_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from pytorch_distributed_tpu_torch.models.neox import NeoXForCausalLM
     from pytorch_distributed_tpu_torch.models.resnet import ResNet
 
     model = getattr(model, "module", model)
@@ -545,6 +616,8 @@ def model_slots(model) -> Dict[str, Slot]:
         slots = gpt2_slots(model.config)
     elif isinstance(model, LlamaForCausalLM):
         slots = llama_slots(model.config)
+    elif isinstance(model, NeoXForCausalLM):
+        slots = neox_slots(model.config)
     elif isinstance(model, BertForSequenceClassification):
         slots = bert_slots(model.config, "classifier")
     elif isinstance(model, BertForMaskedLM):
@@ -554,7 +627,8 @@ def model_slots(model) -> Dict[str, Slot]:
     else:
         raise NotImplementedError(
             f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
-            "the port cover GPT-2, Llama, BERT and ResNet (ROADMAP A5)")
+            "the port cover GPT-2, the Llama families, NeoX, BERT and "
+            "ResNet (ROADMAP A5)")
     missing = set(logical_shapes(model)) - set(slots)
     if missing:
         raise NotImplementedError(
@@ -613,32 +687,37 @@ def _stacked(sd, slots, tree: str) -> dict:
     return out
 
 
+def _params_to_jax(state_dict, slots, what: str) -> dict:
+    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
+    if left or missing:
+        raise NotImplementedError(
+            f"{what}: tensors the JAX model has no leaf for: "
+            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
+            "(ROADMAP A7)")
+    return _stacked(state_dict, slots, "params")
+
+
 def gpt2_params_to_jax(state_dict, cfg) -> dict:
     """The inverse of :func:`gpt2_params_from_jax`: the port's
     ``GPT2LMHead`` state_dict as JAX ``GPT2LMHead`` params (f32 numpy,
     the scan-stacked layout)."""
-    slots = gpt2_slots(cfg)
-    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
-    if left or missing:
-        raise NotImplementedError(
-            f"gpt2_params_to_jax: tensors the JAX model has no leaf for: "
-            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
-            "(ROADMAP A7)")
-    return _stacked(state_dict, slots, "params")
+    return _params_to_jax(state_dict, gpt2_slots(cfg), "gpt2_params_to_jax")
 
 
 def llama_params_to_jax(state_dict, cfg) -> dict:
     """The inverse of :func:`llama_params_from_jax`: the port's
     ``LlamaForCausalLM`` state_dict as JAX ``LlamaForCausalLM`` params
-    (f32 numpy, the scan-stacked layout, ``scan_layers=True``)."""
-    slots = llama_slots(cfg)
-    left, missing = set(state_dict) - set(slots), set(slots) - set(state_dict)
-    if left or missing:
-        raise NotImplementedError(
-            f"llama_params_to_jax: tensors the JAX model has no leaf for: "
-            f"{sorted(left)}; JAX leaves without a tensor: {sorted(missing)} "
-            "(ROADMAP A7)")
-    return _stacked(state_dict, slots, "params")
+    (f32 numpy, the scan-stacked layout, ``scan_layers=True``; a tied
+    config's tree has no ``lm_head``)."""
+    return _params_to_jax(state_dict, llama_slots(cfg),
+                          "llama_params_to_jax")
+
+
+def neox_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`neox_params_from_jax`: the port's
+    ``NeoXForCausalLM`` state_dict as JAX params (f32 numpy, the
+    scan-stacked layout)."""
+    return _params_to_jax(state_dict, neox_slots(cfg), "neox_params_to_jax")
 
 
 def resnet_params_to_jax(state_dict) -> Tuple[dict, dict]:
@@ -794,8 +873,10 @@ class Geometry:
 
 def geometries(model) -> Dict[str, Geometry]:
     """``{port name: Geometry}`` for every 2-D-or-more tensor of a
-    ``GPT2LMHead``, ``LlamaForCausalLM`` or BERT that a JAX ``Dense``,
-    ``DenseGeneral`` or ``Embed`` leaf holds, and for every 1-D one.
+    ``GPT2LMHead``, ``LlamaForCausalLM`` (any Llama-body family: the q/k/v
+    biases as ``[H, hd]`` leaves, the ``q_norm``/``k_norm`` scales),
+    ``NeoXForCausalLM`` or BERT that a JAX ``Dense``, ``DenseGeneral`` or
+    ``Embed`` leaf holds, and for every 1-D one.
     ``Slot.to_jax`` is the same map on numpy arrays (the tests hold the
     two equal)."""
     base = getattr(model, "module", model)
@@ -954,3 +1035,257 @@ def lora_params_from_jax(adapters,
             for k, v in node.items()}
 
     return _split_layers(adapters, geoms, "lora_params_from_jax", leaf)
+
+
+# --------------------------------------------------------------------------
+# Hugging Face state_dicts (the JAX package's load_*/export_*), to and
+# from the port's.
+# --------------------------------------------------------------------------
+
+
+def _hf(sd, key: str) -> torch.Tensor:
+    """``sd[key]`` as a CPU tensor of its own dtype (a copy)."""
+    if key not in sd:
+        raise KeyError(
+            f"{key!r} missing from state_dict (have e.g. {list(sd)[:4]}...)")
+    x = sd[key]
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def load_gpt2_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``GPT2LMHeadModel`` (or bare ``GPT2Model``) state_dict -> the
+    port's ``GPT2LMHead`` state_dict. HF's ``Conv1D`` weights are
+    ``[in, out]``, the port's ``[out, in]``; the fused ``c_attn`` keeps
+    its ``(3, H, hd)`` output order. The tied ``lm_head.weight`` and
+    HF's attention-mask buffers are not read (the JAX loader's keys)."""
+    pre = "transformer." if any(k.startswith("transformer.") for k in sd) \
+        else ""
+    out = {
+        "wte.weight": _hf(sd, pre + "wte.weight"),
+        "wpe.weight": _hf(sd, pre + "wpe.weight"),
+        "ln_f.weight": _hf(sd, pre + "ln_f.weight"),
+        "ln_f.bias": _hf(sd, pre + "ln_f.bias"),
+    }
+    for i in range(cfg.num_layers):
+        p, q = f"{pre}h.{i}.", f"blocks.{i}."
+        for hf, port in (("ln_1", "ln1"), ("ln_2", "ln2")):
+            out[q + f"{port}.weight"] = _hf(sd, p + f"{hf}.weight")
+            out[q + f"{port}.bias"] = _hf(sd, p + f"{hf}.bias")
+        for hf, port in (("attn.c_attn", "attn_qkv"),
+                         ("attn.c_proj", "attn_out"),
+                         ("mlp.c_fc", "mlp_up"), ("mlp.c_proj", "mlp_down")):
+            out[q + f"{port}.weight"] = _hf(sd, p + f"{hf}.weight").T \
+                .contiguous()
+            out[q + f"{port}.bias"] = _hf(sd, p + f"{hf}.bias")
+    return out
+
+
+def export_gpt2_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's ``GPT2LMHead`` state_dict -> HF ``GPT2LMHeadModel``
+    state_dict arrays (numpy; the tied ``lm_head.weight`` is the token
+    embedding, as HF materializes it)."""
+    sd = {
+        "transformer.wte.weight": _np(state_dict["wte.weight"]),
+        "transformer.wpe.weight": _np(state_dict["wpe.weight"]),
+        "transformer.ln_f.weight": _np(state_dict["ln_f.weight"]),
+        "transformer.ln_f.bias": _np(state_dict["ln_f.bias"]),
+        "lm_head.weight": _np(state_dict["wte.weight"]),
+    }
+    for i in range(cfg.num_layers):
+        p, q = f"transformer.h.{i}.", f"blocks.{i}."
+        for hf, port in (("ln_1", "ln1"), ("ln_2", "ln2")):
+            sd[p + f"{hf}.weight"] = _np(state_dict[q + f"{port}.weight"])
+            sd[p + f"{hf}.bias"] = _np(state_dict[q + f"{port}.bias"])
+        for hf, port in (("attn.c_attn", "attn_qkv"),
+                         ("attn.c_proj", "attn_out"),
+                         ("mlp.c_fc", "mlp_up"), ("mlp.c_proj", "mlp_down")):
+            sd[p + f"{hf}.weight"] = np.ascontiguousarray(
+                _np(state_dict[q + f"{port}.weight"]).T)
+            sd[p + f"{hf}.bias"] = _np(state_dict[q + f"{port}.bias"])
+    return sd
+
+
+# HF Llama-body names -> the port's, per layer
+_LLAMA_HF = (
+    ("input_layernorm.weight", "attn_norm.weight"),
+    ("self_attn.q_proj.weight", "q.weight"),
+    ("self_attn.k_proj.weight", "k.weight"),
+    ("self_attn.v_proj.weight", "v.weight"),
+    ("self_attn.o_proj.weight", "o.weight"),
+    ("post_attention_layernorm.weight", "mlp_norm.weight"),
+    ("mlp.gate_proj.weight", "gate.weight"),
+    ("mlp.up_proj.weight", "up.weight"),
+    ("mlp.down_proj.weight", "down.weight"),
+)
+_LLAMA_HF_BIAS = tuple((f"self_attn.{n}_proj.bias", f"{n}.bias")
+                       for n in ("q", "k", "v"))
+_LLAMA_HF_QK_NORM = (("self_attn.q_norm.weight", "q_norm.weight"),
+                     ("self_attn.k_norm.weight", "k_norm.weight"))
+
+
+def _llama_hf_names(cfg):
+    names = _LLAMA_HF
+    if cfg.attention_bias:
+        names += _LLAMA_HF_BIAS
+    if cfg.qk_norm:
+        names += _LLAMA_HF_QK_NORM
+    return names
+
+
+def load_llama_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``LlamaForCausalLM`` state_dict (and Mistral's, Qwen2's,
+    Qwen3's and Gemma's, which share its names) -> the port's
+    ``LlamaForCausalLM`` state_dict. As the JAX loader: q/k/v biases or
+    ``q_norm``/``k_norm`` weights the config does not enable raise (they
+    would be dropped); a tied config refuses an ``lm_head.weight`` that
+    differs from the embedding; an untied config without
+    ``lm_head.weight`` takes the embedding as its head."""
+    if not cfg.attention_bias:
+        found = sorted(k for k in sd if re.fullmatch(
+            r"model\.layers\.\d+\.self_attn\.[qkv]_proj\.bias", k))
+        if found:
+            raise ValueError(
+                f"checkpoint has attention projection biases (e.g. "
+                f"{found[0]}) but the config has attention_bias=False — a "
+                "Qwen2-style checkpoint; fix the config instead of losing "
+                "the biases")
+    if not cfg.qk_norm:
+        found = sorted(k for k in sd if re.fullmatch(
+            r"model\.layers\.\d+\.self_attn\.[qk]_norm\.weight", k))
+        if found:
+            raise ValueError(
+                f"checkpoint has q_norm/k_norm weights (e.g. {found[0]}) but "
+                "the config has qk_norm=False — a Qwen3-style checkpoint; "
+                "fix the config instead of losing the norms")
+    emb = _hf(sd, "model.embed_tokens.weight")
+    out = {"embed.weight": emb,
+           "final_norm.weight": _hf(sd, "model.norm.weight")}
+    if cfg.tie_word_embeddings:
+        if "lm_head.weight" in sd and not torch.allclose(
+                _hf(sd, "lm_head.weight").float(), emb.float()):
+            raise ValueError(
+                "cfg.tie_word_embeddings=True but the checkpoint's "
+                "lm_head.weight differs from its embedding table — an "
+                "UNTIED checkpoint; fix the config instead of losing the "
+                "head weights")
+    else:
+        out["lm_head.weight"] = (_hf(sd, "lm_head.weight")
+                                 if "lm_head.weight" in sd else emb.clone())
+    names = _llama_hf_names(cfg)
+    for i in range(cfg.num_layers):
+        for hf, port in names:
+            out[f"layers.{i}.{port}"] = _hf(sd, f"model.layers.{i}.{hf}")
+    return out
+
+
+def export_llama_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's ``LlamaForCausalLM`` state_dict -> HF
+    ``LlamaForCausalLM`` state_dict arrays (numpy). A tied config's
+    ``lm_head.weight`` is the embedding, as HF materializes the shared
+    tensor under both names."""
+    emb = _np(state_dict["embed.weight"])
+    sd = {
+        "model.embed_tokens.weight": emb,
+        "model.norm.weight": _np(state_dict["final_norm.weight"]),
+        "lm_head.weight": (emb if cfg.tie_word_embeddings
+                           else _np(state_dict["lm_head.weight"])),
+    }
+    names = _llama_hf_names(cfg)
+    for i in range(cfg.num_layers):
+        for hf, port in names:
+            sd[f"model.layers.{i}.{hf}"] = _np(
+                state_dict[f"layers.{i}.{port}"])
+    return sd
+
+
+# Mistral's, Qwen2's (q/k/v biases), Qwen3's (q_norm/k_norm) and Gemma's
+# (tied, the rest semantics) HF layouts are Llama's: the config says which
+# leaves it carries.
+load_mistral_weights = load_llama_weights
+export_mistral_weights = export_llama_weights
+load_qwen2_weights = load_llama_weights
+export_qwen2_weights = export_llama_weights
+load_qwen3_weights = load_llama_weights
+export_qwen3_weights = export_llama_weights
+load_gemma_weights = load_llama_weights
+export_gemma_weights = export_llama_weights
+
+
+def load_phi3_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``Phi3ForCausalLM`` state_dict -> the port's state_dict: the
+    fused ``qkv_proj`` (``[q | k | v]`` along the out axis) and
+    ``gate_up_proj`` (``[gate | up]``) split onto the Llama names."""
+    qd = cfg.num_heads * cfg.head_dim
+    kd = cfg.num_kv_heads * cfg.head_dim
+    F = cfg.intermediate_size
+    virt = dict(sd)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        qkv = _hf(sd, p + "self_attn.qkv_proj.weight")   # [qd + 2 kd, D]
+        virt[p + "self_attn.q_proj.weight"] = qkv[:qd]
+        virt[p + "self_attn.k_proj.weight"] = qkv[qd:qd + kd]
+        virt[p + "self_attn.v_proj.weight"] = qkv[qd + kd:]
+        gu = _hf(sd, p + "mlp.gate_up_proj.weight")     # [2F, D]
+        virt[p + "mlp.gate_proj.weight"] = gu[:F]
+        virt[p + "mlp.up_proj.weight"] = gu[F:]
+    return load_llama_weights(virt, cfg)
+
+
+def export_phi3_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's state_dict -> HF ``Phi3ForCausalLM`` state_dict
+    (re-fuses what :func:`load_phi3_weights` split)."""
+    sd = export_llama_weights(state_dict, cfg)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd[p + "self_attn.qkv_proj.weight"] = np.concatenate([
+            sd.pop(p + f"self_attn.{n}_proj.weight") for n in "qkv"])
+        sd[p + "mlp.gate_up_proj.weight"] = np.concatenate([
+            sd.pop(p + "mlp.gate_proj.weight"),
+            sd.pop(p + "mlp.up_proj.weight")])
+    return sd
+
+
+# HF GPT-NeoX names -> the port's, per layer (the fused query_key_value
+# keeps HF's per-head (q, k, v) order in both)
+_NEOX_HF = (
+    ("input_layernorm", "ln1"), ("post_attention_layernorm", "ln2"),
+    ("attention.query_key_value", "qkv"), ("attention.dense", "attn_out"),
+    ("mlp.dense_h_to_4h", "mlp_up"), ("mlp.dense_4h_to_h", "mlp_down"),
+)
+
+
+def load_neox_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``GPTNeoXForCausalLM`` state_dict -> the port's
+    ``NeoXForCausalLM`` state_dict (renames: the layouts agree)."""
+    out = {
+        "embed.weight": _hf(sd, "gpt_neox.embed_in.weight"),
+        "final_norm.weight": _hf(sd, "gpt_neox.final_layer_norm.weight"),
+        "final_norm.bias": _hf(sd, "gpt_neox.final_layer_norm.bias"),
+        "embed_out.weight": _hf(sd, "embed_out.weight"),
+    }
+    for i in range(cfg.num_layers):
+        for hf, port in _NEOX_HF:
+            for leaf in ("weight", "bias"):
+                out[f"layers.{i}.{port}.{leaf}"] = _hf(
+                    sd, f"gpt_neox.layers.{i}.{hf}.{leaf}")
+    return out
+
+
+def export_neox_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's ``NeoXForCausalLM`` state_dict -> HF
+    ``GPTNeoXForCausalLM`` state_dict arrays (numpy)."""
+    sd = {
+        "gpt_neox.embed_in.weight": _np(state_dict["embed.weight"]),
+        "embed_out.weight": _np(state_dict["embed_out.weight"]),
+        "gpt_neox.final_layer_norm.weight": _np(
+            state_dict["final_norm.weight"]),
+        "gpt_neox.final_layer_norm.bias": _np(state_dict["final_norm.bias"]),
+    }
+    for i in range(cfg.num_layers):
+        for hf, port in _NEOX_HF:
+            for leaf in ("weight", "bias"):
+                sd[f"gpt_neox.layers.{i}.{hf}.{leaf}"] = _np(
+                    state_dict[f"layers.{i}.{port}.{leaf}"])
+    return sd

@@ -1,1 +1,51 @@
-"""models/ of the PyTorch/CUDA port."""
+"""models/ of the PyTorch/CUDA port: GPT-2, BERT, ResNet, the Llama body
+with its families (Gemma, Mistral, Qwen2, Qwen3, Phi-3, tied
+Llama-3.2) and GPT-NeoX/Pythia, under the JAX package's names."""
+
+from pytorch_distributed_tpu_torch.models.gemma import (
+    GemmaConfig,
+    GemmaForCausalLM,
+    gemma_partition_rules,
+)
+from pytorch_distributed_tpu_torch.models.llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    RopeScaling,
+    llama_partition_rules,
+)
+from pytorch_distributed_tpu_torch.models.mistral import (
+    MistralConfig,
+    MistralForCausalLM,
+    mistral_partition_rules,
+)
+from pytorch_distributed_tpu_torch.models.neox import (
+    NeoXConfig,
+    NeoXForCausalLM,
+    neox_partition_rules,
+)
+from pytorch_distributed_tpu_torch.models.phi3 import (
+    Phi3Config,
+    Phi3ForCausalLM,
+    phi3_partition_rules,
+)
+from pytorch_distributed_tpu_torch.models.qwen2 import (
+    Qwen2Config,
+    Qwen2ForCausalLM,
+    qwen2_partition_rules,
+)
+from pytorch_distributed_tpu_torch.models.qwen3 import (
+    Qwen3Config,
+    Qwen3ForCausalLM,
+    qwen3_partition_rules,
+)
+
+__all__ = [
+    "GemmaConfig", "GemmaForCausalLM", "gemma_partition_rules",
+    "LlamaConfig", "LlamaForCausalLM", "RopeScaling",
+    "llama_partition_rules", "MistralConfig", "MistralForCausalLM",
+    "mistral_partition_rules", "NeoXConfig", "NeoXForCausalLM",
+    "neox_partition_rules", "Phi3Config", "Phi3ForCausalLM",
+    "phi3_partition_rules", "Qwen2Config", "Qwen2ForCausalLM",
+    "qwen2_partition_rules", "Qwen3Config", "Qwen3ForCausalLM",
+    "qwen3_partition_rules",
+]

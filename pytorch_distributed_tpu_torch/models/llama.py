@@ -1,7 +1,17 @@
 """Llama-3 in PyTorch: the port of ``pytorch_distributed_tpu/models/llama.py``.
 
 Decoder with RMSNorm, rotary positions (theta 500k), grouped-query
-attention (32 q / 8 kv heads at 8B) and a SwiGLU MLP. The layers are an
+attention (32 q / 8 kv heads at 8B) and a SwiGLU MLP. The config's
+family fields carry the Llama-body families (``models/gemma.py``,
+``mistral.py``, ``qwen2.py``, ``qwen3.py``, ``phi3.py``) as the JAX
+package's do: q/k/v biases (``attention_bias``), a head that is the
+embedding table (``tie_word_embeddings``: one ``Parameter``,
+``embed.weight``), a head dim decoupled from ``hidden / heads``
+(``override_head_dim``), RMSNorm scaling by ``1 + scale`` with the scale
+initialised to zeros (``rms_offset``), the tanh-approximate gelu gate
+(``hidden_act="gelu"``), embeddings times ``sqrt(hidden)`` in the
+compute dtype (``scale_embedding``) and a per-head RMSNorm on q and k
+before RoPE (``qk_norm``). The layers are an
 ``nn.ModuleList`` (the JAX package scans one stacked block), and the
 per-layer KV cache is an explicit argument and return value of
 ``forward`` (the JAX package keeps it in flax's ``cache`` collection).
@@ -78,6 +88,21 @@ class LlamaConfig:
     # position i sees keys in (i - window, i] only; None = full causal
     sliding_window: Optional[int] = None
     rope_scaling: Optional[RopeScaling] = None
+    # biases on the q/k/v projections (Qwen2); o/gate/up/down never carry
+    # one in any Llama-body family
+    attention_bias: bool = False
+    # the head is the embedding table (Llama-3.2-1B/3B, Gemma)
+    tie_word_embeddings: bool = False
+    # an explicit per-head dim (Gemma: 256), decoupled from hidden/heads
+    override_head_dim: Optional[int] = None
+    # RMSNorm multiplies by (1 + scale), the scale initialised to zeros
+    rms_offset: bool = False
+    # the MLP gate's activation: silu, or gelu (Gemma's tanh-approximate)
+    hidden_act: str = "silu"
+    # embeddings times sqrt(hidden_size) after the lookup (Gemma)
+    scale_embedding: bool = False
+    # per-head RMSNorm on q and k before RoPE (Qwen3)
+    qk_norm: bool = False
     # "int8": the decode cache (dense or paged) rests quantized (lossy);
     # paged int8 pools attend on the gather path, not the kernel
     kv_cache_quantize: Optional[str] = None
@@ -86,6 +111,11 @@ class LlamaConfig:
     remat_policy: str = "full"  # full | dots | dots_no_batch
 
     def __post_init__(self):
+        if self.hidden_act not in ("silu", "gelu"):
+            raise ValueError(
+                f"hidden_act must be 'silu' or 'gelu', got "
+                f"{self.hidden_act!r}"
+            )
         if self.kv_cache_quantize not in (None, "int8"):
             raise ValueError(
                 f"kv_cache_quantize must be None or 'int8', got "
@@ -94,11 +124,27 @@ class LlamaConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.override_head_dim is not None:
+            return self.override_head_dim
         return self.hidden_size // self.num_heads
 
     @classmethod
     def llama3_8b(cls) -> "LlamaConfig":
         return cls()
+
+    @classmethod
+    def llama3_2_1b(cls) -> "LlamaConfig":
+        """Llama-3.2-1B: tied embeddings, factor-32 llama3 rope scaling."""
+        return cls(
+            hidden_size=2_048, num_layers=16, num_heads=32,
+            num_kv_heads=8, intermediate_size=8_192,
+            max_seq_len=131_072, tie_word_embeddings=True,
+            rope_scaling=RopeScaling(
+                type="llama3", factor=32.0, low_freq_factor=1.0,
+                high_freq_factor=4.0,
+                original_max_position_embeddings=8_192,
+            ),
+        )
 
     @classmethod
     def tiny(cls) -> "LlamaConfig":
@@ -109,31 +155,42 @@ class LlamaConfig:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, *, device, dtype):
+    """Statistics and scale in f32, the input's dtype out. With ``offset``
+    (Gemma) the weight is zero-centred: it starts at zeros and the norm
+    multiplies by ``1 + weight``."""
+
+    def __init__(self, dim: int, eps: float, *, device, dtype,
+                 offset: bool = False):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.offset = offset
+        init = torch.zeros if offset else torch.ones
+        self.weight = nn.Parameter(init(dim, device=device, dtype=dtype))
 
     def forward(self, x):
         x32 = x.float()
         rms = torch.sqrt(x32.square().mean(dim=-1, keepdim=True) + self.eps)
-        return (x32 / rms * self.weight.float()).to(x.dtype)
+        mult = self.weight.float()
+        if self.offset:
+            mult = 1.0 + mult
+        return (x32 / rms * mult).to(x.dtype)
 
 
 class Linear(nn.Linear):
-    """``y = x W^T`` (no bias), W ``[out, in]`` kept in the policy's
+    """``y = x W^T (+ b)``, W ``[out, in]`` (and b) kept in the policy's
     param dtype and cast, with x, to its compute dtype for the product
     (no copy when the two agree, as when serving)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 policy: Policy, device):
-        super().__init__(in_features, out_features, bias=False,
+                 policy: Policy, device, bias: bool = False):
+        super().__init__(in_features, out_features, bias=bias,
                          device=device, dtype=policy.param_dtype)
         self.compute_dtype = policy.compute_dtype
 
     def forward(self, x):
         cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd))
+        b = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), b)
 
 
 class LlamaBlock(nn.Module):
@@ -142,15 +199,22 @@ class LlamaBlock(nn.Module):
         self.cfg = cfg
         D, hd = cfg.hidden_size, cfg.head_dim
         dtype = policy.param_dtype
-        lin = lambda i, o: Linear(  # noqa: E731
-            i, o, policy=policy, device=device
+        lin = lambda i, o, bias=False: Linear(  # noqa: E731
+            i, o, policy=policy, device=device, bias=bias
         )
-        self.attn_norm = RMSNorm(D, cfg.rms_eps, device=device, dtype=dtype)
-        self.q = lin(D, cfg.num_heads * hd)
-        self.k = lin(D, cfg.num_kv_heads * hd)
-        self.v = lin(D, cfg.num_kv_heads * hd)
+        norm = lambda dim: RMSNorm(  # noqa: E731
+            dim, cfg.rms_eps, device=device, dtype=dtype,
+            offset=cfg.rms_offset)
+        ab = cfg.attention_bias
+        self.attn_norm = norm(D)
+        self.q = lin(D, cfg.num_heads * hd, ab)
+        self.k = lin(D, cfg.num_kv_heads * hd, ab)
+        self.v = lin(D, cfg.num_kv_heads * hd, ab)
+        if cfg.qk_norm:   # one [head_dim] scale each, shared by the heads
+            self.q_norm = norm(hd)
+            self.k_norm = norm(hd)
         self.o = lin(cfg.num_heads * hd, D)
-        self.mlp_norm = RMSNorm(D, cfg.rms_eps, device=device, dtype=dtype)
+        self.mlp_norm = norm(D)
         self.gate = lin(D, cfg.intermediate_size)
         self.up = lin(D, cfg.intermediate_size)
         self.down = lin(cfg.intermediate_size, D)
@@ -177,6 +241,9 @@ class LlamaBlock(nn.Module):
         q = self.q(h).view(B, S, cfg.num_heads, hd)
         k = self.k(h).view(B, S, cfg.num_kv_heads, hd)
         v = self.v(h).view(B, S, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
         offset = 0
@@ -191,13 +258,19 @@ class LlamaBlock(nn.Module):
         )
         x = x + self.o(attn.reshape(B, S, cfg.num_heads * hd))
         h = self.mlp_norm(x)
-        return x + self.down(F.silu(self.gate(h)) * self.up(h))
+        gate = self.gate(h)
+        if cfg.hidden_act == "silu":
+            gate = F.silu(gate)
+        else:   # Gemma's tanh-approximate gelu
+            gate = F.gelu(gate, approximate="tanh")
+        return x + self.down(gate * self.up(h))
 
 
 class LlamaForCausalLM(nn.Module):
     """Returns [B, S, vocab] logits (and the cache when decoding), or the
-    final hidden states with ``return_hidden=True``. Untied LM head (the
-    Llama-3 layout)."""
+    final hidden states with ``return_hidden=True``. The LM head is
+    ``lm_head`` (the Llama-3 layout), or with ``tie_word_embeddings`` the
+    embedding table itself (``lm_head`` is then None)."""
 
     def __init__(self, config: LlamaConfig, *, device: DeviceLike = None,
                  policy: Policy = Policy()):
@@ -214,10 +287,12 @@ class LlamaForCausalLM(nn.Module):
             for _ in range(config.num_layers)
         )
         self.final_norm = RMSNorm(
-            config.hidden_size, config.rms_eps, device=device, dtype=dt
+            config.hidden_size, config.rms_eps, device=device, dtype=dt,
+            offset=config.rms_offset,
         )
-        self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              policy=policy, device=device)
+        self.lm_head = None if config.tie_word_embeddings else Linear(
+            config.hidden_size, config.vocab_size, policy=policy,
+            device=device)
         self._rope: dict = {}
 
     @property
@@ -226,7 +301,9 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
-        """Seeded random weights: every matrix normal(0, std), norms one.
+        """Seeded random weights: every other tensor (biases too)
+        normal(0, std), norms one (zeros with ``rms_offset``: the
+        identity either way).
 
         Each matrix is drawn whole, in ``named_parameters`` order, and a
         parameter sharded by FSDP keeps only its own rows of the draw, one
@@ -235,7 +312,7 @@ class LlamaForCausalLM(nn.Module):
         for name, p in self.named_parameters():
             local, start, _ = row_shard(p)
             if name.endswith("norm.weight"):
-                local.fill_(1.0)
+                local.fill_(0.0 if self.config.rms_offset else 1.0)
                 continue
             full = torch.randn(p.shape, generator=generator,
                                device=local.device, dtype=torch.float32)
@@ -323,7 +400,10 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError(
                 "kv_mask is for KV-cache decode (left-padded prompts); "
                 "training masks go through the loss/segment machinery")
-        x = self.embed(input_ids).to(self.policy.compute_dtype)
+        cd = self.policy.compute_dtype
+        x = self.embed(input_ids).to(cd)
+        if cfg.scale_embedding:   # the scale rounded to the compute dtype
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cd)
         if decode:
             table_len = cache_len or cfg.max_seq_len
             if cache is None:
@@ -342,5 +422,17 @@ class LlamaForCausalLM(nn.Module):
         x = self.final_norm(x)
         if return_hidden:
             return x.to(self.policy.output_dtype)
-        logits = self.lm_head(x).to(self.policy.output_dtype)
+        if self.lm_head is not None:
+            logits = self.lm_head(x)
+        else:   # tied: x E^T in the compute dtype, as flax's Embed.attend
+            logits = F.linear(x.to(cd), self.embed.weight.to(cd))
+        logits = logits.to(self.policy.output_dtype)
         return (logits, cache) if decode else logits
+
+
+def llama_partition_rules(*args, **kwargs):
+    """Megatron-style tensor parallelism for the Llama body (and the
+    families that share it): not ported."""
+    raise NotImplementedError(
+        "llama_partition_rules: tensor parallelism is not ported (ROADMAP "
+        "A10.1); train the Llama families data-parallel or with FSDP")

@@ -205,8 +205,8 @@ def paged_attention(
     ``impl=None`` launches the CUDA kernel for CUDA tensors (counted in
     ``paged_attention.launches``) and runs the plain ``"stream"`` version
     for CPU tensors; ``"gather"`` and ``"stream"`` select a plain version
-    on any device. The kernel takes float32 or bfloat16, head_dim 64, 128
-    or 256, and at most 64 query rows (G * W) per kv head; it raises on
+    on any device. The kernel takes float32 or bfloat16, head_dim 64, 96,
+    128 or 256, and at most 64 query rows (G * W) per kv head; it raises on
     anything else. An int8 pool (:class:`PagedKVQuant`) goes to
     ``"gather"`` with ``impl=None``: the kernel takes fp pools only.
     """

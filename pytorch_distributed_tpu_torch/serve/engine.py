@@ -119,7 +119,8 @@ class SpecConfig:
     drafts k tokens and verifies them in one ``[S, k + 1]`` target pass,
     emitting 1 to k + 1 tokens per decoding request. The paged kernel
     takes G * (k + 1) <= 64 query rows per kv head (G = query heads per
-    kv head), so Llama-3 (G = 4) takes k <= 15 on the card.
+    kv head), so Llama-3 (G = 4) takes k <= 15 on the card, Qwen2-7B
+    (G = 7) k <= 8 and Gemma-2B (G = 8, one kv head) k <= 7.
     """
 
     draft_model: Any

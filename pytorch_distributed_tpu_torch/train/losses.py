@@ -44,18 +44,21 @@ _HEAD_LIKE = ("head", "lm_out", "output_projection", "embed_out")
 
 def _lm_projection_weight(model, tied: Optional[bool] = None):
     """``(projection, vocab_axis)`` of an LM's head in the weight's own
-    layout: GPT-2's tied ``wte`` ``[V, D]``, or an untied ``lm_head``
-    (``nn.Linear``, ``[V, D]`` too: ``vocab_axis`` 0 in the port, where
-    the JAX kernel is ``[D, V]``). The tied ``embed`` fallback refuses
+    layout: GPT-2's tied ``wte`` ``[V, D]``, an untied ``lm_head`` or
+    NeoX's ``embed_out`` (``nn.Linear``, ``[V, D]`` too: ``vocab_axis`` 0
+    in the port, where the JAX kernel is ``[D, V]``), or a tied Llama
+    body's ``embed`` ``[V, D]``. The tied ``embed`` fallback refuses
     when ``tied`` says untied or a head-like attribute exists, as the
     JAX resolver does: the loss would train against the wrong logits
     without an error."""
     model = getattr(model, "module", model)
     if hasattr(model, "wte"):
         return model.wte.weight, 0
-    if hasattr(model, "lm_head"):
+    if getattr(model, "lm_head", None) is not None:
         return model.lm_head.weight, 0
-    if hasattr(model, "embed"):
+    if hasattr(model, "embed_out"):   # NeoX/Pythia: untied, [V, D]
+        return model.embed_out.weight, 0
+    if hasattr(model, "embed"):   # a tied Llama body: lm_head is None
         head_like = [k for k in _HEAD_LIKE if hasattr(model, k)]
         if tied is False or (tied is None and head_like):
             reason = (f"head-like attributes {head_like} exist" if head_like

@@ -32,7 +32,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def build_model(name: str, device, policy, seed: int):
     """A named model with seeded random weights, frozen."""
     from pytorch_distributed_tpu_torch import (
-        GPT2Config, GPT2LMHead, LlamaConfig, LlamaForCausalLM,
+        GPT2Config, GPT2LMHead, LlamaConfig, LlamaForCausalLM, Qwen2Config,
+        Qwen2ForCausalLM,
     )
 
     if name in ("gpt2-tiny", "gpt2-small"):
@@ -42,10 +43,9 @@ def build_model(name: str, device, policy, seed: int):
     elif name == "llama-tiny":
         model = LlamaForCausalLM(LlamaConfig.tiny(), device=device,
                                  policy=policy)
-    elif name == "qwen2-tiny":
-        raise NotImplementedError(
-            "qwen2 is not ported yet: the Llama-family fields it needs are "
-            "ROADMAP A7")
+    elif name == "qwen2-tiny":   # the Llama body with q/k/v biases
+        model = Qwen2ForCausalLM(Qwen2Config.tiny(), device=device,
+                                 policy=policy)
     else:
         raise SystemExit(f"unknown --model {name!r}")
     return draw(model, seed)

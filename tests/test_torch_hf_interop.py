@@ -1,0 +1,157 @@
+"""The port's Hugging Face converters (``interop.load_*``/``export_*``)
+held against the JAX package's, on one seeded HF-named state_dict per
+family: GPT-2, Llama, Mistral, Qwen2, Qwen3, Gemma, Phi-3 and NeoX.
+
+The HF dict is the JAX ``export_*`` of a JAX tree whose every leaf is
+drawn with numpy from a seed, so it has HF's names and shapes (fused
+``qkv_proj``/``gate_up_proj`` for Phi-3, ``query_key_value`` for NeoX,
+``Conv1D`` ``[in, out]`` weights for GPT-2). Then:
+
+* the JAX ``load_*`` and the port's ``load_*`` of that dict give equal
+  logits, to 1e-5 of their largest magnitude (f32, sums in another
+  order);
+* the port's ``export_*`` of what it loaded equals the JAX ``export_*``
+  array by array, bit for bit (renames, transposes and splits only);
+* the refusals of the JAX loader hold: biases or q/k norms the config
+  does not enable, and a tied config given a differing head.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_distributed_tpu import interop as jinterop
+from pytorch_distributed_tpu.models import gemma as jgemma
+from pytorch_distributed_tpu.models import gpt2 as jgpt2
+from pytorch_distributed_tpu.models import llama as jllama
+from pytorch_distributed_tpu.models import mistral as jmistral
+from pytorch_distributed_tpu.models import neox as jneox
+from pytorch_distributed_tpu.models import phi3 as jphi3
+from pytorch_distributed_tpu.models import qwen2 as jqwen2
+from pytorch_distributed_tpu.models import qwen3 as jqwen3
+from pytorch_distributed_tpu.runtime.precision import Policy as JaxPolicy
+from pytorch_distributed_tpu.runtime.precision import use_policy
+from pytorch_distributed_tpu_torch import interop
+from pytorch_distributed_tpu_torch.models import (
+    GemmaConfig,
+    GemmaForCausalLM,
+    LlamaConfig,
+    LlamaForCausalLM,
+    MistralConfig,
+    MistralForCausalLM,
+    NeoXConfig,
+    NeoXForCausalLM,
+    Phi3Config,
+    Phi3ForCausalLM,
+    Qwen2Config,
+    Qwen2ForCausalLM,
+    Qwen3Config,
+    Qwen3ForCausalLM,
+)
+from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+from pytorch_distributed_tpu_torch.runtime.precision import Policy
+
+RTOL = 1e-5
+F32 = JaxPolicy(compute_dtype=jnp.float32)
+_GPT2 = dataclasses.replace(GPT2Config.tiny(), dropout_rate=0.0)
+_JGPT2 = dataclasses.replace(jgpt2.GPT2Config.tiny(), dropout_rate=0.0)
+
+# family: (JAX config, JAX model, port config, port model, converter name)
+FAMILIES = {
+    "gpt2": (_JGPT2, jgpt2.GPT2LMHead, _GPT2, GPT2LMHead, "gpt2"),
+    "llama": (jllama.LlamaConfig.tiny(), jllama.LlamaForCausalLM,
+              LlamaConfig.tiny(), LlamaForCausalLM, "llama"),
+    "mistral": (jmistral.MistralConfig.tiny(), jmistral.MistralForCausalLM,
+                MistralConfig.tiny(), MistralForCausalLM, "mistral"),
+    "qwen2": (jqwen2.Qwen2Config.tiny(), jqwen2.Qwen2ForCausalLM,
+              Qwen2Config.tiny(), Qwen2ForCausalLM, "qwen2"),
+    "qwen3": (jqwen3.Qwen3Config.tiny(), jqwen3.Qwen3ForCausalLM,
+              Qwen3Config.tiny(), Qwen3ForCausalLM, "qwen3"),
+    "gemma": (jgemma.GemmaConfig.tiny(), jgemma.GemmaForCausalLM,
+              GemmaConfig.tiny(), GemmaForCausalLM, "gemma"),
+    "phi3": (jphi3.Phi3Config.tiny(), jphi3.Phi3ForCausalLM,
+             Phi3Config.tiny(), Phi3ForCausalLM, "phi3"),
+    "neox": (jneox.NeoXConfig.tiny(), jneox.NeoXForCausalLM,
+             NeoXConfig.tiny(), NeoXForCausalLM, "neox"),
+}
+
+
+def _hf_dict(name):
+    """A seeded HF-named state_dict of the family (numpy f32)."""
+    jcfg, jcls, _, _, conv = FAMILIES[name]
+    jmodel = jcls(jcfg)
+    with use_policy(F32):
+        shapes = jax.eval_shape(lambda: jmodel.init(
+            jax.random.key(0), jnp.zeros((1, 8), jnp.int32)))["params"]
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def one(path, x):
+        draw = rng.normal(size=x.shape) * 0.08
+        if path[-1].key == "scale" and not getattr(jcfg, "rms_offset",
+                                                   False):
+            draw = 1.0 + draw
+        return draw.astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(one, shapes)
+    return jmodel, getattr(jinterop, f"export_{conv}_weights")(params, jcfg)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_load_and_export_match_jax(name):
+    jcfg, _, cfg, cls, conv = FAMILIES[name]
+    jmodel, hf = _hf_dict(name)
+    jparams = getattr(jinterop, f"load_{conv}_weights")(hf, jcfg)
+    sd = getattr(interop, f"load_{conv}_weights")(hf, cfg)
+    model = cls(cfg, device="cpu", policy=Policy.full())
+    model.load_state_dict(sd)
+    ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16))
+    with use_policy(F32):
+        ref = np.asarray(jmodel.apply({"params": jparams},
+                                      jnp.asarray(ids, jnp.int32)))
+    with torch.no_grad():
+        out = model(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=RTOL * np.abs(ref).max(), err_msg=name)
+    want = getattr(jinterop, f"export_{conv}_weights")(jparams, jcfg)
+    got = getattr(interop, f"export_{conv}_weights")(model.state_dict(), cfg)
+    assert sorted(got) == sorted(want), sorted(set(got) ^ set(want))
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]),
+                                      err_msg=k)
+    # the HF dict itself comes back too (the tied head aside: HF keeps
+    # the shared tensor under both names)
+    for k, v in hf.items():
+        np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+
+
+def test_loads_keep_dtype_and_take_tensors():
+    """A ``.pt``-style dict of bf16 tensors loads as bf16 tensors, the
+    values untouched."""
+    _, hf = _hf_dict("qwen2")
+    pt = {k: torch.from_numpy(np.asarray(v)).to(torch.bfloat16)
+          for k, v in hf.items()}
+    sd = interop.load_qwen2_weights(pt, Qwen2Config.tiny())
+    assert all(t.dtype == torch.bfloat16 for t in sd.values())
+    assert torch.equal(sd["layers.0.q.bias"],
+                       pt["model.layers.0.self_attn.q_proj.bias"])
+
+
+def test_llama_loader_refusals_match_jax():
+    _, hf = _hf_dict("qwen2")
+    with pytest.raises(ValueError, match="attention_bias=False"):
+        interop.load_llama_weights(hf, LlamaConfig.tiny())
+    _, hf = _hf_dict("qwen3")
+    with pytest.raises(ValueError, match="qk_norm=False"):
+        interop.load_llama_weights(hf, LlamaConfig.tiny())
+    _, hf = _hf_dict("llama")
+    tied = dataclasses.replace(LlamaConfig.tiny(), tie_word_embeddings=True)
+    with pytest.raises(ValueError, match="UNTIED"):
+        interop.load_llama_weights(hf, tied)
+    untied = dict(hf)
+    del untied["lm_head.weight"]   # a tied dict, an untied config
+    sd = interop.load_llama_weights(untied, LlamaConfig.tiny())
+    assert torch.equal(sd["lm_head.weight"], sd["embed.weight"])

@@ -4,7 +4,8 @@
   the training slices' included), serves a tiny model (Llama; GPT-2
   with int8 pools, speculative decoding, and a prefill/decode fleet
   with a prefix store behind the router, also through
-  ``scripts/port_serve_loadgen.py``), trains a tiny
+  ``scripts/port_serve_loadgen.py``, which serves Qwen2 too), trains a
+  tiny
   GPT-2, runs the ResNet-50 recipe (with ZeRO-1, EMA and TensorBoard),
   the ResNet-18/CIFAR-10 recipe (through the native pipeline, with
   int8 gradient compression), the Llama FSDP recipe and the BERT
@@ -86,7 +87,8 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "parallel.ddp", "data.image_folder", "train.metrics",
             "utils.tensorboard", "recipes.resnet18_cifar10",
             "utils.config", "utils.profiler", "runtime.tracing",
-            "runtime.device"):
+            "runtime.device", "models.gemma", "models.mistral",
+            "models.qwen2", "models.qwen3", "models.phi3", "models.neox"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -122,6 +124,8 @@ assert port_serve_loadgen.main(["--device", "cpu", "--requests", "4",
                                 "--engines", "2", "--disagg", "--store",
                                 "--prefix-share", "1", "--prefix-len", "8",
                                 "--page-size", "8", "--new-tokens", "3"]) == 0
+assert port_serve_loadgen.main(["--device", "cpu", "--model", "qwen2-tiny",
+                                "--requests", "2", "--new-tokens", "3"]) == 0
 from pytorch_distributed_tpu_torch.recipes import gpt2
 trainer = gpt2.main(["--size", "tiny", "--device", "cpu", "--batch-size", "2",
                      "--accum-steps", "2", "--seq-len", "16",

@@ -1,12 +1,14 @@
 """The port's weight converters account for every leaf of the JAX tree.
 
-A JAX Llama built with ``attention_bias`` (Qwen2) or ``qk_norm`` (Qwen3),
-a tied one (``tie_word_embeddings``), and a mixture-of-experts GPT-2
-each carry leaves the port's models have no place for; converting them
-must raise, naming the leaves (or the missing head) and the ROADMAP item
-that would port them, in both JAX layouts (scan-stacked and unrolled).
-Trees are built with ``jax.eval_shape`` (shapes only) and zero-filled:
-the converters read layout, not values. The plain trees still convert.
+A JAX Llama built with ``attention_bias`` (Qwen2) or ``qk_norm`` (Qwen3)
+converts under the port config that enables them, and under one that
+does not it raises, naming the leaves it has no place for; a tied tree
+(``tie_word_embeddings``) converts under a tied config and, under an
+untied one, raises naming the missing head; a mixture-of-experts GPT-2
+raises naming its expert leaves and the ROADMAP item. All in both JAX
+layouts (scan-stacked and unrolled). Trees are built with
+``jax.eval_shape`` (shapes only) and zero-filled: the converters read
+layout, not values. The plain trees still convert.
 """
 
 import dataclasses
@@ -59,18 +61,35 @@ LAYOUTS = pytest.mark.parametrize("scan", [True, False],
     (dict(qk_norm=True), ("q_norm/scale", "k_norm/scale")),
 ], ids=["attention_bias", "qk_norm"])
 def test_llama_refuses_leaves_it_does_not_map(scan, kw, leaves):
+    tree = _llama_tree(scan, **kw)
     with pytest.raises(NotImplementedError, match="A7") as err:
-        llama_params_from_jax(_llama_tree(scan, **kw), LlamaConfig.tiny())
+        llama_params_from_jax(tree, LlamaConfig.tiny())
     for leaf in leaves:
         assert leaf in str(err.value), (leaf, str(err.value))
+    # the config that enables them maps every leaf (Qwen2's [H * hd]
+    # biases, Qwen3's [hd] norm scales)
+    cfg = dataclasses.replace(LlamaConfig.tiny(), **kw)
+    sd = llama_params_from_jax(tree, cfg)
+    hd = cfg.head_dim
+    for leaf in leaves:
+        mod = leaf.split("/")[0]
+        port = f"layers.1.{mod}.{'bias' if 'bias' in leaf else 'weight'}"
+        want = (cfg.num_heads if mod == "q" else cfg.num_kv_heads) * hd \
+            if "bias" in leaf else hd
+        assert sd[port].shape == (want,), (port, sd[port].shape)
 
 
 @LAYOUTS
 def test_llama_refuses_a_tied_tree_by_name(scan):
+    tree = _llama_tree(scan, tie_word_embeddings=True)
     with pytest.raises(NotImplementedError,
-                       match=r"no lm_head.*tied word embeddings.*A7"):
-        llama_params_from_jax(_llama_tree(scan, tie_word_embeddings=True),
-                              LlamaConfig.tiny())
+                       match=r"lm_head/kernel.*which this tree lacks.*A7"):
+        llama_params_from_jax(tree, LlamaConfig.tiny())
+    # a tied config: the head is embed.weight, no lm_head tensor
+    tied = dataclasses.replace(LlamaConfig.tiny(), tie_word_embeddings=True)
+    sd = llama_params_from_jax(tree, tied)
+    assert "lm_head.weight" not in sd
+    assert len(sd) == 2 + 9 * tied.num_layers
 
 
 @LAYOUTS

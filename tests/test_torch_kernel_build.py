@@ -95,7 +95,7 @@ def _good_report():
     kernels on the tensor cores and the three f32 ones on the CUDA cores,
     at each head_dim."""
     report = {}
-    for d in (16, 32, 64, 128):
+    for d in (16, 32, 64, 96, 128, 256):
         for k in ("fwd", "dq", "dkv"):
             for t in ("bfloat16", "float16"):
                 report[f"flash_{k}_kernel_tc {t} D={d}"] = dict(
@@ -195,7 +195,7 @@ def _good_paged_report():
     CUDA cores at each head_dim, and a combine kernel per dtype."""
     report = {"paged_combine_kernel bfloat16": dict(HMMA=0, HGMMA=0),
               "paged_combine_kernel float32": dict(HMMA=0, HGMMA=0)}
-    for d in (64, 128, 256):
+    for d in (64, 96, 128, 256):
         report[f"paged_decode_kernel_tc bfloat16 D={d}"] = dict(
             registers=128, spill_stores=0, spill_loads=0, HMMA=16, HGMMA=0)
         report[f"paged_decode_kernel float32 D={d}"] = dict(

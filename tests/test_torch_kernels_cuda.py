@@ -74,6 +74,12 @@ def _case(gen, *, B, W, Hq, Hkv, D, ps, n, dtype, device, lengths=None):
     # W = 5 with the next split starting just past lengths[b]: query 0
     # sees none of its keys (its carry ends at the -1e30 sentinel, l > 0)
     (5, 4, 128, None, 64, [15, 47, 1007]), (5, 1, 256, None, 64, [31, 0, 15]),
+    # the model families' head shapes: Phi-3's head_dim 96 (a verify
+    # block, a window), Qwen2-7B's group of 7 and Gemma-2B's of 8 at 256
+    # (Mistral's window binding inside the rows)
+    (1, 1, 96, None, 5, None), (5, 1, 96, 30, 64, [100, 0, 900]),
+    (1, 7, 128, None, 5, None), (1, 7, 128, 50, 64, [1019, 3, 600]),
+    (1, 8, 256, None, 5, None), (1, 8, 256, 100, 64, [1019, 3, 600]),
 ])
 def test_kernel_matches_plain_versions(cuda, dtype, W, G, D, window, n,
                                        lengths):
@@ -291,6 +297,18 @@ FLASH_CASES = {
     # tail per row (lengths 16-128, as padded GLUE sentences): one
     # 128-key tile per row, the padding inside it
     "bert": (32, 128, 128, 12, 12, 64, False, {"lengths": (16, 128)}),
+    # the model families' head dims: Phi-3's 96; Gemma's and Pythia's
+    # 256 (the tensor-core kernels re-read Q from shared memory there and
+    # dkv splits its columns over two CTAs; f32 takes 32-row tiles), with
+    # Gemma-2B's multi-query group, a padded non-causal S != T and packed
+    # rows
+    "d96_causal": (2, 150, 150, 4, 4, 96, True, {}),
+    "d96_gqa_segments": (2, 200, 200, 4, 2, 96, True,
+                         {"cuts": (31, 63, 65, 130, 191)}),
+    "d256_mqa_causal": (2, 150, 150, 8, 1, 256, True, {}),
+    "d256_kv_mask": (2, 130, 100, 4, 4, 256, False, {"kv_mask": True}),
+    "d256_segments": (1, 200, 200, 4, 2, 256, True,
+                      {"cuts": (31, 63, 65, 130, 191)}),
 }
 
 
