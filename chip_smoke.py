@@ -16,7 +16,9 @@ recipe, async/pruned/best checkpoints, MFU, goodput, the profiler
 window, the watchdog), and run the model families (Gemma, Mistral,
 Qwen2, Qwen3, Phi-3, tied Llama-3.2 through the paged engine, Pythia-1B
 through generate, Gemma-2B width through the Trainer, HF weights loaded
-and exported) with the kernels at head_dim 96 and 256.
+and exported) with the kernels at head_dim 96 and 256, and the flash
+kernels at the per-rank shapes of tensor and sequence parallelism with
+the recipe's sequence-parallel path.
 
     python3 chip_smoke.py [--seed N]
 
@@ -306,16 +308,30 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    of their largest magnitude, the export bitwise equal to the input.
    Paths ``family_<model>`` (the paged kernel), ``family_pythia_1b``
    (the flash forward), ``family_gemma_2b_train`` (B1-B3).
+15. tensor and sequence parallelism, after phase 14: (15a) B1-B3 in bf16
+   at the per-rank shapes of Llama-3-8B's parallel runs, causal: Ulysses
+   at sp 4 (4 x 8192, 8 query over 2 kv heads of 128, the whole sequence
+   on each rank after the all-to-all) and TP at tp 2 (8 x 2048, 16 over
+   4 heads), against their plain versions at phase 3's limits, timed from
+   CUDA graphs beside SDPA's forward and backward and the bound. (15b)
+   the Llama recipe's ``main`` at Llama-3-8B width cut to ``SP_LAYERS``
+   layers, 4 x 2048, ``--tp 1 --sp 1``, in a NCCL world of one: plain,
+   then inside ``sequence_parallel`` in ring and in Ulysses mode (sp =
+   1): the losses within ``SP_LOSS_RTOL`` of the plain run's; the plain
+   path and Ulysses launch B1, B2 and B3 layers x steps times each, ring
+   none (its blocks are f32 products). A control run of ring with its
+   causal mask off must read beyond ``SP_LOSS_RTOL``. Paths ``sp_plain``,
+   ``sp_ring``, ``sp_ulysses``.
 
-Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13 and 14 set all
+Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13, 14 and 15 set all
 four kernel counts to 0 just before their run and read all four just
 after; a kernel off the path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
 ``launches_by_path`` per path as read, for the flash kernels their
-numbers ``at_llama_shape``, ``at_bert_shape`` and ``at_family_shapes``
-per dtype, for the paged kernel ``at_gpt2_shape`` at W=1 and W=5 and
+numbers ``at_llama_shape``, ``at_bert_shape``, ``at_family_shapes``
+per dtype and ``at_sp_tp_shapes``, for the paged kernel ``at_gpt2_shape`` at W=1 and W=5 and
 ``at_family_shapes``), then the
 card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
@@ -325,6 +341,7 @@ limit as ``nvidia-smi`` prints them, then the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -5617,6 +5634,167 @@ def family_phase(device, seed):
     return stats, by_path
 
 
+# --------------------------------------------------------------------------
+# phase 15: tensor and sequence parallelism (the per-rank shapes on one
+# card, and the recipe's sequence-parallel path in a world of one)
+# --------------------------------------------------------------------------
+
+# (15a) B1-B3 at the per-rank shapes of Llama-3-8B's parallel runs, bf16
+# causal: Ulysses at sp 4 (S = 8192: each rank attends over the whole
+# sequence with 32 / 4 query heads over 8 / 4 kv heads after its
+# all-to-all, batch 4) and TP at tp 2 (16 over 4 heads, batch 8 x 2048)
+SP_TP_FLASH_SHAPES = (
+    ("ulysses_sp4", dict(B=4, S=8192, T=8192, Hq=8, Hkv=2, D=128)),
+    ("tp2", dict(B=8, S=2048, T=2048, Hq=16, Hkv=4, D=128)),
+)
+# (15b) the recipe at Llama-3-8B width cut to this many layers
+SP_LAYERS, SP_BATCH, SP_SEQ, SP_STEPS, SP_CHUNK = 2, 4, 2048, 3, 8192
+# (15b) the step losses under ring (f32 einsum blocks) and Ulysses (the
+# flash kernels) against the plain path's (the flash kernels): bf16
+# products either way, so the loss moves by the attention's bf16
+# rounding (ring read 2.0e-5 of itself, Ulysses 0, on an H100 80GB HBM3
+# at 700 W); a control run of ring with its causal mask planted off must
+# read above the limit, or the limit could not see a wrong mask
+SP_LOSS_RTOL = 2e-4
+
+
+def _sp_flash(device, seed):
+    """(15a) the flash kernels at ``SP_TP_FLASH_SHAPES`` against their
+    plain versions (phase 3's limits) and timed from CUDA graphs beside
+    SDPA's forward and backward and the bound."""
+    import torch
+
+    out, checks = {}, []
+    for name, shape in SP_TP_FLASH_SHAPES:
+        gen = torch.Generator().manual_seed(seed + 17)
+        rows = _flash_check(gen, seed, name, shape, True, {}, "bfloat16",
+                            device)
+        checks += rows
+        worst = {r["what"]: r["max_abs_err"] for r in rows}
+        gen = torch.Generator().manual_seed(seed + 17)
+        records, details = _flash_times(gen, seed, shape, device, worst)
+        out[name] = dict(records={r["name"]: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")} for r in records}, details=details)
+        t = out[name]["records"]
+        print(f"(15a) {name} {shape}: kernels fwd {t['flash_fwd']['ms']:.3f}"
+              f" ms vs sdpa {t['flash_fwd']['library_ms']:.3f} ms, dq + dkv "
+              f"{t['flash_dq']['ms'] + t['flash_dkv']['ms']:.3f} ms vs sdpa "
+              f"backward {t['flash_dq']['library_ms']:.3f} ms")
+        torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"(15a) flash kernels disagree with plain: "
+                             f"{bad}")
+    return out, checks
+
+
+def _sp_recipe(device, seed):
+    """(15b) the Llama recipe (``main``, ``--tp 1 --sp 1``) at Llama-3-8B
+    width and ``SP_LAYERS`` layers in a NCCL world of one: plain, then
+    with the sequence-parallel context on in each mode. Each run's losses
+    against the plain run's; launches of the four kernels per run: the
+    plain path and Ulysses launch B1 once a layer and step (no remat) and
+    B2/B3 once a layer and step in the backward, ring launches none."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import LlamaConfig
+    from pytorch_distributed_tpu_torch.parallel import (
+        sequence,
+        sequence_parallel,
+    )
+    from pytorch_distributed_tpu_torch.recipes import llama_fsdp
+
+    size = f"8b-{SP_LAYERS}l"
+    llama_fsdp.SIZES[size] = lambda: dc.replace(LlamaConfig.llama3_8b(),
+                                                num_layers=SP_LAYERS)
+    argv = ["--size", size, "--batch-size", str(SP_BATCH), "--seq-len",
+            str(SP_SEQ), "--steps-per-epoch", str(SP_STEPS), "--vocab-chunk",
+            str(SP_CHUNK), "--log-every", "1", "--seed", str(seed)]
+    runs, by_path = {}, {}
+    with _World1(device):
+        for mode in (None, "ring", "ulysses"):
+            name = f"sp_{mode or 'plain'}"
+            ctx = (contextlib.nullcontext() if mode is None
+                   else sequence_parallel("sp", mode))
+            kernel_counts(reset=True)
+            _reset_peak(device)
+            t0 = time.perf_counter()
+            with ctx:
+                trainer = llama_fsdp.main(argv)
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            hist = trainer.history
+            runs[name] = dict(losses=[r["loss"] for r in hist],
+                              step_ms_median=_median_ms(hist),
+                              peak_gib=_peak_gib(device), wall_s=wall)
+            by_path[name] = counts
+            print(f"(15b) {name}: losses {runs[name]['losses']}, step "
+                  f"{runs[name]['step_ms_median']:.1f} ms (median), peak "
+                  f"{runs[name]['peak_gib']:.2f} GiB, launches {counts}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the control: ring with causal planted off (no path: its
+        # launches are not the main path's)
+        ring = sequence.ring_attention
+        sequence.ring_attention = (
+            lambda *a, **kw: ring(*a, **{**kw, "causal": False}))
+        try:
+            with sequence_parallel("sp", "ring"):
+                trainer = llama_fsdp.main(argv)
+        finally:
+            sequence.ring_attention = ring
+        runs["sp_ring_unmasked"] = dict(
+            losses=[r["loss"] for r in trainer.history])
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_run = SP_LAYERS * SP_STEPS
+    want = {"sp_plain": per_run, "sp_ulysses": per_run, "sp_ring": 0}
+    for name, n in want.items():
+        got = {k: by_path[name][k] for k in FLASH}
+        if got != dict.fromkeys(FLASH, n):
+            raise AssertionError(f"(15b) {name}: flash launches {got}, "
+                                 f"expected {n} each")
+        if by_path[name]["paged_attention"]:
+            raise AssertionError(f"(15b) {name} launched the paged kernel")
+    plain = runs["sp_plain"]["losses"]
+    for name in ("sp_ring", "sp_ulysses"):
+        got = runs[name]["losses"]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+        runs[name]["loss_rel_err_vs_plain"] = err
+        if not (len(got) == len(plain) == SP_STEPS and err <= SP_LOSS_RTOL
+                and all(math.isfinite(x) for x in got)):
+            raise AssertionError(f"(15b) {name} losses {got} vs plain "
+                                 f"{plain}: {err:.3e} > {SP_LOSS_RTOL}")
+        print(f"(15b) {name} losses within {err:.3e} of the plain path's")
+    got = runs["sp_ring_unmasked"]["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+    runs["sp_ring_unmasked"]["loss_rel_err_vs_plain"] = err
+    print(f"(15b) control, ring unmasked: losses {got}, {err:.3e} from the "
+          f"plain path's (limit {SP_LOSS_RTOL})")
+    if not err > SP_LOSS_RTOL:
+        raise AssertionError(f"(15b) ring with its causal mask off reads "
+                             f"{err:.3e} <= {SP_LOSS_RTOL}: the limit "
+                             f"cannot see a wrong mask")
+    return runs, by_path
+
+
+def sp_tp_phase(device, seed):
+    """Phase 15: 15a the flash kernels at the Ulysses and TP per-rank
+    shapes, 15b the recipe's sequence-parallel path. Returns (stats,
+    launches by path)."""
+    t0 = time.perf_counter()
+    flash, checks = _sp_flash(device, seed)
+    runs, by_path = _sp_recipe(device, seed)
+    print(f"(15) phase 15 in {time.perf_counter() - t0:.1f} s")
+    return dict(flash=flash, flash_checks=checks, recipe=runs), by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5669,6 +5847,7 @@ def main(argv=None) -> int:
     bstats = bert_phase(device, args.seed)
     life_stats, life_paths = lifecycle_phase(device, args.seed, lstats)
     fam_stats, fam_paths = family_phase(device, args.seed)
+    sp_stats, sp_paths = sp_tp_phase(device, args.seed)
     zt = zstats["train"]
     print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
@@ -5715,7 +5894,7 @@ def main(argv=None) -> int:
                    llama=lstats["launches"], bert=bstats["launches"],
                    **gen_paths, **serve11_paths, **image_paths,
                    **life_paths, resnet50_recipe_config=cfg_counts,
-                   **fam_paths)
+                   **fam_paths, **sp_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -5733,6 +5912,10 @@ def main(argv=None) -> int:
             name: {dname: d["records"][rec["name"]]
                    for dname, d in by_dtype.items()}
             for name, by_dtype in fam_stats["flash"].items()}
+        # phase 15's per-rank shapes of TP and Ulysses, bf16
+        rec["at_sp_tp_shapes"] = {
+            name: d["records"][rec["name"]]
+            for name, d in sp_stats["flash"].items()}
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
@@ -5742,7 +5925,7 @@ def main(argv=None) -> int:
                                       generation=gstats,
                                       serve_gpt2=s11, image=istats,
                                       lifecycle=life_stats,
-                                      family=fam_stats)}))
+                                      family=fam_stats, sp_tp=sp_stats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ statistics, uint8 image data normalized on the card, SGD); and the JAX
 recipe's GPT-2 run (ZeRO-1, remat, the chunked-vocab loss, BPE corpora)
 with checkpoints both packages restore; the JAX recipe's Llama-3-8B
 run, FSDP full-shard (FSDP2 over the ``fsdp`` mesh axis, each rank
-checkpointing its own rows); and the JAX recipe's BERT-base fine-tune
+checkpointing its own rows), with tensor parallelism over ``tp`` and
+sequence parallelism (ring or Ulysses attention) over ``sp``; and the JAX recipe's BERT-base fine-tune
 (DDP, bf16 or fp16 with dynamic loss scaling, the flash kernels in
 either dtype at its padded, non-causal shape); and generation (GPT-2
 and Llama KV-cache decode with ragged prompts, penalties and an int8
@@ -134,6 +135,15 @@ from pytorch_distributed_tpu_torch.models import (
     Qwen2ForCausalLM,
     Qwen3Config,
     Qwen3ForCausalLM,
+    bert_partition_rules,
+    gemma_partition_rules,
+    gpt2_partition_rules,
+    llama_partition_rules,
+    mistral_partition_rules,
+    neox_partition_rules,
+    phi3_partition_rules,
+    qwen2_partition_rules,
+    qwen3_partition_rules,
 )
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.resnet import (
@@ -152,7 +162,13 @@ from pytorch_distributed_tpu_torch.parallel import (
     DataParallel,
     ZeRO1,
     compress_hook,
+    disable_sequence_parallel,
+    enable_sequence_parallel,
+    ring_attention,
+    sequence_parallel,
+    sequence_parallel_mode,
     sync_grads,
+    ulysses_attention,
 )
 from pytorch_distributed_tpu_torch.runtime.device import (
     default_device,
@@ -160,21 +176,31 @@ from pytorch_distributed_tpu_torch.runtime.device import (
 )
 from pytorch_distributed_tpu_torch.runtime.distributed import (
     ReduceOp,
+    Subgroup,
     all_gather,
     all_gather_into_tensor,
+    all_gather_object,
     all_reduce,
     all_to_all,
     all_to_all_single,
     barrier,
     broadcast,
+    broadcast_object_list,
     destroy_process_group,
+    gather,
     get_backend,
     get_rank,
     get_world_size,
     init_process_group,
     is_initialized,
+    monitored_barrier,
+    new_group,
+    permute,
+    reduce,
     reduce_scatter,
     reduce_scatter_tensor,
+    scatter,
+    scatter_object_list,
 )
 from pytorch_distributed_tpu_torch.runtime.mesh import (
     MeshSpec,
@@ -249,7 +275,11 @@ __all__ = [
     "GemmaConfig", "GemmaForCausalLM", "MistralConfig",
     "MistralForCausalLM", "NeoXConfig", "NeoXForCausalLM", "Phi3Config",
     "Phi3ForCausalLM", "Qwen2Config", "Qwen2ForCausalLM", "Qwen3Config",
-    "Qwen3ForCausalLM",
+    "Qwen3ForCausalLM", "bert_partition_rules", "gemma_partition_rules",
+    "gpt2_partition_rules", "llama_partition_rules",
+    "mistral_partition_rules", "neox_partition_rules",
+    "phi3_partition_rules", "qwen2_partition_rules",
+    "qwen3_partition_rules",
     "resnet_params_from_jax",
     "resnet_params_to_jax", "BertConfig", "BertForMaskedLM",
     "BertForSequenceClassification", "BertModel", "mask_tokens",
@@ -257,11 +287,15 @@ __all__ = [
     "GPT2LMHead", "LlamaConfig", "LlamaForCausalLM", "ResNet", "ResNet18",
     "ResNet34", "ResNet50", "ResNet101", "ResNet152", "attention",
     "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
-    "compress_hook", "sync_grads",
+    "compress_hook", "sync_grads", "disable_sequence_parallel",
+    "enable_sequence_parallel", "ring_attention", "sequence_parallel",
+    "sequence_parallel_mode", "ulysses_attention",
     "default_device", "device_info", "ReduceOp", "all_gather",
     "all_gather_into_tensor", "all_reduce", "all_to_all",
     "all_to_all_single", "reduce_scatter", "reduce_scatter_tensor",
-    "barrier",
+    "barrier", "Subgroup", "all_gather_object", "broadcast_object_list",
+    "gather", "monitored_barrier", "new_group", "permute", "reduce",
+    "scatter", "scatter_object_list",
     "broadcast", "destroy_process_group", "get_backend", "get_rank",
     "get_world_size", "init_process_group", "is_initialized", "MeshSpec",
     "data_axes", "make_mesh",

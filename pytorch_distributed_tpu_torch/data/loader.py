@@ -42,6 +42,7 @@ from pytorch_distributed_tpu_torch.data.datasets import (
 from pytorch_distributed_tpu_torch.data.sampler import GlobalBatchSampler
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime import tracing
+from pytorch_distributed_tpu_torch.runtime.mesh import data_rank
 
 logger = logging.getLogger(__name__)
 
@@ -131,9 +132,11 @@ class DataLoader:
         return len(self.sampler)
 
     def _rank_slice(self, indices):
-        world = dist.get_world_size()
-        if not self.shard or world == 1:
+        if not self.shard or dist.get_world_size() == 1:
             return indices
+        # the share of this rank's (dp, fsdp) coordinate: ranks that
+        # differ only in sp or tp read the same rows
+        rank, world = data_rank()
         if len(indices) % world and not self._warned_remainder:
             self._warned_remainder = True
             logger.warning(
@@ -141,7 +144,7 @@ class DataLoader:
                 "sample(s) per such batch to keep ranks in lockstep",
                 len(indices), world, len(indices) % world,
             )
-        return rank_slice(indices, dist.get_rank(), world)
+        return rank_slice(indices, rank, world)
 
     def _host_batch(self, indices):
         with tracing.span("ingest.fetch"):

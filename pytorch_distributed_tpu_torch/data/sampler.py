@@ -21,7 +21,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from pytorch_distributed_tpu_torch.runtime import distributed as dist
+from pytorch_distributed_tpu_torch.runtime.mesh import data_rank
 
 
 class _CursorMixin:
@@ -70,8 +70,10 @@ class _CursorMixin:
 
 class DistributedSampler(_CursorMixin):
     """Per-replica index iterator, torch-shaped. ``num_replicas`` and
-    ``rank`` default to the process group's. The cursor counts this
-    replica's samples."""
+    ``rank`` default to this rank's data share (``runtime.mesh.
+    data_rank``: the process group's, or the ``(dp, fsdp)`` coordinate on
+    a mesh with ``sp`` or ``tp``). The cursor counts this replica's
+    samples."""
 
     def __init__(
         self,
@@ -83,9 +85,9 @@ class DistributedSampler(_CursorMixin):
         drop_last: bool = False,
     ):
         if num_replicas is None:
-            num_replicas = dist.get_world_size()
+            num_replicas = data_rank()[1]
         if rank is None:
-            rank = dist.get_rank()
+            rank = data_rank()[0]
         if not 0 <= rank < num_replicas:
             raise ValueError(
                 f"rank {rank} out of range for {num_replicas} replicas")

@@ -29,7 +29,7 @@ The other direction serves the checkpoints both packages read:
 :func:`bert_slots`, :func:`resnet_slots` and
 :func:`model_slots` place every port tensor at its JAX ``TrainState``
 leaf (path, layer of a scan-stacked leaf, layout map; a Llama slot also
-maps any range of the port tensor's rows, an FSDP shard, to boxes of the
+maps any box of the port tensor, an FSDP or TP shard, to boxes of the
 JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax`,
 :func:`bert_params_to_jax` and
 :func:`resnet_params_to_jax` are the inverses of the converters above,
@@ -52,6 +52,7 @@ transposed, Phi-3's fused ones split).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 from typing import Callable, Dict, Optional, Tuple
 
@@ -286,50 +287,65 @@ class Slot:
         one = self.to_jax(np.empty(port_shape, np.float32)).shape
         return one if self.layer is None else (self.depth,) + one
 
-    def row_boxes(self, a: int, b: int):
-        """Rows ``[a, b)`` of the port tensor as boxes of the JAX leaf:
-        ``[(ra, rb, start, stop, to_jax, from_jax)]``, where rows
-        ``[ra, rb)`` fill the box ``[start, stop)`` (the layer axis of a
-        stacked leaf included) and the two maps turn those rows into the
-        box's array and back. A row range that cuts a head (``rows`` 2,
-        e.g. q's ``[H * hd, D]`` against the JAX ``[D, H, hd]``) becomes
-        a partial-head box, whole heads and another partial one."""
+    def boxes(self, starts, sizes):
+        """The port tensor's box at ``starts`` with ``sizes`` (one entry
+        per port dim: an FSDP shard's rows, a TP shard's rows or
+        columns, or both) as boxes of the JAX leaf: ``[(ranges, start,
+        stop, to_jax, from_jax)]``, where the port sub-block ``ranges``
+        (a ``(lo, hi)`` per port dim) fills the box ``[start, stop)``
+        (the layer axis of a stacked leaf included) and the two maps turn
+        that sub-block into the box's array and back. A range that cuts a
+        head (q's ``[H * hd, D]`` rows against the JAX ``[D, H, hd]``)
+        becomes a partial-head box, whole heads and another partial
+        one."""
         if self.perm is None:
             raise NotImplementedError(
-                f"{'/'.join(self.path)}: rows of this slot have no JAX box "
+                f"{'/'.join(self.path)}: boxes of this slot have no JAX box "
                 "(sharded checkpoints cover Llama; ROADMAP A6)")
         perm, js = self.perm, self.jshape
         inv = tuple(int(i) for i in np.argsort(perm))
-        trail = tuple(js[i] for i in perm[self.rows:])
-        segments = []   # (ra, rb, per-axis (lo, hi) of the row axes)
-        if self.rows == 1:
-            segments.append((a, b, [(a, b)]))
-        else:   # two row axes: heads x head_dim
-            n1 = js[perm[1]]
-            while a < b:
-                h, r = divmod(a, n1)
-                if r or b - a < n1:
-                    end = min(b, (h + 1) * n1)
-                    segments.append((a, end, [(h, h + 1), (r, r + end - a)]))
-                else:
-                    end = (b // n1) * n1
-                    segments.append((a, end, [(h, end // n1), (0, n1)]))
-                a = end
+        groups = [perm[:self.rows], perm[self.rows:]][:len(starts)]
+        per_dim = [_flat_segments(lo, lo + n, [js[i] for i in g])
+                   for lo, n, g in zip(starts, sizes, groups)]
         lead = () if self.layer is None else (self.layer,)
         out = []
-        for ra, rb, ranges in segments:
+        for combo in itertools.product(*per_dim):
             start, stop = [0] * len(js), list(js)
-            for axis, (lo, hi) in zip(perm, ranges):
-                start[axis], stop[axis] = lo, hi
-            shape = tuple(hi - lo for lo, hi in ranges) + trail
+            ranges, shape = [], []
+            for g, (lo, hi, axis_ranges) in zip(groups, combo):
+                ranges.append((lo, hi))
+                for axis, (alo, ahi) in zip(g, axis_ranges):
+                    start[axis], stop[axis] = alo, ahi
+                    shape.append(ahi - alo)
+            pshape = tuple(hi - lo for lo, hi in ranges)
             out.append((
-                ra, rb, lead + tuple(start),
+                tuple(ranges), lead + tuple(start),
                 tuple(x + 1 for x in lead) + tuple(stop),
-                lambda x, shape=shape: x.reshape(shape).transpose(inv),
-                lambda y, n=rb - ra: y.transpose(perm).reshape(
-                    (n,) + ((int(np.prod(trail)),) if trail else ())),
+                lambda x, shape=tuple(shape): x.reshape(shape).transpose(inv),
+                lambda y, pshape=pshape: y.transpose(perm).reshape(pshape),
             ))
         return out
+
+
+def _flat_segments(a: int, b: int, dims):
+    """``[a, b)`` of a dim that folds the axes ``dims`` (one or two,
+    outermost first) as ``[(lo, hi, per-axis (lo, hi))]`` pieces, each a
+    box of the axes: whole runs of the outer axis, and partial ones at
+    the ends."""
+    if len(dims) == 1:
+        return [(a, b, [(a, b)])]
+    n1 = dims[1]
+    out = []
+    while a < b:
+        h, r = divmod(a, n1)
+        if r or b - a < n1:
+            end = min(b, (h + 1) * n1)
+            out.append((a, end, [(h, h + 1), (r, r + end - a)]))
+        else:
+            end = (b // n1) * n1
+            out.append((a, end, [(h, end // n1), (0, n1)]))
+        a = end
+    return out
 
 
 def _permuted(tree, path, layer, depth, jshape, perm, rows=1) -> Slot:

@@ -2,11 +2,13 @@
 with its families (Gemma, Mistral, Qwen2, Qwen3, Phi-3, tied
 Llama-3.2) and GPT-NeoX/Pythia, under the JAX package's names."""
 
+from pytorch_distributed_tpu_torch.models.bert import bert_partition_rules
 from pytorch_distributed_tpu_torch.models.gemma import (
     GemmaConfig,
     GemmaForCausalLM,
     gemma_partition_rules,
 )
+from pytorch_distributed_tpu_torch.models.gpt2 import gpt2_partition_rules
 from pytorch_distributed_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -47,5 +49,5 @@ __all__ = [
     "neox_partition_rules", "Phi3Config", "Phi3ForCausalLM",
     "phi3_partition_rules", "Qwen2Config", "Qwen2ForCausalLM",
     "qwen2_partition_rules", "Qwen3Config", "Qwen3ForCausalLM",
-    "qwen3_partition_rules",
+    "qwen3_partition_rules", "bert_partition_rules", "gpt2_partition_rules",
 ]

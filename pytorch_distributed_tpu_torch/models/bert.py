@@ -19,8 +19,8 @@ outputs in ``policy.output_dtype``. A model built without a policy takes
 draws its masks from the ``generator`` the caller passes. Module names
 follow the JAX tree (``bert.layers.3.attn.query`` is
 ``bert/layer3/attn/query``); ``interop.bert_slots`` maps each tensor to
-its leaf. Tensor-parallel partition rules (:func:`bert_partition_rules`)
-are not ported.
+its leaf. :func:`bert_partition_rules` places the JAX leaves for tensor
+parallelism (a rule table: the BERT recipe's ``--tp`` is ROADMAP A10.1).
 """
 
 from __future__ import annotations
@@ -325,7 +325,17 @@ def mask_tokens(
 
 
 def bert_partition_rules():
-    """Megatron-style tensor parallelism for BERT: not ported."""
-    raise NotImplementedError(
-        "bert_partition_rules: tensor parallelism is not ported (ROADMAP "
-        "A10); train BERT data-parallel (parallel.DataParallel)")
+    """Megatron-style TP: column-parallel QKV/up, row-parallel out/down;
+    the QKV kernels ``[hidden, heads, head_dim]`` shard on heads, the
+    embeddings on hidden."""
+    from pytorch_distributed_tpu_torch.parallel.rules import P
+
+    return [
+        (r"attn/(query|key|value)/kernel", P(None, "tp", None)),
+        (r"attn/(query|key|value)/bias", P("tp", None)),
+        (r"attn/out/kernel", P("tp", None, None)),
+        (r"mlp_up/kernel", P(None, "tp")),
+        (r"mlp_up/bias", P("tp")),
+        (r"mlp_down/kernel", P("tp", None)),
+        (r"_embeddings/embedding", P(None, "tp")),
+    ]

@@ -9,8 +9,9 @@ Each is a field of the shared :class:`LlamaConfig` (``rms_offset``,
 ``tie_word_embeddings``), so this module is configuration only; the HF
 layout is Llama's (``interop.load_gemma_weights``).
 
-``gemma_partition_rules`` (tensor parallelism, which would replicate
-Gemma-2B's single kv head) waits for ROADMAP A10.1 and raises.
+``gemma_partition_rules`` takes the kv-head count from the config: the
+MQA Gemma-2B replicates k/v (each tp rank then keeps the one kv head
+its query heads use), Gemma-7B shards them.
 """
 
 from __future__ import annotations
@@ -24,7 +25,20 @@ from pytorch_distributed_tpu_torch.models.llama import (
     llama_partition_rules,
 )
 
-gemma_partition_rules = llama_partition_rules
+
+
+def gemma_partition_rules(config=None, num_kv_heads=None):
+    """Llama's TP rules with the kv-head count taken from ``config``
+    (``num_kv_heads == 1``: the forced MQA replicate form); with no
+    arguments, the shape-based decision. A positional int is the kv-head
+    count (the JAX package's older signature)."""
+    if isinstance(config, int):
+        config, num_kv_heads = None, config
+    if config is not None and num_kv_heads is not None:
+        raise ValueError("pass config or num_kv_heads, not both")
+    if config is not None:
+        num_kv_heads = config.num_kv_heads
+    return llama_partition_rules(num_kv_heads=num_kv_heads)
 
 
 @dataclasses.dataclass(frozen=True)

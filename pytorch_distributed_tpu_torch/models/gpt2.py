@@ -367,3 +367,28 @@ class GPT2LMHead(nn.Module):
             return x.to(self.policy.output_dtype)
         logits = tied_logits(x, self.wte.weight, self.policy.compute_dtype)
         return logits.to(self.policy.output_dtype)
+
+
+def gpt2_partition_rules():
+    """Megatron TP over the JAX GPT-2's leaves: the fused qkv kernel
+    ``[hidden, 3, heads, head_dim]`` and its bias on heads, attn_out on
+    its input heads, the MLP on its hidden dim, the token embedding on
+    hidden, and the mixture-of-experts FFNs over ``ep`` with their hidden
+    dim over ``tp`` (a rule table: the GPT-2 recipe's ``--tp`` is ROADMAP
+    A10.1)."""
+    from pytorch_distributed_tpu_torch.parallel.rules import (
+        TensorRule,
+        engine_rules,
+    )
+
+    return engine_rules([
+        TensorRule(r"attn_qkv/kernel", (None, None, "tp", None)),
+        TensorRule(r"attn_qkv/bias", (None, "tp", None)),
+        TensorRule(r"attn_out/kernel", ("tp", None, None)),
+        TensorRule(r"mlp_up/kernel", (None, "tp")),
+        TensorRule(r"mlp_up/bias", ("tp",)),
+        TensorRule(r"mlp_down/kernel", ("tp", None)),
+        TensorRule(r"moe/w_in", ("ep", None, "tp")),
+        TensorRule(r"moe/w_out", ("ep", "tp", None)),
+        TensorRule(r"wte/embedding", (None, "tp"), stacked=False),
+    ])

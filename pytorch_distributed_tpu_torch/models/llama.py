@@ -16,6 +16,16 @@ before RoPE (``qk_norm``). The layers are an
 per-layer KV cache is an explicit argument and return value of
 ``forward`` (the JAX package keeps it in flax's ``cache`` collection).
 
+Under tensor parallelism (``llama_partition_rules``, applied by
+``parallel.FSDP`` with ``tp > 1``) a block's q/k/v/gate/up are
+column-parallel and o/down row-parallel: each rank holds ``H / tp``
+query heads, and the block reads its head counts off its projections'
+outputs. When k/v replicate (MQA, or kv heads that ``tp`` does not
+divide) a rank keeps only the kv heads its own query heads use
+(:func:`local_kv_heads`), as GSPMD does implicitly in the JAX model, and
+the gradient of the whole k/v sums over ``tp`` (each rank's queries
+reach only their own kv heads).
+
 The dtype policy works as flax's ``dtype``/``param_dtype`` pair does:
 parameters live in ``policy.param_dtype`` (f32 under
 ``Policy.train()``, bf16 for serving) and every product casts its weight
@@ -54,7 +64,8 @@ from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
     resolve_device,
 )
-from pytorch_distributed_tpu_torch.runtime.mesh import row_shard
+from pytorch_distributed_tpu_torch.runtime.distributed import sum_grad
+from pytorch_distributed_tpu_torch.runtime.mesh import shard_box
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 
 #: per-layer (k, v) buffers: dense [B, T, Hkv, D] or a page pool
@@ -218,6 +229,8 @@ class LlamaBlock(nn.Module):
         self.gate = lin(D, cfg.intermediate_size)
         self.up = lin(D, cfg.intermediate_size)
         self.down = lin(cfg.intermediate_size, D)
+        # (rank, ways, process group) of the tp axis; parallel.FSDP sets it
+        self.tp = (0, 1, None)
 
     def forward(self, x, cos, sin, positions, layer_cache, write_pos,
                 paged: Optional[PagedView], attn_impl: Optional[str] = None,
@@ -238,9 +251,16 @@ class LlamaBlock(nn.Module):
         B, S, _ = x.shape
         hd = cfg.head_dim
         h = self.attn_norm(x)
-        q = self.q(h).view(B, S, cfg.num_heads, hd)
-        k = self.k(h).view(B, S, cfg.num_kv_heads, hd)
-        v = self.v(h).view(B, S, cfg.num_kv_heads, hd)
+        # this rank's heads: all of them, or 1/tp under tensor parallelism
+        q = self.q(h).view(B, S, -1, hd)
+        k = self.k(h).view(B, S, -1, hd)
+        v = self.v(h).view(B, S, -1, hd)
+        if q.shape[2] != cfg.num_heads and k.shape[2] == cfg.num_kv_heads:
+            # k/v whole on every tp rank, each rank's loss reaching them
+            # through its own query heads: their gradient sums over tp
+            k = sum_grad(k, self.tp[2])
+            v = sum_grad(v, self.tp[2])
+            k, v = local_kv_heads(k, v, cfg, self.tp[0], q.shape[2])
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -256,7 +276,7 @@ class LlamaBlock(nn.Module):
             segment_ids=segment_ids, window=cfg.sliding_window, paged=paged,
             impl=attn_impl,
         )
-        x = x + self.o(attn.reshape(B, S, cfg.num_heads * hd))
+        x = x + self.o(attn.reshape(B, S, -1))
         h = self.mlp_norm(x)
         gate = self.gate(h)
         if cfg.hidden_act == "silu":
@@ -264,6 +284,29 @@ class LlamaBlock(nn.Module):
         else:   # Gemma's tanh-approximate gelu
             gate = F.gelu(gate, approximate="tanh")
         return x + self.down(gate * self.up(h))
+
+
+def local_kv_heads(k, v, cfg: LlamaConfig, rank: int, hq: int):
+    """The kv heads that query heads ``[rank * hq, (rank + 1) * hq)`` use
+    (query head ``i`` reads kv head ``i // G``, ``G = H / Hkv``), from
+    k/v ``[B, S, Hkv, D]`` holding every kv head: a contiguous slice when
+    the rank's queries fall in whole groups (or within one), else each
+    query head's own kv head, gathered (``G = 1`` locally)."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    idx = [(rank * hq + i) // group for i in range(hq)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if hq % n == 0 and idx == [first + i // (hq // n) for i in range(hq)]:
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A tensor-parallel weight gathered whole (differentiably); a plain
+    one as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return w.full_tensor() if isinstance(w, DTensor) else w
 
 
 class LlamaForCausalLM(nn.Module):
@@ -306,17 +349,18 @@ class LlamaForCausalLM(nn.Module):
         identity either way).
 
         Each matrix is drawn whole, in ``named_parameters`` order, and a
-        parameter sharded by FSDP keeps only its own rows of the draw, one
-        tensor at a time: the weights are the same at every world size,
+        parameter sharded by FSDP or TP keeps only its own box of the
+        draw, one tensor at a time: the weights are the same at every world size,
         and no rank ever holds more than one whole matrix."""
         for name, p in self.named_parameters():
-            local, start, _ = row_shard(p)
+            local, offsets, _ = shard_box(p)
             if name.endswith("norm.weight"):
                 local.fill_(0.0 if self.config.rms_offset else 1.0)
                 continue
             full = torch.randn(p.shape, generator=generator,
                                device=local.device, dtype=torch.float32)
-            local.copy_(full[start:start + local.shape[0]].mul_(std))
+            box = tuple(slice(o, o + n) for o, n in zip(offsets, local.shape))
+            local.copy_(full[box].mul_(std))
             del full
         return self
 
@@ -425,14 +469,39 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is not None:
             logits = self.lm_head(x)
         else:   # tied: x E^T in the compute dtype, as flax's Embed.attend
-            logits = F.linear(x.to(cd), self.embed.weight.to(cd))
+            logits = F.linear(x.to(cd), _whole(self.embed.weight).to(cd))
         logits = logits.to(self.policy.output_dtype)
         return (logits, cache) if decode else logits
 
 
-def llama_partition_rules(*args, **kwargs):
-    """Megatron-style tensor parallelism for the Llama body (and the
-    families that share it): not ported."""
-    raise NotImplementedError(
-        "llama_partition_rules: tensor parallelism is not ported (ROADMAP "
-        "A10.1); train the Llama families data-parallel or with FSDP")
+def llama_partition_rules(num_kv_heads: Optional[int] = None):
+    """Megatron TP: column-parallel q/k/v/gate/up, row-parallel o/down;
+    the embedding sharded on hidden, the ``lm_head`` kernel on vocab (its
+    dim 1), as rules over the JAX leaves (``parallel/rules.py``): any dim
+    that does not divide its mesh axes replicates with a once-per-shape
+    warning, so MQA and ragged GQA replicate k/v (q/o and the MLP still
+    shard), and the scan-stacked layer dim is tolerated.
+
+    ``num_kv_heads=1`` forces the MQA replicate form without consulting
+    shapes; other values defer to the shape-based decision."""
+    from pytorch_distributed_tpu_torch.parallel.rules import (
+        TensorRule,
+        engine_rules,
+        replicated_rule,
+    )
+
+    kv_note = "q/o and the MLP still shard"
+    kv = (
+        replicated_rule(r"/(k|v)/kernel", 3)
+        if num_kv_heads == 1  # forced MQA form, shapes not consulted
+        else TensorRule(r"/(k|v)/kernel", (None, "tp", None), note=kv_note)
+    )
+    return engine_rules([
+        TensorRule(r"/q/kernel", (None, "tp", None)),
+        kv,
+        TensorRule(r"/o/kernel", ("tp", None, None)),
+        TensorRule(r"/(gate|up)/kernel", (None, "tp")),
+        TensorRule(r"/down/kernel", ("tp", None)),
+        TensorRule(r"embed/embedding", (None, "tp"), stacked=False),
+        TensorRule(r"lm_head/kernel", (None, "tp"), stacked=False),
+    ])

@@ -7,8 +7,8 @@ path for an uncached forward, the paged kernel's band mask in the decode
 tick), so this module is configuration only; the HF layout is Llama's
 (``interop.load_mistral_weights``).
 
-``mistral_partition_rules`` (tensor parallelism) waits for ROADMAP
-A10.1 and raises.
+``mistral_partition_rules`` is Llama's (tensor parallelism; the window
+is exact under both sequence-parallel modes).
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ live in ``policy.param_dtype`` and every product runs in the compute
 dtype, as in ``models/gpt2.py``, whose ``Dense`` and ``LayerNorm`` the
 block shares.
 
-``neox_partition_rules`` (tensor parallelism) waits for ROADMAP A10.1
-and raises.
+``neox_partition_rules`` places the JAX leaves for tensor parallelism
+(a rule table; NeoX trains data-parallel or with FSDP in the port).
 """
 
 from __future__ import annotations
@@ -289,8 +289,19 @@ class NeoXForCausalLM(nn.Module):
         return (logits, cache) if decode else logits
 
 
-def neox_partition_rules(*args, **kwargs):
-    """Megatron-style tensor parallelism for NeoX: not ported."""
-    raise NotImplementedError(
-        "neox_partition_rules: tensor parallelism is not ported (ROADMAP "
-        "A10.1); train NeoX data-parallel or with FSDP")
+def neox_partition_rules():
+    """Megatron TP: the fused qkv shards on its head axis, attn_out on
+    the same axis (its input side), the MLP on its hidden dim."""
+    from pytorch_distributed_tpu_torch.parallel.rules import P
+    from pytorch_distributed_tpu_torch.parallel.sharding import stacked
+
+    return [
+        (r"/qkv/kernel", stacked(P(None, "tp", None, None))),
+        (r"/qkv/bias", stacked(P("tp", None, None))),
+        (r"/attn_out/kernel", stacked(P("tp", None, None))),
+        (r"/mlp_up/kernel", stacked(P(None, "tp"))),
+        (r"/mlp_up/bias", stacked(P("tp"))),
+        (r"/mlp_down/kernel", stacked(P("tp", None))),
+        (r"embed/embedding", P(None, "tp")),
+        (r"embed_out/kernel", P(None, "tp")),
+    ]

@@ -6,8 +6,8 @@ projections fused as ``qkv_proj`` and its gate/up as ``gate_up_proj``,
 which ``interop.load_phi3_weights`` splits onto the Llama layout (and
 ``export_phi3_weights`` fuses again). This module is configuration only.
 
-``phi3_partition_rules`` (tensor parallelism) waits for ROADMAP A10.1
-and raises.
+``phi3_partition_rules`` is Llama's: it places the split Llama layout's
+leaves, which is the JAX model's.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ vocabulary and rope theta. This module is configuration only; the HF
 layout is Llama's with the biases carried
 (``interop.load_qwen2_weights``).
 
-``qwen2_partition_rules`` (tensor parallelism, which would replicate
-Qwen2-7B's 4 kv heads on a tp of 8) waits for ROADMAP A10.1 and raises.
+``qwen2_partition_rules`` is Llama's: the rule engine replicates
+Qwen2-7B's 4 kv heads on a tp of 8. The JAX rules leave the q/k/v biases
+replicated, which column-parallel projections cannot use as they are:
+a Qwen2 model under ``tp > 1`` raises (ROADMAP A10.1).
 """
 
 from __future__ import annotations

@@ -6,8 +6,7 @@ before rotary: ``qk_norm=True`` on the shared config. This module is
 configuration only; the HF layout is Llama's with the two norm scales
 carried (``interop.load_qwen3_weights``).
 
-``qwen3_partition_rules`` (tensor parallelism) waits for ROADMAP A10.1
-and raises.
+``qwen3_partition_rules`` is Llama's (tensor parallelism).
 """
 
 from __future__ import annotations

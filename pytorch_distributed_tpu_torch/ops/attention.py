@@ -27,6 +27,10 @@ from pytorch_distributed_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_write,
 )
+from pytorch_distributed_tpu_torch.parallel.sequence import (
+    sequence_parallel_attention,
+    sequence_parallel_mode,
+)
 
 
 def rope_frequencies(
@@ -311,7 +315,8 @@ def cache_bytes(cache) -> int:
 
 def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
               q_offset=0, scale=None, window=None,
-              paged: Optional[PagedView] = None, impl: Optional[str] = None):
+              paged: Optional[PagedView] = None, impl: Optional[str] = None,
+              bias=None, bias_fn=None, dropout_rate: float = 0.0):
     """Dispatching attention: models call this instead of an impl.
 
     With ``paged`` (the serving engine's decode tick), ``k``/``v`` are
@@ -328,11 +333,23 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
     (:func:`dot_product_attention`) everywhere else; ``"flash"`` forces
     flash (its plain blocked version on the CPU) and raises for a call
     it cannot take; ``"xla"`` forces the einsum path.
+
+    With sequence parallelism on (``parallel.sequence_parallel``), a
+    plain uncached call goes to ``sequence_parallel_attention`` on this
+    rank's shards (``impl`` picks Ulysses' inner attention), with the JAX
+    dispatcher's refusals: KV-cache decode, ``segment_ids``, a
+    materialized ``bias`` and attention dropout raise
+    ``NotImplementedError``, and so does a key ``mask`` (the JAX hands a
+    masked call to the unsharded op, whose keys GSPMD gathers; a rank
+    here holds only its own). ``bias``, ``bias_fn`` and ``dropout_rate``
+    serve T5 and the JAX's attention dropout, which no model of the port
+    uses: outside sequence parallelism they raise (ROADMAP A10.5).
     """
     if impl not in (None, "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if paged is not None:
-        if mask is not None or segment_ids is not None:
+        if (mask is not None or segment_ids is not None or bias is not None
+                or bias_fn is not None or dropout_rate > 0.0):
             raise NotImplementedError(
                 "paged decode supports plain causal attention only (no "
                 "mask or segment_ids: the serving engine's decode contract)"
@@ -348,12 +365,47 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
             q.contiguous(), k, v, page_tables=paged.page_tables,
             lengths=q_offset.to(torch.int32), scale=scale, window=window,
         )
+    static_zero_offset = isinstance(q_offset, int) and q_offset == 0
+    seq_axis, _ = sequence_parallel_mode()
+    if seq_axis is not None:
+        if not static_zero_offset:
+            # decode under sequence parallelism would attend only to the
+            # local KV shard
+            raise NotImplementedError(
+                "KV-cache decode is not supported inside sequence-parallel "
+                "mode; disable_sequence_parallel() around generation")
+        if segment_ids is not None:
+            # ring/all-to-all attention would need the segment table of
+            # remote shards; ignoring it would leak across documents
+            raise NotImplementedError(
+                "packed (segment_ids) attention is not supported inside "
+                "sequence-parallel mode")
+        if bias is not None:
+            raise NotImplementedError(
+                "materialized additive bias is not supported inside "
+                "sequence-parallel mode — pass bias_fn(q_pos, k_pos) "
+                "so each shard computes its own block")
+        if dropout_rate > 0.0:
+            raise NotImplementedError(
+                "attention-weight dropout is not supported inside "
+                "sequence-parallel mode")
+        if mask is not None:
+            raise NotImplementedError(
+                "a key mask is not supported inside sequence-parallel "
+                "mode: each rank holds only its own keys")
+        return sequence_parallel_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            bias_fn=bias_fn, impl=impl)
+    if bias is not None or bias_fn is not None or dropout_rate > 0.0:
+        raise NotImplementedError(
+            "additive bias and attention dropout are not ported: no model "
+            "of the port attends with them (ROADMAP A10.5)")
     if mask is not None and mask.dim() != 2:
         raise ValueError(
             f"mask must be a [B, T] key mask, got {tuple(mask.shape)}"
         )
     flash_ok = (
-        isinstance(q_offset, int) and q_offset == 0
+        static_zero_offset
         and window is None
         and q.shape[1] > 1
     )

@@ -208,14 +208,16 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     ``DTensor`` shards (FSDP) count every element of the whole tensor
     once: each rank's squares are summed over the mesh dims it is
     sharded on (never the replicated ones)."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
+
+    from pytorch_distributed_tpu_torch.runtime.mesh import is_shard
 
     plain = [t for t in tensors if not isinstance(t, DTensor)]
     sharded: Dict[tuple, list] = {}
     for t in tensors:
         if isinstance(t, DTensor):
             dims = tuple(i for i, pl in enumerate(t.placements)
-                         if isinstance(pl, Shard))
+                         if is_shard(pl))
             sharded.setdefault((t.device_mesh, dims), []).append(
                 t.to_local())
     if not sharded:

@@ -46,6 +46,21 @@ the ranks gather f32 parameters and the model casts each to bf16 at its
 use, as the unsharded model does, so RMSNorm multiplies by its f32 scale
 as in the JAX model (twice the all-gather bytes of a bf16 gather). The
 batch is split over dp x fsdp, every rank its own share.
+
+With ``tp > 1`` or ``sp > 1`` the mesh is 4-D ``(dp, fsdp, sp, tp)``
+(``runtime/mesh.py``). :meth:`FSDP.wrap` first applies the TP plan on
+``mesh["tp"]`` (:func:`tp_plan`: each module whose weight the partition
+rules shard, ``extra_rules`` as in the JAX strategy, becomes
+column-parallel (``Shard(0)`` of the port's ``[out, in]`` weight) or
+row-parallel (``Shard(1)``) through ``parallelize_module``; the
+embedding sharded on hidden and the vocab-sharded head return their
+outputs whole), then ``fully_shard`` on ``mesh["fsdp"]`` (with ``dp``,
+when above 1, as HSDP's replica dim): FSDP2 shards each TP shard's rows
+over ``fsdp``. Over ``sp`` the parameters are replicated, each rank's
+loss is its share of the rows' mean (``train/losses.py``), and the
+train step sums the gradients over ``sp``
+(``model.sequence_grad_group``). :class:`DataParallel` and
+:class:`ZeRO1` take neither axis (ROADMAP A10.1).
 """
 
 from __future__ import annotations
@@ -62,7 +77,61 @@ from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
     resolve_device,
 )
-from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec, make_mesh
+from pytorch_distributed_tpu_torch.runtime.mesh import (
+    MeshSpec,
+    data_rank,
+    make_mesh,
+)
+
+
+def tp_plan(model: torch.nn.Module, rules, spec: MeshSpec) -> Dict[str,
+                                                                   object]:
+    """``parallelize_module``'s plan for ``model`` from the partition
+    ``rules`` on the mesh ``spec``: ``{module name: ParallelStyle}`` for
+    every module whose weight the rules shard over ``tp``. A bias the
+    rules leave whole under a column-parallel weight (Qwen2's q/k/v)
+    raises: the style would cut it."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+    )
+
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        infer_placements,
+    )
+
+    placed = infer_placements(model, rules, spec)
+    modules = dict(model.named_modules())
+    plan = {}
+    for name, axes in placed.items():
+        if "tp" not in axes:
+            continue
+        mod_name, _, leaf = name.rpartition(".")
+        mod, dim = modules[mod_name], axes["tp"]
+        if leaf != "weight":
+            continue
+        bias = getattr(mod, "bias", None)
+        if (dim == 0 and bias is not None
+                and placed.get(f"{mod_name}.bias") != {"tp": 0}):
+            raise NotImplementedError(
+                f"{mod_name}: a tensor-parallel weight with a bias the "
+                "rules replicate (ROADMAP A10.1)")
+        if isinstance(mod, torch.nn.Embedding):
+            if dim != 1:
+                raise NotImplementedError(
+                    f"{mod_name}: a vocab-parallel embedding (ROADMAP "
+                    "A10.1)")
+            # sharded on hidden, its lookups gathered whole
+            plan[mod_name] = ColwiseParallel(output_layouts=Replicate())
+        elif dim == 0:
+            # the head's logits leave whole; a block's outputs stay cut
+            plan[mod_name] = ColwiseParallel(
+                output_layouts=Replicate()) if mod_name == "lm_head" \
+                else ColwiseParallel()
+        else:
+            plan[mod_name] = RowwiseParallel()
+    return plan
 
 
 class DataParallel:
@@ -103,8 +172,8 @@ class DataParallel:
     def shard_batch(self, batch: Dict[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
         """This rank's share of a global host batch (the loader's rank
-        slice), on the device."""
-        world, rank = dist.get_world_size(), dist.get_rank()
+        slice of this rank's ``(dp, fsdp)`` coordinate), on the device."""
+        rank, world = data_rank()
         out = {}
         for k, v in batch.items():
             v = np.asarray(v)
@@ -137,25 +206,48 @@ class ZeRO1(DataParallel):
 
 class FSDP(DataParallel):
     """Full-shard FSDP over the ``fsdp`` axis of ``mesh_spec`` (every rank
-    unless given), replicated over its ``dp`` axis; see the module
-    docstring."""
+    unless given), replicated over its ``dp`` axis, composed with tensor
+    parallelism over ``tp`` (by ``extra_rules``, a model's
+    ``*_partition_rules()``) and sequence parallelism over ``sp``; see
+    the module docstring."""
 
     def __init__(self, device: DeviceLike = None,
-                 mesh_spec: MeshSpec = MeshSpec(dp=1, fsdp=-1)):
+                 mesh_spec: MeshSpec = MeshSpec(dp=1, fsdp=-1),
+                 extra_rules=None):
         super().__init__(device)
         self.spec = mesh_spec.resolve(dist.get_world_size())
         self.mesh = make_mesh(self.spec, self.device.type)
+        self.rules = extra_rules
+        if self.spec.tp > 1 and extra_rules is None:
+            raise ValueError(
+                f"tp={self.spec.tp} needs the model's partition rules "
+                "(extra_rules=llama_partition_rules(), say)")
+        self.shard_mesh = (self.mesh[self.spec.shard_dims()]
+                           if self.spec.model_parallel() else self.mesh)
 
     def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
-        """Shard ``model`` (a ``LlamaForCausalLM``) in place: each of its
-        ``layers``, then the root; returns it. Build the model on the
-        meta device, wrap it, then ``to_empty(device=...)`` and
-        ``init_weights``: no rank ever holds the whole model."""
+        """Shard ``model`` (a ``LlamaForCausalLM``) in place: the TP plan
+        over ``tp``, then FSDP on each of its ``layers`` and on the root;
+        returns it. Build the model on the meta device, wrap it, then
+        ``to_empty(device=...)`` and ``init_weights``: no rank ever holds
+        the whole model."""
         from torch.distributed.fsdp import fully_shard
 
+        if self.spec.tp > 1:
+            from torch.distributed.tensor.parallel import parallelize_module
+
+            tp_mesh = self.mesh["tp"]
+            parallelize_module(model, tp_mesh,
+                               tp_plan(model, self.rules, self.spec))
+            for block in model.layers:
+                block.tp = (tp_mesh.get_local_rank(), self.spec.tp,
+                            tp_mesh.get_group())
         for block in model.layers:
-            fully_shard(block, mesh=self.mesh, reshard_after_forward=True)
-        fully_shard(model, mesh=self.mesh, reshard_after_forward=True)
+            fully_shard(block, mesh=self.shard_mesh,
+                        reshard_after_forward=True)
+        fully_shard(model, mesh=self.shard_mesh, reshard_after_forward=True)
+        if self.spec.sp > 1:
+            model.sequence_grad_group = self.mesh["sp"].get_group()
         return model
 
     def optimizer(self, params, optimizer_class=None, **defaults):

@@ -14,6 +14,9 @@ the flash kernels on the card. ``main`` returns the ``Trainer``.
     python -m pytorch_distributed_tpu_torch.recipes.llama_fsdp --size 8b \\
         --batch-size 8 --seq-len 2048 --remat --vocab-chunk 8192 \\
         --steps-per-epoch 20 --fsdp 4 --ckpt-dir /tmp/llama   # torchrun x4
+    ... --size 8b --fsdp 2 --tp 2 --remat --vocab-chunk 8192     # torchrun x4
+    ... --size 8b --fsdp 4 --sp 4 --sp-mode ulysses --seq-len 8192 \
+        --remat --vocab-chunk 8192                              # x16
 
 ``--strategy fsdp`` (the default, as in the JAX recipe) shards the
 parameters, gradients and AdamW state over the ``fsdp`` axis of
@@ -30,16 +33,24 @@ full | dots | dots_no_batch``) recomputes each block in the backward,
 read (each FSDP rank writes its own rows), restores the newest intact
 checkpoint first, and on SIGTERM checkpoints and exits ``EX_TEMPFAIL``
 (75). ``--device cpu`` runs the plain PyTorch path on the CPU (at
-``--size tiny``; gloo). Tensor and sequence parallelism (``--tp``,
-``--sp`` above 1, ``--sp-mode``) and ``--strategy auto`` raise naming
-ROADMAP A10; ``--optimizer adafactor`` with ``--strategy zero1`` (its
-leaves split over the ranks) names A4. ``--backend`` is ``nccl`` or
-``gloo`` (the device's own unless given).
+``--size tiny``; gloo). ``--tp N`` shards the blocks Megatron-style over
+a ``tp`` mesh axis (``llama_partition_rules``) under FSDP over ``fsdp``;
+``--sp N`` splits each row's sequence over an ``sp`` axis (the state
+replicated over it: the 8B AdamW state, ~128 GB whole, fits a card only
+sharded over ``fsdp`` beside it), attention
+running as ``--sp-mode ring`` (the default, as in the JAX recipe) or
+``ulysses`` while ``fit`` runs (``parallel.sequence_parallel``). Both
+need ``--strategy fsdp`` (``dp`` and ``zero1`` raise naming ROADMAP
+A10.1, as does ``--optimizer adafactor`` with ``--tp``); ``--strategy
+auto`` raises naming A10.6 and ``--optimizer adafactor`` with
+``--strategy zero1`` (its leaves split over the ranks) A4.
+``--backend`` is ``nccl`` or ``gloo`` (the device's own unless given).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 
@@ -49,6 +60,7 @@ from pytorch_distributed_tpu_torch.data import DataLoader, SyntheticTextDataset
 from pytorch_distributed_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
+    llama_partition_rules,
 )
 from pytorch_distributed_tpu_torch.optim import Adafactor, AdamW, clip_grad_norm
 from pytorch_distributed_tpu_torch.parallel import FSDP, DataParallel, ZeRO1
@@ -85,8 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--fsdp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel ways")
-    p.add_argument("--sp-mode", choices=("ring", "ulysses"), default=None,
-                   help="sequence-parallel attention (not ported)")
+    p.add_argument("--sp-mode", choices=("ring", "ulysses"), default="ring",
+                   help="sequence-parallel attention under --sp")
     p.add_argument("--remat", action="store_true",
                    help="recompute block activations in the backward")
     p.add_argument("--remat-policy", choices=("full", "dots",
@@ -111,14 +123,19 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.tp > 1 or args.sp > 1 or args.sp_mode is not None:
+    if (args.tp > 1 or args.sp > 1) and args.strategy in ("dp", "zero1"):
         raise NotImplementedError(
-            "--tp/--sp/--sp-mode: tensor and sequence parallelism are not "
-            "ported (ROADMAP A10)")
+            f"--tp/--sp with --strategy {args.strategy}: tensor and "
+            "sequence parallelism run under --strategy fsdp in the port "
+            "(DDP over DTensor parameters is ROADMAP A10.1)")
+    if args.tp > 1 and args.optimizer == "adafactor":
+        raise NotImplementedError(
+            "--optimizer adafactor with --tp: its factored statistics "
+            "take whole rows of each leaf (ROADMAP A10.1)")
     if args.strategy == "auto":
         raise NotImplementedError(
             "--strategy auto: the cost-model planner is not ported "
-            "(ROADMAP A10)")
+            "(ROADMAP A10.6)")
     if args.optimizer == "adafactor" and args.strategy == "zero1":
         raise NotImplementedError(
             "--optimizer adafactor --strategy zero1: ZeRO-1 would split "
@@ -182,7 +199,9 @@ def _train(args, device) -> Trainer:
     seq_len = min(args.seq_len, cfg.max_seq_len)
     policy = Policy.train()
     if args.strategy == "fsdp":
-        strategy = FSDP(device, MeshSpec(dp=args.dp, fsdp=args.fsdp))
+        strategy = FSDP(device, MeshSpec(dp=args.dp, fsdp=args.fsdp,
+                                         sp=args.sp, tp=args.tp),
+                        extra_rules=llama_partition_rules())
     else:
         MeshSpec(dp=args.dp, fsdp=args.fsdp).resolve(dist.get_world_size())
         if args.fsdp != 1:
@@ -209,12 +228,20 @@ def _train(args, device) -> Trainer:
     )
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Llama %s: %d params on %s, batch %d x seq %d, accum %d, "
-                "%s over %d rank(s), %s, remat %s, vocab chunk %s", args.size,
-                n_params, device, args.batch_size, seq_len, args.accum_steps,
-                args.strategy, dist.get_world_size(), args.optimizer,
-                cfg.remat_policy if cfg.remat else "off", args.vocab_chunk)
+                "%s over %d rank(s) (tp %d, sp %d %s), %s, remat %s, vocab "
+                "chunk %s", args.size, n_params, device, args.batch_size,
+                seq_len, args.accum_steps, args.strategy,
+                dist.get_world_size(), args.tp, args.sp, args.sp_mode,
+                args.optimizer, cfg.remat_policy if cfg.remat else "off",
+                args.vocab_chunk)
     trainer.restore_checkpoint()
-    fit_elastic(trainer)
+    sp_ctx = contextlib.nullcontext()
+    if args.sp > 1:
+        from pytorch_distributed_tpu_torch.parallel import sequence_parallel
+
+        sp_ctx = sequence_parallel("sp", args.sp_mode)
+    with sp_ctx:   # ring/ulysses attention while the steps run
+        fit_elastic(trainer)
     logger.info("done: step=%d", trainer.state.step)
     return trainer
 

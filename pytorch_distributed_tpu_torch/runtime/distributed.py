@@ -27,6 +27,17 @@ rank's reduced row of a ``[world, ...]`` input, and ``all_to_all`` sends
 block ``j`` of dim 0 to rank ``j`` and returns the blocks it received in
 rank order (``all_to_all_single`` with split sizes, for blocks that
 differ in size).
+
+The rest of the JAX facade: ``permute`` (point-to-point block exchange
+over ``batch_isend_irecv``; a rank that no pair names receives zeros, as
+under ``ppermute``), ``gather``/``reduce`` to one rank, ``scatter`` from
+one, ``monitored_barrier``, the object collectives, and ``new_group``
+subgroups, which ``all_reduce``, ``all_gather``, ``broadcast``,
+``barrier``, ``gather``, ``reduce`` and ``permute`` take as ``group=``
+(ranks in a subgroup's collectives are global ranks, as in the JAX
+facade). ``permute`` and ``all_to_all`` have differentiable forms
+(``permute_grad``, ``all_to_all_grad``: the backward is the inverse
+exchange) for sequence-parallel attention.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ from __future__ import annotations
 import datetime
 import enum
 import os
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -116,6 +127,9 @@ def init_process_group(
 
 
 def destroy_process_group() -> None:
+    from pytorch_distributed_tpu_torch.runtime.mesh import clear_current_mesh
+
+    clear_current_mesh()   # its DeviceMesh's groups die with the world
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -138,43 +152,286 @@ def get_backend() -> str:
     return dist.get_backend()
 
 
-def all_reduce(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
-    """This rank's ``x`` reduced over every rank, in a new tensor of
-    ``x``'s shape (``AVG``: the sum over the world size)."""
+class Subgroup:
+    """Handle from :func:`new_group`: collectives over a subset of the
+    world's ranks (``ranks``, sorted global ranks). ``group`` is torch's
+    process group on the members and None on the others, whose
+    collectives on it refuse."""
+
+    def __init__(self, ranks: Tuple[int, ...], group, member: bool):
+        self.ranks = ranks
+        self.group = group
+        self.is_member = member
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def close(self) -> None:
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+            self.group = None
+
+
+def new_group(ranks: Sequence[int], *, timeout_s: float = 60.0) -> Subgroup:
+    """``torch.distributed.new_group``: a subgroup of the world. Every
+    rank must call it with the same ``ranks`` in the same order, members
+    or not (torch's contract, and the JAX facade's)."""
+    rs = tuple(sorted(int(r) for r in ranks))
+    if not rs:
+        raise ValueError("new_group needs at least one rank")
+    if len(set(rs)) != len(rs):
+        raise ValueError(f"ranks must be unique, got {rs}")
+    world = get_world_size()
+    if rs[0] < 0 or rs[-1] >= world:
+        raise ValueError(f"ranks {rs} out of range for world size {world}")
+    if not dist.is_initialized():
+        raise RuntimeError("new_group needs a process group: call "
+                           "init_process_group() first")
+    pg = dist.new_group(list(rs),
+                        timeout=datetime.timedelta(seconds=timeout_s))
+    member = get_rank() in rs
+    return Subgroup(rs, pg if member else None, member)
+
+
+def _pg(group, what: str):
+    """torch's process group for ``group``: None (the world), a
+    :class:`Subgroup`, or torch's own process group (a ``DeviceMesh``
+    dim's ``get_group()``), passed through."""
+    if group is None or not isinstance(group, Subgroup):
+        return group
+    if not group.is_member:
+        raise RuntimeError(f"{what} on a subgroup this rank is not a "
+                           f"member of (ranks={group.ranks})")
+    if group.group is None:
+        raise RuntimeError(f"{what} on a closed subgroup")
+    return group.group
+
+
+def _size(group) -> int:
+    if group is None:
+        return get_world_size()
+    if isinstance(group, Subgroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def all_reduce(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM, *,
+               group: Optional[Subgroup] = None) -> torch.Tensor:
+    """This rank's ``x`` reduced over every rank (of ``group``), in a new
+    tensor of ``x``'s shape (``AVG``: the sum over the rank count)."""
+    pg = _pg(group, "all_reduce")
     out = x.clone()
-    if get_world_size() == 1:
+    n = _size(group)
+    if n == 1:
         return out
     dist.all_reduce(out, op=_TORCH_OPS[ReduceOp.SUM if op is ReduceOp.AVG
-                                       else op])
+                                       else op], group=pg)
     if op is ReduceOp.AVG:
-        out = out / get_world_size()
+        out = out / n
     return out
 
 
-def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``x`` on every rank, in a new tensor."""
+def broadcast(x: torch.Tensor, src: int = 0, *,
+              group: Optional[Subgroup] = None) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank (of ``group``; ``src`` is a
+    global rank and must be a member), in a new tensor."""
+    pg = _pg(group, "broadcast")
+    if group is not None and src not in group.ranks:
+        raise ValueError(f"src {src} not in group ranks {group.ranks}")
     if not 0 <= src < get_world_size():
         raise ValueError(
             f"src {src} out of range for {get_world_size()} ranks")
     out = x.clone()
-    if get_world_size() > 1:
-        dist.broadcast(out, src=src)
+    if _size(group) > 1:
+        dist.broadcast(out, src=src, group=pg)
     return out
 
 
-def barrier() -> None:
-    if get_world_size() > 1:
-        dist.barrier()
+def barrier(group: Optional[Subgroup] = None) -> None:
+    """Every rank (of ``group``) waits for the others."""
+    pg = _pg(group, "barrier")
+    if _size(group) > 1:
+        dist.barrier(group=pg)
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """``[world, *x.shape]``: every rank's ``x`` in rank order (the JAX
-    facade's rows); ``x[None]`` in a world of one."""
+def monitored_barrier(timeout_s: Optional[float] = None) -> None:
+    """``torch.distributed.monitored_barrier``: a barrier that names the
+    ranks that did not arrive within ``timeout_s`` (the group's timeout
+    unless given). gloo has it; under NCCL, whose own barrier already
+    fails at the group's timeout, it is the plain barrier, and a
+    ``timeout_s`` other than the group's is refused, as the JAX facade
+    refuses one it cannot honour."""
     if get_world_size() == 1:
+        return
+    if get_backend() == "gloo":
+        kw = {} if timeout_s is None else dict(
+            timeout=datetime.timedelta(seconds=timeout_s))
+        dist.monitored_barrier(**kw)
+        return
+    if timeout_s is not None:
+        raise NotImplementedError(
+            f"per-call timeout {timeout_s}s: the {get_backend()} barrier "
+            "fails at the group's timeout; pass timeout_s to "
+            "init_process_group instead")
+    dist.barrier()
+
+
+def all_gather(x: torch.Tensor, *,
+               group: Optional[Subgroup] = None) -> torch.Tensor:
+    """``[n, *x.shape]``: every rank's ``x`` in rank order (the JAX
+    facade's rows; with ``group`` its members' in member order);
+    ``x[None]`` in a world of one."""
+    pg = _pg(group, "all_gather")
+    n = _size(group)
+    if n == 1:
         return x[None].clone()
-    out = x.new_empty((get_world_size(),) + tuple(x.shape))
-    dist.all_gather(list(out.unbind(0)), x.contiguous())   # views of out
+    out = x.new_empty((n,) + tuple(x.shape))
+    dist.all_gather(list(out.unbind(0)), x.contiguous(), group=pg)
     return out
+
+
+def gather(x: torch.Tensor, dst: int = 0, *,
+           group: Optional[Subgroup] = None) -> Optional[torch.Tensor]:
+    """``torch.distributed.gather``: ``[n, *x.shape]``, every rank's ``x``
+    in rank order, on rank ``dst`` (a global rank); None on the others.
+    The JAX facade returns the rows everywhere (one controller holds
+    every shard); rank ``dst``'s result is its value."""
+    pg = _pg(group, "gather")
+    if group is not None and dst not in group.ranks:
+        raise ValueError(f"dst {dst} not in group ranks {group.ranks}")
+    n = _size(group)
+    if n == 1:
+        return x[None].clone()
+    out = x.new_empty((n,) + tuple(x.shape)) if get_rank() == dst else None
+    dist.gather(x.contiguous(),
+                list(out.unbind(0)) if out is not None else None,
+                dst=dst, group=pg)
+    return out
+
+
+def reduce(x: torch.Tensor, dst: int = 0, op: ReduceOp = ReduceOp.SUM, *,
+           group: Optional[Subgroup] = None) -> Optional[torch.Tensor]:
+    """``torch.distributed.reduce``: ``x`` reduced over every rank (of
+    ``group``) on rank ``dst``, None on the others (the JAX facade's
+    value on ``dst``)."""
+    pg = _pg(group, "reduce")
+    if group is not None and dst not in group.ranks:
+        raise ValueError(f"dst {dst} not in group ranks {group.ranks}")
+    n = _size(group)
+    out = x.clone()
+    if n > 1:
+        dist.reduce(out, dst=dst, op=_TORCH_OPS[
+            ReduceOp.SUM if op is ReduceOp.AVG else op], group=pg)
+        if get_rank() != dst:
+            return None
+    if op is ReduceOp.AVG:
+        out = out / n
+    return out
+
+
+def scatter(x: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """``torch.distributed.scatter``: ``x`` is ``[world, ...]`` (rank
+    ``src``'s rows; every other rank passes a tensor of that shape, whose
+    contents are not read); returns row ``rank`` of rank ``src``'s ``x``
+    (the JAX facade's row)."""
+    world = get_world_size()
+    if not 0 <= src < world:
+        raise ValueError(f"src {src} out of range for {world} ranks")
+    if x.shape[0] != world:
+        raise ValueError(f"scatter input has {x.shape[0]} rows for "
+                         f"world_size {world}")
+    if world == 1:
+        return x[0].clone()
+    out = x.new_empty(tuple(x.shape[1:]))
+    rows = [r.contiguous() for r in x.unbind(0)] if get_rank() == src \
+        else None
+    dist.scatter(out, rows, src=src)
+    return out
+
+
+def _check_perm(perm, n: int) -> List[Tuple[int, int]]:
+    pairs = [(int(s), int(d)) for s, d in perm]
+    for s, d in pairs:
+        if not (0 <= s < n and 0 <= d < n):
+            raise ValueError(f"perm pair ({s},{d}) out of range for {n}")
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"perm {pairs}: a rank sends or receives twice")
+    return pairs
+
+
+def permute(x: torch.Tensor, perm, *,
+            group: Optional[Subgroup] = None) -> torch.Tensor:
+    """Point-to-point block exchange: for each ``(src, dst)`` pair, rank
+    ``dst`` receives rank ``src``'s ``x`` (ranks index the members of
+    ``group`` in order, or the world). A rank that no pair names as
+    ``dst`` gets zeros, as under the JAX facade's ``ppermute``. The sends
+    and receives go out together (``batch_isend_irecv``)."""
+    pg = _pg(group, "permute")
+    n = _size(group)
+    pairs = _check_perm(perm, n)
+    if group is None:
+        me, glob = get_rank(), (lambda r: r)
+    elif isinstance(group, Subgroup):
+        me, glob = group.ranks.index(get_rank()), group.ranks.__getitem__
+    else:
+        me = dist.get_rank(pg)
+        glob = lambda r: dist.get_global_rank(pg, r)  # noqa: E731
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for s, d in pairs:
+        if s == me and d == me:
+            out.copy_(x)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, x, glob(d), group=pg))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, out, glob(s), group=pg))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return permute(x, pairs, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = [(d, s) for s, d in ctx.pairs]
+        return permute(grad, inverse, group=ctx.group), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=_pg(ctx.group, "sum_grad"))
+        return grad, None
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient autograd sums over ``group`` (a
+    :class:`Subgroup` or torch's process group): Megatron's ``f``, for a
+    tensor every rank computes whole but each rank's loss reaches only
+    through its own part."""
+    return _SumGrad.apply(x, group)
+
+
+def permute_grad(x: torch.Tensor, perm, *,
+                 group: Optional[Subgroup] = None) -> torch.Tensor:
+    """:func:`permute` that autograd differentiates: the gradient goes
+    back along the inverse pairs (a rank that sent nothing gets zeros)."""
+    return _Permute.apply(x, _check_perm(perm, _size(group)), group)
 
 
 def _flat_collective(*names):
@@ -255,7 +512,82 @@ def all_to_all_single(x: torch.Tensor, output_split_sizes=None,
     return out
 
 
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, *, group=None) -> torch.Tensor:
     """``all_to_all_single`` with equal blocks: the JAX facade's
-    ``all_to_all`` row for this rank."""
-    return all_to_all_single(x)
+    ``all_to_all`` row for this rank. ``group``: a :class:`Subgroup` or
+    torch's process group (a ``DeviceMesh`` dim's, say)."""
+    if group is None:
+        return all_to_all_single(x)
+    pg = _pg(group, "all_to_all")
+    n = _size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all needs dim 0 ({x.shape[0]}) "
+                         f"divisible by the group's {n} ranks")
+    if n == 1:
+        return x.clone()
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=pg)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # an equal-block all-to-all is its own inverse
+        return all_to_all(grad, group=ctx.group), None
+
+
+def all_to_all_grad(x: torch.Tensor, *, group=None) -> torch.Tensor:
+    """:func:`all_to_all` that autograd differentiates (the backward is
+    the same exchange of the gradient's blocks)."""
+    return _AllToAll.apply(x, group)
+
+
+# --------------------------------------------------------------------------
+# Object collectives: picklable objects, one per process, returned (torch
+# fills lists in place).
+# --------------------------------------------------------------------------
+
+
+def all_gather_object(obj) -> list:
+    """Every rank's ``obj`` (picklable, any size), in rank order."""
+    if get_world_size() == 1:
+        return [obj]
+    out = [None] * get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def broadcast_object_list(objs: list, src: int = 0) -> list:
+    """Rank ``src``'s list on every rank (every rank passes a list of the
+    same length); returned rather than filled in place."""
+    if not 0 <= src < get_world_size():
+        raise ValueError(
+            f"src {src} out of range for {get_world_size()}-process world")
+    out = list(objs)
+    if get_world_size() > 1:
+        dist.broadcast_object_list(out, src=src)
+    return out
+
+
+def scatter_object_list(objs: Optional[list], src: int = 0):
+    """Rank ``src`` passes one object per rank; each rank gets its own.
+    The other ranks may pass None."""
+    world = get_world_size()
+    if not 0 <= src < world:
+        raise ValueError(f"src {src} out of range for {world}-process world")
+    if get_rank() == src and (objs is None or len(objs) != world):
+        raise ValueError(
+            f"src must pass exactly {world} objects, got "
+            f"{None if objs is None else len(objs)}")
+    if world == 1:
+        return objs[0]
+    out = [None]
+    dist.scatter_object_list(out, objs if get_rank() == src else None,
+                             src=src)
+    return out[0]

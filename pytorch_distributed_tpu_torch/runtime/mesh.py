@@ -1,28 +1,43 @@
-"""The device mesh: the port of the data-parallel and fully-sharded part
-of ``pytorch_distributed_tpu/runtime/mesh.py``.
+"""The device mesh: the port of ``pytorch_distributed_tpu/runtime/mesh.py``.
 
 The JAX package builds one mesh over named axes (``dp``, ``fsdp``,
 ``pp``, ``ep``, ``sp``, ``tp``) and expresses every strategy against it.
-The port has the two data axes: ``dp`` (replicas) and ``fsdp``
-(parameters and optimizer state sharded), one card a rank, ``dp``
-outermost as in the JAX mesh. :func:`make_mesh` builds the
-``DeviceMesh`` every strategy uses: 2-D ``("dp", "fsdp")`` whenever
-``dp > 1`` (FSDP replicates its shards over ``dp``, as the JAX mesh
-does, ``fsdp == 1`` included), 1-D ``fsdp`` when only ``fsdp`` is above
-1, and 1-D ``dp`` of one rank otherwise. Any other axis above 1 raises,
-naming ROADMAP A10.
+The port has the two data axes, ``dp`` (replicas) and ``fsdp``
+(parameters and optimizer state sharded), and the two model axes,
+``sp`` (the sequence split over ranks, ``parallel/sequence.py``) and
+``tp`` (heads and hidden units split over ranks, ``parallel/
+sharding.py``), one card a rank. :func:`make_mesh` builds the
+``DeviceMesh`` every strategy uses:
+
+* data axes only: 2-D ``("dp", "fsdp")`` whenever ``dp > 1`` (FSDP
+  replicates its shards over ``dp``, as the JAX mesh does, ``fsdp == 1``
+  included), 1-D ``fsdp`` when only ``fsdp`` is above 1, and 1-D ``dp``
+  of one rank otherwise;
+* ``sp`` or ``tp`` above 1: 4-D ``("dp", "fsdp", "sp", "tp")``, in the
+  JAX axis order (``tp`` innermost), so that rank ``r`` holds the mesh
+  coordinate of JAX device ``r`` (``pp`` and ``ep`` are 1).
+
+``pp`` and ``ep`` above 1 raise, naming ROADMAP A10.3 and A10.4. The
+last mesh :func:`make_mesh` built is the current one
+(:func:`current_mesh`): the loader takes a rank's rows from its data
+coordinate (:func:`data_rank`), sequence-parallel attention its ring
+from the ``sp`` dim, and a checkpoint's writers from the coordinates a
+tensor is replicated over (:func:`shard_box`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 
 AXES: Tuple[str, ...] = ("dp", "fsdp", "pp", "ep", "sp", "tp")
-PORTED_AXES: Tuple[str, ...] = ("dp", "fsdp")
+#: the axes of the 4-D mesh, in the JAX order
+MODEL_MESH_AXES: Tuple[str, ...] = ("dp", "fsdp", "sp", "tp")
+_UNPORTED = {"pp": "pipeline parallelism is not ported (ROADMAP A10.3)",
+             "ep": "expert parallelism is not ported (ROADMAP A10.4)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,16 +53,19 @@ class MeshSpec:
     tp: int = 1
 
     def __post_init__(self):
-        other = {a: getattr(self, a) for a in AXES
-                 if a not in PORTED_AXES and getattr(self, a) != 1}
-        if other:
-            raise NotImplementedError(
-                f"mesh axes {other}: only the data axes (dp, fsdp) are "
-                "ported (ROADMAP A10)"
-            )
+        for axis, why in _UNPORTED.items():
+            if getattr(self, axis) != 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis}={getattr(self, axis)}: {why}")
 
     def sizes(self) -> Tuple[int, ...]:
         return tuple(getattr(self, a) for a in AXES)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}``, as ``jax.sharding.Mesh.shape`` (the rule
+        engine reads it)."""
+        return dict(zip(AXES, self.sizes()))
 
     def resolve(self, world_size: int) -> "MeshSpec":
         """Fill in the ``-1`` wildcard so the product equals
@@ -69,23 +87,62 @@ class MeshSpec:
                 f"{world_size}")
         return MeshSpec(**dict(zip(AXES, sizes)))
 
+    def model_parallel(self) -> bool:
+        """Whether ``sp`` or ``tp`` is above 1 (the 4-D mesh)."""
+        return self.sp > 1 or self.tp > 1
+
     def mesh_shape(self) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
         """``(shape, dim names)`` of the ``DeviceMesh`` of a resolved
         spec (see the module docstring)."""
+        if self.model_parallel():
+            return (tuple(getattr(self, a) for a in MODEL_MESH_AXES),
+                    MODEL_MESH_AXES)
         if self.dp > 1:
             return (self.dp, self.fsdp), ("dp", "fsdp")
         if self.fsdp > 1:
             return (self.fsdp,), ("fsdp",)
         return (1,), ("dp",)
 
+    def shard_dims(self) -> Tuple[str, ...]:
+        """The dims of the mesh FSDP shards over (``fsdp``) and
+        replicates over (``dp``, when above 1)."""
+        _, names = self.mesh_shape()
+        if not self.model_parallel():
+            return names
+        return ("dp", "fsdp") if self.dp > 1 else ("fsdp",)
+
+
+_CURRENT: Optional[tuple] = None   # (DeviceMesh, resolved MeshSpec)
+
 
 def make_mesh(spec: MeshSpec = MeshSpec(), device_type: str = "cuda"):
     """The ``DeviceMesh`` of ``spec`` over every rank of the process group
-    (which must exist): see :meth:`MeshSpec.mesh_shape`."""
+    (which must exist): see :meth:`MeshSpec.mesh_shape`. It becomes the
+    current mesh."""
+    global _CURRENT
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape, names = spec.resolve(dist.get_world_size()).mesh_shape()
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    resolved = spec.resolve(dist.get_world_size())
+    shape, names = resolved.mesh_shape()
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=names)
+    _CURRENT = (mesh, resolved)
+    return mesh
+
+
+def current_mesh():
+    """``(mesh, spec)`` of the last :func:`make_mesh` in this process
+    group, or None."""
+    if _CURRENT is None or not dist.is_initialized():
+        return None
+    mesh, spec = _CURRENT
+    if mesh.size() != dist.get_world_size():
+        return None   # a mesh of an earlier process group
+    return _CURRENT
+
+
+def clear_current_mesh() -> None:
+    global _CURRENT
+    _CURRENT = None
 
 
 def data_axes() -> Tuple[str, ...]:
@@ -93,31 +150,74 @@ def data_axes() -> Tuple[str, ...]:
     return ("dp", "fsdp")
 
 
-def row_shard(t) -> Tuple[object, int, bool]:
-    """``(local, first_row, writer)`` of a tensor: a plain one is its own
-    local part from row 0; a ``DTensor`` (FSDP's parameters, gradients
-    and moments) is sharded along dim 0 over one mesh dim, rows cut as
-    ``torch.chunk`` cuts them, and replicated over the others (HSDP's
-    ``dp``). ``writer`` is True on one rank per shard: the one at
-    coordinate 0 of every replicated dim."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+def data_rank() -> Tuple[int, int]:
+    """``(index, count)`` of this rank's share of the global batch: its
+    ``(dp, fsdp)`` coordinate flattened, over ``dp * fsdp`` shares, so
+    ranks that differ only in ``sp`` or ``tp`` read the same rows
+    (the JAX batch splits over the data axes only). Without a current
+    mesh, the process rank and world."""
+    cur = current_mesh()
+    if cur is None or not cur[1].model_parallel():
+        return dist.get_rank(), dist.get_world_size()
+    mesh, spec = cur
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return coord["dp"] * spec.fsdp + coord["fsdp"], spec.dp * spec.fsdp
+
+
+def is_shard(placement) -> bool:
+    """Whether a ``DTensor`` placement cuts its dim: ``Shard`` and FSDP2's
+    ``_StridedShard`` of a TP shard (which is no ``Shard`` subclass, and
+    whose ``is_shard()`` is False in some torch releases)."""
+    return not (placement.is_replicate() or placement.is_partial())
+
+
+def shard_box(t) -> Tuple[object, Tuple[int, ...], bool]:
+    """``(local, offsets, writer)`` of a tensor: a plain one is its own
+    local part at offset 0 of every dim; a ``DTensor`` (FSDP's and TP's
+    parameters, gradients and moments) holds the box of the global
+    tensor that starts at ``offsets`` and has ``local``'s shape, cut as
+    ``torch.chunk`` cuts each sharded dim (FSDP2's strided shards of a
+    TP shard included). ``writer`` is True on one rank per box: the one
+    at coordinate 0 of every mesh dim the tensor is replicated over,
+    and of every dim of the current mesh that its own mesh leaves out
+    (a norm's scale, sharded over ``fsdp`` alone, is held alike by every
+    ``tp`` and ``sp`` rank)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
 
     if not isinstance(t, DTensor):
-        return t, 0, True
+        return t, (0,) * t.dim(), True
     mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
-    start, writer = 0, True
-    for dim, pl in enumerate(t.placements):
-        if isinstance(pl, Replicate):
-            writer = writer and coord[dim] == 0
-        elif isinstance(pl, Shard) and pl.dim == 0:
-            chunk = -(-t.shape[0] // mesh.size(dim))
-            start = min(coord[dim] * chunk, t.shape[0])
-        else:
-            raise NotImplementedError(
-                f"placement {pl} of a {tuple(t.shape)} tensor: the port "
-                "shards along dim 0 only (ROADMAP A10)")
+    writer = all(c == 0 for c, pl in zip(coord, t.placements)
+                 if not is_shard(pl))
+    cur = current_mesh()
+    if cur is not None:
+        own = set(mesh.mesh_dim_names or ())
+        root = cur[0]
+        writer = writer and all(
+            c == 0 for name, c in zip(root.mesh_dim_names,
+                                      root.get_coordinate())
+            if name not in own)
     local = t.to_local()
-    if start + local.shape[0] > t.shape[0]:
-        raise ValueError(f"local rows [{start}, {start + local.shape[0]}) "
-                         f"of a {tuple(t.shape)} tensor")
-    return local, start, writer
+    shape, offsets = compute_local_shape_and_global_offset(
+        tuple(t.shape), mesh, t.placements)
+    if tuple(shape) != tuple(local.shape):
+        raise ValueError(f"local part {tuple(local.shape)} of a "
+                         f"{tuple(t.shape)} tensor; expected {shape}")
+    return local, tuple(int(o) for o in offsets), writer
+
+
+def row_shard(t) -> Tuple[object, int, bool]:
+    """``(local, first_row, writer)`` of a tensor sharded along dim 0 at
+    most (:func:`shard_box`'s box as a row range). A tensor cut along
+    another dim (a row-parallel TP weight) raises: its callers read
+    whole rows."""
+    local, offsets, writer = shard_box(t)
+    if any(offsets[1:]) or tuple(local.shape[1:]) != tuple(t.shape[1:]):
+        raise NotImplementedError(
+            f"a {tuple(t.shape)} tensor cut along a dim other than 0 "
+            f"(local {tuple(local.shape)} at {offsets}): this caller reads "
+            "whole rows (ROADMAP A10.1)")
+    return local, (offsets[0] if offsets else 0), writer

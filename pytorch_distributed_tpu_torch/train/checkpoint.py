@@ -29,15 +29,18 @@ restore reads, on each rank, the parameters whole and the moments of
 the parameters its optimizer now holds, at any world size.
 
 Under FSDP every parameter and both its moments are DTensors, and a
-rank holds rows of dim 0 (``runtime.mesh.row_shard``). Each rank writes
-its own rows of each, in the JAX layout, as boxes of the JAX leaf
-(``interop.Slot.row_boxes``: rows of ``q.weight [H * hd, D]`` are a head
+rank holds a box of each: rows of dim 0, and under tensor parallelism
+rows or columns of its TP shard (``runtime.mesh.shard_box``). Each rank
+writes its own box of each, in the JAX layout, as boxes of the JAX leaf
+(``interop.Slot.boxes``: rows of ``q.weight [H * hd, D]`` are a head
 range of the ``[D, H, hd]`` kernel, rows of ``down.weight [D, I]`` a
-column range of the ``[I, D]`` one, a range that cuts a head a partial
-box), so no leaf is ever gathered on one rank; under HSDP only the first
-replica of each shard writes. A restore reads each rank's rows back out
-of whatever boxes the writer's world cut, at any world size, and the
-JAX package reads the leaves whole.
+column range of the ``[I, D]`` one, its columns a row range of it, a
+range that cuts a head a partial box), so no leaf is ever gathered on
+one rank; only the first replica of each box writes (HSDP's ``dp``, and
+the ``tp`` and ``sp`` ranks of a tensor sharded over ``fsdp`` alone). A
+restore reads each rank's box back out of whatever boxes the writer's
+world cut, at any world size and mesh, and the JAX package reads the
+leaves whole.
 
 The EMA shadow (``TrainState(..., ema=True)``) is the JAX state's
 ``ema_params`` tree: ``ema_params_...`` leaves in the params' slots and
@@ -67,7 +70,7 @@ from torch.distributed.tensor import DTensor
 
 from pytorch_distributed_tpu_torch import interop
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
-from pytorch_distributed_tpu_torch.runtime.mesh import row_shard
+from pytorch_distributed_tpu_torch.runtime.mesh import shard_box
 from pytorch_distributed_tpu_torch.train.elastic import deferred_signals
 from pytorch_distributed_tpu_torch.train.ckpt_io import (  # noqa: F401
     _MANIFEST,
@@ -139,29 +142,32 @@ def _tensor_box(slot: interop.Slot, get: Callable[[], torch.Tensor],
     return _Box(slot.layer or 0, start, stop, read, write)
 
 
-def _row_boxes(slot: interop.Slot, param: torch.Tensor,
-               get: Callable[..., torch.Tensor]) -> List[_Box]:
-    """The boxes of this rank's rows of a tensor sharded (or not) as
-    ``param`` is: ``get(create)`` returns the tensor itself (a moment not
+def _shard_boxes(slot: interop.Slot, param: torch.Tensor,
+                 get: Callable[..., torch.Tensor]) -> List[_Box]:
+    """The boxes of this rank's box of a tensor sharded (or not) as
+    ``param`` is (``runtime.mesh.shard_box``: FSDP's rows, TP's rows or
+    columns): ``get(create)`` returns the tensor itself (a moment not
     yet made reads as zeros, and is made in the optimizer's state when
-    written), whose local rows are read and written in place."""
-    local, first, _ = row_shard(param)
-    n = local.shape[0]
+    written), whose local part is read and written in place."""
+    local, offsets, _ = shard_box(param)
+    if local.numel() == 0:
+        return []
     boxes = []
-    for ra, rb, start, stop, to_jax, from_jax in (
-            slot.row_boxes(first, first + n) if n else ()):
-        lo, hi = ra - first, rb - first
+    for ranges, start, stop, to_jax, from_jax in slot.boxes(
+            offsets, tuple(local.shape)):
+        sub = tuple(slice(lo - o, hi - o)
+                    for (lo, hi), o in zip(ranges, offsets))
 
-        def read(lo=lo, hi=hi, to_jax=to_jax):
-            arr = to_jax(_numpy(row_shard(get(False))[0][lo:hi]))
+        def read(sub=sub, to_jax=to_jax):
+            arr = to_jax(_numpy(shard_box(get(False))[0][sub]))
             return arr if slot.layer is None else arr[None]
 
-        def write(arr, lo=lo, hi=hi, from_jax=from_jax):
+        def write(arr, sub=sub, from_jax=from_jax):
             arr = arr if slot.layer is None else arr[0]
-            rows = row_shard(get(True))[0][lo:hi]
+            part = shard_box(get(True))[0][sub]
             with torch.no_grad():
-                rows.copy_(torch.from_numpy(
-                    np.ascontiguousarray(from_jax(arr))).to(rows.dtype))
+                part.copy_(torch.from_numpy(
+                    np.ascontiguousarray(from_jax(arr))).to(part.dtype))
 
         boxes.append(_Box(slot.layer or 0, start, stop, read, write))
     return boxes
@@ -205,13 +211,13 @@ def _plan(state: TrainState) -> List[_Leaf]:
     def writer(t, replicated):
         # a sharded tensor's first replica writes its rows; a replicated
         # one is rank 0's (or, under ZeRO, its owner's) to write
-        return row_shard(t)[2] if isinstance(t, DTensor) else replicated
+        return shard_box(t)[2] if isinstance(t, DTensor) else replicated
 
     for key, slot in slots.items():
         t = sd[key]
         shape = slot.leaf_shape(tuple(t.shape))
         if slot.perm is not None:
-            boxes = _row_boxes(slot, t, lambda create, t=t: t)
+            boxes = _shard_boxes(slot, t, lambda create, t=t: t)
         else:
             def put(x, t=t):
                 with torch.no_grad():
@@ -252,7 +258,7 @@ def _plan(state: TrainState) -> List[_Leaf]:
                     device=p.device, dtype=p.dtype)
 
             if slot.perm is not None:
-                boxes = _row_boxes(slot, p, get)
+                boxes = _shard_boxes(slot, p, get)
             else:
                 boxes = [_tensor_box(slot, get, put, shape)]
             add(name, shape, np.float32, boxes,
@@ -560,7 +566,7 @@ def average_checkpoints(ckpt_dir: str, state: TrainState,
         restore_checkpoint(ckpt_dir, state, tag=tag)
         if newest_step is None or state.step > newest_step:
             newest_tag, newest_step = tag, state.step
-        p32 = {n: _numpy(row_shard(p)[0]).astype(np.float32)
+        p32 = {n: _numpy(shard_box(p)[0]).astype(np.float32)
                for n, p in model.named_parameters()}
         if acc is None:
             acc = p32
@@ -570,7 +576,7 @@ def average_checkpoints(ckpt_dir: str, state: TrainState,
     restore_checkpoint(ckpt_dir, state, tag=newest_tag)
     with torch.no_grad():
         for n, p in model.named_parameters():
-            local = row_shard(p)[0]
+            local = shard_box(p)[0]
             local.copy_(torch.from_numpy(acc[n]).to(local.dtype))
     return state
 

@@ -13,6 +13,17 @@ updates them in place), and ``generator`` feeds the dropout masks. A
 classifier's BatchNorm running statistics, which the JAX loss returns
 as ``aux["batch_stats"]``, are buffers of the module that its train-mode
 forward updates in place.
+
+Under sequence parallelism (``parallel.sequence_parallel``) the
+causal-LM losses take this rank's positions of each whole row
+(``parallel.sequence.sequence_shard``: the labels shifted on the whole
+row before the split), and the loss is this rank's sum of token losses
+over the token count summed over ``sp``: the ``sp`` ranks' losses add up
+to the whole rows' mean, and so do their gradients, which the train step
+sums over ``sp`` (``parallel.FSDP``). The ``loss`` metric is that sum.
+Under tensor parallelism the chunked loss gathers the vocab-sharded head
+whole for its products (one ``[V, D]`` copy a rank, 2.1 GB in f32 at
+Llama-3-8B's 128256 x 4096).
 """
 
 from __future__ import annotations
@@ -23,7 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.data.packing import packed_loss_mask
-from pytorch_distributed_tpu_torch.ops.lm_loss import causal_lm_chunked_loss
+from pytorch_distributed_tpu_torch.ops.lm_loss import (
+    causal_lm_chunked_loss,
+    chunked_softmax_cross_entropy,
+)
+from pytorch_distributed_tpu_torch.parallel.sequence import sequence_shard
 
 
 def masked_token_mean(tok_loss: torch.Tensor, segment_ids) -> torch.Tensor:
@@ -83,11 +98,41 @@ def _packed_extra(batch) -> dict:
     return extra
 
 
+def _lm_head_for_loss(core):
+    """``(head weight, vocab axis)`` of an LM whose root FSDP has
+    unsharded: a head still cut over ``tp`` alone is gathered whole
+    (differentiably); one cut over any other axis raises."""
+    from torch.distributed.tensor import DTensor
+
+    weight, axis = _lm_projection_weight(
+        core, tied=getattr(getattr(core, "config", None),
+                           "tie_word_embeddings", None))
+    if isinstance(weight, DTensor):
+        if tuple(weight.device_mesh.mesh_dim_names or ()) != ("tp",):
+            raise RuntimeError(
+                "the LM head is still sharded after unshard(): the chunked "
+                "loss would multiply by this rank's rows only")
+        weight = weight.full_tensor()
+    return weight, axis
+
+
+def _sp_mean(tok_sum, count, group):
+    """This rank's share of the whole rows' mean: its token-loss sum over
+    the token count summed over the ``sp`` group; and that mean (the sum
+    of the shares), detached, for the metric."""
+    total = count.detach().clone()
+    torch.distributed.all_reduce(total, group=group)
+    loss = tok_sum / total
+    whole = loss.detach().clone()
+    torch.distributed.all_reduce(whole, group=group)
+    return loss, whole
+
+
 def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
                      generator=None, attn_impl=None):
     """The chunked loss's shared train/eval body: the model's hidden
     states in the compute dtype, projected chunk by chunk through the
-    head in its own layout.
+    head in its own layout; ``(loss, metric)``.
 
     Under FSDP the head is read after the model's forward, outside any
     FSDP-managed call: the root is unsharded explicitly first
@@ -96,42 +141,67 @@ def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
     head, and its gradient lands on the unsharded parameter, which the
     root's post-backward reduce-scatters with the others."""
     from torch.distributed.fsdp import FSDPModule
-    from torch.distributed.tensor import DTensor
 
     core = getattr(model, "module", model)
     kw = dict(train=train, return_hidden=True, attn_impl=attn_impl,
               **_packed_extra(batch))
     if train:
         kw["generator"] = generator
+    shard = sequence_shard(ids)
+    if shard is not None:
+        _refuse_packed_sequence_shards(batch)
+        ids, labels, kw["positions"], group = shard
     hidden = model(ids, **kw)
     if isinstance(core, FSDPModule):
         core.unshard()
-    weight, axis = _lm_projection_weight(
-        core, tied=getattr(getattr(core, "config", None),
-                           "tie_word_embeddings", None))
-    if isinstance(weight, DTensor):
-        raise RuntimeError(
-            "the LM head is still sharded after unshard(): the chunked "
-            "loss would multiply by this rank's rows only")
-    return causal_lm_chunked_loss(
-        hidden.to(core.policy.compute_dtype), weight, ids,
-        chunk_size=chunk_size, vocab_axis=axis,
-        segment_ids=batch.get("segment_ids"))
+    weight, axis = _lm_head_for_loss(core)
+    hidden = hidden.to(core.policy.compute_dtype)
+    if shard is None:
+        loss = causal_lm_chunked_loss(
+            hidden, weight, ids, chunk_size=chunk_size, vocab_axis=axis,
+            segment_ids=batch.get("segment_ids"))
+        return loss, loss.detach()
+    n = labels.shape[1]
+    h = hidden[:, :n].reshape(-1, hidden.shape[-1])
+    count = torch.tensor(float(labels.numel()), device=hidden.device)
+    tok_sum = chunked_softmax_cross_entropy(
+        h, weight, labels.reshape(-1), chunk_size=chunk_size,
+        vocab_axis=axis) * count
+    return _sp_mean(tok_sum, count, group)
+
+
+def _refuse_packed_sequence_shards(batch) -> None:
+    if batch.get("segment_ids") is not None:
+        raise NotImplementedError(
+            "packed (segment_ids) rows are not supported inside "
+            "sequence-parallel mode")
 
 
 def _full_lm_loss(model, ids, batch, *, train: bool, generator=None,
                   attn_impl=None):
+    """The full-logits loss's shared train/eval body; ``(loss, metric)``."""
+
     kw = dict(train=train, attn_impl=attn_impl, **_packed_extra(batch))
     if train:
         kw["generator"] = generator
+    shard = sequence_shard(ids)
+    if shard is None:
+        labels = ids[:, 1:].long()
+    else:
+        _refuse_packed_sequence_shards(batch)
+        ids, labels, kw["positions"], group = shard
+        labels = labels.long()
     logits = model(ids, **kw)
-    shift_logits = logits[:, :-1].float()
-    labels = ids[:, 1:].long()
+    shift_logits = logits[:, :labels.shape[1]].float()
     tok_loss = F.cross_entropy(
         shift_logits.reshape(-1, shift_logits.shape[-1]),
         labels.reshape(-1), reduction="none",
     ).reshape(labels.shape)
-    return masked_token_mean(tok_loss, batch.get("segment_ids"))
+    if shard is None:
+        loss = masked_token_mean(tok_loss, batch.get("segment_ids"))
+        return loss, loss.detach()
+    count = torch.tensor(float(labels.numel()), device=logits.device)
+    return _sp_mean(tok_loss.sum(), count, group)
 
 
 def causal_lm_loss_fn(
@@ -158,13 +228,14 @@ def causal_lm_loss_fn(
     def loss_fn(batch, generator):
         ids = batch[ids_key]
         if vocab_chunk_size is not None:
-            loss = _chunked_lm_loss(model, ids, vocab_chunk_size, batch,
-                                    train=True, generator=generator,
-                                    attn_impl=attn_impl)
+            loss, metric = _chunked_lm_loss(
+                model, ids, vocab_chunk_size, batch, train=True,
+                generator=generator, attn_impl=attn_impl)
         else:
-            loss = _full_lm_loss(model, ids, batch, train=True,
-                                 generator=generator, attn_impl=attn_impl)
-        return loss, {"metrics": {"loss": loss.detach()}}
+            loss, metric = _full_lm_loss(model, ids, batch, train=True,
+                                         generator=generator,
+                                         attn_impl=attn_impl)
+        return loss, {"metrics": {"loss": metric}}
 
     return loss_fn
 
@@ -185,11 +256,11 @@ def causal_lm_eval_step(
     def eval_step(state, batch) -> Dict[str, torch.Tensor]:
         ids = batch[ids_key]
         if vocab_chunk_size is not None:
-            loss = _chunked_lm_loss(model, ids, vocab_chunk_size, batch,
-                                    train=False, attn_impl=attn_impl)
+            _, loss = _chunked_lm_loss(model, ids, vocab_chunk_size, batch,
+                                       train=False, attn_impl=attn_impl)
         else:
-            loss = _full_lm_loss(model, ids, batch, train=False,
-                                 attn_impl=attn_impl)
+            _, loss = _full_lm_loss(model, ids, batch, train=False,
+                                    attn_impl=attn_impl)
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return eval_step

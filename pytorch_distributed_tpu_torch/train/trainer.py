@@ -284,6 +284,14 @@ def build_train_step(
                 sums = {k: v * inv for k, v in sums.items()}
             if scaling:
                 scaler.unscale_grads(grads, state.scaler_state)
+            sp_group = getattr(model, "sequence_grad_group", None)
+            if sp_group is not None:
+                # sequence shards: each sp rank's loss is its share of the
+                # rows' mean, so the gradients sum over sp (parallel.FSDP)
+                with tracing.span("train.grad_sync"):
+                    for g in grads:
+                        torch.distributed.all_reduce(_local(g),
+                                                     group=sp_group)
             if id(model) not in syncs:
                 syncs[id(model)] = _grad_sync(model, grad_compression)
             sync = syncs[id(model)]

@@ -342,8 +342,11 @@ def test_autocast_sets_the_policy_models_take():
 
 
 def test_partition_rules_and_long_rows_refused():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tbert.bert_partition_rules()
+    # the rules are ported (held leaf by leaf against the JAX table in
+    # tests/test_torch_tp.py); the BERT recipe's --tp is A10.1
+    rules = tbert.bert_partition_rules()
+    assert [pat for pat, _ in rules] == [
+        pat for pat, _ in jbert.bert_partition_rules()]
     model = tbert.BertForSequenceClassification(TCFG, device="cpu",
                                                 policy=Policy.full())
     with pytest.raises(ValueError, match="max_position_embeddings"):

@@ -192,8 +192,9 @@ def test_unported_strategies_and_axes_refuse():
     for cls in (parallel.DataParallel, parallel.ZeRO1, parallel.FSDP):
         with pytest.raises(RuntimeError, match="process group"):
             cls("cpu")
+    # tp and sp are ported (tests/test_torch_tp.py); pp is not
     with pytest.raises(NotImplementedError, match="A10"):
-        MeshSpec(tp=2)
+        MeshSpec(pp=2)
     assert MeshSpec().resolve(4) == MeshSpec(dp=4)
     assert data_axes() == ("dp", "fsdp")
     with pytest.raises(ValueError):

@@ -88,7 +88,8 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "utils.tensorboard", "recipes.resnet18_cifar10",
             "utils.config", "utils.profiler", "runtime.tracing",
             "runtime.device", "models.gemma", "models.mistral",
-            "models.qwen2", "models.qwen3", "models.phi3", "models.neox"):
+            "models.qwen2", "models.qwen3", "models.phi3", "models.neox",
+            "parallel.sequence", "parallel.sharding", "parallel.rules"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))

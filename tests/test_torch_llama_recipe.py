@@ -16,7 +16,8 @@ recipe's flags, at ``--device cpu --size tiny``:
 * ``--optimizer adafactor`` trains under ``fsdp`` and ``dp`` (with
   ``--backend gloo``);
 * the flags the port does not have raise naming their ROADMAP item
-  (``--optimizer adafactor`` only with ``--strategy zero1``).
+  (``--optimizer adafactor`` only with ``--strategy zero1``; ``--tp`` and
+  ``--sp`` with the data-parallel strategies or Adafactor).
 """
 
 import numpy as np
@@ -70,8 +71,12 @@ def test_other_strategies_train(strategy):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--tp", "2"], "A10"), (["--sp", "2"], "A10"),
-    (["--sp-mode", "ulysses"], "A10"), (["--strategy", "auto"], "A10"),
+    # --tp and --sp train under fsdp (tests/test_torch_sequence.py); the
+    # data-parallel strategies and Adafactor do not take them
+    (["--tp", "2", "--strategy", "dp"], "A10"),
+    (["--sp", "2", "--strategy", "zero1"], "A10"),
+    (["--tp", "2", "--optimizer", "adafactor"], "A10"),
+    (["--strategy", "auto"], "A10"),
     (["--optimizer", "adafactor", "--strategy", "zero1"], "A4")])
 def test_unported_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
