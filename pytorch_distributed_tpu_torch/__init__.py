@@ -22,7 +22,10 @@ recipe's ``--lora``); and image-classification training complete: the
 ResNet-18/CIFAR-10 recipe, the native augmenting pipeline over
 ``native/prefetch.cpp``, image folders with a quarantine, compressed
 gradient sync (bf16, fp16, int8 with error feedback) as a DDP hook,
-ZeRO-1 for ResNet, EMA and the JSONL and TensorBoard writers. Entry points
+ZeRO-1 for ResNet, EMA and the JSONL and TensorBoard writers; and
+mixture-of-experts (``ops.moe.MoEMLP``, Mixtral, GPT-2's experts) with
+expert parallelism over an ``ep`` mesh axis, and the ViT-B/16 recipe.
+Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
 package.
@@ -78,34 +81,44 @@ from pytorch_distributed_tpu_torch.generation import (
 from pytorch_distributed_tpu_torch.interop import (
     bert_params_from_jax,
     bert_params_to_jax,
+    export_bert_weights,
     export_gemma_weights,
     export_gpt2_weights,
     export_llama_weights,
     export_mistral_weights,
+    export_mixtral_weights,
     export_neox_weights,
     export_phi3_weights,
     export_qwen2_weights,
     export_qwen3_weights,
+    export_vit_weights,
     gpt2_params_from_jax,
     gpt2_params_to_jax,
     llama_params_from_jax,
     llama_params_to_jax,
+    load_bert_weights,
     load_gemma_weights,
     load_gpt2_weights,
     load_llama_weights,
     load_mistral_weights,
+    load_mixtral_weights,
     load_neox_weights,
     load_phi3_weights,
     load_qwen2_weights,
     load_qwen3_weights,
+    load_vit_weights,
     lora_params_from_jax,
     lora_params_to_jax,
+    mixtral_params_from_jax,
+    mixtral_params_to_jax,
     neox_params_from_jax,
     neox_params_to_jax,
     quantized_params_from_jax,
     quantized_params_to_jax,
     resnet_params_from_jax,
     resnet_params_to_jax,
+    vit_params_from_jax,
+    vit_params_to_jax,
 )
 from pytorch_distributed_tpu_torch.lora import (
     LoRAModel,
@@ -127,6 +140,8 @@ from pytorch_distributed_tpu_torch.models import (
     LlamaForCausalLM,
     MistralConfig,
     MistralForCausalLM,
+    MixtralConfig,
+    MixtralForCausalLM,
     NeoXConfig,
     NeoXForCausalLM,
     Phi3Config,
@@ -135,15 +150,19 @@ from pytorch_distributed_tpu_torch.models import (
     Qwen2ForCausalLM,
     Qwen3Config,
     Qwen3ForCausalLM,
+    ViT,
+    ViTConfig,
     bert_partition_rules,
     gemma_partition_rules,
     gpt2_partition_rules,
     llama_partition_rules,
     mistral_partition_rules,
+    mixtral_partition_rules,
     neox_partition_rules,
     phi3_partition_rules,
     qwen2_partition_rules,
     qwen3_partition_rules,
+    vit_partition_rules,
 )
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from pytorch_distributed_tpu_torch.models.resnet import (
@@ -156,6 +175,7 @@ from pytorch_distributed_tpu_torch.models.resnet import (
 )
 from pytorch_distributed_tpu_torch.ops.attention import attention
 from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
+from pytorch_distributed_tpu_torch.ops.moe import MoEMLP, moe_partition_rules
 from pytorch_distributed_tpu_torch.ops.paged_attention import paged_attention
 from pytorch_distributed_tpu_torch.parallel import (
     FSDP,
@@ -173,6 +193,10 @@ from pytorch_distributed_tpu_torch.parallel import (
 from pytorch_distributed_tpu_torch.runtime.device import (
     default_device,
     device_info,
+    max_memory_allocated,
+    memory_allocated,
+    memory_stats,
+    memory_summary,
 )
 from pytorch_distributed_tpu_torch.runtime.distributed import (
     ReduceOp,
@@ -204,8 +228,11 @@ from pytorch_distributed_tpu_torch.runtime.distributed import (
 )
 from pytorch_distributed_tpu_torch.runtime.mesh import (
     MeshSpec,
+    current_mesh,
     data_axes,
     make_mesh,
+    mesh_axis_size,
+    set_current_mesh,
 )
 from pytorch_distributed_tpu_torch.runtime.precision import (
     GradScaler,
@@ -280,6 +307,14 @@ __all__ = [
     "mistral_partition_rules", "neox_partition_rules",
     "phi3_partition_rules", "qwen2_partition_rules",
     "qwen3_partition_rules",
+    "MixtralConfig", "MixtralForCausalLM", "mixtral_partition_rules",
+    "MoEMLP", "moe_partition_rules", "ViT", "ViTConfig",
+    "vit_partition_rules", "load_mixtral_weights", "export_mixtral_weights",
+    "mixtral_params_from_jax", "mixtral_params_to_jax", "load_vit_weights",
+    "export_vit_weights", "vit_params_from_jax", "vit_params_to_jax",
+    "load_bert_weights", "export_bert_weights",
+    "memory_stats", "memory_allocated", "max_memory_allocated",
+    "memory_summary", "current_mesh", "set_current_mesh", "mesh_axis_size",
     "resnet_params_from_jax",
     "resnet_params_to_jax", "BertConfig", "BertForMaskedLM",
     "BertForSequenceClassification", "BertModel", "mask_tokens",

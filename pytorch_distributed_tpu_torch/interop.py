@@ -54,7 +54,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import re
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -173,8 +173,12 @@ def gpt2_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     ``attn_out`` ``[H, hd, D]``, ``mlp_up``/``mlp_down`` ``[in, out]``,
     ``wte`` ``[V, D]``, ``wpe`` ``[P, D]``, LayerNorm ``scale``/``bias``.
     Returned tensors are f32 CPU tensors; ``load_state_dict`` casts and
-    moves them to the module's dtype and device. Mixture-of-experts
-    blocks (``moe/...``) raise ``NotImplementedError`` naming A7.
+    moves them to the module's dtype and device. With ``moe_experts``
+    each block's FFN is ``moe/router/kernel`` ``[D, E]`` (the port's
+    ``[E, D]``) and the stacked ``moe/w_in`` ``[E, D, F]`` and
+    ``moe/w_out`` ``[E, F, D]``; expert leaves given to a dense config
+    (or dense leaves to an expert one) raise ``NotImplementedError``
+    naming A7.
     """
     leaves = _Leaves(params, "gpt2_params_from_jax", "A7")
     D = cfg.hidden_size
@@ -196,6 +200,11 @@ def gpt2_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
         out = get(i, "attn_out/kernel")                       # [H, hd, D]
         sd[p + "attn_out.weight"] = _t(out.reshape(-1, D).T)
         sd[p + "attn_out.bias"] = _t(get(i, "attn_out/bias"))
+        if cfg.moe_experts > 0:
+            sd[p + "moe.router.weight"] = _t(get(i, "moe/router/kernel").T)
+            for name in ("w_in", "w_out"):
+                sd[p + f"moe.{name}"] = _t(get(i, f"moe/{name}"))
+            continue
         for name in ("mlp_up", "mlp_down"):
             sd[p + f"{name}.weight"] = _t(get(i, f"{name}/kernel").T)
             sd[p + f"{name}.bias"] = _t(get(i, f"{name}/bias"))
@@ -277,10 +286,23 @@ class Slot:
     # a permuted slot (llama_slots): the port tensor is the JAX array of
     # one layer, shape ``jshape``, transposed by ``perm`` and reshaped so
     # that its first ``rows`` axes make the port's dim 0 and the rest
-    # its dim 1
+    # its dim 1; ``rows`` a tuple gives the count of axes of every port
+    # dim (the 3-D expert tensors: ``(1, 1, 1)``)
     perm: Optional[Tuple[int, ...]] = None
     jshape: Optional[Tuple[int, ...]] = None
-    rows: int = 1
+    rows: Union[int, Tuple[int, ...]] = 1
+
+    def groups(self) -> List[Tuple[int, ...]]:
+        """The JAX axes (of ``perm``'s order) that fold into each port
+        dim, outermost first; a 1-D tensor's second group is empty."""
+        perm = self.perm
+        if isinstance(self.rows, int):
+            return [perm[:self.rows], perm[self.rows:]]
+        out, i = [], 0
+        for n in self.rows:
+            out.append(perm[i:i + n])
+            i += n
+        return out
 
     def leaf_shape(self, port_shape) -> Tuple[int, ...]:
         """The JAX leaf's full shape, from the port tensor's shape."""
@@ -304,7 +326,7 @@ class Slot:
                 "(sharded checkpoints cover Llama; ROADMAP A6)")
         perm, js = self.perm, self.jshape
         inv = tuple(int(i) for i in np.argsort(perm))
-        groups = [perm[:self.rows], perm[self.rows:]][:len(starts)]
+        groups = self.groups()[:len(starts)]
         per_dim = [_flat_segments(lo, lo + n, [js[i] for i in g])
                    for lo, n, g in zip(starts, sizes, groups)]
         lead = () if self.layer is None else (self.layer,)
@@ -350,11 +372,13 @@ def _flat_segments(a: int, b: int, dims):
 
 def _permuted(tree, path, layer, depth, jshape, perm, rows=1) -> Slot:
     """A :class:`Slot` whose maps are a transpose by ``perm`` and a
-    reshape: port ``[prod(row axes), prod(the rest)]``."""
+    reshape: port ``[prod(row axes), prod(the rest)]`` (or, ``rows`` a
+    tuple, one port dim per group of axes)."""
     inv = tuple(int(i) for i in np.argsort(perm))
-    pshape = (int(np.prod([jshape[i] for i in perm[:rows]])),)
-    if rows < len(perm):
-        pshape += (int(np.prod([jshape[i] for i in perm[rows:]])),)
+    probe = Slot(tree, path, layer, depth, _same, _same, perm=tuple(perm),
+                 jshape=tuple(jshape), rows=rows)
+    pshape = tuple(int(np.prod([jshape[i] for i in g]))
+                   for g in probe.groups() if len(g))
     return Slot(
         tree, path, layer, depth,
         lambda w: w.reshape([jshape[i] for i in perm]).transpose(inv),
@@ -399,10 +423,19 @@ def gpt2_slots(cfg) -> Dict[str, Slot]:
         "mlp_down.weight": ("mlp_down", "kernel", T, T),
         "mlp_down.bias": ("mlp_down", "bias", _same, _same),
     }
+    if cfg.moe_experts > 0:   # every block's FFN a mixture of experts
+        for name in ("mlp_up", "mlp_down"):
+            del per_layer[f"{name}.weight"], per_layer[f"{name}.bias"]
+        per_layer.update({
+            "moe.router.weight": ("moe", "router/kernel", T, T),
+            "moe.w_in": ("moe", "w_in", _same, _same),
+            "moe.w_out": ("moe", "w_out", _same, _same),
+        })
     for i in range(L):
         for sub, (mod, leaf, fwd, inv) in per_layer.items():
             slots[f"blocks.{i}.{sub}"] = Slot(
-                "params", ("blocks", "block", mod, leaf), i, L, fwd, inv)
+                "params", ("blocks", "block", mod, *leaf.split("/")), i, L,
+                fwd, inv)
     return slots
 
 
@@ -438,6 +471,11 @@ def llama_slots(cfg) -> Dict[str, Slot]:
         "up.weight": ("up", "kernel", (D, I), (1, 0), 1),
         "down.weight": ("down", "kernel", (I, D), (1, 0), 1),
     }
+    if getattr(cfg, "num_experts", 0):   # Mixtral: the MoE FFN
+        E = cfg.num_experts
+        for name in ("gate.weight", "up.weight", "down.weight"):
+            del per_layer[name]
+        per_layer.update(_moe_per_layer(D, E, I, swiglu=True))
     if cfg.attention_bias:
         for name, heads in (("q", H), ("k", Hkv), ("v", Hkv)):
             per_layer[f"{name}.bias"] = (name, "bias", (heads, hd), (0, 1),
@@ -448,9 +486,51 @@ def llama_slots(cfg) -> Dict[str, Slot]:
     for i in range(L):
         for sub, (mod, leaf, js, perm, rows) in per_layer.items():
             slots[f"layers.{i}.{sub}"] = _permuted(
-                "params", ("layers", "block", mod, leaf), i, L, js, perm,
-                rows)
+                "params", ("layers", "block", mod, *leaf.split("/")), i, L,
+                js, perm, rows)
     return slots
+
+
+def _moe_per_layer(D: int, E: int, F: int, *, swiglu: bool):
+    """The per-layer MoE entries of a slot table (``llama_slots``'s
+    ``(module, leaf, jshape, perm, rows)`` form): the router ``[E, D]``
+    is the ``[D, E]`` kernel, the stacked experts ``[E, D, F]`` /
+    ``[E, F, D]`` are the JAX leaves as they are, one port dim per JAX
+    axis (so an ``ep`` or ``tp`` shard is a box of the leaf)."""
+    out = {
+        "moe.router.weight": ("moe", "router/kernel", (D, E), (1, 0), 1),
+        "moe.w_in": ("moe", "w_in", (E, D, F), (0, 1, 2), (1, 1, 1)),
+        "moe.w_out": ("moe", "w_out", (E, F, D), (0, 1, 2), (1, 1, 1)),
+    }
+    if swiglu:
+        out["moe.w_gate"] = ("moe", "w_gate", (E, D, F), (0, 1, 2),
+                             (1, 1, 1))
+    return out
+
+
+def mixtral_slots(cfg) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``MixtralForCausalLM``: Llama's, with the
+    MoE FFN's router and stacked experts in place of gate/up/down
+    (``layers/block/moe/{router/kernel, w_in, w_gate, w_out}``, a leading
+    ``[L]``)."""
+    return llama_slots(cfg)
+
+
+def mixtral_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``MixtralForCausalLM`` params -> the port's state_dict: the
+    Llama body's leaves (:func:`llama_params_from_jax`) and each layer's
+    ``moe/router/kernel [D, E]`` (the port's ``[E, D]``) and
+    ``moe/w_in``, ``moe/w_gate`` ``[E, D, F]`` and ``moe/w_out``
+    ``[E, F, D]`` (as they are)."""
+    return _params_from_slots(params, mixtral_slots(cfg),
+                              "mixtral_params_from_jax", "layers", "layer")
+
+
+def mixtral_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`mixtral_params_from_jax` (f32 numpy, the
+    scan-stacked layout)."""
+    return _params_to_jax(state_dict, mixtral_slots(cfg),
+                          "mixtral_params_to_jax")
 
 
 def neox_slots(cfg) -> Dict[str, Slot]:
@@ -549,6 +629,65 @@ def bert_slots(cfg, head: str = "classifier") -> Dict[str, Slot]:
             for name, (path, maps) in table.items()}
 
 
+def vit_slots(cfg) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``ViT``: the JAX tree's unscanned layout
+    (``block_{i}/...``). The patch conv ``[D, 3, ps, ps]`` is flax's
+    ``[ps, ps, 3, D]`` kernel; q/k/v ``[D, D]`` are ``[D, heads, hd]``
+    DenseGeneral kernels (biases ``[heads, hd]``), the attention output
+    ``[D, D]`` an ``[heads, hd, D]`` kernel, the other Dense weights
+    ``[out, in]`` ``[in, out]`` kernels, LayerNorm weights ``scale``
+    leaves; the cls token and the positions as they are."""
+    D, H, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    T = (lambda a: a.T, lambda a: a.T)  # [out, in] <-> [in, out]
+    same = (_same, _same)
+    qkv = (lambda w: w.T.reshape(D, H, hd), lambda k: k.reshape(D, -1).T)
+    qkv_bias = (lambda b: b.reshape(H, hd), lambda b: b.reshape(-1))
+    out = (lambda w: w.T.reshape(H, hd, D), lambda k: k.reshape(-1, D).T)
+    conv = (lambda w: w.transpose(2, 3, 1, 0),
+            lambda k: k.transpose(3, 2, 0, 1))
+
+    def dense(port, path, kernel=T, bias=same):
+        return {f"{port}.weight": (path + ("kernel",), kernel),
+                f"{port}.bias": (path + ("bias",), bias)}
+
+    def norm(port, path):
+        return {f"{port}.weight": (path + ("scale",), same),
+                f"{port}.bias": (path + ("bias",), same)}
+
+    table = dense("patch_embed", ("patch_embed",), conv)
+    if cfg.pooling == "cls":
+        table["cls_token"] = (("cls_token",), same)
+    table["pos_embedding"] = (("pos_embedding",), same)
+    for i in range(cfg.num_layers):
+        p, jp = f"blocks.{i}.", (f"block_{i}",)
+        table.update(norm(p + "attn_ln", jp + ("attn_ln",)))
+        for name in ("query", "key", "value"):
+            table.update(dense(p + name, jp + (name,), qkv, qkv_bias))
+        table.update(dense(p + "out", jp + ("out",), out))
+        table.update(norm(p + "mlp_ln", jp + ("mlp_ln",)))
+        table.update(dense(p + "mlp_up", jp + ("mlp_up",)))
+        table.update(dense(p + "mlp_down", jp + ("mlp_down",)))
+    table.update(norm("final_ln", ("final_ln",)))
+    table.update(dense("head", ("head",)))
+    return {name: Slot("params", path, None, 0, *maps)
+            for name, (path, maps) in table.items()}
+
+
+def vit_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``ViT`` params -> the port's ``ViT`` state_dict (f32 CPU
+    tensors), every leaf accounted for."""
+    leaves = _Leaves(params, "vit_params_from_jax", "A10.5")
+    sd = {name: _t(slot.from_jax(leaves.take("/".join(slot.path))))
+          for name, slot in vit_slots(cfg).items()}
+    leaves.finish()
+    return sd
+
+
+def vit_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`vit_params_from_jax` (f32 numpy)."""
+    return _params_to_jax(state_dict, vit_slots(cfg), "vit_params_to_jax")
+
+
 def _bert_head(names) -> str:
     """The head whose tensors (or JAX leaves) ``names`` holds."""
     return "mlm" if any(n.startswith("mlm_") for n in names) else "classifier"
@@ -611,10 +750,10 @@ def resnet_slots(names) -> Dict[str, Slot]:
 
 def model_slots(model) -> Dict[str, Slot]:
     """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM`` (any
-    Llama-body family), a ``NeoXForCausalLM``, a BERT
-    (``BertForSequenceClassification``, ``BertForMaskedLM``) or a
-    ``ResNet`` (or one inside ``DistributedDataParallel``): every entry
-    of its ``state_dict``."""
+    Llama-body family, Mixtral's experts too), a ``NeoXForCausalLM``, a
+    BERT (``BertForSequenceClassification``, ``BertForMaskedLM``), a
+    ``ViT`` or a ``ResNet`` (or one inside ``DistributedDataParallel``):
+    every entry of its ``state_dict``."""
     from pytorch_distributed_tpu_torch.models.bert import (
         BertForMaskedLM,
         BertForSequenceClassification,
@@ -623,6 +762,7 @@ def model_slots(model) -> Dict[str, Slot]:
     from pytorch_distributed_tpu_torch.models.llama import LlamaForCausalLM
     from pytorch_distributed_tpu_torch.models.neox import NeoXForCausalLM
     from pytorch_distributed_tpu_torch.models.resnet import ResNet
+    from pytorch_distributed_tpu_torch.models.vit import ViT
 
     model = getattr(model, "module", model)
     if hasattr(model, "adapter_slots"):   # a lora.LoRAModel
@@ -640,6 +780,8 @@ def model_slots(model) -> Dict[str, Slot]:
         slots = bert_slots(model.config, "mlm")
     elif isinstance(model, ResNet):
         slots = resnet_slots(logical_shapes(model).keys())
+    elif isinstance(model, ViT):
+        slots = vit_slots(model.config)
     else:
         raise NotImplementedError(
             f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
@@ -1143,6 +1285,8 @@ _LLAMA_HF_QK_NORM = (("self_attn.q_norm.weight", "q_norm.weight"),
 
 def _llama_hf_names(cfg):
     names = _LLAMA_HF
+    if getattr(cfg, "num_experts", 0):   # Mixtral: no dense MLP
+        names = tuple(n for n in names if not n[0].startswith("mlp."))
     if cfg.attention_bias:
         names += _LLAMA_HF_BIAS
     if cfg.qk_norm:
@@ -1214,6 +1358,194 @@ def export_llama_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
             sd[f"model.layers.{i}.{hf}"] = _np(
                 state_dict[f"layers.{i}.{port}"])
     return sd
+
+
+# HF Mixtral's per-expert Linears -> the port's stacked experts: w1 is
+# the gate (w_gate), w3 the up projection (w_in), w2 the down (w_out)
+_MIXTRAL_HF_EXPERTS = (("w1", "w_gate"), ("w3", "w_in"), ("w2", "w_out"))
+
+
+def load_mixtral_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``MixtralForCausalLM`` state_dict -> the port's
+    ``MixtralForCausalLM`` state_dict: the Llama body's names
+    (:func:`load_llama_weights`) and each layer's
+    ``block_sparse_moe.gate.weight`` (the router, ``[E, D]`` in both) and
+    ``block_sparse_moe.experts.{e}.w1/w3/w2.weight`` (``[out, in]``)
+    stacked over ``e`` and transposed into ``moe.w_gate``/``moe.w_in``
+    ``[E, D, F]`` and ``moe.w_out`` ``[E, F, D]``."""
+    out = load_llama_weights(sd, cfg)
+    for i in range(cfg.num_layers):
+        p, q = f"model.layers.{i}.block_sparse_moe.", f"layers.{i}.moe."
+        out[q + "router.weight"] = _hf(sd, p + "gate.weight")
+        for hf, port in _MIXTRAL_HF_EXPERTS:
+            out[q + port] = torch.stack([
+                _hf(sd, p + f"experts.{e}.{hf}.weight").T
+                for e in range(cfg.num_experts)]).contiguous()
+    return out
+
+
+def export_mixtral_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's ``MixtralForCausalLM`` state_dict -> HF
+    ``MixtralForCausalLM`` state_dict arrays (numpy): the inverse of
+    :func:`load_mixtral_weights`."""
+    sd = export_llama_weights(state_dict, cfg)
+    for i in range(cfg.num_layers):
+        p, q = f"model.layers.{i}.block_sparse_moe.", f"layers.{i}.moe."
+        sd[p + "gate.weight"] = _np(state_dict[q + "router.weight"])
+        for hf, port in _MIXTRAL_HF_EXPERTS:
+            w = _np(state_dict[q + port])
+            for e in range(cfg.num_experts):
+                sd[p + f"experts.{e}.{hf}.weight"] = np.ascontiguousarray(
+                    w[e].T)
+    return sd
+
+
+# HF BERT names -> the port's, per layer (Linear and LayerNorm pairs)
+_BERT_HF_LAYER = (
+    ("attention.self.query", "attn.query"),
+    ("attention.self.key", "attn.key"),
+    ("attention.self.value", "attn.value"),
+    ("attention.output.dense", "attn.out"),
+    ("attention.output.LayerNorm", "attn_ln"),
+    ("intermediate.dense", "mlp_up"),
+    ("output.dense", "mlp_down"),
+    ("output.LayerNorm", "mlp_ln"),
+)
+_BERT_HF_TOP = (
+    ("embeddings.word_embeddings", "word_embeddings", ("weight",)),
+    ("embeddings.position_embeddings", "position_embeddings", ("weight",)),
+    ("embeddings.token_type_embeddings", "token_type_embeddings",
+     ("weight",)),
+    ("embeddings.LayerNorm", "embed_ln", ("weight", "bias")),
+    ("pooler.dense", "pooler", ("weight", "bias")),
+)
+
+
+def _bert_trunk_names(cfg):
+    """``[(HF name, port name)]`` of a BERT trunk, without prefixes."""
+    out = [(f"{hf}.{leaf}", f"{port}.{leaf}")
+           for hf, port, leaves in _BERT_HF_TOP for leaf in leaves]
+    for i in range(cfg.num_layers):
+        for hf, port in _BERT_HF_LAYER:
+            for leaf in ("weight", "bias"):
+                out.append((f"encoder.layer.{i}.{hf}.{leaf}",
+                            f"layers.{i}.{port}.{leaf}"))
+    return out
+
+
+def load_bert_weights(sd, cfg, *, num_labels: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """HF BERT state_dict -> the port's: ``BertForSequenceClassification``'s
+    with ``num_labels`` (its ``classifier.*`` read), ``BertForMaskedLM``'s
+    for an HF ``BertForMaskedLM`` dict (its ``cls.predictions.transform``
+    keys; the tied decoder is the word-embedding table, so only its bias
+    is read, and HF's poolerless masked LM gets a zero pooler, which the
+    MLM head never reads), else a bare ``BertModel``'s. The port's
+    ``[out, in]`` layouts are HF's own: the map is names (the JAX
+    loader's keys)."""
+    pre = "bert." if any(k.startswith("bert.") for k in sd) else ""
+    is_mlm = "cls.predictions.transform.dense.weight" in sd
+    head = "bert." if num_labels is not None or is_mlm else ""
+    H = cfg.hidden_size
+    out = {}
+    for hf, port in _bert_trunk_names(cfg):
+        if (is_mlm and hf.startswith("pooler.")
+                and pre + hf not in sd):
+            out[head + port] = torch.zeros(
+                (H, H) if hf.endswith("weight") else (H,))
+            continue
+        out[head + port] = _hf(sd, pre + hf)
+    if num_labels is not None:
+        out["classifier.weight"] = _hf(sd, "classifier.weight")
+        out["classifier.bias"] = _hf(sd, "classifier.bias")
+    elif is_mlm:
+        t = "cls.predictions.transform."
+        for hf, port in (("dense", "mlm_dense"), ("LayerNorm", "mlm_ln")):
+            for leaf in ("weight", "bias"):
+                out[f"{port}.{leaf}"] = _hf(sd, f"{t}{hf}.{leaf}")
+        out["mlm_bias"] = _hf(sd, "cls.predictions.bias")
+    return out
+
+
+def export_bert_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's BERT state_dict -> HF state_dict arrays: the inverse of
+    :func:`load_bert_weights`. A classifier or masked LM exports with
+    HF's ``bert.`` prefix (the masked LM with the tied
+    ``cls.predictions.decoder.weight`` and its bias alias, as HF
+    materializes them, and the pooler, which HF's masked LM ignores); a
+    bare ``BertModel`` without it."""
+    mlm = "mlm_bias" in state_dict
+    wrapped = "classifier.weight" in state_dict or mlm
+    src = "bert." if wrapped else ""
+    sd = {}
+    for hf, port in _bert_trunk_names(cfg):
+        sd[src + hf] = _np(state_dict[src + port])
+    if "classifier.weight" in state_dict:
+        sd["classifier.weight"] = _np(state_dict["classifier.weight"])
+        sd["classifier.bias"] = _np(state_dict["classifier.bias"])
+    if mlm:
+        t = "cls.predictions.transform."
+        for hf, port in (("dense", "mlm_dense"), ("LayerNorm", "mlm_ln")):
+            for leaf in ("weight", "bias"):
+                sd[f"{t}{hf}.{leaf}"] = _np(state_dict[f"{port}.{leaf}"])
+        bias = _np(state_dict["mlm_bias"])
+        sd["cls.predictions.bias"] = bias
+        sd["cls.predictions.decoder.weight"] = _np(
+            state_dict["bert.word_embeddings.weight"])
+        sd["cls.predictions.decoder.bias"] = bias
+    return sd
+
+
+# HF ViT names -> the port's: (HF prefix, port prefix, leaves)
+_VIT_HF_TOP = (
+    ("vit.embeddings.patch_embeddings.projection", "patch_embed",
+     ("weight", "bias")),
+    ("vit.layernorm", "final_ln", ("weight", "bias")),
+    ("classifier", "head", ("weight", "bias")),
+)
+_VIT_HF_LAYER = (
+    ("layernorm_before", "attn_ln"),
+    ("attention.attention.query", "query"),
+    ("attention.attention.key", "key"),
+    ("attention.attention.value", "value"),
+    ("attention.output.dense", "out"),
+    ("layernorm_after", "mlp_ln"),
+    ("intermediate.dense", "mlp_up"),
+    ("output.dense", "mlp_down"),
+)
+
+
+def _vit_names(cfg):
+    if cfg.pooling != "cls":
+        raise ValueError(
+            "the HF ViT layout carries a cls token; convert with "
+            "pooling='cls' (mean-pooling trees have no cls_token and a "
+            "shorter position table)")
+    out = [(f"{hf}.{leaf}", f"{port}.{leaf}")
+           for hf, port, leaves in _VIT_HF_TOP for leaf in leaves]
+    out += [("vit.embeddings.cls_token", "cls_token"),
+            ("vit.embeddings.position_embeddings", "pos_embedding")]
+    for i in range(cfg.num_layers):
+        for hf, port in _VIT_HF_LAYER:
+            for leaf in ("weight", "bias"):
+                out.append((f"vit.encoder.layer.{i}.{hf}.{leaf}",
+                            f"blocks.{i}.{port}.{leaf}"))
+    return out
+
+
+def load_vit_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``ViTForImageClassification`` state_dict -> the port's ``ViT``
+    state_dict (cls pooling; HF ViT is pre-LN as ``ViTBlock``:
+    ``layernorm_before`` is ``attn_ln``, ``layernorm_after`` ``mlp_ln``).
+    The port's layouts are HF's own (the patch conv ``[D, 3, ps, ps]``,
+    ``[out, in]`` Linears): the map is names."""
+    return {port: _hf(sd, hf) for hf, port in _vit_names(cfg)}
+
+
+def export_vit_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's ``ViT`` state_dict -> HF ``ViTForImageClassification``
+    state_dict arrays: the inverse of :func:`load_vit_weights`."""
+    return {hf: _np(state_dict[port]) for hf, port in _vit_names(cfg)}
 
 
 # Mistral's, Qwen2's (q/k/v biases), Qwen3's (q_norm/k_norm) and Gemma's

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_distributed_tpu_torch.models.scan import remat_call
+from pytorch_distributed_tpu_torch.ops.moe import MoEMLP
 from pytorch_distributed_tpu_torch.ops.attention import (
     attention,
     decode_cache,
@@ -58,8 +59,13 @@ class GPT2Config:
     # recompute each block's activations in the backward (models/scan.py)
     remat: bool = False
     remat_policy: str = "full"  # full | dots | dots_no_batch
-    # > 0 turns every FFN into a mixture of experts: not ported
+    # > 0 turns every block's FFN into a mixture of experts (ops/moe.py),
+    # its experts over the ep mesh axis
     moe_experts: int = 0
+    moe_k: int = 2
+    # expert queue length k * T * factor / E: capacity dropping makes the
+    # routing depend on how many tokens share the call
+    moe_capacity_factor: Optional[float] = 1.25
     # "int8" rests the decode KV cache (dense or paged) quantized
     # (ops/attention.py; lossy); None = exact
     kv_cache_quantize: Optional[str] = None
@@ -187,12 +193,21 @@ class GPT2Block(nn.Module):
         self.attn_qkv = Dense(D, 3 * D, **kw)  # out = (3, heads, head_dim)
         self.attn_out = Dense(D, D, **kw)      # in = (heads, head_dim)
         self.ln2 = LayerNorm(D, cfg.layer_norm_eps, **kw)
-        self.mlp_up = Dense(D, cfg.intermediate_size, **kw)
-        self.mlp_down = Dense(cfg.intermediate_size, D, **kw)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(D, cfg.moe_experts, cfg.intermediate_size,
+                              k=cfg.moe_k,
+                              capacity_factor=cfg.moe_capacity_factor, **kw)
+        else:
+            self.mlp_up = Dense(D, cfg.intermediate_size, **kw)
+            self.mlp_down = Dense(cfg.intermediate_size, D, **kw)
 
     def forward(self, x, segment_ids, *, train: bool, generator,
                 attn_impl: Optional[str] = None, layer_cache=None,
-                write_pos=None, kv_mask=None, paged=None):
+                write_pos=None, kv_mask=None, paged=None,
+                return_aux: bool = False):
+        """The block's output (with ``return_aux``, ``(output, aux)``:
+        its mixture-of-experts load-balance loss, None for a dense
+        FFN)."""
         cfg = self.cfg
         B, S, D = x.shape
         H, hd = cfg.num_heads, cfg.head_dim
@@ -211,9 +226,14 @@ class GPT2Block(nn.Module):
             )
         attn = self.attn_out(attn.reshape(B, S, D))
         x = x + dropout(attn, cfg.dropout_rate, train, generator)
-        h = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
-        h = self.mlp_down(h)
-        return x + dropout(h, cfg.dropout_rate, train, generator)
+        aux = None
+        if cfg.moe_experts > 0:
+            h, aux = self.moe(self.ln2(x))
+        else:
+            h = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
+            h = self.mlp_down(h)
+        x = x + dropout(h, cfg.dropout_rate, train, generator)
+        return (x, aux) if return_aux else x
 
 
 class GPT2LMHead(nn.Module):
@@ -224,10 +244,6 @@ class GPT2LMHead(nn.Module):
     def __init__(self, config: GPT2Config, *, device: DeviceLike = None,
                  policy: Policy = Policy()):
         super().__init__()
-        if config.moe_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts FFNs are not ported (ROADMAP A10)"
-            )
         device = resolve_device(device)
         self.config = config
         self.policy = policy
@@ -293,6 +309,7 @@ class GPT2LMHead(nn.Module):
         generator: Optional[torch.Generator] = None,
         decode: bool = False,
         return_hidden: bool = False,
+        return_aux: bool = False,
         attn_impl: Optional[str] = None,
         cache=None,
         write_pos: Optional[torch.Tensor] = None,
@@ -354,19 +371,26 @@ class GPT2LMHead(nn.Module):
                                  self.policy.compute_dtype)
             return logits.to(self.policy.output_dtype), cache
         remat = cfg.remat and torch.is_grad_enabled()
+        auxes = []
         for block in self.blocks:
             if remat:
-                x = remat_call(block, x, segment_ids, train=train,
-                               generator=generator, attn_impl=attn_impl,
-                               policy=cfg.remat_policy)
+                x, aux = remat_call(block, x, segment_ids, train=train,
+                                    generator=generator, attn_impl=attn_impl,
+                                    policy=cfg.remat_policy, return_aux=True)
             else:
-                x = block(x, segment_ids, train=train, generator=generator,
-                          attn_impl=attn_impl)
+                x, aux = block(x, segment_ids, train=train,
+                               generator=generator, attn_impl=attn_impl,
+                               return_aux=True)
+            if aux is not None:
+                auxes.append(aux)
         x = self.ln_f(x)
+        aux = torch.stack(auxes).sum() if auxes else None
         if return_hidden:
-            return x.to(self.policy.output_dtype)
-        logits = tied_logits(x, self.wte.weight, self.policy.compute_dtype)
-        return logits.to(self.policy.output_dtype)
+            out = x.to(self.policy.output_dtype)
+        else:
+            out = tied_logits(x, self.wte.weight, self.policy.compute_dtype
+                              ).to(self.policy.output_dtype)
+        return (out, aux) if return_aux else out
 
 
 def gpt2_partition_rules():

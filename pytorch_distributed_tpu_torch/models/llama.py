@@ -226,15 +226,31 @@ class LlamaBlock(nn.Module):
             self.k_norm = norm(hd)
         self.o = lin(cfg.num_heads * hd, D)
         self.mlp_norm = norm(D)
-        self.gate = lin(D, cfg.intermediate_size)
-        self.up = lin(D, cfg.intermediate_size)
-        self.down = lin(cfg.intermediate_size, D)
+        self._build_ffn(cfg, lin, device=device, policy=policy)
         # (rank, ways, process group) of the tp axis; parallel.FSDP sets it
         self.tp = (0, 1, None)
+
+    def _build_ffn(self, cfg, lin, *, device, policy: Policy):
+        """The FFN's modules (the hook a family swaps: Mixtral's experts)."""
+        self.gate = lin(cfg.hidden_size, cfg.intermediate_size)
+        self.up = lin(cfg.hidden_size, cfg.intermediate_size)
+        self.down = lin(cfg.intermediate_size, cfg.hidden_size)
+
+    def _ffn(self, h):
+        """``(y, aux)``: the FFN's output, and its load-balance loss (None
+        for a dense FFN)."""
+        gate = self.gate(h)
+        if self.cfg.hidden_act == "silu":
+            gate = F.silu(gate)
+        else:   # Gemma's tanh-approximate gelu
+            gate = F.gelu(gate, approximate="tanh")
+        return self.down(gate * self.up(h)), None
 
     def forward(self, x, cos, sin, positions, layer_cache, write_pos,
                 paged: Optional[PagedView], attn_impl: Optional[str] = None,
                 segment_ids=None, mask=None):
+        """``(x, aux)``: the block's output and its FFN's load-balance loss
+        (None for a dense FFN)."""
         cfg = self.cfg
         if cfg.remat and layer_cache is None and torch.is_grad_enabled():
             def run(x, cos, sin, positions, segment_ids, mask, generator):
@@ -277,13 +293,8 @@ class LlamaBlock(nn.Module):
             impl=attn_impl,
         )
         x = x + self.o(attn.reshape(B, S, -1))
-        h = self.mlp_norm(x)
-        gate = self.gate(h)
-        if cfg.hidden_act == "silu":
-            gate = F.silu(gate)
-        else:   # Gemma's tanh-approximate gelu
-            gate = F.gelu(gate, approximate="tanh")
-        return x + self.down(gate * self.up(h))
+        y, aux = self._ffn(self.mlp_norm(x))
+        return x + y, aux
 
 
 def local_kv_heads(k, v, cfg: LlamaConfig, rank: int, hq: int):
@@ -315,6 +326,8 @@ class LlamaForCausalLM(nn.Module):
     ``lm_head`` (the Llama-3 layout), or with ``tie_word_embeddings`` the
     embedding table itself (``lm_head`` is then None)."""
 
+    block_cls = LlamaBlock   # a family's block (Mixtral's MoE FFN)
+
     def __init__(self, config: LlamaConfig, *, device: DeviceLike = None,
                  policy: Policy = Policy()):
         super().__init__()
@@ -326,7 +339,7 @@ class LlamaForCausalLM(nn.Module):
             config.vocab_size, config.hidden_size, device=device, dtype=dt
         )
         self.layers = nn.ModuleList(
-            LlamaBlock(config, device=device, policy=policy)
+            self.block_cls(config, device=device, policy=policy)
             for _ in range(config.num_layers)
         )
         self.final_norm = RMSNorm(
@@ -405,10 +418,13 @@ class LlamaForCausalLM(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         return_hidden: bool = False,
+        return_aux: bool = False,
     ):
         """``decode=False``: a plain causal pass, returns logits (the final
         hidden states in the output dtype with ``return_hidden``, for the
-        chunked-vocab loss). ``segment_ids`` [B, S] (packed rows, with
+        chunked-vocab loss); with ``return_aux`` ``(that, aux)``, ``aux``
+        the sum of the layers' load-balance losses (None without experts),
+        for the loss to weigh. ``segment_ids`` [B, S] (packed rows, with
         per-document ``positions``) keep attention inside each document;
         ``train`` and ``generator`` (the train step's dropout stream) are
         accepted as GPT-2's are: Llama has no dropout and draws nothing.
@@ -457,21 +473,28 @@ class LlamaForCausalLM(nn.Module):
         else:
             table_len = cfg.max_seq_len
         cos, sin = self._rope_tables(table_len)
+        auxes = []
         for i, layer in enumerate(self.layers):
-            x = layer(
+            x, aux = layer(
                 x, cos, sin, positions,
                 cache[i] if decode else None, write_pos, paged,
                 attn_impl=attn_impl, segment_ids=segment_ids, mask=kv_mask,
             )
+            if aux is not None:
+                auxes.append(aux)
         x = self.final_norm(x)
+        aux = torch.stack(auxes).sum() if auxes else None
         if return_hidden:
-            return x.to(self.policy.output_dtype)
+            out = x.to(self.policy.output_dtype)
+            return (out, aux) if return_aux else out
         if self.lm_head is not None:
             logits = self.lm_head(x)
         else:   # tied: x E^T in the compute dtype, as flax's Embed.attend
             logits = F.linear(x.to(cd), _whole(self.embed.weight).to(cd))
         logits = logits.to(self.policy.output_dtype)
-        return (logits, cache) if decode else logits
+        if decode:
+            return logits, cache
+        return (logits, aux) if return_aux else logits
 
 
 def llama_partition_rules(num_kv_heads: Optional[int] = None):

@@ -198,8 +198,7 @@ def _port_dim_of_axis(slot, jshape: Tuple[int, ...], axis: int, ways: int,
     there is none (the axis is not the outermost non-trivial axis folded
     into one port dim)."""
     if slot.perm is not None:
-        for dim, group in enumerate((slot.perm[:slot.rows],
-                                     slot.perm[slot.rows:])):
+        for dim, group in enumerate(slot.groups()):
             if axis in group:
                 lead = group[:list(group).index(axis)]
                 if all(jshape[a] == 1 for a in lead):

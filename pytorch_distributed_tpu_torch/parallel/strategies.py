@@ -47,10 +47,10 @@ use, as the unsharded model does, so RMSNorm multiplies by its f32 scale
 as in the JAX model (twice the all-gather bytes of a bf16 gather). The
 batch is split over dp x fsdp, every rank its own share.
 
-With ``tp > 1`` or ``sp > 1`` the mesh is 4-D ``(dp, fsdp, sp, tp)``
-(``runtime/mesh.py``). :meth:`FSDP.wrap` first applies the TP plan on
-``mesh["tp"]`` (:func:`tp_plan`: each module whose weight the partition
-rules shard, ``extra_rules`` as in the JAX strategy, becomes
+With ``ep``, ``sp`` or ``tp`` above 1 the mesh is 5-D ``(dp, fsdp, ep,
+sp, tp)`` (``runtime/mesh.py``). :meth:`FSDP.wrap` first applies the TP
+plan on ``mesh["tp"]`` (:func:`tp_plan`: each module whose weight the
+partition rules shard, ``extra_rules`` as in the JAX strategy, becomes
 column-parallel (``Shard(0)`` of the port's ``[out, in]`` weight) or
 row-parallel (``Shard(1)``) through ``parallelize_module``; the
 embedding sharded on hidden and the vocab-sharded head return their
@@ -59,8 +59,12 @@ when above 1, as HSDP's replica dim): FSDP2 shards each TP shard's rows
 over ``fsdp``. Over ``sp`` the parameters are replicated, each rank's
 loss is its share of the rows' mean (``train/losses.py``), and the
 train step sums the gradients over ``sp``
-(``model.sequence_grad_group``). :class:`DataParallel` and
-:class:`ZeRO1` take neither axis (ROADMAP A10.1).
+(``model.sequence_grad_group``). Over ``ep`` each rank holds its
+experts of every mixture-of-experts layer (:func:`place_experts`, a
+``DTensor`` FSDP2 shards further over ``fsdp``), the tokens replicated.
+:class:`DataParallel` on a mesh with ``ep`` or ``tp`` above 1 is this
+at ``fsdp == 1``: the JAX ``DataParallel(extra_rules=...)``.
+:class:`ZeRO1` takes no model axis (ROADMAP A10.1).
 """
 
 from __future__ import annotations
@@ -134,22 +138,164 @@ def tp_plan(model: torch.nn.Module, rules, spec: MeshSpec) -> Dict[str,
     return plan
 
 
+def _axes_group(mesh, axes):
+    """The process group of this rank's slice of the mesh dims ``axes``
+    (the ranks that differ from it only there). Every rank builds every
+    slice's group, as ``new_group`` requires."""
+    if len(axes) == 1:
+        return mesh[axes[0]].get_group()
+    names = list(mesh.mesh_dim_names)
+    order = [i for i, n in enumerate(names) if n not in axes] + [
+        names.index(a) for a in axes]
+    n = 1
+    for a in axes:
+        n *= mesh.shape[names.index(a)]
+    rows = mesh.mesh.permute(order).reshape(-1, n).tolist()
+    mine = None
+    me = dist.get_rank()
+    for ranks in rows:
+        group = torch.distributed.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
+def place_experts(model: torch.nn.Module, rules, spec: MeshSpec,
+                  mesh) -> None:
+    """Shard every mixture-of-experts layer's stacked experts of ``model``
+    (``ops.moe.MoEMLP``) as ``rules`` place their JAX leaves: a
+    ``DTensor`` over the mesh's ``ep`` and ``tp`` dims (experts over
+    ``ep``, their hidden dim over ``tp``), and set the layer's ``group``
+    to this rank's ``(ep, tp)`` slice, over which its outputs sum. Run
+    before FSDP, which then shards each rank's box over ``fsdp`` and
+    reduces its gradient over the data axes only."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from pytorch_distributed_tpu_torch.ops.moe import EXPERT_LEAVES, MoEMLP
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        infer_placements,
+    )
+
+    axes = tuple(a for a in ("ep", "tp") if getattr(spec, a) > 1)
+    layers = [(name, mod) for name, mod in model.named_modules()
+              if isinstance(mod, MoEMLP)]
+    if not axes or not layers:
+        return
+    placed = infer_placements(model, rules, spec)
+    sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+    group = _axes_group(mesh, axes)
+    for name, mod in layers:
+        for leaf in EXPERT_LEAVES:
+            p = getattr(mod, leaf, None)
+            if p is None:
+                continue
+            dims = placed.get(f"{name}.{leaf}", {})
+            shards = [Shard(dims[a]) if a in dims else Replicate()
+                      for a in axes]
+            setattr(mod, leaf, torch.nn.Parameter(
+                distribute_tensor(p.data, sub, shards),
+                requires_grad=p.requires_grad))
+        mod.group = group
+
+
+def set_moe_data_group(model: torch.nn.Module, group) -> None:
+    """Route every mixture-of-experts layer of ``model`` over the whole
+    batch of ``group``'s ranks (``ops.moe.route``)."""
+    from pytorch_distributed_tpu_torch.ops.moe import MoEMLP
+
+    for mod in model.modules():
+        if isinstance(mod, MoEMLP):
+            mod.data_group = group
+
+
+def _shard_model(model: torch.nn.Module, spec: MeshSpec, mesh, shard_mesh,
+                 rules) -> torch.nn.Module:
+    """:meth:`FSDP.wrap`'s body: the TP plan over ``tp``, the experts
+    over ``ep`` and ``tp``, then FSDP2 on each of ``model.layers`` (or
+    ``blocks``) and on the root over ``shard_mesh``."""
+    from torch.distributed.fsdp import fully_shard
+
+    blocks = getattr(model, "layers", None)
+    if blocks is None:
+        blocks = model.blocks
+    if spec.tp > 1:
+        from torch.distributed.tensor.parallel import parallelize_module
+
+        tp_mesh = mesh["tp"]
+        parallelize_module(model, tp_mesh, tp_plan(model, rules, spec))
+        for block in blocks:
+            block.tp = (tp_mesh.get_local_rank(), spec.tp,
+                        tp_mesh.get_group())
+    place_experts(model, rules, spec, mesh)
+    data = tuple(a for a in ("dp", "fsdp") if getattr(spec, a) > 1)
+    if data:
+        set_moe_data_group(model, _axes_group(mesh, data))
+    for block in blocks:
+        fully_shard(block, mesh=shard_mesh, reshard_after_forward=True)
+    fully_shard(model, mesh=shard_mesh, reshard_after_forward=True)
+    if spec.sp > 1:
+        model.sequence_grad_group = mesh["sp"].get_group()
+    return model
+
+
 class DataParallel:
     """DDP over the process group (which must exist), on this rank's
-    ``device`` (the card unless given)."""
+    ``device`` (the card unless given).
 
-    def __init__(self, device: DeviceLike = None):
+    With a ``mesh_spec`` whose model axes (``ep``, ``tp``) are above 1,
+    the JAX strategy's ``extra_rules`` (a model's ``*_partition_rules()``,
+    say ``mixtral_partition_rules()``) place the leaves they name on the
+    mesh and the rest stay replicated: :meth:`wrap` shards the model as
+    :class:`FSDP` does at ``fsdp == 1`` (experts over ``ep``, Megatron TP
+    over ``tp``) and reduces the gradients over ``dp`` only, each rank's
+    share of the batch the rows of its ``dp`` coordinate. Build the model
+    on the meta device then, wrap it, ``to_empty`` and ``init_weights``
+    (each rank draws its own box). ``sp`` needs :class:`FSDP`."""
+
+    def __init__(self, device: DeviceLike = None, *,
+                 mesh_spec: Optional[MeshSpec] = None, extra_rules=None):
         if not dist.is_initialized():
             raise RuntimeError(
                 "DataParallel needs a process group: call "
                 "runtime.distributed.init_process_group() first"
             )
         self.device = resolve_device(device)
+        self.rules = extra_rules
+        self.spec = (None if mesh_spec is None
+                     else mesh_spec.resolve(dist.get_world_size()))
+        self.mesh = None
+        if self.model_parallel:
+            if self.spec.fsdp != 1 or self.spec.sp != 1:
+                raise ValueError(
+                    f"DataParallel replicates over dp and shards over ep "
+                    f"and tp only; {self.spec} needs FSDP")
+            if extra_rules is None:
+                raise ValueError(
+                    "ep/tp above 1 need the model's partition rules "
+                    "(extra_rules=mixtral_partition_rules(), say)")
+            self.mesh = make_mesh(self.spec, self.device.type)
+
+    @property
+    def model_parallel(self) -> bool:
+        """Whether the mesh has a model axis (the model is sharded)."""
+        return self.spec is not None and self.spec.model_parallel()
 
     def wrap(self, model: torch.nn.Module, *,
-             grad_compress: Optional[str] = None) -> DistributedDataParallel:
+             grad_compress: Optional[str] = None) -> torch.nn.Module:
         """``model`` in DDP over the process group; with ``grad_compress``
-        its gradients cross the ranks through ``ddp.compress_hook``."""
+        its gradients cross the ranks through ``ddp.compress_hook``. On a
+        model-parallel mesh: ``model`` sharded in place (see the class
+        docstring), returned."""
+        if self.model_parallel:
+            if grad_compress is not None:
+                raise NotImplementedError(
+                    "--grad-compress on a model-parallel mesh (ROADMAP "
+                    "A10.1)")
+            return _shard_model(model, self.spec, self.mesh,
+                                self.mesh[self.spec.shard_dims()],
+                                self.rules)
+        if dist.get_world_size() > 1:
+            set_moe_data_group(model, torch.distributed.group.WORLD)
         ids = [self.device.index] if self.device.type == "cuda" else None
         ddp = DistributedDataParallel(
             model, device_ids=ids, broadcast_buffers=False,
@@ -218,37 +364,22 @@ class FSDP(DataParallel):
         self.spec = mesh_spec.resolve(dist.get_world_size())
         self.mesh = make_mesh(self.spec, self.device.type)
         self.rules = extra_rules
-        if self.spec.tp > 1 and extra_rules is None:
+        if (self.spec.tp > 1 or self.spec.ep > 1) and extra_rules is None:
             raise ValueError(
-                f"tp={self.spec.tp} needs the model's partition rules "
-                "(extra_rules=llama_partition_rules(), say)")
+                f"tp={self.spec.tp}, ep={self.spec.ep} need the model's "
+                "partition rules (extra_rules=llama_partition_rules(), say)")
         self.shard_mesh = (self.mesh[self.spec.shard_dims()]
                            if self.spec.model_parallel() else self.mesh)
 
     def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
-        """Shard ``model`` (a ``LlamaForCausalLM``) in place: the TP plan
-        over ``tp``, then FSDP on each of its ``layers`` and on the root;
+        """Shard ``model`` (a ``LlamaForCausalLM`` or ``MixtralForCausalLM``)
+        in place: the TP plan over ``tp``, the experts over ``ep`` and
+        ``tp``, then FSDP on each of its ``layers`` and on the root;
         returns it. Build the model on the meta device, wrap it, then
         ``to_empty(device=...)`` and ``init_weights``: no rank ever holds
         the whole model."""
-        from torch.distributed.fsdp import fully_shard
-
-        if self.spec.tp > 1:
-            from torch.distributed.tensor.parallel import parallelize_module
-
-            tp_mesh = self.mesh["tp"]
-            parallelize_module(model, tp_mesh,
-                               tp_plan(model, self.rules, self.spec))
-            for block in model.layers:
-                block.tp = (tp_mesh.get_local_rank(), self.spec.tp,
-                            tp_mesh.get_group())
-        for block in model.layers:
-            fully_shard(block, mesh=self.shard_mesh,
-                        reshard_after_forward=True)
-        fully_shard(model, mesh=self.shard_mesh, reshard_after_forward=True)
-        if self.spec.sp > 1:
-            model.sequence_grad_group = self.mesh["sp"].get_group()
-        return model
+        return _shard_model(model, self.spec, self.mesh, self.shard_mesh,
+                            self.rules)
 
     def optimizer(self, params, optimizer_class=None, **defaults):
         """``optimizer_class`` (the port's ``AdamW`` unless given) over the

@@ -35,7 +35,8 @@ decode through ``generation.generate``), logged as ids or, with
 ``--backend`` is ``nccl`` or ``gloo`` (the device's own unless given),
 ``--dp`` the data-parallel width the world must hold (-1: every rank),
 as in the JAX recipe. ``--strategy auto`` and ``--pp`` (ROADMAP A10)
-raise.
+raise, and so does ``--tp`` above 1 (ROADMAP A10.1: GPT-2's tensor
+parallelism under DDP and ZeRO-1).
 """
 
 from __future__ import annotations
@@ -106,6 +107,8 @@ def parse_args(argv=None):
     p.add_argument("--strategy", choices=("zero1", "dp", "single", "auto"),
                    default="zero1")
     p.add_argument("--pp", type=int, default=1, help="pipeline stages")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways (above 1: ROADMAP A10.1)")
     p.add_argument("--remat", action="store_true",
                    help="recompute block activations in the backward")
     p.add_argument("--remat-policy", choices=("full", "dots",
@@ -136,6 +139,11 @@ def main(argv=None) -> Trainer:
         raise NotImplementedError(
             "--pp: pipeline parallelism is not ported (ROADMAP A10)"
         )
+    if args.tp > 1:
+        raise NotImplementedError(
+            f"--tp {args.tp}: GPT-2's tensor parallelism (its fused qkv "
+            "sharded on heads, under DDP or ZeRO-1) is not ported "
+            "(ROADMAP A10.1)")
     if args.pack and not args.text_file:
         raise SystemExit("--pack needs --text-file (documents to pack)")
     seed_all(args.seed)
@@ -200,7 +208,7 @@ def _train(args, device) -> Trainer:
         cfg = dataclasses.replace(cfg, remat=True,
                                   remat_policy=args.remat_policy)
     seq_len = min(args.seq_len, cfg.n_positions)
-    # the JAX recipe's mesh is dp alone (its tp and pp are A10)
+    # the JAX recipe's mesh is dp x tp (tp above 1 refused: A10.1)
     MeshSpec(dp=args.dp).resolve(dist.get_world_size()
                                  if dist.is_initialized() else 1)
     cfg, ds, eval_ds, tokenizer = _datasets(args, cfg, seq_len)

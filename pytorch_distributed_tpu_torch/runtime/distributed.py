@@ -427,6 +427,27 @@ def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
     return _SumGrad.apply(x, group)
 
 
+class _SumOutputs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=_pg(group, "sum_outputs"))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_outputs(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (a :class:`Subgroup` or torch's process
+    group), whose gradient goes back to every rank as it is: Megatron's
+    ``g``, for the partial results of a layer split over the ranks (each
+    rank's experts, or its share of their hidden units) that every rank
+    then uses whole. The pair of :func:`sum_grad` on the layer's input."""
+    return _SumOutputs.apply(x, group)
+
+
 def permute_grad(x: torch.Tensor, perm, *,
                  group: Optional[Subgroup] = None) -> torch.Tensor:
     """:func:`permute` that autograd differentiates: the gradient goes

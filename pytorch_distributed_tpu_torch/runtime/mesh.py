@@ -3,23 +3,26 @@
 The JAX package builds one mesh over named axes (``dp``, ``fsdp``,
 ``pp``, ``ep``, ``sp``, ``tp``) and expresses every strategy against it.
 The port has the two data axes, ``dp`` (replicas) and ``fsdp``
-(parameters and optimizer state sharded), and the two model axes,
-``sp`` (the sequence split over ranks, ``parallel/sequence.py``) and
-``tp`` (heads and hidden units split over ranks, ``parallel/
-sharding.py``), one card a rank. :func:`make_mesh` builds the
-``DeviceMesh`` every strategy uses:
+(parameters and optimizer state sharded), and the three model axes,
+``ep`` (the experts of a mixture-of-experts FFN split over ranks,
+``ops/moe.py``), ``sp`` (the sequence split over ranks,
+``parallel/sequence.py``) and ``tp`` (heads and hidden units split over
+ranks, ``parallel/sharding.py``), one card a rank. :func:`make_mesh`
+builds the ``DeviceMesh`` every strategy uses:
 
 * data axes only: 2-D ``("dp", "fsdp")`` whenever ``dp > 1`` (FSDP
   replicates its shards over ``dp``, as the JAX mesh does, ``fsdp == 1``
   included), 1-D ``fsdp`` when only ``fsdp`` is above 1, and 1-D ``dp``
   of one rank otherwise;
-* ``sp`` or ``tp`` above 1: 4-D ``("dp", "fsdp", "sp", "tp")``, in the
-  JAX axis order (``tp`` innermost), so that rank ``r`` holds the mesh
-  coordinate of JAX device ``r`` (``pp`` and ``ep`` are 1).
+* ``ep``, ``sp`` or ``tp`` above 1: 5-D ``("dp", "fsdp", "ep", "sp",
+  "tp")``, in the JAX axis order (``tp`` innermost), so that rank ``r``
+  holds the mesh coordinate of JAX device ``r`` (``pp`` is 1).
 
-``pp`` and ``ep`` above 1 raise, naming ROADMAP A10.3 and A10.4. The
-last mesh :func:`make_mesh` built is the current one
-(:func:`current_mesh`): the loader takes a rank's rows from its data
+``pp`` above 1 raises, naming ROADMAP A10.3. The tokens are replicated
+over ``ep`` (the batch splits over the data axes only), so the ranks of
+one ``ep`` group read the same rows. The last mesh :func:`make_mesh`
+built is the current one (:func:`current_mesh`, or one set by
+:func:`set_current_mesh`): the loader takes a rank's rows from its data
 coordinate (:func:`data_rank`), sequence-parallel attention its ring
 from the ``sp`` dim, and a checkpoint's writers from the coordinates a
 tensor is replicated over (:func:`shard_box`).
@@ -34,10 +37,9 @@ from typing import Optional, Tuple
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 
 AXES: Tuple[str, ...] = ("dp", "fsdp", "pp", "ep", "sp", "tp")
-#: the axes of the 4-D mesh, in the JAX order
-MODEL_MESH_AXES: Tuple[str, ...] = ("dp", "fsdp", "sp", "tp")
-_UNPORTED = {"pp": "pipeline parallelism is not ported (ROADMAP A10.3)",
-             "ep": "expert parallelism is not ported (ROADMAP A10.4)"}
+#: the axes of the model-parallel mesh, in the JAX order
+MODEL_MESH_AXES: Tuple[str, ...] = ("dp", "fsdp", "ep", "sp", "tp")
+_UNPORTED = {"pp": "pipeline parallelism is not ported (ROADMAP A10.3)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +90,8 @@ class MeshSpec:
         return MeshSpec(**dict(zip(AXES, sizes)))
 
     def model_parallel(self) -> bool:
-        """Whether ``sp`` or ``tp`` is above 1 (the 4-D mesh)."""
-        return self.sp > 1 or self.tp > 1
+        """Whether ``ep``, ``sp`` or ``tp`` is above 1 (the 5-D mesh)."""
+        return self.ep > 1 or self.sp > 1 or self.tp > 1
 
     def mesh_shape(self) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
         """``(shape, dim names)`` of the ``DeviceMesh`` of a resolved
@@ -130,8 +132,8 @@ def make_mesh(spec: MeshSpec = MeshSpec(), device_type: str = "cuda"):
 
 
 def current_mesh():
-    """``(mesh, spec)`` of the last :func:`make_mesh` in this process
-    group, or None."""
+    """``(mesh, spec)`` of the last :func:`make_mesh` (or
+    :func:`set_current_mesh`) in this process group, or None."""
     if _CURRENT is None or not dist.is_initialized():
         return None
     mesh, spec = _CURRENT
@@ -140,9 +142,37 @@ def current_mesh():
     return _CURRENT
 
 
-def clear_current_mesh() -> None:
+def set_current_mesh(mesh, spec: Optional[MeshSpec] = None) -> None:
+    """Make ``mesh`` (a ``DeviceMesh`` over the process group) the current
+    one, with its resolved ``spec`` (read off the mesh's dim names and
+    sizes unless given); None clears it."""
     global _CURRENT
-    _CURRENT = None
+    if mesh is None:
+        _CURRENT = None
+        return
+    if spec is None:
+        sizes = {a: 1 for a in AXES}
+        sizes.update(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+        spec = MeshSpec(**sizes)
+    _CURRENT = (mesh, spec)
+
+
+def clear_current_mesh() -> None:
+    set_current_mesh(None)
+
+
+def mesh_axis_size(axis: str) -> int:
+    """The size of ``axis`` on the current mesh; without one, the default
+    pure-``dp`` mesh of the JAX package: ``dp`` is the world (1 without a
+    process group), every other axis 1."""
+    if axis not in AXES:
+        raise KeyError(f"unknown mesh axis {axis!r}; axes are {AXES}")
+    cur = current_mesh()
+    if cur is not None:
+        return getattr(cur[1], axis)
+    if axis == "dp" and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def data_axes() -> Tuple[str, ...]:

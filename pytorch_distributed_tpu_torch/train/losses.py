@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.data.packing import packed_loss_mask
+from pytorch_distributed_tpu_torch.ops.moe import collect_aux_loss
 from pytorch_distributed_tpu_torch.ops.lm_loss import (
     causal_lm_chunked_loss,
     chunked_softmax_cross_entropy,
@@ -128,8 +129,24 @@ def _sp_mean(tok_sum, count, group):
     return loss, whole
 
 
+def _apply_with_moe_aux(model, ids, kw, moe_aux_weight: float):
+    """``model(ids, **kw)`` and, with ``moe_aux_weight > 0``, the weighted
+    sum of its layers' mixture-of-experts load losses (returned through
+    its outputs; zero for a model without experts), else None: the one
+    definition the full-logits and chunked losses share."""
+    if moe_aux_weight <= 0.0:
+        return model(ids, **kw), None
+    if sequence_shard(ids) is not None:
+        raise NotImplementedError(
+            "mixture-of-experts load losses under sequence parallelism "
+            "(each sp rank routes its own positions; ROADMAP A10.2)")
+    out, aux = model(ids, return_aux=True, **kw)
+    return out, collect_aux_loss([aux], moe_aux_weight).to(out.device)
+
+
 def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
-                     generator=None, attn_impl=None):
+                     generator=None, attn_impl=None,
+                     moe_aux_weight: float = 0.0):
     """The chunked loss's shared train/eval body: the model's hidden
     states in the compute dtype, projected chunk by chunk through the
     head in its own layout; ``(loss, metric)``.
@@ -139,7 +156,8 @@ def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
     (``FSDPModule.unshard``, a no-op when FSDP2 kept the root gathered
     after its forward), so the chunks multiply by the whole gathered
     head, and its gradient lands on the unsharded parameter, which the
-    root's post-backward reduce-scatters with the others."""
+    root's post-backward reduce-scatters with the others. With
+    ``moe_aux_weight`` returns ``(loss, metric, aux)``."""
     from torch.distributed.fsdp import FSDPModule
 
     core = getattr(model, "module", model)
@@ -151,7 +169,7 @@ def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
     if shard is not None:
         _refuse_packed_sequence_shards(batch)
         ids, labels, kw["positions"], group = shard
-    hidden = model(ids, **kw)
+    hidden, aux = _apply_with_moe_aux(model, ids, kw, moe_aux_weight)
     if isinstance(core, FSDPModule):
         core.unshard()
     weight, axis = _lm_head_for_loss(core)
@@ -160,14 +178,14 @@ def _chunked_lm_loss(model, ids, chunk_size, batch, *, train: bool,
         loss = causal_lm_chunked_loss(
             hidden, weight, ids, chunk_size=chunk_size, vocab_axis=axis,
             segment_ids=batch.get("segment_ids"))
-        return loss, loss.detach()
+        return loss, loss.detach(), aux
     n = labels.shape[1]
     h = hidden[:, :n].reshape(-1, hidden.shape[-1])
     count = torch.tensor(float(labels.numel()), device=hidden.device)
     tok_sum = chunked_softmax_cross_entropy(
         h, weight, labels.reshape(-1), chunk_size=chunk_size,
         vocab_axis=axis) * count
-    return _sp_mean(tok_sum, count, group)
+    return (*_sp_mean(tok_sum, count, group), aux)
 
 
 def _refuse_packed_sequence_shards(batch) -> None:
@@ -178,8 +196,9 @@ def _refuse_packed_sequence_shards(batch) -> None:
 
 
 def _full_lm_loss(model, ids, batch, *, train: bool, generator=None,
-                  attn_impl=None):
-    """The full-logits loss's shared train/eval body; ``(loss, metric)``."""
+                  attn_impl=None, moe_aux_weight: float = 0.0):
+    """The full-logits loss's shared train/eval body; ``(loss, metric,
+    aux)``, ``aux`` the weighted MoE load loss or None."""
 
     kw = dict(train=train, attn_impl=attn_impl, **_packed_extra(batch))
     if train:
@@ -191,7 +210,7 @@ def _full_lm_loss(model, ids, batch, *, train: bool, generator=None,
         _refuse_packed_sequence_shards(batch)
         ids, labels, kw["positions"], group = shard
         labels = labels.long()
-    logits = model(ids, **kw)
+    logits, aux = _apply_with_moe_aux(model, ids, kw, moe_aux_weight)
     shift_logits = logits[:, :labels.shape[1]].float()
     tok_loss = F.cross_entropy(
         shift_logits.reshape(-1, shift_logits.shape[-1]),
@@ -199,9 +218,9 @@ def _full_lm_loss(model, ids, batch, *, train: bool, generator=None,
     ).reshape(labels.shape)
     if shard is None:
         loss = masked_token_mean(tok_loss, batch.get("segment_ids"))
-        return loss, loss.detach()
+        return loss, loss.detach(), aux
     count = torch.tensor(float(labels.numel()), device=logits.device)
-    return _sp_mean(tok_loss.sum(), count, group)
+    return (*_sp_mean(tok_loss.sum(), count, group), aux)
 
 
 def causal_lm_loss_fn(
@@ -219,23 +238,24 @@ def causal_lm_loss_fn(
     takes the chunked-vocab loss (``ops/lm_loss.py``), which never forms
     the ``[B, S, V]`` logits. ``attn_impl`` is passed to the model
     (``None``: flash on the card). ``model`` may be the module or its
-    ``DistributedDataParallel`` wrapper."""
-    if moe_aux_weight > 0.0:
-        raise NotImplementedError(
-            "mixture-of-experts aux losses are not ported (ROADMAP A10)"
-        )
+    ``DistributedDataParallel`` wrapper. ``moe_aux_weight > 0`` adds that
+    weight times the sum of the model's mixture-of-experts load losses
+    (metric ``moe_aux_loss``): set it whenever the model has experts."""
 
     def loss_fn(batch, generator):
         ids = batch[ids_key]
+        kw = dict(train=True, generator=generator, attn_impl=attn_impl,
+                  moe_aux_weight=moe_aux_weight)
         if vocab_chunk_size is not None:
-            loss, metric = _chunked_lm_loss(
-                model, ids, vocab_chunk_size, batch, train=True,
-                generator=generator, attn_impl=attn_impl)
+            loss, metric, aux = _chunked_lm_loss(
+                model, ids, vocab_chunk_size, batch, **kw)
         else:
-            loss, metric = _full_lm_loss(model, ids, batch, train=True,
-                                         generator=generator,
-                                         attn_impl=attn_impl)
-        return loss, {"metrics": {"loss": metric}}
+            loss, metric, aux = _full_lm_loss(model, ids, batch, **kw)
+        metrics = {"loss": metric}
+        if aux is not None:
+            metrics["moe_aux_loss"] = aux.detach()
+            loss = loss + aux
+        return loss, {"metrics": metrics}
 
     return loss_fn
 
@@ -256,11 +276,12 @@ def causal_lm_eval_step(
     def eval_step(state, batch) -> Dict[str, torch.Tensor]:
         ids = batch[ids_key]
         if vocab_chunk_size is not None:
-            _, loss = _chunked_lm_loss(model, ids, vocab_chunk_size, batch,
-                                       train=False, attn_impl=attn_impl)
+            _, loss, _ = _chunked_lm_loss(model, ids, vocab_chunk_size,
+                                          batch, train=False,
+                                          attn_impl=attn_impl)
         else:
-            _, loss = _full_lm_loss(model, ids, batch, train=False,
-                                    attn_impl=attn_impl)
+            _, loss, _ = _full_lm_loss(model, ids, batch, train=False,
+                                       attn_impl=attn_impl)
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return eval_step
@@ -304,15 +325,18 @@ def classification_loss_fn(
     label_key: str = "label",
     label_smoothing: float = 0.0,
     weight_decay: float = 0.0,
+    dropout_rng: bool = False,
 ) -> Callable:
     """Loss for image classifiers with BatchNorm: a train-mode forward
     (which updates the running statistics), cross-entropy with
     ``label_smoothing``, plus the L2 penalty when ``weight_decay``;
     metrics ``loss`` and ``accuracy``. ``model`` may be the module or
-    its ``DistributedDataParallel`` wrapper."""
+    its ``DistributedDataParallel`` wrapper. ``dropout_rng``: the model
+    draws dropout masks (ViT), from the step's generator."""
 
     def loss_fn(batch, generator):
-        logits = model(batch[image_key], train=True)
+        kw = {"generator": generator} if dropout_rng else {}
+        logits = model(batch[image_key], train=True, **kw)
         labels = batch[label_key]
         loss = cross_entropy(logits, labels, label_smoothing)
         if weight_decay:
@@ -562,12 +586,15 @@ def distillation_loss_fn(
     temperature: float = 2.0,
     alpha: float = 0.5,
     ids_key: str = "input_ids",
+    moe_aux_weight: float = 0.0,
 ) -> Callable:
     """Knowledge distillation for causal LMs: ``alpha * CE(student,
     labels) + (1 - alpha) * T^2 * KL(teacher_T || student_T)`` over the
     shifted next-token positions, both masked at document boundaries and
     padding of packed batches. The teacher (a frozen module) runs in
-    eval mode without gradients. Metrics ``loss``, ``ce``, ``kl``."""
+    eval mode without gradients. Metrics ``loss``, ``ce``, ``kl``; with
+    ``moe_aux_weight`` the student's weighted load loss is added
+    (``moe_aux_loss``: the teacher's routing is its own)."""
     if not 0.0 <= alpha <= 1.0:
         raise ValueError(f"alpha must be in [0, 1], got {alpha}")
     if temperature <= 0.0:
@@ -577,7 +604,9 @@ def distillation_loss_fn(
         ids = batch[ids_key]
         seg = batch.get("segment_ids")
         extra = _packed_extra(batch)
-        s_logits = student(ids, train=True, generator=generator, **extra)
+        s_logits, moe_aux = _apply_with_moe_aux(
+            student, ids, dict(train=True, generator=generator, **extra),
+            moe_aux_weight)
         with torch.no_grad():
             t_logits = teacher(ids, train=False, **extra)
         s = s_logits[:, :-1].float()
@@ -592,8 +621,12 @@ def distillation_loss_fn(
         ce = masked_token_mean(tok_ce, seg)
         kl = masked_token_mean(tok_kl, seg)
         loss = alpha * ce + (1.0 - alpha) * (temperature ** 2) * kl
-        return loss, {"metrics": {"loss": loss.detach(), "ce": ce.detach(),
-                                  "kl": kl.detach()}}
+        metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                   "kl": kl.detach()}
+        if moe_aux is not None:
+            metrics["moe_aux_loss"] = moe_aux.detach()
+            loss = loss + moe_aux
+        return loss, {"metrics": metrics}
 
     return loss_fn
 

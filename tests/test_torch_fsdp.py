@@ -148,9 +148,12 @@ def test_mesh_and_specs_resolve_as_the_jax_mesh(ranks):
         assert res["mesh"] == want
     with pytest.raises(ValueError):
         MeshSpec(dp=2, fsdp=2).resolve(2)
-    # tp and sp are ported (tests/test_torch_tp.py); ep is not
-    with pytest.raises(NotImplementedError, match="A10"):
-        MeshSpec(fsdp=2, ep=2)
+    # tp, sp (tests/test_torch_tp.py) and ep (tests/test_torch_mixtral.py)
+    # are ported; pp is not
+    assert MeshSpec(fsdp=2, ep=2).resolve(4).sizes() == JaxMeshSpec(
+        fsdp=2, ep=2).resolve(4).sizes()
+    with pytest.raises(NotImplementedError, match="A10.3"):
+        MeshSpec(fsdp=2, pp=2)
 
 
 def test_batch_rows_equal_the_jax_loaders_rank_slice(ranks, monkeypatch):

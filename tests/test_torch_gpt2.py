@@ -157,9 +157,12 @@ def test_refuses_what_is_not_ported():
     ids = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(ValueError, match="write_pos"):
         model(ids, decode=True)   # decode takes explicit write_pos/positions
-    with pytest.raises(NotImplementedError, match="A10"):
-        GPT2LMHead(dataclasses.replace(GPT2Config.tiny(), moe_experts=4),
-                   device="cpu")
+    # mixture-of-experts FFNs are ported (tests/test_torch_moe.py): the
+    # block holds experts in place of the dense MLP
+    moe = GPT2LMHead(dataclasses.replace(GPT2Config.tiny(), moe_experts=4),
+                     device="cpu")
+    assert hasattr(moe.blocks[0], "moe")
+    assert not hasattr(moe.blocks[0], "mlp_up")
     with pytest.raises(ValueError, match="n_positions"):
         model(torch.zeros(1, 65, dtype=torch.long))
     with pytest.raises(ValueError, match="generator"):

@@ -100,3 +100,13 @@ def test_text_file_trains(tmp_path, pack):
     if pack:
         with pytest.raises(SystemExit, match="--text-file"):
             recipe.main(["--size", "tiny", "--device", "cpu", "--pack"])
+
+
+def test_tp_flag_refuses_naming_a10_1():
+    """The JAX recipe's ``--tp`` (``recipes/gpt2_zero1.py``) is taken, and
+    above 1 refused by name: GPT-2's tensor parallelism is ROADMAP
+    A10.1."""
+    args = recipe.parse_args(["--tp", "1"])
+    assert args.tp == 1
+    with pytest.raises(NotImplementedError, match="A10.1"):
+        recipe.main(["--device", "cpu", "--size", "tiny", "--tp", "2"])

@@ -155,3 +155,85 @@ def test_llama_loader_refusals_match_jax():
     del untied["lm_head.weight"]   # a tied dict, an untied config
     sd = interop.load_llama_weights(untied, LlamaConfig.tiny())
     assert torch.equal(sd["lm_head.weight"], sd["embed.weight"])
+
+
+# -- ViT, BERT and Mixtral: the loaders' leaves against the JAX loaders ----
+
+from pytorch_distributed_tpu.models import bert as jbert  # noqa: E402
+from pytorch_distributed_tpu.models import mixtral as jmixtral  # noqa: E402
+from pytorch_distributed_tpu.models import vit as jvit  # noqa: E402
+from pytorch_distributed_tpu_torch.models.bert import BertConfig  # noqa: E402
+from pytorch_distributed_tpu_torch.models.mixtral import (  # noqa: E402
+    MixtralConfig,
+)
+from pytorch_distributed_tpu_torch.models.vit import ViTConfig  # noqa: E402
+
+# name: (JAX model, its init input, JAX converter, port config, the port's
+# JAX-tree converter, the port's HF load keywords)
+TREES = {
+    "vit": (lambda: jvit.ViT(jvit.ViTConfig.tiny()),
+            jnp.zeros((1, 32, 32, 3)), "vit", ViTConfig.tiny(),
+            interop.vit_params_from_jax, {}),
+    "bert_cls": (lambda: jbert.BertForSequenceClassification(
+        jbert.BertConfig.tiny()), jnp.zeros((1, 8), jnp.int32), "bert",
+        BertConfig.tiny(), interop.bert_params_from_jax,
+        {"num_labels": 2}),
+    "bert_mlm": (lambda: jbert.BertForMaskedLM(jbert.BertConfig.tiny()),
+                 jnp.zeros((1, 8), jnp.int32), "bert", BertConfig.tiny(),
+                 interop.bert_params_from_jax, {}),
+    "mixtral": (lambda: jmixtral.MixtralForCausalLM(
+        jmixtral.MixtralConfig.tiny()), jnp.zeros((1, 8), jnp.int32),
+        "mixtral", MixtralConfig.tiny(), interop.mixtral_params_from_jax,
+        {}),
+}
+
+
+def _hf_of_tree(name):
+    """``(JAX params, HF dict)``: a seeded JAX tree of the model and its
+    JAX ``export_*``."""
+    make, x, conv, cfg, _, kw = TREES[name]
+    jmodel = make()
+    with use_policy(F32):
+        shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), x))[
+            "params"]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, s: (rng.normal(size=s.shape) * 0.08 + (
+            path[-1].key == "scale")).astype(np.float32), shapes)
+    return params, getattr(jinterop, f"export_{conv}_weights")(
+        params, jmodel.config)
+
+
+@pytest.mark.parametrize("name", sorted(TREES))
+def test_vit_bert_mixtral_loaders_give_the_jax_loaders_leaves(name):
+    make, _, conv, cfg, from_jax, kw = TREES[name]
+    jcfg = make().config
+    _, hf = _hf_of_tree(name)
+    jparams = getattr(jinterop, f"load_{conv}_weights")(hf, jcfg, **kw)
+    want = from_jax(jparams, cfg)
+    got = getattr(interop, f"load_{conv}_weights")(hf, cfg, **kw)
+    assert sorted(got) == sorted(want), sorted(set(got) ^ set(want))
+    for k in want:
+        torch.testing.assert_close(got[k].float(), want[k], rtol=0, atol=0,
+                                   msg=k)
+    # the exports round-trip bitwise, against the JAX export too
+    back = getattr(interop, f"export_{conv}_weights")(got, cfg)
+    jback = getattr(jinterop, f"export_{conv}_weights")(jparams, jcfg)
+    assert sorted(back) == sorted(jback), sorted(set(back) ^ set(jback))
+    for k, v in jback.items():
+        np.testing.assert_array_equal(back[k], np.asarray(v), err_msg=k)
+    for k, v in hf.items():
+        np.testing.assert_array_equal(back[k], np.asarray(v), err_msg=k)
+
+
+def test_vit_and_bert_loader_edges():
+    """HF's poolerless masked LM loads a zero pooler (as the JAX loader);
+    a mean-pooling ViT refuses the HF layout."""
+    _, hf = _hf_of_tree("bert_mlm")
+    hf = {k: v for k, v in hf.items() if "pooler" not in k}
+    sd = interop.load_bert_weights(hf, BertConfig.tiny())
+    assert not sd["bert.pooler.weight"].any()
+    _, hf = _hf_of_tree("vit")
+    with pytest.raises(ValueError, match="pooling='cls'"):
+        interop.load_vit_weights(hf, dataclasses.replace(ViTConfig.tiny(),
+                                                         pooling="mean"))

@@ -89,7 +89,9 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "utils.config", "utils.profiler", "runtime.tracing",
             "runtime.device", "models.gemma", "models.mistral",
             "models.qwen2", "models.qwen3", "models.phi3", "models.neox",
-            "parallel.sequence", "parallel.sharding", "parallel.rules"):
+            "parallel.sequence", "parallel.sharding", "parallel.rules",
+            "ops.moe", "models.mixtral", "models.vit",
+            "recipes.mixtral_moe", "recipes.vit_imagenet"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -213,6 +215,106 @@ def test_port_imports_and_serves_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "PORT-OK" in res.stdout
+
+
+_BLOCKED_SLICE14 = _BLOCKED_RUN.split("import pytorch_distributed_tpu_torch")[0] + """
+import pytorch_distributed_tpu_torch as ptt
+from pytorch_distributed_tpu_torch import (
+    MixtralConfig, MixtralForCausalLM, MoEMLP, ViT, ViTConfig,
+    current_mesh, export_bert_weights, export_mixtral_weights,
+    export_vit_weights, load_bert_weights, load_mixtral_weights,
+    load_vit_weights, max_memory_allocated, memory_allocated, memory_stats,
+    memory_summary, mesh_axis_size, mixtral_params_from_jax,
+    mixtral_params_to_jax, set_current_mesh, vit_params_from_jax,
+    vit_params_to_jax,
+)
+assert memory_stats() == {} and memory_allocated() == 0
+assert max_memory_allocated() == 0 and memory_summary() == "no CUDA device"
+assert current_mesh() is None and mesh_axis_size("dp") == 1
+from pytorch_distributed_tpu_torch.recipes import mixtral_moe, vit_imagenet
+trainer = mixtral_moe.main(["--device", "cpu", "--steps-per-epoch", "2",
+                            "--batch-size", "8", "--log-every", "1",
+                            "--eval-rows", "2"])
+assert trainer.state.step == 2 and trainer.successor is not None
+assert "moe_aux_loss" in trainer.history[-1]
+trainer = vit_imagenet.main(["--device", "cpu", "--variant", "tiny",
+                             "--synthetic", "--batch-size", "4",
+                             "--steps-per-epoch", "1", "--epochs", "1"])
+assert trainer.state.step == 1 and trainer.last_eval_metrics
+bad = [m for m in sys.modules
+       if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not bad, bad
+print("SLICE14-OK")
+"""
+
+
+def test_slice14_exports_and_recipes_run_with_jax_blocked():
+    """The names this slice exports (Mixtral, ``MoEMLP``, ViT, their and
+    BERT's converters, the memory functions, ``current_mesh``,
+    ``set_current_mesh``, ``mesh_axis_size``) import from the package
+    root, and the Mixtral and ViT recipes train on the CPU, with the JAX
+    side blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SLICE14], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "SLICE14-OK" in res.stdout
+
+
+def test_mesh_helpers_follow_the_current_mesh():
+    """``set_current_mesh``/``current_mesh``/``mesh_axis_size`` on a gloo
+    world of one: the JAX defaults without a mesh (``dp`` the world,
+    every other axis 1), the spec's sizes with one."""
+    from pytorch_distributed_tpu_torch import (
+        current_mesh,
+        destroy_process_group,
+        make_mesh,
+        mesh_axis_size,
+        set_current_mesh,
+    )
+    from pytorch_distributed_tpu_torch.runtime.mesh import AXES, MeshSpec
+
+    init_process_group("gloo", device="cpu")
+    try:
+        set_current_mesh(None)
+        assert current_mesh() is None
+        assert [mesh_axis_size(a) for a in AXES] == [1] * 6
+        mesh = make_mesh(MeshSpec(dp=1, ep=1), "cpu")
+        assert current_mesh()[0] is mesh
+        set_current_mesh(None)
+        assert current_mesh() is None
+        set_current_mesh(mesh)
+        assert current_mesh()[1] == MeshSpec(dp=1)
+        assert mesh_axis_size("ep") == 1
+        with pytest.raises(KeyError):
+            mesh_axis_size("zz")
+    finally:
+        destroy_process_group()
+
+
+def test_slice14_entry_points_default_to_cuda(monkeypatch):
+    from pytorch_distributed_tpu_torch import (
+        MixtralConfig,
+        MixtralForCausalLM,
+        ViT,
+        ViTConfig,
+    )
+    from pytorch_distributed_tpu_torch.recipes import (
+        mixtral_moe,
+        vit_imagenet,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MixtralForCausalLM(MixtralConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViT(ViTConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mixtral_moe.main(["--steps-per-epoch", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vit_imagenet.main(["--variant", "tiny", "--steps-per-epoch", "1"])
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
