@@ -18,7 +18,9 @@ Qwen2, Qwen3, Phi-3, tied Llama-3.2 through the paged engine, Pythia-1B
 through generate, Gemma-2B width through the Trainer, HF weights loaded
 and exported) with the kernels at head_dim 96 and 256, and the flash
 kernels at the per-rank shapes of tensor and sequence parallelism with
-the recipe's sequence-parallel path.
+the recipe's sequence-parallel path, and T5-base (training, its
+cross-attention's kernels, ``generate_encdec``, the seq2seq recipe, the
+HF layout).
 
     python3 chip_smoke.py [--seed N]
 
@@ -146,14 +148,14 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``Policy.train()``, FSDP full-shard at world 1 over NCCL (made on the
    meta device, each rank drawing its rows of the seeded weights), full
    remat, vocab chunk 8192, batch 8 x 2048, clip(1.0) then adamw(1e-4,
-   decay 1e-4), 6 steps with one checkpoint at step 3 (17.9 GB): finite
-   losses, flash launches 4 forward, 2 dq, 2 dkv a step and no paged
-   launch, the
-   median of steps 2-6, tokens/s and peak memory; a fresh model restores
-   step 3 (parameters, both moments, step and cursor equal to the bit)
-   and repeats steps 4-6 to the bit; then ``torch.profiler`` over two
-   steps: device busy ms, idle share, time by kernel family. (b) is
-   phase 3's Llama-shape case and timing.
+   decay 1e-4), 6 steps: finite losses, flash launches 4 forward, 2 dq,
+   2 dkv a step and no paged launch, the median of steps 2-6, tokens/s
+   and peak memory; then ``torch.profiler`` over two steps: device busy
+   ms, idle share, time by kernel family. (Its 17.9 GB checkpoint round
+   trip was cut for the smoke's time when phase 17 came: the FSDP round
+   trip is ``scripts/port_fsdp_scale.py``'s on four cards and
+   ``tests/test_torch_fsdp_ckpt.py``'s on the CPU.) (b) is phase 3's
+   Llama-shape case and timing.
 
 9. the JAX recipe's BERT-base fine-tune (``recipes/bert_finetune.py``,
    through its ``build_trainer``), after phase 8: BERT-base at full width
@@ -347,16 +349,43 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    equal, the outputs within ``MOE_CHECK_RTOL``. Paths ``vit_recipe``,
    ``mixtral_train``, ``mixtral_serve`` (B4), ``mixtral_forward`` (B1),
    ``moe_layer`` (none).
+17. T5, after phase 16: (17a) T5-base at its published widths (d_model
+   768, 12 + 12 layers, 12 heads of 64, vocab 32128, relu, tied; seeded,
+   dropout off, f32 weights and bf16 products) through the Trainer with
+   ``seq2seq_lm_loss_fn`` and the recipe's clip + AdamW, ``T5_STEPS``
+   steps of 16 x 512 encoder tokens (seeded real lengths 256-512) and
+   128 labels: finite falling losses, B1, B2 and B3 12 launches a step
+   (each decoder layer's cross-attention; the self-attention carries the
+   relative bias and runs on the einsum path), B4 none. (17b) B1-B3 at
+   T5-base's cross-attention shape (16 x 128 queries over 512 keys,
+   key-padded, 12 heads of 64, scale 1.0, bf16) against their plain
+   versions at phase 3's limits, timed beside SDPA and the bound. (17c)
+   ``generate_encdec`` over 16 padded 512-token inputs, 64 greedy tokens
+   (no kernel: every decode call is one query), at least
+   ``T5_GREEDY_SHARE`` of them within ``T5_GREEDY_MARGIN`` logit spreads
+   of a teacher-forced forward (B1 once a decoder layer). (17d) the
+   port's ``recipes/t5_seq2seq.py`` through its ``main`` at
+   ``T5_RECIPE``: exact-match at or above ``T5_RECIPE_BAR``, token-match
+   at or above ``T5_TOKEN_BAR`` and the loss below half its first; then
+   ``--size small --steps-per-epoch 3 --ckpt-dir`` and a run that
+   restores it and trains steps 4-6. (17e)
+   T5-base's HF layout: export then load bitwise, and card vs CPU logits
+   in f32 within ``T5_HF_FLOORS`` times the CPU model's own one-ulp
+   noise floor, which must stay under ``T5_HF_FLOOR_CAP`` of the largest
+   logit. Paths ``t5_train``, ``t5_generate`` (none),
+   ``t5_forced``, ``t5_recipe``, ``t5_recipe_small``,
+   ``t5_recipe_small_resumed`` (B1-B3), ``t5_hf`` (B1).
 
-Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13, 14, 15 and 16 set all
-four kernel counts to 0 just before their run and read all four just
-after; a kernel off the path that launched fails the run.
+Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13, 14, 15,
+16 and 17 set all four kernel counts to 0 just before their run and read
+all four just after; a kernel off the path that launched fails the run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
 ``launches_by_path`` per path as read, for the flash kernels their
 numbers ``at_llama_shape``, ``at_bert_shape``, ``at_family_shapes``
-per dtype, ``at_sp_tp_shapes`` and ``at_vit_shape``, for the paged kernel ``at_gpt2_shape`` at W=1 and W=5 and
+per dtype, ``at_sp_tp_shapes``, ``at_vit_shape`` and ``at_t5_shape``,
+for the paged kernel ``at_gpt2_shape`` at W=1 and W=5 and
 ``at_family_shapes``), then the
 card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
@@ -379,6 +408,7 @@ import time
 # tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12   # f32 outside the tensor cores
 
 # kernel vs plain tolerances, relative to max|reference|: f32 differs
 # only in summation order (chunks of 32-128 keys vs pages of 32, FMA
@@ -1107,7 +1137,7 @@ def flash_phase(device, seed):
 
 
 def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
-                 causal=True, extras=None):
+                 causal=True, extras=None, sm_scale=None):
     """The three kernels at ``shape`` (bf16 and causal unless given;
     ``extras`` as ``_flash_inputs`` takes them: a padding mask): bitwise
     equal over two launches, then each one's time replayed from a CUDA
@@ -1118,7 +1148,8 @@ def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
     counts; the memory-efficient backend where the flash one refuses the
     head dim); with one it is the memory-efficient backend, the one that
     takes an additive bias, given the mask as a ``[B, H, S, T]`` bias in
-    the input dtype (made outside the timed region)."""
+    the input dtype (made outside the timed region). ``sm_scale`` is the
+    softmax scale (``D ** -0.5`` unless given)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1130,7 +1161,8 @@ def _flash_times(gen, seed, shape, device, worst, *, dtype=None,
                                               "D"))
     q, k, v, bias, seg = _flash_inputs(gen, seed, shape, dtype, device,
                                        extras or {})
-    kw = dict(sm_scale=D ** -0.5, causal=causal)
+    kw = dict(sm_scale=D ** -0.5 if sm_scale is None else sm_scale,
+              causal=causal)
     out, lse = fa.flash_fwd(q, k, v, bias, seg, **kw)
     dout = torch.randn(out.shape, generator=gen).to(device, out.dtype)
     delta = fa._delta(dout, out)
@@ -3149,34 +3181,19 @@ def _opt_state_bytes(optimizer) -> int:
 
 
 def llama_phase(device, seed):
-    """Phase 8a: the recipe's path on one card (run, checkpoint, restore,
-    resume), then torch.profiler over two steps."""
+    """Phase 8a: the recipe's path on one card, then torch.profiler over
+    two steps. (Its checkpoint and restore were cut to keep the smoke in
+    its time: the FSDP round trip is held on four cards by
+    ``scripts/port_fsdp_scale.py`` and on the CPU by
+    ``tests/test_torch_fsdp_ckpt.py``.)"""
     import gc
-    import shutil
-    import tempfile
 
     import torch
 
     stats = {}
-    with tempfile.TemporaryDirectory(prefix="ptd_llama_") as tmp, \
-            _World1(device):
-        print(f"(8a) checkpoint directory {tmp}: "
-              f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
-        model, trainer = _llama_trainer(device, seed, tmp)
+    with _World1(device):
+        model, trainer = _llama_trainer(device, seed, None)
         n_params = sum(p.numel() for p in model.parameters())
-        snap = {}
-        save = trainer.save_checkpoint
-
-        def save_at_ckpt_step(tag="latest"):
-            # the state is 23 GB of files: one save, at LLAMA_CKPT_AT,
-            # and a host copy of the state it wrote
-            if trainer.host_step != LLAMA_CKPT_AT:
-                return None
-            path = save(tag)
-            snap["state"] = _llama_snapshot(model, trainer)
-            return path
-
-        trainer.save_checkpoint = save_at_ckpt_step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         kernel_counts(reset=True)
@@ -3199,13 +3216,10 @@ def llama_phase(device, seed):
         L = LLAMA_LAYERS * LLAMA_STEPS
         want = dict(flash_fwd=2 * L, flash_dq=L, flash_dkv=L)
         launches = {k: counts[k] for k in FLASH}
-        ckpt = roll.get("train.checkpoint", {})
         print(f"(8a) Llama-3-8B width, {LLAMA_LAYERS} of 32 layers, {n_params}"
               f" params, FSDP full-shard at world 1, remat(full), vocab chunk"
               f" {LLAMA_CHUNK}, batch {LLAMA_BATCH} x {LLAMA_SEQ}: "
-              f"{LLAMA_STEPS} steps in {wall:.2f} s incl. "
-              f"{ckpt.get('count', 0)} checkpoint(s) of "
-              f"{ckpt.get('mean_ms', 0.0):.0f} ms; step ms "
+              f"{LLAMA_STEPS} steps in {wall:.2f} s; step ms "
               + " ".join(f"{1e3 * x:.2f}" for x in step_s)
               + f", median of steps 2-{LLAMA_STEPS} {step_ms:.2f} ms = "
               f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
@@ -3222,45 +3236,7 @@ def llama_phase(device, seed):
                      step_ms=[1e3 * x for x in step_s], step_ms_median=step_ms,
                      tokens_per_s=tokens / step_ms * 1e3, peak_mem_gib=peak,
                      launches=counts, wall_s=wall,
-                     ckpt_save_ms=ckpt.get("mean_ms"),
                      spans={k: roll[k]["mean_ms"] for k in roll})
-        saved = snap["state"]
-        del model, trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # a fresh model (other weights) restores step 3 and runs 4-6
-        model, trainer = _llama_trainer(device, seed, tmp,
-                                        init_seed=seed + 1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if not trainer.restore_checkpoint():
-            raise AssertionError("nothing restored")
-        torch.cuda.synchronize()
-        restore_ms = 1e3 * (time.perf_counter() - t0)
-        got = _llama_snapshot(model, trainer)
-        bad = [k for k, v in saved["tensors"].items()
-               if k not in got["tensors"] or not torch.equal(
-                   v, got["tensors"][k])]
-        if (bad or set(got["tensors"]) != set(saved["tensors"])
-                or got["step"] != saved["step"]
-                or got["cursor"] != saved["cursor"]):
-            raise AssertionError(
-                f"restored state differs: {bad[:5]} step {got['step']} vs "
-                f"{saved['step']} cursor {got['cursor']} vs "
-                f"{saved['cursor']}")
-        del saved, got
-        trainer.config = dataclasses.replace(trainer.config, ckpt_dir=None)
-        trainer.fit()
-        resumed = [r["loss"] for r in trainer.history]
-        print(f"(8a) restore of step {LLAMA_CKPT_AT} in {restore_ms:.0f} ms: "
-              f"parameters, both moments, step and cursor equal to the bit;"
-              f" steps 4-6 " + " ".join(f"{x:.6f}" for x in resumed)
-              + " against " + " ".join(f"{x:.6f}"
-                                       for x in losses[LLAMA_CKPT_AT:]))
-        if resumed != losses[LLAMA_CKPT_AT:]:
-            raise AssertionError("the resumed run left the uninterrupted one")
-        stats.update(restore_ms=restore_ms, resumed_losses=resumed)
 
         # torch.profiler over two steps on one placed batch, last
         batches = iter(trainer.train_loader)
@@ -6229,6 +6205,458 @@ def moe_vit_phase(device, seed):
     return stats, by_path
 
 
+# -- 17. T5-base and the seq2seq recipe --------------------------------------
+
+# T5-base at its published widths (the JAX ``T5Config.base()``: d_model
+# 768, 12 + 12 layers, 12 heads of 64, d_ff 3072, vocab 32128, relu,
+# tied), dropout off as the recipe runs it (attention-weight dropout
+# would keep the cross-attention off the flash kernels)
+T5_BATCH, T5_ENC, T5_DEC, T5_STEPS, T5_LR = 16, 512, 128, 6, 1e-4
+T5_LENGTHS = (256, 512)   # the encoder rows' real lengths, seeded
+# B1-B3 at T5-base's cross-attention: 16 x 128 decoder queries over 512
+# encoder keys, key-padded, 12 heads of 64, unscaled logits
+T5_FLASH_SHAPE = dict(B=16, S=128, T=512, Hq=12, Hkv=12, D=64)
+T5_FLASH_EXTRAS = {"lengths": T5_LENGTHS, "sm_scale": 1.0}
+T5_GEN_ROWS, T5_GEN_NEW = 16, 64
+# greedy tokens against the teacher-forced forward: T5-base's seeded
+# logits are small (the head multiplies a d_model ** -0.5 scaled state by
+# a table of std d_model ** -0.5: a std near 0.04), so the margin is a
+# share of each position's logit spread (its std over the vocab), and at
+# least T5_GREEDY_SHARE of the tokens must fall within it
+T5_GREEDY_MARGIN, T5_GREEDY_SHARE = 0.25, 0.9
+# (17d) the recipe at its docstring's flags. The JAX recipe at the same
+# flags on the CPU read exact-match 0.000 and token-match 0.222 (its
+# docstring claims ~1.0): the exact-match bar is that less 0.05, so it
+# cannot fail; what tells a working generation from a broken one is the
+# token-match, which must reach T5_TOKEN_BAR (the port read 0.219 on the
+# card and 0.163 on the CPU; a greedy decode that has lost its cache or
+# its positions reads near chance, 1/62 over ids 2-63). The logged loss
+# must also fall below half its first value (the JAX run: 4.16 -> 0.69)
+T5_RECIPE = ["--size", "tiny", "--epochs", "50", "--steps-per-epoch", "30",
+             "--log-every", "30"]
+T5_JAX_EXACT = 0.0
+T5_RECIPE_BAR = T5_JAX_EXACT - 0.05
+T5_TOKEN_BAR = 0.1
+# (17e) T5-base's HF round trip: f32 on the CPU and on the card (TF32
+# off). Seeded T5-base is ill-conditioned in f32 (unscaled logits of std
+# ~8 give near one-hot softmaxes over 24 layers): one ulp of noise on
+# every weight moves its logits by ~2e-4 of their largest, which the
+# phase measures on the CPU (the floor); the card's logits must lie
+# within T5_HF_FLOORS floors of the CPU's (a wrong mask or kernel reads
+# a share of 1). The floor itself must stay under T5_HF_FLOOR_CAP of the
+# largest logit (it read 1.6e-4), so that a model grown more
+# ill-conditioned cannot loosen its own check
+T5_HF_ROWS, T5_HF_ENC, T5_HF_DEC, T5_HF_FLOORS = 2, 64, 16, 3.0
+T5_HF_FLOOR_CAP = 1e-3
+
+
+def _t5_cfg():
+    import dataclasses as dc
+
+    from pytorch_distributed_tpu_torch import T5Config
+
+    return dc.replace(T5Config.base(), dropout_rate=0.0)
+
+
+def _t5_base(device, seed, policy):
+    """``(cfg, model)``: T5-base on ``device`` with seeded weights."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import T5ForConditionalGeneration
+
+    cfg = _t5_cfg()
+    model = T5ForConditionalGeneration(cfg, device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return cfg, model
+
+
+def _t5_rows(seed, rows, vocab):
+    """Encoder ids with a seeded real length per row (the rest padding,
+    its mask False), label ids of ``T5_DEC`` tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    enc = rng.integers(2, vocab, (rows, T5_ENC))
+    lengths = rng.integers(T5_LENGTHS[0], T5_LENGTHS[1] + 1, rows)
+    mask = np.arange(T5_ENC)[None, :] < lengths[:, None]
+    enc = np.where(mask, enc, 0)
+    labels = rng.integers(2, vocab, (rows, T5_DEC))
+    return enc, mask, labels
+
+
+def _t5_train(device, seed):
+    """(17a) T5-base through the Trainer: ``seq2seq_lm_loss_fn``, the
+    recipe's clip + AdamW, ``T5_STEPS`` steps of one repeated batch of
+    ``T5_BATCH`` x ``T5_ENC`` encoder tokens (padded rows) and
+    ``T5_DEC`` labels: finite losses that fall; B1, B2 and B3 launch 12
+    a step (each decoder layer's cross-attention), B4 never."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        ArrayDataset,
+        DataLoader,
+        DataParallel,
+        MeshSpec,
+        Policy,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        build_train_step,
+        seq2seq_lm_loss_fn,
+        t5_partition_rules,
+    )
+    from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
+    from pytorch_distributed_tpu_torch.recipes import t5_seq2seq
+
+    enc, mask, labels = _t5_rows(seed + 21, T5_BATCH, 32128)
+    ds = ArrayDataset(input_ids=enc.astype(np.int32),
+                      input_mask=mask, labels=labels.astype(np.int32),
+                      label_mask=np.ones_like(labels, dtype=bool))
+    with _World1(device):
+        _reset_peak(device)
+        strategy = DataParallel(device, mesh_spec=MeshSpec(dp=1),
+                                extra_rules=t5_partition_rules())
+        cfg = _t5_cfg()
+        model, net = t5_seq2seq.build_model(cfg, strategy, device, seed,
+                                            Policy.train())
+        opt = clip_grad_norm(AdamW(model, lr=T5_LR, weight_decay=
+                                   t5_seq2seq.ADAMW_WEIGHT_DECAY), 1.0)
+        trainer = Trainer(
+            TrainState(net, opt, policy=Policy.train()),
+            build_train_step(seq2seq_lm_loss_fn(net)),
+            DataLoader(ds, T5_BATCH, shuffle=False,
+                       sharding=strategy.batch_sharding()),
+            config=TrainerConfig(epochs=T5_STEPS, log_every=1,
+                                 samples_axis="input_ids"))
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        trainer.fit()   # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = _peak_gib(device)
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    step_ms = _median_ms(hist)
+    # real tokens (each row's unpadded encoder length plus its labels),
+    # and every position the step computes, padding included
+    tokens = int(mask.sum()) + labels.size
+    padded = T5_BATCH * (T5_ENC + T5_DEC)
+    want = {k: cfg.num_layers * T5_STEPS for k in FLASH}
+    got = {k: counts[k] for k in FLASH}
+    stats = dict(params=sum(p.numel() for p in model.parameters()),
+                 losses=losses, step_ms=[1e3 * r["step_time_s"] for r in hist],
+                 step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                 padded_positions_per_s=padded / step_ms * 1e3,
+                 peak_mem_gib=peak, wall_s=wall, launches=counts)
+    print(f"(17a) T5-base ({stats['params']} params), batch {T5_BATCH} x "
+          f"{T5_ENC} encoder (real lengths {T5_LENGTHS}) + {T5_DEC} decoder "
+          f"tokens, clip + AdamW: {T5_STEPS} steps in {wall:.1f} s, step ms "
+          + " ".join(f"{x:.1f}" for x in stats["step_ms"])
+          + f", median {step_ms:.2f} = {stats['tokens_per_s']:.0f} tokens/s "
+          f"({tokens} real encoder + decoder tokens a step; "
+          f"{stats['padded_positions_per_s']:.0f} positions/s with the "
+          f"padding), peak {peak:.2f} GiB; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {counts} (want {want})")
+    if len(losses) != T5_STEPS or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"(17a) T5-base losses {losses}")
+    if got != want:
+        raise AssertionError(f"(17a) flash launches {got} != {want}")
+    off_path(counts, FLASH)
+    stats["head"] = _t5_head_ms(model, cfg, device, seed)
+    del trainer, model, net, opt
+    torch.cuda.empty_cache()
+    return stats, counts
+
+
+def _t5_head_ms(model, cfg, device, seed):
+    """The tied head alone at 17a's decoder shape: ``[T5_BATCH *
+    T5_DEC, d_model]`` bf16 states scaled and projected through the f32
+    table (TF32 off, as the model runs it), forward and forward +
+    backward, beside the bound (f32 products on the CUDA cores)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 26)
+    x = torch.randn(T5_BATCH, T5_DEC, cfg.d_model, generator=gen,
+                    device=device, dtype=torch.bfloat16).requires_grad_()
+    table = model.shared.weight
+    gout = torch.randn(T5_BATCH, T5_DEC, cfg.vocab_size, generator=gen,
+                       device=device)
+    with torch.no_grad():
+        fwd = _time_ms(lambda: model._head(x), 10)
+    both = _time_ms(lambda: torch.autograd.grad(model._head(x), (x, table),
+                                                gout), 10)
+    N, D, V = T5_BATCH * T5_DEC, cfg.d_model, cfg.vocab_size
+    flops = 2 * N * D * V
+    nbytes = 4 * (D * V + N * V) + 2 * N * D
+    bound = max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"(17a) the tied f32 head, [{N}, {D}] x [{D}, {V}]: forward "
+          f"{fwd:.3f} ms, forward + backward {both:.3f} ms; the forward's "
+          f"bound {bound:.3f} ms ({flops} flops at the f32 CUDA-core peak, "
+          f"{nbytes} bytes)")
+    return dict(forward_ms=fwd, forward_backward_ms=both,
+                forward_bound_ms=bound)
+
+
+def _t5_flash(device, seed):
+    """(17b) B1-B3 at T5-base's cross-attention shape against their plain
+    versions at phase 3's limits, timed beside SDPA and the bound."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed + 22)
+    rows = _flash_check(gen, seed, "t5_cross", T5_FLASH_SHAPE, False,
+                        T5_FLASH_EXTRAS, "bfloat16", device)
+    bad = [c for c in rows if not c["ok"]]
+    if bad:
+        raise AssertionError(f"(17b) flash kernels disagree with plain at "
+                             f"T5's cross-attention shape: {bad}")
+    worst = {r["what"]: r["max_abs_err"] for r in rows}
+    gen = torch.Generator().manual_seed(seed + 22)
+    records, details = _flash_times(
+        gen, seed, T5_FLASH_SHAPE, device, worst, causal=False,
+        extras={"lengths": T5_LENGTHS}, sm_scale=1.0)
+    torch.cuda.empty_cache()
+    return dict(records={r["name"]: {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")} for r in records}, details=details, checks=rows)
+
+
+def _t5_generate(device, seed):
+    """(17c) ``generate_encdec`` at T5-base (seeded, the train policy):
+    ``T5_GEN_ROWS`` padded ``T5_ENC``-token inputs, ``T5_GEN_NEW`` greedy
+    tokens (the encoder and the 1-token prefill, then each token); the
+    tokens against a teacher-forced forward of the same rows, which
+    launches B1 once a decoder layer."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        Policy,
+        generate_encdec,
+        shift_right,
+    )
+
+    cfg, model = _t5_base(device, seed, Policy.train())
+    model.requires_grad_(False)
+    enc, mask, _ = _t5_rows(seed + 23, T5_GEN_ROWS, cfg.vocab_size)
+    enc = torch.from_numpy(enc).to(device)
+    mask = torch.from_numpy(mask).to(device)
+    kernel_counts(reset=True)
+    _, pre_ms = _cuda_ms(lambda: generate_encdec(
+        model, enc, max_new_tokens=1, input_mask=mask, eos_id=-1))
+    out, ms = _cuda_ms(lambda: generate_encdec(
+        model, enc, max_new_tokens=T5_GEN_NEW, input_mask=mask, eos_id=-1))
+    gen_counts = kernel_counts()
+    off_path(gen_counts, ())   # every decode call is one query: einsum
+    dec_ms = (ms - pre_ms) / (T5_GEN_NEW - 1)
+    kernel_counts(reset=True)
+    with torch.no_grad():
+        logits = model(enc, shift_right(out, cfg.pad_token_id),
+                       input_mask=mask)
+    fwd_counts = kernel_counts()
+    off_path(fwd_counts, ("flash_fwd",))
+    if fwd_counts["flash_fwd"] != cfg.num_layers:
+        raise AssertionError(f"(17c) the teacher-forced forward launched "
+                             f"{fwd_counts} (want flash_fwd x "
+                             f"{cfg.num_layers})")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("(17c) non-finite logits")
+    spread = logits.float().std(dim=-1)
+    gaps = (logits.max(-1).values
+            - logits.gather(2, out[..., None])[..., 0]) / spread
+    exact = int((logits.argmax(-1) == out).sum())
+    within = float((gaps <= T5_GREEDY_MARGIN).float().mean())
+    worst = float(gaps.max())
+    print(f"(17c) T5-base generate_encdec, {T5_GEN_ROWS} x {T5_ENC} padded "
+          f"inputs, {T5_GEN_NEW} greedy tokens: encoder + first token "
+          f"{pre_ms:.2f} ms, decode {dec_ms:.2f} ms a token (launches "
+          f"{gen_counts}); the teacher-forced forward launched {fwd_counts}; "
+          f"greedy vs it {exact}/{out.numel()} exact, worst gap "
+          f"{worst:.4f} of the logits' spread (median spread "
+          f"{float(spread.median()):.4f}), {within:.3f} within "
+          f"{T5_GREEDY_MARGIN} of it")
+    if within < T5_GREEDY_SHARE:
+        raise AssertionError(f"(17c) {within:.3f} of the greedy tokens "
+                             f"within {T5_GREEDY_MARGIN} spreads of the "
+                             f"teacher-forced argmax")
+    stats = dict(prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
+                 tokens_per_s=T5_GEN_ROWS * T5_GEN_NEW / ms * 1e3,
+                 launches=gen_counts, greedy_exact=exact,
+                 greedy_tokens=out.numel(), greedy_worst_gap_spreads=worst,
+                 greedy_within_margin=within,
+                 logit_spread_median=float(spread.median()))
+    del model
+    torch.cuda.empty_cache()
+    return stats, gen_counts, fwd_counts
+
+
+def _t5_recipe(device, seed):
+    """(17d) the port's recipe through its ``main``: at ``T5_RECIPE``
+    (exact-match at or above ``T5_RECIPE_BAR``, token-match at or above
+    ``T5_TOKEN_BAR``, the logged loss below half its first); then
+    ``--size small --steps-per-epoch 3`` with a checkpoint and a second
+    run that restores it and trains epoch 2."""
+    import tempfile
+
+    import torch
+
+    from pytorch_distributed_tpu_torch.recipes import t5_seq2seq
+
+    out, paths = {}, {}
+    with _World1(device):
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        trainer = t5_seq2seq.main(T5_RECIPE + ["--seed", str(seed)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths["t5_recipe"] = counts = kernel_counts()
+    losses = [r["loss"] for r in trainer.history]
+    rates = trainer.seq2seq
+    out["tiny"] = dict(argv=T5_RECIPE, wall_s=wall, losses=losses,
+                       step_ms_median=_median_ms(trainer.history),
+                       eval=trainer.last_eval_metrics, launches=counts,
+                       **rates)
+    print(f"(17d) recipes/t5_seq2seq.py {' '.join(T5_RECIPE)}: "
+          f"{trainer.state.step} steps in {wall:.1f} s (median logged step "
+          f"{out['tiny']['step_ms_median']:.2f} ms), loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, eval {trainer.last_eval_metrics}, exact-match "
+          f"{rates['exact_match']:.3f} (bar {T5_RECIPE_BAR:.3f}: the JAX "
+          f"recipe's {T5_JAX_EXACT:.3f} less 0.05), token-match "
+          f"{rates['token_match']:.3f} (bar {T5_TOKEN_BAR:.3f}) over "
+          f"{rates['rows']} rows; launches {counts}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0] / 2
+            and rates["exact_match"] >= T5_RECIPE_BAR
+            and rates["token_match"] >= T5_TOKEN_BAR):
+        raise AssertionError(f"(17d) the recipe: {out['tiny']}")
+    off_path(counts, FLASH)
+    del trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        small = ["--size", "small", "--steps-per-epoch", "3", "--log-every",
+                 "1", "--ckpt-dir", tmp, "--seed", str(seed)]
+        runs = []
+        for extra in ([], ["--epochs", "2"]):
+            with _World1(device):
+                kernel_counts(reset=True)
+                t0 = time.perf_counter()
+                tr = t5_seq2seq.main(small + extra)
+                torch.cuda.synchronize()
+                runs.append(dict(wall_s=time.perf_counter() - t0,
+                                 steps=[r["step"] for r in tr.history],
+                                 losses=[r["loss"] for r in tr.history],
+                                 launches=kernel_counts()))
+            del tr
+    paths["t5_recipe_small"] = runs[0]["launches"]
+    paths["t5_recipe_small_resumed"] = runs[1]["launches"]
+    out["small"] = runs
+    print(f"(17d) --size small --steps-per-epoch 3 --ckpt-dir: steps "
+          f"{runs[0]['steps']} (losses "
+          + " ".join(f"{x:.4f}" for x in runs[0]["losses"])
+          + f", {runs[0]['wall_s']:.1f} s), restored and continued: steps "
+          f"{runs[1]['steps']} (losses "
+          + " ".join(f"{x:.4f}" for x in runs[1]["losses"])
+          + f", {runs[1]['wall_s']:.1f} s)")
+    if runs[1]["steps"] != [4, 5, 6] or not all(
+            math.isfinite(x) for r in runs for x in r["losses"]):
+        raise AssertionError(f"(17d) the small run's restore: {runs}")
+    for r in runs:
+        off_path(r["launches"], FLASH)
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+def _t5_hf(device, seed):
+    """(17e) T5-base's HF layout: ``export_t5_weights`` then
+    ``load_t5_weights`` give the state back bit for bit; the loaded
+    weights on the CPU and on the card (f32, TF32 off) give logits within
+    ``T5_HF_FLOORS`` times the CPU model's one-ulp floor of each other on
+    ``T5_HF_ROWS`` rows (one padded)."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        Policy,
+        T5ForConditionalGeneration,
+        export_t5_weights,
+        load_t5_weights,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        cfg, card = _t5_base(device, seed, Policy.full())
+        sd = card.state_dict()
+        back = load_t5_weights(export_t5_weights(sd, cfg), cfg)
+        same = sorted(back) == sorted(sd) and all(
+            torch.equal(back[k], sd[k].cpu()) for k in sd)
+        cpu = T5ForConditionalGeneration(cfg, device="meta",
+                                         policy=Policy.full())
+        cpu.load_state_dict(back, assign=True)
+        rng = np.random.default_rng(seed + 24)
+        enc = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                            (T5_HF_ROWS, T5_HF_ENC)))
+        dec = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                            (T5_HF_ROWS, T5_HF_DEC)))
+        mask = torch.ones(T5_HF_ROWS, T5_HF_ENC, dtype=torch.bool)
+        mask[1, T5_HF_ENC // 2:] = False
+        kernel_counts(reset=True)
+        with torch.no_grad():
+            ref = cpu(enc, dec, input_mask=mask)
+            got = card(enc.to(device), dec.to(device),
+                       input_mask=mask.to(device)).cpu()
+        counts = kernel_counts()
+        # the floor: every CPU weight times 1 +- 2^-24 (seeded signs)
+        gen = torch.Generator().manual_seed(seed + 25)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+                p.mul_(1 + sign * 2.0 ** -24)
+            noisy = cpu(enc, dec, input_mask=mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    floor = (noisy - ref).abs().max().item()
+    print(f"(17e) T5-base HF round trip: export then load bitwise equal "
+          f"{same}; card vs CPU logits (f32, {T5_HF_ROWS} rows) max|err| "
+          f"{err:.3e} of max|ref| {scale:.4f} ({err / scale:.3e}); one ulp "
+          f"of weight noise on the CPU moves them {floor:.3e} "
+          f"({floor / scale:.3e}, cap {T5_HF_FLOOR_CAP:g}); limit "
+          f"{T5_HF_FLOORS:g} x that; {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts}")
+    if not (same and err <= T5_HF_FLOORS * floor
+            and floor <= T5_HF_FLOOR_CAP * scale):
+        raise AssertionError(f"(17e) T5-base HF: bitwise {same}, logits "
+                             f"{err} vs {T5_HF_FLOORS * floor}, floor "
+                             f"{floor / scale} of the largest logit (cap "
+                             f"{T5_HF_FLOOR_CAP})")
+    off_path(counts, ("flash_fwd",))
+    del card, cpu, sd, back
+    torch.cuda.empty_cache()
+    return dict(export_load_bitwise=same, max_abs_err=err,
+                max_abs_ref=scale, one_ulp_floor=floor), counts
+
+
+def t5_phase(device, seed):
+    """Phase 17: (17a) T5-base training, (17b) B1-B3 at its
+    cross-attention shape, (17c) its ``generate_encdec``, (17d) the
+    recipe, (17e) its HF layout. Returns (stats, launches by path)."""
+    t0 = time.perf_counter()
+    stats, by_path = {}, {}
+    stats["train"], by_path["t5_train"] = _t5_train(device, seed)
+    stats["flash"] = _t5_flash(device, seed)
+    stats["generate"], by_path["t5_generate"], by_path["t5_forced"] = \
+        _t5_generate(device, seed)
+    stats["recipe"], paths = _t5_recipe(device, seed)
+    by_path.update(paths)
+    stats["hf"], by_path["t5_hf"] = _t5_hf(device, seed)
+    stats["wall_s"] = time.perf_counter() - t0
+    print(f"(17) phase 17 in {stats['wall_s']:.1f} s")
+    return stats, by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6283,6 +6711,7 @@ def main(argv=None) -> int:
     fam_stats, fam_paths = family_phase(device, args.seed)
     sp_stats, sp_paths = sp_tp_phase(device, args.seed)
     mv_stats, mv_paths = moe_vit_phase(device, args.seed)
+    t5_stats, t5_paths = t5_phase(device, args.seed)
     zt = zstats["train"]
     print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
@@ -6329,7 +6758,7 @@ def main(argv=None) -> int:
                    llama=lstats["launches"], bert=bstats["launches"],
                    **gen_paths, **serve11_paths, **image_paths,
                    **life_paths, resnet50_recipe_config=cfg_counts,
-                   **fam_paths, **sp_paths, **mv_paths)
+                   **fam_paths, **sp_paths, **mv_paths, **t5_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -6354,6 +6783,8 @@ def main(argv=None) -> int:
         # phase 16's ViT-B/16 shape, bf16, bidirectional
         rec["at_vit_shape"] = mv_stats["vit"]["flash"]["records"][
             rec["name"]]
+        # phase 17's T5-base cross-attention shape, bf16, key-padded
+        rec["at_t5_shape"] = t5_stats["flash"]["records"][rec["name"]]
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
@@ -6364,7 +6795,7 @@ def main(argv=None) -> int:
                                       serve_gpt2=s11, image=istats,
                                       lifecycle=life_stats,
                                       family=fam_stats, sp_tp=sp_stats,
-                                      moe_vit=mv_stats)}))
+                                      moe_vit=mv_stats, t5=t5_stats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,10 @@ ResNet-18/CIFAR-10 recipe, the native augmenting pipeline over
 gradient sync (bf16, fp16, int8 with error feedback) as a DDP hook,
 ZeRO-1 for ResNet, EMA and the JSONL and TensorBoard writers; and
 mixture-of-experts (``ops.moe.MoEMLP``, Mixtral, GPT-2's experts) with
-expert parallelism over an ``ep`` mesh axis, and the ViT-B/16 recipe.
+expert parallelism over an ``ep`` mesh axis, and the ViT-B/16 recipe;
+and T5 (relative-position bias in the attention dispatch and the ring,
+``generate_encdec``, the seq2seq losses, tensor parallelism, the JAX and
+HF converters) with its seq2seq recipe.
 Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
@@ -106,6 +109,8 @@ from pytorch_distributed_tpu_torch.interop import (
     load_phi3_weights,
     load_qwen2_weights,
     load_qwen3_weights,
+    load_t5_weights,
+    export_t5_weights,
     load_vit_weights,
     lora_params_from_jax,
     lora_params_to_jax,
@@ -117,6 +122,8 @@ from pytorch_distributed_tpu_torch.interop import (
     quantized_params_to_jax,
     resnet_params_from_jax,
     resnet_params_to_jax,
+    t5_params_from_jax,
+    t5_params_to_jax,
     vit_params_from_jax,
     vit_params_to_jax,
 )
@@ -150,6 +157,8 @@ from pytorch_distributed_tpu_torch.models import (
     Qwen2ForCausalLM,
     Qwen3Config,
     Qwen3ForCausalLM,
+    T5Config,
+    T5ForConditionalGeneration,
     ViT,
     ViTConfig,
     bert_partition_rules,
@@ -162,6 +171,9 @@ from pytorch_distributed_tpu_torch.models import (
     phi3_partition_rules,
     qwen2_partition_rules,
     qwen3_partition_rules,
+    generate_encdec,
+    shift_right,
+    t5_partition_rules,
     vit_partition_rules,
 )
 from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
@@ -272,6 +284,8 @@ from pytorch_distributed_tpu_torch.train import (
     fit_elastic,
     masked_lm_loss_fn,
     read_metrics,
+    seq2seq_eval_step,
+    seq2seq_lm_loss_fn,
     restore_checkpoint,
     save_checkpoint,
     text_classification_loss_fn,
@@ -312,7 +326,11 @@ __all__ = [
     "vit_partition_rules", "load_mixtral_weights", "export_mixtral_weights",
     "mixtral_params_from_jax", "mixtral_params_to_jax", "load_vit_weights",
     "export_vit_weights", "vit_params_from_jax", "vit_params_to_jax",
-    "load_bert_weights", "export_bert_weights",
+    "load_bert_weights", "export_bert_weights", "T5Config",
+    "T5ForConditionalGeneration", "generate_encdec", "shift_right",
+    "t5_partition_rules", "load_t5_weights", "export_t5_weights",
+    "t5_params_from_jax", "t5_params_to_jax", "seq2seq_lm_loss_fn",
+    "seq2seq_eval_step",
     "memory_stats", "memory_allocated", "max_memory_allocated",
     "memory_summary", "current_mesh", "set_current_mesh", "mesh_axis_size",
     "resnet_params_from_jax",

@@ -44,9 +44,14 @@ state_dict, each tensor in the dtype it came in; the ``export_*``
 functions take the port's state_dict and return the HF-named one as
 numpy arrays (f32 for floating tensors). GPT-2, the Llama body (with
 its Mistral, Qwen2, Qwen3 and Gemma aliases), Phi-3 (fused ``qkv_proj``
-and ``gate_up_proj``) and GPT-NeoX. The port's layouts are HF's own
-``[out, in]`` ones, so the maps are renames (GPT-2's ``Conv1D`` weights
-transposed, Phi-3's fused ones split).
+and ``gate_up_proj``), GPT-NeoX, and T5 (each stack's relative-bias
+table, which HF hangs on block 0, on the stack). The port's layouts are
+HF's own ``[out, in]`` ones, so the maps are renames (GPT-2's ``Conv1D``
+weights transposed, Phi-3's fused ones split).
+
+T5 (:func:`t5_slots`, :func:`t5_params_from_jax`,
+:func:`t5_params_to_jax`) carries the JAX tree in either layout of its
+layers, scan-stacked or unrolled (``T5Config.scan_layers``).
 """
 
 from __future__ import annotations
@@ -688,6 +693,88 @@ def vit_params_to_jax(state_dict, cfg) -> dict:
     return _params_to_jax(state_dict, vit_slots(cfg), "vit_params_to_jax")
 
 
+def _t5_per_layer(cfg, cross: bool):
+    """A T5 block's ``{port sub-name: (JAX module path, leaf, jshape, perm,
+    rows)}``: q/k/v ``[H * d_kv, D]`` are ``[D, H, d_kv]`` kernels, o
+    ``[D, H * d_kv]`` an ``[H, d_kv, D]`` one, the FFN's ``[out, in]``
+    weights ``[in, out]`` kernels, the norms' weights ``scale`` leaves."""
+    D, H, dkv, F = cfg.d_model, cfg.num_heads, cfg.d_kv, cfg.d_ff
+    out = {}
+    norms = ("attn_norm", "cross_norm", "ffn_norm") if cross else (
+        "attn_norm", "ffn_norm")
+    for norm in norms:
+        out[f"{norm}.weight"] = (norm, "scale", (D,), (0,), 1)
+    for attn in ("attn", "cross_attn") if cross else ("attn",):
+        for n in ("q", "k", "v"):
+            out[f"{attn}.{n}.weight"] = (f"{attn}/{n}", "kernel",
+                                         (D, H, dkv), (1, 2, 0), 2)
+        out[f"{attn}.o.weight"] = (f"{attn}/o", "kernel", (H, dkv, D),
+                                   (2, 0, 1), 1)
+    wi = ("wi_0", "wi_1") if cfg.feed_forward_proj == "gated-gelu" else (
+        "wi",)
+    for n in wi:
+        out[f"ffn.{n}.weight"] = (f"ffn/{n}", "kernel", (D, F), (1, 0), 1)
+    out["ffn.wo.weight"] = ("ffn/wo", "kernel", (F, D), (1, 0), 1)
+    return out
+
+
+def t5_slots(cfg, scan_layers: Optional[bool] = None) -> Dict[str, Slot]:
+    """``{port name: Slot}`` for ``T5ForConditionalGeneration``: the JAX
+    tree's layout, scan-stacked (``{encoder,decoder}/layers/block/...``
+    with a leading ``[L]``) when ``scan_layers`` (the config's unless
+    given), else unrolled (``{stack}/layers_{i}/...``). ``shared``
+    ``[V, D]`` and each stack's ``rel_bias`` ``[num_buckets, H]`` are
+    the ``embedding`` leaves as they are (HF hangs the tables on block 0;
+    the port and the JAX model hold one a stack); an untied head
+    ``[V, D]`` is the ``[D, V]`` kernel; the blocks as
+    :func:`_t5_per_layer`."""
+    scan = cfg.scan_layers if scan_layers is None else scan_layers
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    nb, H = cfg.relative_attention_num_buckets, cfg.num_heads
+    slots = {"shared.weight": _permuted("params", ("shared", "embedding"),
+                                        None, 0, (V, D), (0, 1))}
+    if not cfg.tie_word_embeddings:
+        slots["lm_head.weight"] = _permuted(
+            "params", ("lm_head", "kernel"), None, 0, (D, V), (1, 0))
+    for stack in ("encoder", "decoder"):
+        slots[f"{stack}.rel_bias.weight"] = _permuted(
+            "params", (stack, "rel_bias", "embedding"), None, 0, (nb, H),
+            (0, 1))
+        slots[f"{stack}.final_norm.weight"] = _permuted(
+            "params", (stack, "final_norm", "scale"), None, 0, (D,), (0,))
+        per_layer = _t5_per_layer(cfg, cross=stack == "decoder")
+        for i in range(L):
+            for sub, (mod, leaf, js, perm, rows) in per_layer.items():
+                where = (("layers", "block"), i, L) if scan else (
+                    (f"layers_{i}",), None, 0)
+                slots[f"{stack}.layers.{i}.{sub}"] = _permuted(
+                    "params", (stack, *where[0], *mod.split("/"), leaf),
+                    where[1], where[2], js, perm, rows)
+    return slots
+
+
+def t5_params_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``T5ForConditionalGeneration`` params, either layout of the
+    layers (read off the tree) -> the port's state_dict (f32 CPU
+    tensors), every leaf accounted for."""
+    leaves = _Leaves(params, "t5_params_from_jax", "A10.5")
+    slots = t5_slots(cfg, scan_layers=leaves.has("encoder/layers/block"))
+    sd = {}
+    for name, slot in slots.items():
+        arr = leaves.take("/".join(slot.path))
+        sd[name] = _t(slot.from_jax(arr if slot.layer is None
+                                    else arr[slot.layer]))
+    leaves.finish()
+    return sd
+
+
+def t5_params_to_jax(state_dict, cfg) -> dict:
+    """The inverse of :func:`t5_params_from_jax`: the port's T5
+    state_dict as JAX params (f32 numpy) in the config's layout
+    (``scan_layers``)."""
+    return _params_to_jax(state_dict, t5_slots(cfg), "t5_params_to_jax")
+
+
 def _bert_head(names) -> str:
     """The head whose tensors (or JAX leaves) ``names`` holds."""
     return "mlm" if any(n.startswith("mlm_") for n in names) else "classifier"
@@ -752,8 +839,9 @@ def model_slots(model) -> Dict[str, Slot]:
     """The slots of a ``GPT2LMHead``, a ``LlamaForCausalLM`` (any
     Llama-body family, Mixtral's experts too), a ``NeoXForCausalLM``, a
     BERT (``BertForSequenceClassification``, ``BertForMaskedLM``), a
-    ``ViT`` or a ``ResNet`` (or one inside ``DistributedDataParallel``):
-    every entry of its ``state_dict``."""
+    ``ViT``, a ``T5ForConditionalGeneration`` or a ``ResNet`` (or one
+    inside ``DistributedDataParallel``): every entry of its
+    ``state_dict``."""
     from pytorch_distributed_tpu_torch.models.bert import (
         BertForMaskedLM,
         BertForSequenceClassification,
@@ -762,6 +850,9 @@ def model_slots(model) -> Dict[str, Slot]:
     from pytorch_distributed_tpu_torch.models.llama import LlamaForCausalLM
     from pytorch_distributed_tpu_torch.models.neox import NeoXForCausalLM
     from pytorch_distributed_tpu_torch.models.resnet import ResNet
+    from pytorch_distributed_tpu_torch.models.t5 import (
+        T5ForConditionalGeneration,
+    )
     from pytorch_distributed_tpu_torch.models.vit import ViT
 
     model = getattr(model, "module", model)
@@ -782,11 +873,13 @@ def model_slots(model) -> Dict[str, Slot]:
         slots = resnet_slots(logical_shapes(model).keys())
     elif isinstance(model, ViT):
         slots = vit_slots(model.config)
+    elif isinstance(model, T5ForConditionalGeneration):
+        slots = t5_slots(model.config)
     else:
         raise NotImplementedError(
             f"no JAX leaf layout for {type(model).__name__}: checkpoints of "
-            "the port cover GPT-2, the Llama families, NeoX, BERT and "
-            "ResNet (ROADMAP A5)")
+            "the port cover GPT-2, the Llama families, NeoX, BERT, ViT, T5 "
+            "and ResNet (ROADMAP A5)")
     missing = set(logical_shapes(model)) - set(slots)
     if missing:
         raise NotImplementedError(
@@ -1546,6 +1639,75 @@ def export_vit_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
     """The port's ``ViT`` state_dict -> HF ``ViTForImageClassification``
     state_dict arrays: the inverse of :func:`load_vit_weights`."""
     return {hf: _np(state_dict[port]) for hf, port in _vit_names(cfg)}
+
+
+def _t5_hf_names(cfg):
+    """``(HF name, port name)`` of every T5 tensor but the tables, the
+    embedding and the head. HF's sublayers: ``layer.0`` self-attention,
+    in the decoder ``layer.1`` cross-attention (``EncDecAttention``), the
+    last ``DenseReluDense``; each with its ``layer_norm``."""
+    wi = ("wi_0", "wi_1") if cfg.feed_forward_proj == "gated-gelu" else (
+        "wi",)
+    names = [("encoder.final_layer_norm.weight", "encoder.final_norm.weight"),
+             ("decoder.final_layer_norm.weight", "decoder.final_norm.weight")]
+    for stack, subs in (("encoder", (("SelfAttention", "attn"),)),
+                        ("decoder", (("SelfAttention", "attn"),
+                                     ("EncDecAttention", "cross_attn")))):
+        norms = {"attn": "attn_norm", "cross_attn": "cross_norm"}
+        for i in range(cfg.num_layers):
+            hp, pp = f"{stack}.block.{i}.layer.", f"{stack}.layers.{i}."
+            for j, (hf_attn, attn) in enumerate(subs):
+                names.append((f"{hp}{j}.layer_norm.weight",
+                              f"{pp}{norms[attn]}.weight"))
+                names += [(f"{hp}{j}.{hf_attn}.{n}.weight",
+                           f"{pp}{attn}.{n}.weight")
+                          for n in ("q", "k", "v", "o")]
+            j = len(subs)
+            names.append((f"{hp}{j}.layer_norm.weight",
+                          f"{pp}ffn_norm.weight"))
+            names += [(f"{hp}{j}.DenseReluDense.{n}.weight",
+                       f"{pp}ffn.{n}.weight") for n in wi + ("wo",)]
+    return names
+
+
+def _t5_hf_table(stack: str) -> str:
+    return (f"{stack}.block.0.layer.0.SelfAttention."
+            "relative_attention_bias.weight")
+
+
+def load_t5_weights(sd, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``T5ForConditionalGeneration`` state_dict -> the port's
+    ``T5ForConditionalGeneration`` state_dict (each tensor in the dtype
+    it came in). The port's layouts are HF's own ``[out, in]`` Linears;
+    HF hangs each stack's relative-bias table on block 0, the port holds
+    it on the stack (``{stack}.rel_bias.weight``). An untied config takes
+    ``lm_head.weight``; a tied one reads the head from ``shared``."""
+    out = {"shared.weight": _hf(sd, "shared.weight")}
+    for stack in ("encoder", "decoder"):
+        out[f"{stack}.rel_bias.weight"] = _hf(sd, _t5_hf_table(stack))
+    if not cfg.tie_word_embeddings:
+        out["lm_head.weight"] = _hf(sd, "lm_head.weight")
+    for hf, port in _t5_hf_names(cfg):
+        out[port] = _hf(sd, hf)
+    return out
+
+
+def export_t5_weights(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The port's T5 state_dict -> HF ``T5ForConditionalGeneration``
+    state_dict arrays (numpy, the JAX exporter's keys): ``shared`` also
+    as both stacks' ``embed_tokens`` and, tied, as ``lm_head``; the
+    tables on block 0 (HF's other buffers are left out: load with
+    ``strict=False``)."""
+    shared = _np(state_dict["shared.weight"])
+    sd = {"shared.weight": shared, "encoder.embed_tokens.weight": shared,
+          "decoder.embed_tokens.weight": shared,
+          "lm_head.weight": (shared if cfg.tie_word_embeddings
+                             else _np(state_dict["lm_head.weight"]))}
+    for stack in ("encoder", "decoder"):
+        sd[_t5_hf_table(stack)] = _np(state_dict[f"{stack}.rel_bias.weight"])
+    for hf, port in _t5_hf_names(cfg):
+        sd[hf] = _np(state_dict[port])
+    return sd
 
 
 # Mistral's, Qwen2's (q/k/v biases), Qwen3's (q_norm/k_norm) and Gemma's

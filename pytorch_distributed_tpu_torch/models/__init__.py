@@ -1,7 +1,7 @@
 """models/ of the PyTorch/CUDA port: GPT-2, BERT, ResNet, the Llama body
 with its families (Gemma, Mistral, Qwen2, Qwen3, Phi-3, tied
-Llama-3.2), Mixtral, GPT-NeoX/Pythia and ViT, under the JAX package's
-names."""
+Llama-3.2), Mixtral, GPT-NeoX/Pythia, ViT and T5, under the JAX
+package's names."""
 
 from pytorch_distributed_tpu_torch.models.bert import bert_partition_rules
 from pytorch_distributed_tpu_torch.models.gemma import (
@@ -46,6 +46,13 @@ from pytorch_distributed_tpu_torch.models.qwen3 import (
     Qwen3ForCausalLM,
     qwen3_partition_rules,
 )
+from pytorch_distributed_tpu_torch.models.t5 import (
+    T5Config,
+    T5ForConditionalGeneration,
+    generate_encdec,
+    shift_right,
+    t5_partition_rules,
+)
 from pytorch_distributed_tpu_torch.models.vit import (
     ViT,
     ViTConfig,
@@ -62,5 +69,7 @@ __all__ = [
     "phi3_partition_rules", "Qwen2Config", "Qwen2ForCausalLM",
     "qwen2_partition_rules", "Qwen3Config", "Qwen3ForCausalLM",
     "qwen3_partition_rules", "bert_partition_rules", "gpt2_partition_rules",
-    "ViT", "ViTConfig", "vit_partition_rules",
+    "ViT", "ViTConfig", "vit_partition_rules", "T5Config",
+    "T5ForConditionalGeneration", "generate_encdec", "shift_right",
+    "t5_partition_rules",
 ]

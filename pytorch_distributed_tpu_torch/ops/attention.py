@@ -11,6 +11,10 @@
 * The KV cache is an explicit argument: ``decode_cache`` writes into the
   tensors it is given (in place) and returns them, where the JAX version
   threads flax's ``cache`` collection.
+* An additive ``bias`` (T5's relative positions), its position-computed
+  form ``bias_fn`` and attention-weight dropout keep a call on the einsum
+  path, as in the JAX dispatcher; dropout draws its mask from an explicit
+  ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -101,6 +105,9 @@ def dot_product_attention(
     q_offset=0,
     scale: Optional[float] = None,
     window: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,          # [1|B, Hq, S, T] additive
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Grouped attention with f32 logits; returns [B, S, Hq, D] in
     q.dtype.
@@ -111,7 +118,10 @@ def dot_product_attention(
     query positions for the causal mask; a ``[B]`` tensor gives every row
     its own offset (the serving engine's slots, each at its own length).
     ``window`` is sliding-window attention: position ``i`` sees keys in
-    ``(i - window, i]``.
+    ``(i - window, i]``. ``bias`` is added to the f32 logits before the
+    masks (T5's relative positions). ``dropout_rate`` drops attention
+    WEIGHTS after the softmax (inverted scaling, HF T5's and torch's
+    ``attn_dropout``), the mask drawn from ``generator``.
     """
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -122,6 +132,9 @@ def dot_product_attention(
         scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, S, Hkv, G, D)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.reshape(
+            bias.shape[0], Hkv, G, *bias.shape[-2:]).float()
     neg = torch.finfo(torch.float32).min
     if segment_ids is not None:
         if S != T:
@@ -150,6 +163,15 @@ def dot_product_attention(
         keep = mask.to(torch.bool)[:, None, None, None, :]
         logits = logits.masked_fill(~keep, neg)
     weights = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError(
+                "dropout_rate > 0 needs a generator (the train step's "
+                "dropout stream, runtime.prng.generator_for)")
+        keep = torch.empty(weights.shape, device=weights.device)
+        keep.bernoulli_(1.0 - dropout_rate, generator=generator)
+        weights = torch.where(keep.bool(), weights / (1.0 - dropout_rate),
+                              torch.zeros_like(weights))
     out = torch.einsum("bkgst,btkd->bskgd", weights.to(q.dtype), v)
     return out.reshape(B, S, Hq, D)
 
@@ -316,7 +338,8 @@ def cache_bytes(cache) -> int:
 def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
               q_offset=0, scale=None, window=None,
               paged: Optional[PagedView] = None, impl: Optional[str] = None,
-              bias=None, bias_fn=None, dropout_rate: float = 0.0):
+              bias=None, bias_fn=None, dropout_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None):
     """Dispatching attention: models call this instead of an impl.
 
     With ``paged`` (the serving engine's decode tick), ``k``/``v`` are
@@ -336,14 +359,21 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
 
     With sequence parallelism on (``parallel.sequence_parallel``), a
     plain uncached call goes to ``sequence_parallel_attention`` on this
-    rank's shards (``impl`` picks Ulysses' inner attention), with the JAX
+    rank's shards (``impl`` picks Ulysses' inner attention; ring evaluates
+    ``bias_fn`` per block from global positions), with the JAX
     dispatcher's refusals: KV-cache decode, ``segment_ids``, a
     materialized ``bias`` and attention dropout raise
     ``NotImplementedError``, and so does a key ``mask`` (the JAX hands a
     masked call to the unsharded op, whose keys GSPMD gathers; a rank
-    here holds only its own). ``bias``, ``bias_fn`` and ``dropout_rate``
-    serve T5 and the JAX's attention dropout, which no model of the port
-    uses: outside sequence parallelism they raise (ROADMAP A10.5).
+    here holds only its own).
+
+    ``bias`` (``[1|B, Hq, S, T]``) is added to the logits;
+    ``bias_fn(q_pos [S], k_pos [T]) -> [Hq, S, T]`` is its
+    position-computed form, materialized here once over the call's
+    positions (``q_pos = arange(S) + q_offset``, an int decode offset
+    included; a per-row ``[B]`` offset raises, as in the JAX). Either,
+    or ``dropout_rate > 0`` (weights dropped with ``generator``'s mask),
+    keeps the call on the einsum path; ``impl="flash"`` with them raises.
     """
     if impl not in (None, "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -396,10 +426,17 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
         return sequence_parallel_attention(
             q, k, v, causal=causal, window=window, scale=scale,
             bias_fn=bias_fn, impl=impl)
-    if bias is not None or bias_fn is not None or dropout_rate > 0.0:
-        raise NotImplementedError(
-            "additive bias and attention dropout are not ported: no model "
-            "of the port attends with them (ROADMAP A10.5)")
+    if bias_fn is not None:
+        if bias is not None:
+            raise ValueError("pass bias or bias_fn, not both")
+        if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+            # one [Hq, S, T] block shared by the batch: per-row offsets
+            # would need a bias per row
+            raise NotImplementedError(
+                "bias_fn does not compose with per-row q_offset "
+                "(slot-pool decode)")
+        q_pos = torch.arange(q.shape[1], device=q.device) + q_offset
+        bias = bias_fn(q_pos, torch.arange(k.shape[1], device=q.device))[None]
     if mask is not None and mask.dim() != 2:
         raise ValueError(
             f"mask must be a [B, T] key mask, got {tuple(mask.shape)}"
@@ -407,12 +444,14 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
     flash_ok = (
         static_zero_offset
         and window is None
+        and bias is None
+        and dropout_rate == 0.0
         and q.shape[1] > 1
     )
     if impl == "flash" and not flash_ok:
         raise ValueError(
-            "impl='flash' takes no offset, window or single-query call; "
-            "use impl=None or 'xla'"
+            "impl='flash' takes no offset, window, bias, dropout or "
+            "single-query call; use impl=None or 'xla'"
         )
     if impl == "flash" or (impl is None and flash_ok and q.is_cuda):
         return flash_attention(
@@ -421,5 +460,6 @@ def attention(q, k, v, *, causal=False, mask=None, segment_ids=None,
         )
     return dot_product_attention(
         q, k, v, causal=causal, mask=mask, segment_ids=segment_ids,
-        q_offset=q_offset, scale=scale, window=window,
+        q_offset=q_offset, scale=scale, window=window, bias=bias,
+        dropout_rate=dropout_rate, generator=generator,
     )

@@ -17,7 +17,11 @@ over ``sp``; here each rank calls them on its own shards):
   saw no key (``l == 0``) is zero, not NaN. The block products are
   ``torch.matmul`` in f32 (the JAX computes them in plain ``jnp``); the
   gradient is autograd's through the differentiable rotation, which
-  sends each K/V gradient back along the ring.
+  sends each K/V gradient back along the ring. A ``bias_fn(q_pos,
+  k_pos)`` (T5's relative bias) is evaluated per block from the same
+  global positions, so no rank holds the whole ``[S, T]`` bias; it
+  gives this rank's heads (under tensor parallelism, those of the
+  model's head-sharded table).
 * **Ulysses** (DeepSpeed-Ulysses): an all-to-all
   (``runtime.distributed.all_to_all_grad``) turns ``[B, S/sp, H, D]``
   into ``[B, S, H/sp, D]``, full-sequence attention runs on the head
@@ -30,8 +34,8 @@ over ``sp``; here each rank calls them on its own shards):
 ``enable_sequence_parallel`` / ``sequence_parallel`` (a context) switch
 every model's ``ops.attention.attention`` call to
 :func:`sequence_parallel_attention`; the causal-LM losses then take this
-rank's positions of each row (``train/losses.py``). ``bias_fn`` (T5's
-relative bias) is refused under both forms (T5 is ROADMAP A10.5).
+rank's positions of each row (``train/losses.py``). Ulysses refuses
+``bias_fn`` and points at ring, as the JAX does.
 """
 
 from __future__ import annotations
@@ -68,15 +72,18 @@ def axis_group(axis: str = "sp", mesh=None):
 
 
 def _block_attn_parts(q, k, v, q_pos, k_pos, causal: bool, scale: float,
-                      window=None):
+                      window=None, bias=None):
     """Unnormalized block attention: ``(o [B,S,Hkv,G,D] f32, m, l
-    [B,Hkv,G,S,1])``; ``q_pos``/``k_pos`` are global positions. Autograd
+    [B,Hkv,G,S,1])``; ``q_pos``/``k_pos`` are global positions and
+    ``bias`` (``[Hq, S, T]`` or None) is added to the logits. Autograd
     keeps one ``[B, Hkv, G, S, T]`` f32 tensor (p) of the block."""
     B, S, Hq, D = q.shape
     _, T, Hkv, _ = k.shape
     G = Hq // Hkv
     qg = q.reshape(B, S, Hkv, G, D).float()
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.reshape(Hkv, G, S, T)[None].float()
     if causal or window is not None:
         mask = q_pos[:, None] >= k_pos[None, :]   # [S, T]
         if window is not None:
@@ -104,11 +111,9 @@ def ring_attention(q, k, v, *, causal: bool = False, axis: str = "sp",
     """Exact attention over the whole sequence from this rank's shards:
     q ``[B, S, Hq, D]`` and k/v ``[B, T, Hkv, D]`` hold positions
     ``[r * S, (r + 1) * S)`` of rank ``r`` of ``axis``; returns this
-    rank's ``[B, S, Hq, D]`` rows of the output in q's dtype."""
-    if bias_fn is not None:
-        raise NotImplementedError(
-            "bias_fn (a relative-position bias) under sequence parallelism "
-            "serves T5, which is not ported (ROADMAP A10.5)")
+    rank's ``[B, S, Hq, D]`` rows of the output in q's dtype.
+    ``bias_fn(q_pos, k_pos)`` gives each block's additive bias
+    ``[Hq, S, T]`` of this rank's heads from its global positions."""
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if scale is None:
@@ -128,8 +133,9 @@ def ring_attention(q, k, v, *, causal: bool = False, axis: str = "sp",
     for t in range(n):
         src = (my - t) % n   # whose K/V shard this rank holds at step t
         k_pos = src * T + torch.arange(T, device=dev)
+        bias = None if bias_fn is None else bias_fn(q_pos, k_pos)
         o_t, m_t, l_t = _block_attn_parts(q, k_t, v_t, q_pos, k_pos, causal,
-                                          scale, window)
+                                          scale, window, bias)
         m_new = torch.maximum(m, m_t)
         alpha, beta = torch.exp(m - m_new), torch.exp(m_t - m_new)
         l = l * alpha + l_t * beta

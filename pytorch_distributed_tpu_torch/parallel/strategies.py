@@ -113,8 +113,8 @@ def tp_plan(model: torch.nn.Module, rules, spec: MeshSpec) -> Dict[str,
             continue
         mod_name, _, leaf = name.rpartition(".")
         mod, dim = modules[mod_name], axes["tp"]
-        if leaf != "weight":
-            continue
+        if leaf != "weight" or getattr(mod, "tp_table", False):
+            continue   # a table place_tables shards
         bias = getattr(mod, "bias", None)
         if (dim == 0 and bias is not None
                 and placed.get(f"{mod_name}.bias") != {"tp": 0}):
@@ -136,6 +136,28 @@ def tp_plan(model: torch.nn.Module, rules, spec: MeshSpec) -> Dict[str,
         else:
             plan[mod_name] = RowwiseParallel()
     return plan
+
+
+def place_tables(model: torch.nn.Module, rules, spec: MeshSpec,
+                 tp_mesh) -> None:
+    """Shard over ``tp`` the weight of each module marked ``tp_table``
+    (T5's relative-bias tables, read by head, which no parallel style
+    takes) as the rules place its JAX leaf: a ``DTensor`` whose local
+    part is this rank's slice, which the module reads itself."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        infer_placements,
+    )
+
+    placed = infer_placements(model, rules, spec)
+    for name, mod in model.named_modules():
+        dims = placed.get(f"{name}.weight", {})
+        if getattr(mod, "tp_table", False) and "tp" in dims:
+            mod.weight = torch.nn.Parameter(
+                distribute_tensor(mod.weight.data, tp_mesh,
+                                  [Shard(dims["tp"])]),
+                requires_grad=mod.weight.requires_grad)
 
 
 def _axes_group(mesh, axes):
@@ -210,19 +232,25 @@ def set_moe_data_group(model: torch.nn.Module, group) -> None:
 
 def _shard_model(model: torch.nn.Module, spec: MeshSpec, mesh, shard_mesh,
                  rules) -> torch.nn.Module:
-    """:meth:`FSDP.wrap`'s body: the TP plan over ``tp``, the experts
-    over ``ep`` and ``tp``, then FSDP2 on each of ``model.layers`` (or
-    ``blocks``) and on the root over ``shard_mesh``."""
+    """:meth:`FSDP.wrap`'s body: the TP plan over ``tp`` (and the
+    tables of :func:`place_tables`), the experts over ``ep`` and ``tp``,
+    then FSDP2 on each of ``model.layers`` (``blocks``, or a model's
+    ``shard_blocks()``: both of T5's stacks) and on the root over
+    ``shard_mesh``."""
     from torch.distributed.fsdp import fully_shard
 
-    blocks = getattr(model, "layers", None)
-    if blocks is None:
-        blocks = model.blocks
+    if hasattr(model, "shard_blocks"):
+        blocks = model.shard_blocks()
+    else:
+        blocks = getattr(model, "layers", None)
+        if blocks is None:
+            blocks = model.blocks
     if spec.tp > 1:
         from torch.distributed.tensor.parallel import parallelize_module
 
         tp_mesh = mesh["tp"]
         parallelize_module(model, tp_mesh, tp_plan(model, rules, spec))
+        place_tables(model, rules, spec, tp_mesh)
         for block in blocks:
             block.tp = (tp_mesh.get_local_rank(), spec.tp,
                         tp_mesh.get_group())
@@ -372,12 +400,12 @@ class FSDP(DataParallel):
                            if self.spec.model_parallel() else self.mesh)
 
     def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
-        """Shard ``model`` (a ``LlamaForCausalLM`` or ``MixtralForCausalLM``)
-        in place: the TP plan over ``tp``, the experts over ``ep`` and
-        ``tp``, then FSDP on each of its ``layers`` and on the root;
-        returns it. Build the model on the meta device, wrap it, then
-        ``to_empty(device=...)`` and ``init_weights``: no rank ever holds
-        the whole model."""
+        """Shard ``model`` (a ``LlamaForCausalLM``, ``MixtralForCausalLM``
+        or ``T5ForConditionalGeneration``) in place: the TP plan over
+        ``tp``, the experts over ``ep`` and ``tp``, then FSDP on each of
+        its blocks and on the root; returns it. Build the model on the
+        meta device, wrap it, then ``to_empty(device=...)`` and
+        ``init_weights``: no rank ever holds the whole model."""
         return _shard_model(model, self.spec, self.mesh, self.shard_mesh,
                             self.rules)
 

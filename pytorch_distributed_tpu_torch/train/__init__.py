@@ -1,5 +1,5 @@
 """The training slices: state (with the EMA shadow), the causal-LM,
-classifier, text-classifier and masked-LM losses, the step builder
+classifier, text-classifier, masked-LM and seq2seq losses, the step builder
 (with fp16 loss scaling, compressed gradient sync and EMA), the fit
 loop, the metric writers, checkpoints and preemption."""
 
@@ -25,6 +25,8 @@ from pytorch_distributed_tpu_torch.train.losses import (
     classification_loss_fn,
     cross_entropy,
     masked_lm_loss_fn,
+    seq2seq_eval_step,
+    seq2seq_lm_loss_fn,
     text_classification_loss_fn,
     topk_accuracy,
 )
@@ -48,7 +50,8 @@ __all__ = [
     "EX_TEMPFAIL", "Preempted", "PreemptionHandler", "fit_elastic",
     "accuracy", "causal_lm_eval_step", "causal_lm_loss_fn",
     "classification_eval_step", "classification_loss_fn", "cross_entropy",
-    "masked_lm_loss_fn", "text_classification_loss_fn", "topk_accuracy",
+    "masked_lm_loss_fn", "seq2seq_eval_step", "seq2seq_lm_loss_fn",
+    "text_classification_loss_fn", "topk_accuracy",
     "MetricsWriter", "ScalarMeter", "TeeWriter", "read_metrics",
     "TrainState", "Trainer", "TrainerConfig", "TrainingDiverged",
     "build_train_step",

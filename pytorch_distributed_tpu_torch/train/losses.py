@@ -1,7 +1,8 @@
 """Losses and metrics: the port of ``causal_lm_loss_fn`` (full logits
 or the chunked-vocab loss of ``ops/lm_loss.py``), ``causal_lm_eval_step``,
-the classifier losses, ``text_classification_loss_fn`` and
-``masked_lm_loss_fn`` in ``pytorch_distributed_tpu/train/losses.py``,
+the classifier losses, ``text_classification_loss_fn``,
+``masked_lm_loss_fn``, and the encoder-decoder ``seq2seq_lm_loss_fn``
+and ``seq2seq_eval_step`` in ``pytorch_distributed_tpu/train/losses.py``,
 and of its MixUp/CutMix (``mixup_cutmix``, split into its draws and its
 mixing, and ``mixup_classification_loss_fn``), ``distillation_loss_fn``,
 ``text_classification_eval_step`` and ``f1_finalize``.
@@ -687,3 +688,78 @@ def f1_finalize(means: Dict[str, float]) -> Dict[str, float]:
     denom = ((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)) ** 0.5
     out["mcc"] = (tp * tn - fp * fn) / denom if denom > 0 else 0.0
     return out
+
+
+# -- encoder-decoder (T5) ---------------------------------------------------
+
+
+def _token_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-position softmax cross-entropy in f32 (the JAX
+    ``_token_cross_entropy``): with ``label_smoothing`` the target is
+    ``one_hot * (1 - ls) + ls / n``."""
+    V = logits.shape[-1]
+    return F.cross_entropy(
+        logits.float().reshape(-1, V), labels.reshape(-1).long(),
+        reduction="none", label_smoothing=label_smoothing,
+    ).reshape(labels.shape)
+
+
+def _masked_mean(tok: torch.Tensor, mask) -> torch.Tensor:
+    """Mean over the positions where ``mask`` is True (all when None)."""
+    if mask is None:
+        return tok.mean()
+    valid = mask.to(tok.dtype)
+    return (tok * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def _seq2seq_logits(model, batch, start_id, **kw):
+    """Teacher-forced logits: the decoder reads ``shift_right(labels)``
+    (the start token the config's pad id unless given)."""
+    from pytorch_distributed_tpu_torch.models.t5 import shift_right
+
+    core = getattr(model, "module", model)
+    sid = start_id if start_id is not None else getattr(
+        core.config, "pad_token_id", 0)
+    return model(batch["input_ids"], shift_right(batch["labels"], sid),
+                 input_mask=batch.get("input_mask"), **kw)
+
+
+def seq2seq_lm_loss_fn(model, *, start_id: Optional[int] = None,
+                       label_smoothing: float = 0.0,
+                       attn_impl: Optional[str] = None) -> Callable:
+    """Loss for encoder-decoder LMs (``models/t5.py``): teacher forcing
+    on ``shift_right(labels)`` (HF ``T5ForConditionalGeneration(labels=
+    ...)``), cross-entropy against the unshifted ``labels`` with
+    ``label_smoothing``, averaged over the batch's optional
+    ``label_mask``; ``input_mask`` is the encoder's key mask. Metric
+    ``loss``."""
+
+    def loss_fn(batch, generator):
+        logits = _seq2seq_logits(model, batch, start_id, train=True,
+                                 generator=generator, attn_impl=attn_impl)
+        tok = _token_cross_entropy(logits, batch["labels"], label_smoothing)
+        loss = _masked_mean(tok, batch.get("label_mask"))
+        return loss, {"metrics": {"loss": loss.detach()}}
+
+    return loss_fn
+
+
+def seq2seq_eval_step(model, *, start_id: Optional[int] = None,
+                      attn_impl: Optional[str] = None) -> Callable:
+    """``eval_step(state, batch) -> metrics`` for encoder-decoder LMs:
+    the teacher-forced masked ``loss``, its ``perplexity`` and the
+    masked ``token_accuracy`` (the batch contract of
+    :func:`seq2seq_lm_loss_fn`)."""
+
+    @torch.no_grad()
+    def eval_step(state, batch) -> Dict[str, torch.Tensor]:
+        logits = _seq2seq_logits(model, batch, start_id, train=False,
+                                 attn_impl=attn_impl)
+        labels, mask = batch["labels"], batch.get("label_mask")
+        loss = _masked_mean(_token_cross_entropy(logits, labels), mask)
+        correct = (logits.argmax(-1) == labels).to(torch.float32)
+        return {"loss": loss, "perplexity": torch.exp(loss),
+                "token_accuracy": _masked_mean(correct, mask)}
+
+    return eval_step

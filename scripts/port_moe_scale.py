@@ -12,8 +12,11 @@ chunked loss at 8192 with the load loss at 0.01, clip(1.0) then
 adamw(1e-4, decay 1e-4)), built from the same seeded weights and fed the
 same global batch of ``--batch`` rows of ``--seq`` tokens:
 
-* **world 1**: rank 0 alone, in a process group of its own, before the
-  others join (one card holds the 2-layer cut whole);
+* **world 1**: rank 0's card alone, in a process group of its own in a
+  child process of rank 0 (nothing of it outlives the run: the child
+  reports what it still held after the run and after a garbage
+  collection), before the others join (one card holds the 2-layer cut
+  whole);
 * **ep 4**: ``DataParallel(mesh_spec=MeshSpec(dp=1, ep=4))``, each card
   2 of the 8 experts of every layer, the tokens on every card;
 * **dp 2 x ep 2**: 4 experts a card, each ``dp`` pair half the rows (the
@@ -21,7 +24,8 @@ same global batch of ``--batch`` rows of ``--seq`` tokens:
 
 For each: the first 3 losses (the global batch's mean) and the first
 batch's global gradient norm, ``--steps`` timed steps ending in one
-value fetch (ms a step, tokens/s per card), each rank's peak memory, and
+value fetch (ms a step, tokens/s per card), each rank's allocated memory
+when the configuration starts and its peak over the timed steps, and
 on a card ``torch.profiler`` over two more steps: the busy share of the
 window and NCCL's all-reduce ms a step. Against world 1's: the first
 loss (the same weights and batch) within ``FIRST_LOSS_RTOL``, the
@@ -139,6 +143,9 @@ def run(args, device, name, spec, cfg, ids, timed=True):
     from pytorch_distributed_tpu_torch.runtime import distributed as dist
 
     world, on_card = dist.get_world_size(), device.type == "cuda"
+    _free(device)
+    start_gib = (torch.cuda.memory_allocated(device) / 2**30 if on_card
+                 else 0.0)
     t0 = time.perf_counter()
     par = DataParallel(device, mesh_spec=MeshSpec(**spec),
                        extra_rules=mixtral_partition_rules())
@@ -182,6 +189,8 @@ def run(args, device, name, spec, cfg, ids, timed=True):
             peak = torch.cuda.max_memory_allocated(device) / 2**30
             out["peak_mem_gib_by_rank"] = dist.all_gather(torch.tensor(
                 [peak], device=device))[:, 0].tolist()
+            out["allocated_at_start_gib_by_rank"] = dist.all_gather(
+                torch.tensor([start_gib], device=device))[:, 0].tolist()
             prof = _profile(step, state, batch, device)
             out["device_busy_share"] = (prof["busy_ms"]
                                         / prof["window_ms_per_step"])
@@ -189,7 +198,7 @@ def run(args, device, name, spec, cfg, ids, timed=True):
             out["profile_rank0"] = prof
     if dist.get_rank() == 0:
         print(f"{name}: {json.dumps(out)}", flush=True)
-    del model, net, opt, step, state, batch, par
+    del model, net, opt, loss_fn, step, state, batch, par, metrics
     _free(device)
     return out
 
@@ -222,21 +231,53 @@ def _no_expert_sum():
         moe.sum_outputs = real
 
 
-def _world1(args, device, cfg, ids):
-    """World 1 on rank 0, in a process group of its own (a store of its
-    own), torn down before the others' group forms."""
+def _world1_child(args, cfg, ids, results):
+    """World 1 on rank 0's card in this (child) process, in a process
+    group of its own (a store of its own), torn down after; then what the
+    process still holds allocated, before and after a garbage
+    collection."""
+    import torch
     import torch.distributed as tdist
 
     from pytorch_distributed_tpu_torch.runtime import distributed as dist
 
+    device = dist.rank_device(args.device)
     store = tdist.TCPStore("localhost", 0, 1, True,
                            timeout=datetime.timedelta(seconds=60))
     dist.init_process_group(store=store, world_size=1, rank=0, device=device)
     try:
-        return run(args, device, "world1", dict(dp=1), cfg, ids)
+        out = run(args, device, "world1", dict(dp=1), cfg, ids)
     finally:
         dist.destroy_process_group()
         del store
+    if device.type == "cuda":
+        out["left_allocated_gib"] = torch.cuda.memory_allocated(device) / 2**30
+        gc.collect()
+        out["left_allocated_gib_after_gc"] = (
+            torch.cuda.memory_allocated(device) / 2**30)
+    results.put(out)
+
+
+def _world1(args, cfg, ids):
+    """:func:`_world1_child` in a spawned child of rank 0, which exits
+    before the others' group forms: nothing of world 1 stays allocated
+    in rank 0's process for the readings after it."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=_world1_child, args=(args, cfg, ids, results))
+    child.start()
+    try:
+        out = results.get(timeout=1800)
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    if child.exitcode != 0:
+        raise RuntimeError(f"world 1 exited with {child.exitcode}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -262,7 +303,7 @@ def main(argv=None) -> int:
         0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int64)
     ref = None
     if int(os.environ.get("RANK", "0")) == 0:
-        ref = _world1(args, device, cfg, ids)
+        ref = _world1(args, cfg, ids)
     # the others wait here while rank 0 runs world 1 alone
     dist.init_process_group(device=device, timeout_s=1800.0)
     world, rank = dist.get_world_size(), dist.get_rank()

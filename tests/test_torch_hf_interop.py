@@ -13,7 +13,11 @@ drawn with numpy from a seed, so it has HF's names and shapes (fused
 * the port's ``export_*`` of what it loaded equals the JAX ``export_*``
   array by array, bit for bit (renames, transposes and splits only);
 * the refusals of the JAX loader hold: biases or q/k norms the config
-  does not enable, and a tied config given a differing head.
+  does not enable, and a tied config given a differing head;
+* ViT, BERT, Mixtral and T5 (both layouts: tied/relu/scanned and the
+  untied/gated/unrolled v1.1) load to the JAX loader's leaves and export
+  back bit for bit; T5's logits equal a random-init ``transformers``
+  model's within 2e-4 where ``transformers`` imports (no download).
 """
 
 import dataclasses
@@ -157,16 +161,26 @@ def test_llama_loader_refusals_match_jax():
     assert torch.equal(sd["lm_head.weight"], sd["embed.weight"])
 
 
-# -- ViT, BERT and Mixtral: the loaders' leaves against the JAX loaders ----
+# -- ViT, BERT, Mixtral and T5: the loaders' leaves against the JAX loaders
 
 from pytorch_distributed_tpu.models import bert as jbert  # noqa: E402
 from pytorch_distributed_tpu.models import mixtral as jmixtral  # noqa: E402
+from pytorch_distributed_tpu.models import t5 as jt5  # noqa: E402
 from pytorch_distributed_tpu.models import vit as jvit  # noqa: E402
 from pytorch_distributed_tpu_torch.models.bert import BertConfig  # noqa: E402
 from pytorch_distributed_tpu_torch.models.mixtral import (  # noqa: E402
     MixtralConfig,
 )
+from pytorch_distributed_tpu_torch.models.t5 import (  # noqa: E402
+    T5Config,
+    T5ForConditionalGeneration,
+)
 from pytorch_distributed_tpu_torch.models.vit import ViTConfig  # noqa: E402
+
+# T5's two layouts: tied/relu/scanned (t5) and untied/gated/unrolled
+# (v1.1)
+_T5_V11 = dict(tie_word_embeddings=False, feed_forward_proj="gated-gelu",
+               scan_layers=False)
 
 # name: (JAX model, its init input, JAX converter, port config, the port's
 # JAX-tree converter, the port's HF load keywords)
@@ -185,6 +199,14 @@ TREES = {
         jmixtral.MixtralConfig.tiny()), jnp.zeros((1, 8), jnp.int32),
         "mixtral", MixtralConfig.tiny(), interop.mixtral_params_from_jax,
         {}),
+    "t5": (lambda: jt5.T5ForConditionalGeneration(jt5.T5Config.tiny()),
+           (jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 5), jnp.int32)),
+           "t5", T5Config.tiny(), interop.t5_params_from_jax, {}),
+    "t5_v1_1": (lambda: jt5.T5ForConditionalGeneration(dataclasses.replace(
+        jt5.T5Config.tiny(), **_T5_V11)),
+        (jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 5), jnp.int32)), "t5",
+        dataclasses.replace(T5Config.tiny(), **_T5_V11),
+        interop.t5_params_from_jax, {}),
 }
 
 
@@ -193,9 +215,10 @@ def _hf_of_tree(name):
     JAX ``export_*``."""
     make, x, conv, cfg, _, kw = TREES[name]
     jmodel = make()
+    args = x if isinstance(x, tuple) else (x,)   # T5: encoder and decoder
     with use_policy(F32):
-        shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), x))[
-            "params"]
+        shapes = jax.eval_shape(lambda: jmodel.init(jax.random.key(0),
+                                                    *args))["params"]
     rng = np.random.default_rng(sum(map(ord, name)))
     params = jax.tree_util.tree_map_with_path(
         lambda path, s: (rng.normal(size=s.shape) * 0.08 + (
@@ -237,3 +260,35 @@ def test_vit_and_bert_loader_edges():
     with pytest.raises(ValueError, match="pooling='cls'"):
         interop.load_vit_weights(hf, dataclasses.replace(ViTConfig.tiny(),
                                                          pooling="mean"))
+
+
+@pytest.mark.parametrize("v1_1", [False, True], ids=["t5", "t5_v1_1"])
+def test_t5_logits_match_transformers(v1_1):
+    """A random-init HF ``T5ForConditionalGeneration`` (no download) loaded
+    by ``load_t5_weights``: the port's f32 logits equal HF's within 2e-4
+    (the JAX package's own HF pin, ``tests/test_t5.py``), a padded
+    encoder row included."""
+    transformers = pytest.importorskip("transformers")
+    kw = dict(vocab_size=211, d_model=48, d_kv=12, d_ff=96, num_layers=2,
+              num_heads=4, relative_attention_num_buckets=8,
+              relative_attention_max_distance=20, dropout_rate=0.0,
+              feed_forward_proj="gated-gelu" if v1_1 else "relu",
+              tie_word_embeddings=not v1_1)
+    torch.manual_seed(0)
+    hf = transformers.T5ForConditionalGeneration(transformers.T5Config(
+        num_decoder_layers=2, **kw)).eval()
+    cfg = T5Config(**kw)
+    model = T5ForConditionalGeneration(cfg, device="cpu",
+                                       policy=Policy.full())
+    model.load_state_dict(interop.load_t5_weights(
+        {k: v.numpy() for k, v in hf.state_dict().items()}, cfg))
+    rng = np.random.default_rng(0)
+    enc = torch.from_numpy(rng.integers(2, 211, size=(2, 13)))
+    dec = torch.from_numpy(rng.integers(2, 211, size=(2, 7)))
+    mask = torch.ones(2, 13, dtype=torch.long)
+    mask[1, 9:] = 0
+    with torch.no_grad():
+        want = hf(input_ids=enc, attention_mask=mask,
+                  decoder_input_ids=dec).logits
+        got = model(enc, dec, input_mask=mask.bool())
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)

@@ -91,7 +91,8 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "models.qwen2", "models.qwen3", "models.phi3", "models.neox",
             "parallel.sequence", "parallel.sharding", "parallel.rules",
             "ops.moe", "models.mixtral", "models.vit",
-            "recipes.mixtral_moe", "recipes.vit_imagenet"):
+            "recipes.mixtral_moe", "recipes.vit_imagenet", "models.t5",
+            "recipes.t5_seq2seq"):
     assert ptt.__name__ + "." + mod in names, mod
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
@@ -261,6 +262,63 @@ def test_slice14_exports_and_recipes_run_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "SLICE14-OK" in res.stdout
+
+
+_BLOCKED_T5 = _BLOCKED_RUN.split("import pytorch_distributed_tpu_torch")[0] + """
+from pytorch_distributed_tpu_torch import (
+    T5Config, T5ForConditionalGeneration, export_t5_weights,
+    generate_encdec, load_t5_weights, seq2seq_eval_step, seq2seq_lm_loss_fn,
+    shift_right, t5_params_from_jax, t5_params_to_jax, t5_partition_rules,
+)
+from pytorch_distributed_tpu_torch.recipes import t5_seq2seq
+trainer = t5_seq2seq.main(["--device", "cpu", "--steps-per-epoch", "2",
+                           "--batch-size", "8", "--eval-rows", "4",
+                           "--log-every", "1"])
+assert trainer.state.step == 2 and trainer.seq2seq["rows"] == 4
+assert sorted(trainer.last_eval_metrics) == ["loss", "perplexity",
+                                             "token_accuracy"]
+cfg = T5Config.tiny()
+model = T5ForConditionalGeneration(cfg, device="cpu")
+model.init_weights(torch.Generator().manual_seed(0))
+sd = load_t5_weights(export_t5_weights(model.state_dict(), cfg), cfg)
+assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items())
+tree = t5_params_to_jax(model.state_dict(), cfg)
+assert sorted(t5_params_from_jax(tree, cfg)) == sorted(sd)
+ids = torch.randint(2, cfg.vocab_size, (2, 5))
+assert generate_encdec(model, ids, max_new_tokens=3).shape == (2, 3)
+bad = [m for m in sys.modules
+       if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not bad, bad
+print("T5-OK")
+"""
+
+
+def test_t5_exports_and_recipe_run_with_jax_blocked():
+    """The T5 names (the model, ``generate_encdec``, the seq2seq losses,
+    the JAX and HF converters, the partition rules) import from the
+    package root, the recipe trains and generates on the CPU, and the
+    converters round-trip, with the JAX side blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_T5], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "T5-OK" in res.stdout
+
+
+def test_t5_entry_points_default_to_cuda(monkeypatch):
+    from pytorch_distributed_tpu_torch import (
+        T5Config,
+        T5ForConditionalGeneration,
+    )
+    from pytorch_distributed_tpu_torch.recipes import t5_seq2seq
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T5ForConditionalGeneration(T5Config.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t5_seq2seq.main(["--steps-per-epoch", "1"])
 
 
 def test_mesh_helpers_follow_the_current_mesh():

@@ -18,7 +18,7 @@ w)``) within 1e-4 of the reference's largest magnitude, f32:
   equal the world of one's within 1e-5 relative;
 * the dispatcher's refusals under a sequence-parallel mode: KV-cache
   decode, ``segment_ids``, a materialized bias, dropout, and ``bias_fn``
-  naming ROADMAP A10.5.
+  under Ulysses (naming ring, which takes it).
 """
 
 import jax
@@ -37,7 +37,10 @@ from pytorch_distributed_tpu.runtime.mesh import make_mesh as jax_make_mesh
 from pytorch_distributed_tpu.runtime.precision import Policy as JaxPolicy
 from pytorch_distributed_tpu.runtime.precision import use_policy
 from pytorch_distributed_tpu_torch.models.llama import LlamaConfig
-from pytorch_distributed_tpu_torch.ops.attention import attention
+from pytorch_distributed_tpu_torch.ops.attention import (
+    attention,
+    dot_product_attention,
+)
 from pytorch_distributed_tpu_torch.parallel import sequence
 from pytorch_distributed_tpu_torch.recipes import llama_fsdp
 from tests import torch_dp_workers
@@ -196,8 +199,14 @@ def test_dispatch_refuses_what_sequence_shards_cannot_do():
                 (dict(dropout_rate=0.1), "dropout")):
             with pytest.raises(NotImplementedError, match=what):
                 attention(q, q, q, causal=True, **kw)
-        with pytest.raises(NotImplementedError, match="A10.5"):
-            attention(q, q, q, causal=True, bias_fn=lambda a, b: None)
+        # ring evaluates a bias_fn per block (here one rank's one block)
+        bias = torch.randn(2, 4, 4, generator=torch.Generator().manual_seed(0))
+        got = attention(q, q, q, causal=True, bias_fn=lambda a, b: bias)
+        torch.testing.assert_close(got, dot_product_attention(
+            q, q, q, causal=True, bias=bias[None]))
+    with sequence.sequence_parallel("sp", "ulysses"):
+        with pytest.raises(NotImplementedError, match="ring"):
+            attention(q, q, q, causal=True, bias_fn=lambda a, b: bias)
     assert sequence.sequence_parallel_mode() == (None, "ring")
     with pytest.raises(ValueError, match="impl"):
         sequence.enable_sequence_parallel("sp", "stripes")
