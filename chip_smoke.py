@@ -20,7 +20,8 @@ and exported) with the kernels at head_dim 96 and 256, and the flash
 kernels at the per-rank shapes of tensor and sequence parallelism with
 the recipe's sequence-parallel path, and T5-base (training, its
 cross-attention's kernels, ``generate_encdec``, the seq2seq recipe, the
-HF layout).
+HF layout), and pipeline parallelism (the host 1F1B executor over two
+stage processes on the card, the GPipe form at one stage).
 
     python3 chip_smoke.py [--seed N]
 
@@ -117,7 +118,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    Last of all, (e) ``torch.profiler`` over two steps of (a): device
    busy ms, idle share, and the time by kernel family.
 7. the JAX recipe's default GPT-2 run (after ResNet, before train):
-   GPT-2-medium at full width and depth under ``Policy.train()``,
+   GPT-2-medium at full width and ``ZERO_LAYERS`` (12) of its 24 layers
+   (cut for phase 18's time) under ``Policy.train()``,
    ``ZeRO1`` (DDP + ``ZeroRedundancyOptimizer`` over AdamW) at world 1
    over NCCL on a localhost store torn down after, full remat, vocab
    chunk 8192, batch 8 x 1024 in 2 microbatches, clip(1.0) then
@@ -376,9 +378,32 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``t5_forced``, ``t5_recipe``, ``t5_recipe_small``,
    ``t5_recipe_small_resumed`` (B1-B3), ``t5_hf`` (B1).
 
+18. pipeline parallelism, after phase 17: (18a) the host 1F1B executor
+   (``HostPipelineStep``) at GPT-2-medium's full width and depth,
+   seeded, ``Policy.train()``, SGD(``PP_LR``) on one repeated batch of
+   4 microbatches of 2 x 1024: solo (``num_stages=1``) here, then two
+   stage processes of 12 + 12 layers on the one card, linked over a gloo
+   stage link (host hand-offs), ``PP_STEPS`` steps: the losses fall and
+   lie within ``PP_LOSS_RTOL`` of solo's, the merged stage parameters
+   within ``PP_PARAM_RTOL`` of solo's (the stages' tensors come back as
+   shared CUDA tensors), the last stage's ``head_wte`` equal to stage 0's
+   ``wte``; a control without the tied gradient's exchange must read
+   beyond ``PP_PARAM_RTOL``. Each process counts its own launches: solo
+   24 x 4 of B1-B3 a step, stage 0 2 x 12 x 4 of B1 (its backward
+   recomputes the forward) and 12 x 4 of B2 and B3, stage 1 12 x 4 of
+   each. (18b) ``pipelined_causal_lm_loss_fn`` under ``PipelineParallel``
+   at one stage through the Trainer in a NCCL world of one, GPT-2-medium,
+   clip + AdamW(3e-4), 4 microbatches of 2 x 1024, ``PP_STEPS`` steps:
+   losses within ``GPIPE_LOSS_RTOL`` of ``causal_lm_loss_fn``'s on the
+   same weights and batches, B1-B3 24 x 4 a step. Paths
+   ``pp_host_solo``, ``pp_host_stage0``, ``pp_host_stage1``,
+   ``pp_gpipe_one_stage`` (B1-B3; B4 0 on each). The GPipe form over
+   more than one stage needs a card a stage: ``scripts/port_pp_scale.py``.
+
 Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13, 14, 15,
-16 and 17 set all four kernel counts to 0 just before their run and read
-all four just after; a kernel off the path that launched fails the run.
+16, 17 and 18 set all four kernel counts to 0 just before their run and
+read all four just after; a kernel off the path that launched fails the
+run.
 
 Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
@@ -2604,6 +2629,10 @@ def resnet_profile(device, seed, step_ms):
 
 # -- 7. the JAX recipe's default run: ZeRO-1, remat, chunked loss ---------
 
+# (a) and (b) at GPT-2-medium's width and 12 of its 24 layers (24 up to
+# the pipeline slice, whose phase 18 took the time): half the blocks of
+# each 4.3 GB checkpoint and of each step
+ZERO_LAYERS = 12
 ZERO_STEPS = 6          # steps of (a), a checkpoint every ZERO_CKPT_EVERY
 ZERO_CKPT_EVERY = 3
 ZERO_CHUNK = 8192       # --vocab-chunk
@@ -2645,11 +2674,12 @@ def _corpus(seed, paragraphs):
 
 
 def _zero1_trainer(device, seed, ckpt_dir, *, init_seed=None, remat=True):
-    """GPT-2-medium under ``Policy.train()`` as the recipe builds it with
-    ``--strategy zero1 --remat --vocab-chunk 8192``: ZeRO-1 (DDP, the
-    AdamW state sharded), clip(1.0) then adamw(3e-4, decay 1e-4), batch 8
-    x 1024 in 2 microbatches, a checkpoint every 3 steps. The data
-    follows ``seed``, the weights ``init_seed`` (``seed`` unless given)."""
+    """GPT-2-medium (at ``ZERO_LAYERS`` layers) under ``Policy.train()``
+    as the recipe builds it with ``--strategy zero1 --remat --vocab-chunk
+    8192``: ZeRO-1 (DDP, the AdamW state sharded), clip(1.0) then
+    adamw(3e-4, decay 1e-4), batch 8 x 1024 in 2 microbatches, a
+    checkpoint every 3 steps. The data follows ``seed``, the weights
+    ``init_seed`` (``seed`` unless given)."""
     import dataclasses as dc
 
     import torch
@@ -2669,7 +2699,8 @@ def _zero1_trainer(device, seed, ckpt_dir, *, init_seed=None, remat=True):
         optim,
     )
 
-    cfg = dc.replace(GPT2Config.medium(), remat=remat)
+    cfg = dc.replace(GPT2Config.medium(), remat=remat,
+                     num_layers=ZERO_LAYERS)
     policy = Policy.train()
     model = GPT2LMHead(cfg, device=device, policy=policy)
     model.init_weights(torch.Generator(device=device).manual_seed(
@@ -6657,6 +6688,370 @@ def t5_phase(device, seed):
     return stats, by_path
 
 
+# -- 18. pipeline parallelism ---------------------------------------------
+
+# (18a) the host 1F1B executor at GPT-2-medium's full width and depth:
+# two stage processes of 12 + 12 layers on the one card, 4 microbatches
+# of 2 x 1024 a step, SGD on one repeated batch (so the loss must fall)
+PP_STEPS = 3
+PP_MICRO, PP_ROWS, PP_SEQ = 4, 2, 1024
+PP_DEPTHS = (12, 12)
+PP_LR = 0.1
+# the pipeline against the solo executor on the same weights and batch:
+# every block, fold and hand-off is the solo run's arithmetic in the same
+# order (the backward's recompute replays the deterministic flash
+# forward); only the tied head's gradient joins the embedding's across
+# stages (the solo backward sums the two inside autograd), so wte moves
+# by f32 last bits: the card read the losses equal and the parameters
+# 5.1e-9 of their largest apart (NVIDIA H100 80GB HBM3, 700 W); a later
+# bf16 product that rounds otherwise would move them by ~1e-7
+PP_LOSS_RTOL = 1e-6
+PP_PARAM_RTOL = 1e-6
+# (18b) the GPipe form at one stage against causal_lm_loss_fn through the
+# Trainer, clip + AdamW(3e-4): the same f32 loss summed in another order,
+# and the microbatches' gradients summed by autograd in one graph rather
+# than over four; AdamW's first steps move a weight by ~lr whatever its
+# gradient's size, so rounding noise in a gradient that is zero in exact
+# arithmetic (the key bias's) becomes +-lr moves: the card read 1.4e-5
+# over 3 steps (NVIDIA H100 80GB HBM3, 700 W)
+GPIPE_LOSS_RTOL = 1e-4
+
+
+def _pp_batch(seed):
+    """(18a)'s one batch: 8 x 1024 seeded token ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 18)
+    return {"input_ids": rng.integers(0, 50257, (PP_MICRO * PP_ROWS,
+                                                 PP_SEQ)).astype(np.int64)}
+
+
+def _pp_executor(device, seed, stage, num_stages, link, depths):
+    """GPT-2-medium's stage ``stage`` of ``num_stages`` (``Policy.train()``,
+    seeded whole and then sliced) in ``HostPipelineStep`` with SGD:
+    ``(executor, stage module, buffers)``."""
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        GPT2Config,
+        GPT2LMHead,
+        HostPipelineStep,
+        Policy,
+        optim,
+    )
+    from pytorch_distributed_tpu_torch.parallel.pipeline_lm import (
+        GPT2HostStagePrograms,
+        host_act_template,
+        host_stage_params,
+    )
+
+    policy = Policy.train()
+    model = GPT2LMHead(GPT2Config.medium(), device=device, policy=policy)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    module, buffers = host_stage_params(model, stage=stage,
+                                        num_stages=num_stages, depths=depths)
+    del model
+    host = HostPipelineStep(
+        GPT2HostStagePrograms(module, stage=stage, num_stages=num_stages),
+        stage=stage, num_stages=num_stages, num_microbatches=PP_MICRO,
+        optimizer=optim.SGD(module, lr=PP_LR), group=link,
+        act_template=host_act_template(module.config, PP_ROWS, PP_SEQ,
+                                       policy.compute_dtype))
+    return host, module, buffers
+
+
+def _pp_steps(host, buffers, batch, device):
+    """``PP_STEPS`` executor steps, kernel counts set to 0 just before and
+    read just after: (losses, counts, ms of each step; the first pays
+    the process's warm-up)."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    kernel_counts(reset=True)
+    losses, ms = [], []
+    for _ in range(PP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(host.step(batch, buffers).get("loss"))
+        torch.cuda.synchronize(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, kernel_counts(), ms
+
+
+def _pp_stage(rank, port, seed, out, done):
+    """One stage process of (18a) on card 0, linked to the other over a
+    gloo group: the pipelined run, then the control without the tied
+    gradient's exchange. Its final tensors go to the parent as CUDA
+    tensors (shared, not copied), kept alive until ``done``."""
+    import traceback
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        StageLink,
+        destroy_process_group,
+        init_process_group,
+    )
+    from pytorch_distributed_tpu_torch.ops import kernel_build
+
+    try:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        kernel_build.build(["flash_attention"])   # the parent's build
+        init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank, device="cpu")
+        link = StageLink()
+        res = {}
+        batch = _pp_batch(seed)
+        for name in ("pipelined", "control"):
+            host, module, buffers = _pp_executor(device, seed, rank, 2, link,
+                                                 PP_DEPTHS)
+            if name == "control":
+                host.programs.exchange_grads = None
+            losses, counts, ms = _pp_steps(host, buffers, batch, device)
+            res[name] = dict(
+                losses=losses, counts=counts, step_ms=ms,
+                start=module.start,
+                tensors={n: t.detach() for n, t in
+                         module.state_dict().items()},
+                head_wte=buffers.get("head_wte"))
+        out.put((rank, res))
+        done.wait(600)
+        destroy_process_group()
+    except Exception:   # reported to the parent, which fails the phase
+        out.put((rank, traceback.format_exc()))
+
+
+def _pp_merged(stages):
+    """The whole model's tensors from the stage processes' results."""
+    merged = {}
+    for res in stages:
+        for n, t in res["tensors"].items():
+            if n.startswith("blocks."):
+                i, sub = n[len("blocks."):].split(".", 1)
+                n = f"blocks.{res['start'] + int(i)}.{sub}"
+            merged[n] = t
+    return merged
+
+
+def _pp_rel(got, want):
+    """max over tensors of max|got - want| / max|want| (f32)."""
+    worst = 0.0
+    for n, w in want.items():
+        w = w.float()
+        err = (got[n].float() - w).abs().max() / w.abs().max()
+        worst = max(worst, float(err))
+    return worst
+
+
+def _pp_compare(got, solo, solo_losses):
+    """(18a)'s readings of the stage processes' results against the solo
+    run's: every reference to their shared tensors ends with this call."""
+    import torch
+
+    for r, res in got.items():
+        if isinstance(res, str):
+            raise AssertionError(f"(18a) stage {r} failed:\n{res}")
+    stats = {}
+    for name in ("pipelined", "control"):
+        s0, s1 = got[0][name], got[1][name]
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(s1["losses"], solo_losses))
+        stats[name] = dict(
+            losses=s1["losses"], loss_rel_err=loss_err,
+            param_rel_err=_pp_rel(_pp_merged([s0, s1]), solo),
+            step_ms=[s0["step_ms"], s1["step_ms"]],
+            counts=[s0["counts"], s1["counts"]],
+            head_wte_equal=bool(torch.equal(s1["head_wte"],
+                                            s0["tensors"]["wte.weight"])))
+    return stats
+
+
+def _pp_host(device, seed):
+    """(18a): the solo executor here, then the two stage processes."""
+    import gc
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    host, module, buffers = _pp_executor(device, seed, 0, 1, None, None)
+    solo_losses, solo_counts, solo_ms = _pp_steps(host, buffers,
+                                                  _pp_batch(seed), device)
+    solo = {n: t.detach() for n, t in module.state_dict().items()}
+    del host
+    ctx = tmp.get_context("spawn")
+    out, done = ctx.Queue(), ctx.Event()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_pp_stage, args=(r, port, seed, out, done))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        stats = _pp_compare(dict(out.get(timeout=600) for _ in procs), solo,
+                            solo_losses)
+        wall = time.perf_counter() - t0
+        stats.update(solo=dict(losses=solo_losses, step_ms=solo_ms,
+                               counts=solo_counts), stages_wall_s=wall)
+    finally:
+        done.set()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    del solo, module, buffers
+    gc.collect()
+    torch.cuda.empty_cache()
+    pl, ctl = stats["pipelined"], stats["control"]
+    print(f"(18a) host 1F1B, GPT-2-medium, stages {PP_DEPTHS} on one card "
+          f"over gloo, {PP_MICRO} x {PP_ROWS} x {PP_SEQ} a step, "
+          f"SGD({PP_LR}): solo losses {solo_losses}, ms by step "
+          f"{[round(x, 1) for x in solo_ms]}, launches {solo_counts}; "
+          f"pipelined "
+          f"losses {pl['losses']} (max rel {pl['loss_rel_err']:.3e}, limit "
+          f"{PP_LOSS_RTOL:g}), parameters within {pl['param_rel_err']:.3e} "
+          f"of solo's (limit {PP_PARAM_RTOL:g}), head_wte == stage 0's wte "
+          f"{pl['head_wte_equal']}, ms by step, by stage "
+          f"{[[round(x, 1) for x in ms] for ms in pl['step_ms']]}, "
+          f"launches by stage {pl['counts']}; control without the tied "
+          f"gradient's exchange: parameters {ctl['param_rel_err']:.3e}, "
+          f"losses {ctl['losses']}; stage processes {wall:.1f} s")
+    steps = PP_STEPS * PP_MICRO
+    want = dict(
+        pp_host_solo=dict(flash_fwd=24 * steps, flash_dq=24 * steps,
+                          flash_dkv=24 * steps),
+        # a non-last stage recomputes its forward in its backward
+        pp_host_stage0=dict(flash_fwd=2 * 12 * steps, flash_dq=12 * steps,
+                            flash_dkv=12 * steps),
+        pp_host_stage1=dict(flash_fwd=12 * steps, flash_dq=12 * steps,
+                            flash_dkv=12 * steps))
+    by_path = dict(pp_host_solo=solo_counts,
+                   pp_host_stage0=pl["counts"][0],
+                   pp_host_stage1=pl["counts"][1])
+    for path, counts in by_path.items():
+        got = {k: counts[k] for k in FLASH}
+        if got != want[path]:
+            raise AssertionError(f"(18a) {path}: launches {got}, expected "
+                                 f"{want[path]}")
+        off_path(counts, FLASH)
+    if not (all(map(math.isfinite, solo_losses))
+            and solo_losses[-1] < solo_losses[0]):
+        raise AssertionError(f"(18a) solo losses {solo_losses} do not fall")
+    if not (len(pl["losses"]) == PP_STEPS
+            and pl["loss_rel_err"] <= PP_LOSS_RTOL
+            and pl["losses"][-1] < pl["losses"][0]):
+        raise AssertionError(f"(18a) pipelined losses {pl['losses']} vs "
+                             f"solo {solo_losses}")
+    if not (pl["param_rel_err"] <= PP_PARAM_RTOL and pl["head_wte_equal"]):
+        raise AssertionError(f"(18a) pipelined parameters "
+                             f"{pl['param_rel_err']:.3e} from solo's, "
+                             f"head_wte equal {pl['head_wte_equal']}")
+    if not ctl["param_rel_err"] > PP_PARAM_RTOL:
+        raise AssertionError(f"(18a) the control without the tied exchange "
+                             f"reads {ctl['param_rel_err']:.3e} <= "
+                             f"{PP_PARAM_RTOL}: the limit cannot see it")
+    return stats, by_path
+
+
+def _pp_gpipe(device, seed):
+    """(18b): ``pipelined_causal_lm_loss_fn`` under ``PipelineParallel``
+    at one stage through the Trainer, against ``causal_lm_loss_fn`` on
+    the same weights and batches, in a NCCL world of one."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+
+    from pytorch_distributed_tpu_torch import (
+        DataLoader,
+        GPT2Config,
+        GPT2LMHead,
+        MeshSpec,
+        PipelineParallel,
+        Policy,
+        SyntheticTextDataset,
+        Trainer,
+        TrainerConfig,
+        TrainState,
+        build_train_step,
+        causal_lm_loss_fn,
+        optim,
+        pipelined_causal_lm_loss_fn,
+    )
+
+    cfg = dc.replace(GPT2Config.medium(), dropout_rate=0.0)
+    policy = Policy.train()
+    runs = {}
+    with _World1(device):
+        for name in ("pp_gpipe_one_stage", "plain"):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            if name == "plain":
+                model = GPT2LMHead(cfg, device=device, policy=policy)
+                model.init_weights(gen)
+                loss_fn, accum = causal_lm_loss_fn(model), PP_MICRO
+            else:
+                strategy = PipelineParallel(device,
+                                            mesh_spec=MeshSpec(dp=1, pp=1))
+                model = strategy.wrap(GPT2LMHead(cfg, device="meta",
+                                                 policy=policy))
+                model.init_weights(gen)
+                loss_fn = pipelined_causal_lm_loss_fn(
+                    model, num_microbatches=PP_MICRO)
+                accum = 1
+            opt = optim.clip_grad_norm(optim.AdamW(
+                model, lr=3e-4, weight_decay=1e-4), 1.0)
+            ds = SyntheticTextDataset(n=PP_STEPS * 8, seq_len=PP_SEQ,
+                                      vocab_size=cfg.vocab_size, seed=seed)
+            trainer = Trainer(
+                TrainState(model, opt, policy=policy),
+                build_train_step(loss_fn, accum_steps=accum),
+                DataLoader(ds, 8, shuffle=False, sharding=device),
+                config=TrainerConfig(log_every=1,
+                                     max_steps_per_epoch=PP_STEPS))
+            _reset_peak(device)
+            kernel_counts(reset=True)
+            trainer.fit()
+            torch.cuda.synchronize(device)
+            runs[name] = dict(losses=[r["loss"] for r in trainer.history],
+                              step_ms_median=_median_ms(trainer.history),
+                              peak_gib=_peak_gib(device),
+                              counts=kernel_counts())
+            del model, opt, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    pp, plain = runs["pp_gpipe_one_stage"], runs["plain"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(pp["losses"],
+                                                    plain["losses"]))
+    pp["loss_rel_err_vs_plain"] = err
+    print(f"(18b) GPipe form at one stage through the Trainer, "
+          f"GPT-2-medium, {PP_MICRO} x 2 x {PP_SEQ}: losses {pp['losses']} "
+          f"against causal_lm_loss_fn's {plain['losses']} (max rel "
+          f"{err:.3e}, limit {GPIPE_LOSS_RTOL:g}), {pp['step_ms_median']:.1f}"
+          f" ms a step (plain {plain['step_ms_median']:.1f}), peak "
+          f"{pp['peak_gib']:.2f} GiB, launches {pp['counts']}")
+    n = 24 * PP_MICRO * PP_STEPS
+    got = {k: pp["counts"][k] for k in FLASH}
+    if got != dict.fromkeys(FLASH, n):
+        raise AssertionError(f"(18b) launches {got}, expected {n} each")
+    off_path(pp["counts"], FLASH)
+    if not (len(pp["losses"]) == PP_STEPS and err <= GPIPE_LOSS_RTOL
+            and all(map(math.isfinite, pp["losses"]))):
+        raise AssertionError(f"(18b) losses {pp['losses']} vs "
+                             f"{plain['losses']}: {err:.3e}")
+    return runs, {"pp_gpipe_one_stage": pp["counts"]}
+
+
+def pp_phase(device, seed):
+    """Phase 18: (18a) the host 1F1B executor, (18b) the GPipe form at
+    one stage. Returns (stats, launches by path)."""
+    t0 = time.perf_counter()
+    stats, by_path = _pp_host(device, seed)
+    gpipe, paths = _pp_gpipe(device, seed)
+    by_path.update(paths)
+    stats = dict(host=stats, gpipe=gpipe, wall_s=time.perf_counter() - t0)
+    print(f"(18) phase 18 in {stats['wall_s']:.1f} s")
+    return stats, by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6712,14 +7107,16 @@ def main(argv=None) -> int:
     sp_stats, sp_paths = sp_tp_phase(device, args.seed)
     mv_stats, mv_paths = moe_vit_phase(device, args.seed)
     t5_stats, t5_paths = t5_phase(device, args.seed)
+    pp_stats, pp_paths = pp_phase(device, args.seed)
     zt = zstats["train"]
-    print(f"GPT-2-medium, batch 8 x 1024: ZeRO-1 + remat + chunked loss "
+    print(f"GPT-2-medium width, {ZERO_LAYERS} layers, batch 8 x 1024: "
+          f"ZeRO-1 + remat + chunked loss "
           f"{zt['step_ms_median']:.2f} ms/step ({zt['loop_step_ms']:.2f} in "
           f"a plain loop), {zt['tokens_per_s']:.0f} tokens/s, peak "
           f"{zt['peak_mem_gib']:.2f} GiB; train phase (no "
           f"remat, full logits, no ZeRO) {tstats['step_ms_median']:.2f} "
-          f"ms/step, {tstats['tokens_per_s']:.0f} tokens/s, peak "
-          f"{tstats['peak_mem_gib']:.2f} GiB")
+          f"ms/step (24 layers), {tstats['tokens_per_s']:.0f} tokens/s, "
+          f"peak {tstats['peak_mem_gib']:.2f} GiB")
     print(f"Llama-3-8B width, {LLAMA_LAYERS} layers, FSDP + remat + chunked "
           f"loss, batch {LLAMA_BATCH} x {LLAMA_SEQ}: "
           f"{lstats['step_ms_median']:.2f} ms/step, "
@@ -6758,7 +7155,8 @@ def main(argv=None) -> int:
                    llama=lstats["launches"], bert=bstats["launches"],
                    **gen_paths, **serve11_paths, **image_paths,
                    **life_paths, resnet50_recipe_config=cfg_counts,
-                   **fam_paths, **sp_paths, **mv_paths, **t5_paths)
+                   **fam_paths, **sp_paths, **mv_paths, **t5_paths,
+                   **pp_paths)
     print(f"launches by path, each read around its run: {by_path}")
     for rec in [record] + flash_records:
         rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -6795,7 +7193,8 @@ def main(argv=None) -> int:
                                       serve_gpt2=s11, image=istats,
                                       lifecycle=life_stats,
                                       family=fam_stats, sp_tp=sp_stats,
-                                      moe_vit=mv_stats, t5=t5_stats)}))
+                                      moe_vit=mv_stats, t5=t5_stats,
+                                      pipeline=pp_stats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

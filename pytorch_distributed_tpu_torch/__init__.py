@@ -27,7 +27,9 @@ mixture-of-experts (``ops.moe.MoEMLP``, Mixtral, GPT-2's experts) with
 expert parallelism over an ``ep`` mesh axis, and the ViT-B/16 recipe;
 and T5 (relative-position bias in the attention dispatch and the ring,
 ``generate_encdec``, the seq2seq losses, tensor parallelism, the JAX and
-HF converters) with its seq2seq recipe.
+HF converters) with its seq2seq recipe; and pipeline parallelism over a
+``pp`` mesh axis (GPT-2's GPipe form under its recipe's ``--pp``, and the
+host-dispatched 1F1B executor with its stage link).
 Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``. The
 package imports ``torch`` and ``numpy``, never ``jax`` or the JAX
@@ -200,7 +202,16 @@ from pytorch_distributed_tpu_torch.parallel import (
     sequence_parallel,
     sequence_parallel_mode,
     sync_grads,
+    pipeline_forward,
     ulysses_attention,
+)
+from pytorch_distributed_tpu_torch.parallel.pipeline_lm import (
+    PipelineParallel,
+    gpt2_pipeline_logits,
+    pipelined_causal_lm_loss_fn,
+)
+from pytorch_distributed_tpu_torch.parallel.pipeline_schedule import (
+    HostPipelineStep,
 )
 from pytorch_distributed_tpu_torch.runtime.device import (
     default_device,
@@ -212,6 +223,7 @@ from pytorch_distributed_tpu_torch.runtime.device import (
 )
 from pytorch_distributed_tpu_torch.runtime.distributed import (
     ReduceOp,
+    StageLink,
     Subgroup,
     all_gather,
     all_gather_into_tensor,
@@ -342,7 +354,9 @@ __all__ = [
     "flash_attention", "paged_attention", "FSDP", "DataParallel", "ZeRO1",
     "compress_hook", "sync_grads", "disable_sequence_parallel",
     "enable_sequence_parallel", "ring_attention", "sequence_parallel",
-    "sequence_parallel_mode", "ulysses_attention",
+    "sequence_parallel_mode", "ulysses_attention", "pipeline_forward",
+    "PipelineParallel", "gpt2_pipeline_logits",
+    "pipelined_causal_lm_loss_fn", "HostPipelineStep", "StageLink",
     "default_device", "device_info", "ReduceOp", "all_gather",
     "all_gather_into_tensor", "all_reduce", "all_to_all",
     "all_to_all_single", "reduce_scatter", "reduce_scatter_tensor",

@@ -395,10 +395,12 @@ def _same(a):
     return a
 
 
-def gpt2_slots(cfg) -> Dict[str, Slot]:
+def gpt2_slots(cfg, layers: Optional[Tuple[int, int]] = None
+               ) -> Dict[str, Slot]:
     """``{port name: Slot}`` for ``GPT2LMHead``: the scan-stacked JAX
     layout (``blocks/block/...`` with a leading ``[L]``), the one the
-    JAX recipe trains."""
+    JAX recipe trains. ``layers=(start, stop)`` gives a pipeline stage's:
+    its ``blocks.{i}`` are layers ``start + i`` of the stack."""
     D, H = cfg.hidden_size, cfg.num_heads
     L, hd = cfg.num_layers, cfg.hidden_size // cfg.num_heads
     top = {
@@ -436,9 +438,10 @@ def gpt2_slots(cfg) -> Dict[str, Slot]:
             "moe.w_in": ("moe", "w_in", _same, _same),
             "moe.w_out": ("moe", "w_out", _same, _same),
         })
-    for i in range(L):
+    start, stop = layers or (0, L)
+    for i in range(start, stop):
         for sub, (mod, leaf, fwd, inv) in per_layer.items():
-            slots[f"blocks.{i}.{sub}"] = Slot(
+            slots[f"blocks.{i - start}.{sub}"] = Slot(
                 "params", ("blocks", "block", mod, *leaf.split("/")), i, L,
                 fwd, inv)
     return slots
@@ -860,7 +863,9 @@ def model_slots(model) -> Dict[str, Slot]:
         return model.adapter_slots()
     model = getattr(model, "wrapped_model", model)
     if isinstance(model, GPT2LMHead):
-        slots = gpt2_slots(model.config)
+        stage = getattr(model, "pipeline_stage", None)
+        slots = gpt2_slots(model.config,
+                           None if stage is None else stage.layers)
     elif isinstance(model, LlamaForCausalLM):
         slots = llama_slots(model.config)
     elif isinstance(model, NeoXForCausalLM):

@@ -280,23 +280,46 @@ class GPT2LMHead(nn.Module):
         """Seeded weights drawn as flax's initializers draw them: every
         Dense kernel lecun-normal (truncated at 2 std, variance
         1/fan_in), embeddings normal with variance 1/hidden_size, biases
-        zero, LayerNorm scales one."""
-        D = self.config.hidden_size
+        zero, LayerNorm scales one.
+
+        A pipeline stage (``pipeline_stage`` set by
+        ``parallel.pipeline_lm.PipelineParallel``: its ``blocks`` are
+        layers ``[start, stop)`` of the model) draws the layers before
+        its own too, one tensor at a time, and drops them: a stage's
+        weights are the whole model's at every stage count."""
+        stage = getattr(self, "pipeline_stage", None)
+        skipped = []
+        if stage is not None and stage.start and len(self.blocks):
+            one = list(self.blocks[0].named_parameters())
+            skipped = [(f"blocks.{i}.{n}", tuple(q.shape), q.device)
+                       for i in range(stage.start) for n, q in one]
+        order = []
         for name, p in self.named_parameters():
+            if skipped and name.startswith("blocks."):
+                order += [(n, None, shape, dev) for n, shape, dev in skipped]
+                skipped = []
+            order.append((name, p, tuple(p.shape), p.device))
+        order += [(n, None, shape, dev) for n, shape, dev in skipped]
+        D = self.config.hidden_size
+        for name, p, shape, dev in order:
             if name.startswith(("wte.", "wpe.")):
-                draw = torch.randn(p.shape, generator=generator,
-                                   device=p.device, dtype=torch.float32)
-                p.copy_(draw / math.sqrt(D))
+                draw = torch.randn(shape, generator=generator, device=dev,
+                                   dtype=torch.float32) / math.sqrt(D)
             elif ".ln" in name or name.startswith("ln_f."):
-                p.fill_(1.0 if name.endswith("weight") else 0.0)
+                draw = 1.0 if name.endswith("weight") else 0.0
             elif name.endswith("bias"):
-                p.zero_()
+                draw = 0.0
             else:  # a Dense weight [out, in]
-                draw = torch.empty(p.shape, device=p.device,
-                                   dtype=torch.float32)
+                draw = torch.empty(shape, device=dev, dtype=torch.float32)
                 nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
-                p.copy_(draw / (math.sqrt(p.shape[1]) * _TRUNC_STD))
+                draw /= math.sqrt(shape[1]) * _TRUNC_STD
+            if p is None:
+                continue   # a layer of an earlier stage: drawn, dropped
+            if isinstance(draw, float):
+                p.fill_(draw)
+            else:
+                p.copy_(draw)
         return self
 
     def forward(
@@ -334,6 +357,11 @@ class GPT2LMHead(nn.Module):
         streams it through the paged-attention kernel, as Llama's does."""
         cfg = self.config
         B, S = input_ids.shape
+        if len(self.blocks) != cfg.num_layers:
+            raise ValueError(
+                f"a pipeline stage of {len(self.blocks)} of {cfg.num_layers}"
+                " layers: run it through parallel.pipeline_lm's "
+                "gpt2_pipeline_logits")
         if S > cfg.n_positions:
             raise ValueError(f"sequence {S} > n_positions {cfg.n_positions}")
         if cache_len is not None and cache_len > cfg.n_positions:

@@ -202,15 +202,31 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor],
+                groups: Optional[Sequence[object]] = None) -> torch.Tensor:
     """sqrt(sum of squares) over every element, in f32 (f64 for f64
     tensors), on the device.
     ``DTensor`` shards (FSDP) count every element of the whole tensor
     once: each rank's squares are summed over the mesh dims it is
-    sharded on (never the replicated ones)."""
+    sharded on (never the replicated ones). ``groups`` (one entry per
+    tensor, None for most) names a process group over which a tensor's
+    squares are summed too: a pipeline stage's layers
+    (``parallel.pipeline_lm``), each of which one stage holds."""
     from torch.distributed.tensor import DTensor
 
     from pytorch_distributed_tpu_torch.runtime.mesh import is_shard
+
+    if groups is not None and any(g is not None for g in groups):
+        by_group: Dict[object, list] = {}
+        for t, g in zip(tensors, groups):
+            by_group.setdefault(g, []).append(t)
+        squares = []
+        for g, ts in by_group.items():
+            sq = global_norm(ts).square()
+            if g is not None:
+                torch.distributed.all_reduce(sq, group=g)
+            squares.append(sq)
+        return torch.stack(squares).sum().sqrt()
 
     plain = [t for t in tensors if not isinstance(t, DTensor)]
     sharded: Dict[tuple, list] = {}
@@ -246,9 +262,11 @@ class _ClippedOptimizer:
 
     def clip_(self) -> torch.Tensor:
         """Scale the gradients in place; returns their norm before."""
-        grads = [p.grad for g in self.optimizer.param_groups
-                 for p in g["params"] if p.grad is not None]
-        norm = global_norm(grads)
+        params = [p for g in self.optimizer.param_groups
+                  for p in g["params"] if p.grad is not None]
+        grads = [p.grad for p in params]
+        norm = global_norm(grads, [getattr(p, "grad_norm_group", None)
+                                   for p in params])
         # optax: g when norm < max, else g / norm * max (no epsilon); a
         # device-side select, so the step never waits for the host
         factor = torch.where(norm < self.max_norm, torch.ones_like(norm),

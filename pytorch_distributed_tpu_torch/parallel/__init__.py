@@ -1,12 +1,19 @@
 """Parallelism strategies of the port: data parallelism (DDP, ZeRO-1,
 FSDP, with tensor parallelism over ``tp``), the compressed gradient sync,
-sequence parallelism (ring and Ulysses attention), and the partition
-rules and their inference."""
+sequence parallelism (ring and Ulysses attention), pipeline parallelism
+(``pipeline_forward``'s GPipe form; GPT-2's in ``parallel.pipeline_lm``,
+the host 1F1B executor in ``parallel.pipeline_schedule``), and the
+partition rules and their inference."""
 
 from pytorch_distributed_tpu_torch.parallel.ddp import (
     compress_hook,
     no_sync,
     sync_grads,
+)
+from pytorch_distributed_tpu_torch.parallel.pipeline import (
+    merge_microbatches,
+    pipeline_forward,
+    split_microbatches,
 )
 from pytorch_distributed_tpu_torch.parallel.rules import (
     PartitionSpec,
@@ -44,7 +51,8 @@ from pytorch_distributed_tpu_torch.parallel.strategies import (
 )
 
 __all__ = ["DataParallel", "ZeRO1", "FSDP", "tp_plan", "compress_hook",
-           "no_sync", "sync_grads", "PartitionSpec", "TensorRule",
+           "no_sync", "sync_grads", "pipeline_forward",
+           "split_microbatches", "merge_microbatches", "PartitionSpec", "TensorRule",
            "compile_rule", "engine_rules", "max_divisible_tp",
            "replicated_rule", "disable_sequence_parallel",
            "enable_sequence_parallel", "ring_attention", "sequence_parallel",

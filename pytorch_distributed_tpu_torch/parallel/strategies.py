@@ -266,6 +266,13 @@ def _shard_model(model: torch.nn.Module, spec: MeshSpec, mesh, shard_mesh,
     return model
 
 
+def _refuse_pp(spec: Optional[MeshSpec]) -> None:
+    if spec is not None and spec.pp > 1:
+        raise ValueError(
+            f"{spec}: a pp axis holds different layers on each stage; "
+            "pipelines train under parallel.pipeline_lm.PipelineParallel")
+
+
 class DataParallel:
     """DDP over the process group (which must exist), on this rank's
     ``device`` (the card unless given).
@@ -291,6 +298,7 @@ class DataParallel:
         self.rules = extra_rules
         self.spec = (None if mesh_spec is None
                      else mesh_spec.resolve(dist.get_world_size()))
+        _refuse_pp(self.spec)
         self.mesh = None
         if self.model_parallel:
             if self.spec.fsdp != 1 or self.spec.sp != 1:
@@ -390,6 +398,7 @@ class FSDP(DataParallel):
                  extra_rules=None):
         super().__init__(device)
         self.spec = mesh_spec.resolve(dist.get_world_size())
+        _refuse_pp(self.spec)
         self.mesh = make_mesh(self.spec, self.device.type)
         self.rules = extra_rules
         if (self.spec.tp > 1 or self.spec.ep > 1) and extra_rules is None:

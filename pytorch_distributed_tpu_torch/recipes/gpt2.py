@@ -34,9 +34,21 @@ decode through ``generation.generate``), logged as ids or, with
 ``--text-file``, as text, and kept as ``trainer.sample``.
 ``--backend`` is ``nccl`` or ``gloo`` (the device's own unless given),
 ``--dp`` the data-parallel width the world must hold (-1: every rank),
-as in the JAX recipe. ``--strategy auto`` and ``--pp`` (ROADMAP A10)
-raise, and so does ``--tp`` above 1 (ROADMAP A10.1: GPT-2's tensor
-parallelism under DDP and ZeRO-1).
+as in the JAX recipe.
+
+``--pp N`` pipelines the layers over N stages, one rank each, as the
+JAX recipe's GPipe form (``parallel.pipeline_lm.PipelineParallel`` with
+``pipelined_causal_lm_loss_fn``): each rank allocates its stage's
+layers only, the batch splits over ``--dp`` and ticks through the
+stages in ``max(accum_steps, 2 * N)`` microbatches (``--accum-steps``
+then counts as 1), the blocks run with dropout off, the gradients are
+averaged over the data ranks and clipped by the norm over every stage,
+and the eval runs through the pipelined forward; ``--sample`` gathers
+the stages' layers into a whole model on every rank first. Under
+``torchrun`` the world is ``dp x pp``; ``--pp`` with ``--vocab-chunk``
+or ``--pack`` raises, as in the JAX recipe. ``--strategy auto`` raises
+(ROADMAP A10.6: the planner), and so does ``--tp`` above 1 (ROADMAP
+A10.1: GPT-2's tensor parallelism, with or without pipelines).
 """
 
 from __future__ import annotations
@@ -57,9 +69,19 @@ from pytorch_distributed_tpu_torch.data import (
     pack_documents,
 )
 from pytorch_distributed_tpu_torch.generation import generate
-from pytorch_distributed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+from pytorch_distributed_tpu_torch.models.gpt2 import (
+    GPT2Config,
+    GPT2LMHead,
+    gpt2_partition_rules,
+)
 from pytorch_distributed_tpu_torch.optim import AdamW, clip_grad_norm
 from pytorch_distributed_tpu_torch.parallel import DataParallel, ZeRO1
+from pytorch_distributed_tpu_torch.parallel.pipeline_lm import (
+    PipelineParallel,
+    gather_stages,
+    pipelined_causal_lm_eval_step,
+    pipelined_causal_lm_loss_fn,
+)
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime.mesh import MeshSpec
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
@@ -133,12 +155,16 @@ def main(argv=None) -> Trainer:
     if args.strategy == "auto":
         raise NotImplementedError(
             "--strategy auto: the cost-model planner is not ported "
-            "(ROADMAP A10)"
+            "(ROADMAP A10.6)"
         )
-    if args.pp > 1:
-        raise NotImplementedError(
-            "--pp: pipeline parallelism is not ported (ROADMAP A10)"
-        )
+    if args.pp > 1 and args.vocab_chunk is not None:
+        raise SystemExit(
+            "--vocab-chunk is not supported with --pp > 1: the pipelined "
+            "loss builds its own head projection; drop one of the flags")
+    if args.pp > 1 and args.pack:
+        raise SystemExit(
+            "--pack is not combinable with --pp (the pipelined loss "
+            "refuses packed batches)")
     if args.tp > 1:
         raise NotImplementedError(
             f"--tp {args.tp}: GPT-2's tensor parallelism (its fused qkv "
@@ -208,13 +234,17 @@ def _train(args, device) -> Trainer:
         cfg = dataclasses.replace(cfg, remat=True,
                                   remat_policy=args.remat_policy)
     seq_len = min(args.seq_len, cfg.n_positions)
-    # the JAX recipe's mesh is dp x tp (tp above 1 refused: A10.1)
-    MeshSpec(dp=args.dp).resolve(dist.get_world_size()
-                                 if dist.is_initialized() else 1)
+    # the JAX recipe's mesh is dp x tp x pp (tp above 1 refused: A10.1)
+    mesh_spec = MeshSpec(dp=args.dp, pp=args.pp)
+    mesh_spec.resolve(dist.get_world_size() if dist.is_initialized() else 1)
     cfg, ds, eval_ds, tokenizer = _datasets(args, cfg, seq_len)
     policy = Policy.train()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.pp > 1:
+        return _train_pipelined(args, device, cfg, mesh_spec, policy, gen,
+                                ds, eval_ds, tokenizer, seq_len)
     model = GPT2LMHead(cfg, device=device, policy=policy)
-    model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
+    model.init_weights(gen)
     net = model
     if args.strategy == "zero1":
         strategy = ZeRO1(device)
@@ -249,14 +279,58 @@ def _train(args, device) -> Trainer:
                 n_params, device, args.batch_size, seq_len, args.accum_steps,
                 args.strategy, dist.get_world_size(),
                 cfg.remat_policy if cfg.remat else "off", args.vocab_chunk)
+    return _fit_and_sample(trainer, model, eval_ds, args, device, tokenizer)
+
+
+def _fit_and_sample(trainer, model, eval_ds, args, device, tokenizer):
+    """Restore, fit, then ``--sample`` on ``model`` (a pipeline stage's
+    layers gathered into a whole model first)."""
     trainer.restore_checkpoint()
     fit_elastic(trainer)
     logger.info("done: step=%d eval=%s", trainer.state.step,
                 trainer.last_eval_metrics)
     trainer.sample = None
     if args.sample:
-        trainer.sample = _sample(model, eval_ds, args, device, tokenizer)
+        trainer.sample = _sample(gather_stages(model), eval_ds, args, device,
+                                 tokenizer)
     return trainer
+
+
+def _train_pipelined(args, device, cfg, mesh_spec, policy, gen, ds, eval_ds,
+                     tokenizer, seq_len) -> Trainer:
+    """``--pp N``: the JAX recipe's GPipe form (module docstring)."""
+    strategy = PipelineParallel(device, mesh_spec=mesh_spec,
+                                extra_rules=gpt2_partition_rules())
+    model = strategy.wrap(GPT2LMHead(cfg, device="meta", policy=policy))
+    model.init_weights(gen)
+    micro = max(args.accum_steps, 2 * args.pp)
+    optimizer = clip_grad_norm(
+        AdamW(model, lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY), 1.0)
+    trainer = Trainer(
+        TrainState(model, optimizer, policy=policy),
+        # the microbatches tick through the pipeline: accum_steps is 1
+        build_train_step(pipelined_causal_lm_loss_fn(
+            model, num_microbatches=micro)),
+        DataLoader(ds, args.batch_size, seed=args.seed,
+                   sharding=strategy.batch_sharding()),
+        eval_step=pipelined_causal_lm_eval_step(model,
+                                                num_microbatches=micro),
+        eval_loader=DataLoader(eval_ds, args.batch_size, shuffle=False,
+                               sharding=strategy.batch_sharding()),
+        config=TrainerConfig(
+            epochs=args.epochs, log_every=args.log_every,
+            max_steps_per_epoch=args.steps_per_epoch,
+            ckpt_dir=args.ckpt_dir,
+        ),
+    )
+    trainer.tokenizer = tokenizer
+    layout = model.pipeline_stage
+    logger.info("GPT-2 %s: stage %d of %d (layers %d-%d, %d params) on %s, "
+                "batch %d x seq %d in %d microbatches, dp %d", args.size,
+                layout.stage, layout.num_stages, layout.start,
+                layout.stop - 1, sum(p.numel() for p in model.parameters()),
+                device, args.batch_size, seq_len, micro, strategy.spec.dp)
+    return _fit_and_sample(trainer, model, eval_ds, args, device, tokenizer)
 
 
 def _sample(model, eval_ds, args, device, tokenizer) -> torch.Tensor:

@@ -612,3 +612,159 @@ def scatter_object_list(objs: Optional[list], src: int = 0):
     dist.scatter_object_list(out, objs if get_rank() == src else None,
                              src=src)
     return out[0]
+
+
+# --------------------------------------------------------------------------
+# The stage link: tagged point-to-point hand-offs of host tensors between
+# the stages of a host-dispatched pipeline (parallel/pipeline_schedule.py).
+# --------------------------------------------------------------------------
+
+#: torch's message tags of the link's three kinds of message, so that a
+#: fingerprint, a payload and a verdict never match one another's receive
+_FP_TAG, _PAYLOAD_TAG, _VERDICT_TAG = 1, 2, 3
+#: bytes of a debug fingerprint (the JAX hostring's DETAIL handshake's)
+FINGERPRINT_BYTES = 96
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+class StageLink:
+    """Tagged sends and receives of host (CPU) tensors between pipeline
+    stages over a gloo process group: the port's counterpart of the JAX
+    hostring's ``send``/``recv``. Stage ``i`` is the ``i``-th rank of
+    ``group`` (a :class:`Subgroup`, torch's process group, or None for
+    the world). Tags name the message (``act.m{mb}.s{stage}``,
+    ``grad.m{mb}.s{stage}``, ``tied.wte.grad``, ``tied.wte.param``).
+
+    Hand-offs go through host memory, as the JAX executor hands numpy
+    arrays over its ring: two stage processes can then share one card,
+    which NCCL refuses. Each ordered pair of stages holds one message in
+    flight, the ring's one-slot mailbox: :meth:`send` posts its message
+    and returns, and the next send to the same stage first waits until
+    the last one was received (``simulate_links`` proves that the
+    schedules drain under exactly that). :meth:`flush` waits for every
+    posted send; call it before the link is dropped (gloo abandons a
+    send whose work is destroyed before its receive was posted).
+
+    With ``debug=True`` a fingerprint of the transfer
+    (``p2p|shape|dtype|src->dst|tag``, the hostring's DETAIL handshake)
+    goes ahead of each payload, and the receiver sends its own back as
+    its verdict: on a mismatch the receiver raises ``RuntimeError``
+    ("P2P mismatch", both descriptions) at once and the sender when it
+    next waits on that stage (its next send there, or :meth:`flush`). The
+    verdict travels behind the payload, so debug mode keeps the one-slot
+    semantics and the schedules drain as without it."""
+
+    def __init__(self, group=None, *, debug: bool = False):
+        if not dist.is_initialized():
+            raise RuntimeError("StageLink needs a process group: call "
+                               "init_process_group() first")
+        self.pg = _pg(group, "StageLink")
+        if group is None:
+            self.ranks = tuple(range(get_world_size()))
+        elif isinstance(group, Subgroup):
+            self.ranks = group.ranks
+        else:
+            self.ranks = tuple(dist.get_global_rank(group, i)
+                               for i in range(dist.get_world_size(group)))
+        if dist.get_backend(self.pg) != "gloo":
+            raise ValueError(
+                "StageLink hands host tensors over a gloo group, got "
+                f"{dist.get_backend(self.pg)!r}")
+        self.stage = self.ranks.index(get_rank())
+        self.debug = debug
+        self._posted = {}   # peer stage -> its message in flight
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def _fingerprint(self, t: torch.Tensor, src: int, dst: int,
+                     tag: str) -> torch.Tensor:
+        sig = (f"p2p|{tuple(t.shape)}|{_dtype_name(t.dtype)}|{src}->{dst}"
+               f"|{tag}").encode()[:FINGERPRINT_BYTES]
+        fp = torch.zeros(FINGERPRINT_BYTES, dtype=torch.uint8)
+        fp[:len(sig)] = torch.frombuffer(bytearray(sig), dtype=torch.uint8)
+        return fp
+
+    @staticmethod
+    def _text(fp: torch.Tensor) -> str:
+        return bytes(fp.tolist()).rstrip(b"\x00").decode(errors="replace")
+
+    def _settle(self, peer: int) -> None:
+        """Wait for the message in flight to ``peer``: its verdict first
+        (debug), then its payload's delivery."""
+        posted = self._posted.pop(peer, None)
+        if posted is None:
+            return
+        fp, verdict, verdict_work, works, _payload = posted
+        if verdict_work is not None:
+            verdict_work.wait()
+            if not torch.equal(fp, verdict):
+                raise RuntimeError(
+                    f"P2P mismatch (StageLink debug): rank {get_rank()} "
+                    f"sent {self._text(fp)}; peer expects "
+                    f"{self._text(verdict)}")
+        for w in works:
+            w.wait()
+
+    def send(self, x: torch.Tensor, dst: int, *, tag: str = "") -> None:
+        """Post host tensor ``x`` to stage ``dst`` (kept alive until it is
+        received). Returns once the previous message to ``dst`` has been
+        received, without waiting for this one."""
+        from pytorch_distributed_tpu_torch.runtime import tracing
+
+        if x.device.type != "cpu":
+            raise ValueError(f"StageLink sends host tensors, got {x.device}")
+        x = x.contiguous()
+        self._settle(dst)
+        peer = self.ranks[dst]
+        span = (tracing._NULL_SPAN if tracing._tracer is None else
+                tracing.span("comm.send", peer=dst, tag=tag,
+                             bytes=x.numel() * x.element_size()))
+        with span:
+            fp = verdict = verdict_work = None
+            works = []
+            if self.debug:
+                fp = self._fingerprint(x, self.stage, dst, tag)
+                verdict = torch.empty_like(fp)
+                works.append(dist.isend(fp, peer, group=self.pg,
+                                        tag=_FP_TAG))
+                verdict_work = dist.irecv(verdict, peer, group=self.pg,
+                                          tag=_VERDICT_TAG)
+            works.append(dist.isend(x, peer, group=self.pg,
+                                    tag=_PAYLOAD_TAG))
+        # the payload stays referenced until its send completes
+        self._posted[dst] = (fp, verdict, verdict_work, works, x)
+
+    def recv(self, proto: torch.Tensor, src: int, *,
+             tag: str = "") -> torch.Tensor:
+        """The next message from stage ``src``, a new host tensor shaped
+        as ``proto``."""
+        from pytorch_distributed_tpu_torch.runtime import tracing
+
+        peer = self.ranks[src]
+        out = torch.empty(tuple(proto.shape), dtype=proto.dtype)
+        span = (tracing._NULL_SPAN if tracing._tracer is None else
+                tracing.span("comm.recv", peer=src, tag=tag,
+                             bytes=out.numel() * out.element_size()))
+        with span:
+            if self.debug:
+                mine = self._fingerprint(out, src, self.stage, tag)
+                theirs = torch.empty_like(mine)
+                dist.recv(theirs, peer, group=self.pg, tag=_FP_TAG)
+                dist.send(mine, peer, group=self.pg, tag=_VERDICT_TAG)
+                if not torch.equal(mine, theirs):
+                    raise RuntimeError(
+                        f"P2P mismatch (StageLink debug): rank "
+                        f"{get_rank()} expects {self._text(mine)}; peer "
+                        f"sent {self._text(theirs)}")
+            dist.recv(out, peer, group=self.pg, tag=_PAYLOAD_TAG)
+        return out
+
+    def flush(self) -> None:
+        """Wait for every posted send (and, in debug mode, its verdict)."""
+        for peer in list(self._posted):
+            self._settle(peer)

@@ -1,6 +1,7 @@
 """Deterministic, seeded fault injection at named sites: the port's own
 copy of the part of ``pytorch_distributed_tpu/runtime/faults.py`` that
-the serve engine, the router and the checkpoint call.
+the serve engine, the router, the checkpoint and the host pipeline
+executor call.
 
 Production code calls :func:`check` at named sites; a chaos run arms a
 subset of them with seeded probability/count budgets. Unarmed (the
@@ -18,8 +19,10 @@ Grammar: ``site[:key=value,...]`` joined by ``;``; options ``p``
 :class:`InjectedFault`, the default; ``kill``: ``os._exit``;
 ``truncate``: cut the site's file to half its length; ``bitflip``: flip
 one byte in the middle of it; the last two report success, so only a
-checksum can catch them) and ``match`` (only checks whose ``path``
-contains this substring).
+checksum can catch them; ``stall``: the site polls :func:`hang_action`
+and sleeps ``seconds`` before it goes on, a rank that is alive but late,
+which :func:`check` ignores), ``seconds`` (the stall's length, default
+30) and ``match`` (only checks whose ``path`` contains this substring).
 Each site draws from its own generator seeded by ``(seed, crc32(site))``.
 
 Sites:
@@ -51,6 +54,13 @@ Sites:
                      transient read error, retried
 ``data.decode``      after an image file is opened, before it decodes:
                      permanent rot, quarantined without a retry
+``pipeline.stage_stall`` polled before every compute op of the host
+                     pipeline executor (``parallel/pipeline_schedule.py``;
+                     ``path`` is ``s<stage>.<op>.m<microbatch>``):
+                     ``mode=stall`` delays this stage's slot (the
+                     straggler stage its neighbours' hand-offs then
+                     wait for), ``mode=kill`` dies mid-schedule;
+                     ``match`` selects the op (``match=s1.bwd.m2``)
 ================== ====================================================
 """
 
@@ -76,8 +86,9 @@ KILLED_EXIT = 113
 
 KNOWN_SITES = ("serve.prefill", "serve.decode", "serve.kv_migrate",
                "serve.engine_loss", "ckpt.write_shard", "ckpt.swing",
-               "ckpt.read_shard", "data.fetch", "data.decode")
-_MODES = ("raise", "kill", "truncate", "bitflip")
+               "ckpt.read_shard", "data.fetch", "data.decode",
+               "pipeline.stage_stall")
+_MODES = ("raise", "kill", "truncate", "bitflip", "stall")
 
 
 class InjectedFault(RuntimeError):
@@ -98,7 +109,7 @@ class _Site:
     def __init__(self, name: str, *, p: float = 1.0,
                  count: Optional[int] = None, after: int = 0,
                  mode: str = "raise", match: Optional[str] = None,
-                 seed: int = 0):
+                 seconds: float = 30.0, seed: int = 0):
         if mode not in _MODES:
             raise ValueError(
                 f"fault site {name!r}: unknown mode {mode!r} "
@@ -110,7 +121,11 @@ class _Site:
             raise ValueError(f"fault site {name!r}: count must be >= 0")
         if after < 0:
             raise ValueError(f"fault site {name!r}: after must be >= 0")
+        if not seconds > 0:
+            raise ValueError(
+                f"fault site {name!r}: seconds must be > 0, got {seconds}")
         self.name = name
+        self.seconds = float(seconds)
         self.p = float(p)
         self.count = count
         self.after = int(after)
@@ -153,7 +168,7 @@ def parse(spec: str, *, seed: int = 0) -> Dict[str, _Site]:
         for opt in filter(None, opts_str.split(",")):
             key, _, value = opt.partition("=")
             key, value = key.strip(), value.strip()
-            if key == "p":
+            if key in ("p", "seconds"):
                 kw[key] = float(value)
             elif key in ("count", "after"):
                 kw[key] = int(value)
@@ -204,14 +219,31 @@ def injected(spec: str, *, seed: int = 0):
         _plan = prev
 
 
+def hang_action(site: str, path: Optional[str] = None):
+    """The stall site: None unless ``site`` is armed with ``mode=stall``
+    and its budgets elect this poll, and then ``("stall", seconds)``, for
+    the caller to sleep before it goes on. Other modes at the same site
+    are :func:`check`'s, so one poll never spends another's budget."""
+    if _plan is None:
+        return None
+    s = _plan.get(site)
+    if s is None or s.mode != "stall" or not s.decide(path):
+        return None
+    logger.warning("fault injection: stall %s at %s (%s s, %d/%s)", site,
+                   path or "<no path>", s.seconds, s.fired,
+                   s.count if s.count is not None else "inf")
+    return ("stall", s.seconds)
+
+
 def check(site: str, path: Optional[str] = None) -> None:
     """The production fault site: no-op unless ``site`` is armed and its
     budgets elect this check. ``path`` (a file, where the site has one)
-    feeds ``match`` and the damaging modes."""
+    feeds ``match`` and the damaging modes. A ``stall`` site is
+    :func:`hang_action`'s: it never fires here."""
     if _plan is None:
         return
     s = _plan.get(site)
-    if s is None or not s.decide(path):
+    if s is None or s.mode == "stall" or not s.decide(path):
         return
     logger.warning(
         "fault injection: firing %s (mode=%s, %d/%s) at %s",

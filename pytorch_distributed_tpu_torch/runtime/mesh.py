@@ -2,13 +2,14 @@
 
 The JAX package builds one mesh over named axes (``dp``, ``fsdp``,
 ``pp``, ``ep``, ``sp``, ``tp``) and expresses every strategy against it.
-The port has the two data axes, ``dp`` (replicas) and ``fsdp``
-(parameters and optimizer state sharded), and the three model axes,
-``ep`` (the experts of a mixture-of-experts FFN split over ranks,
-``ops/moe.py``), ``sp`` (the sequence split over ranks,
-``parallel/sequence.py``) and ``tp`` (heads and hidden units split over
-ranks, ``parallel/sharding.py``), one card a rank. :func:`make_mesh`
-builds the ``DeviceMesh`` every strategy uses:
+The port has them all: the two data axes, ``dp`` (replicas) and ``fsdp``
+(parameters and optimizer state sharded), the pipeline axis ``pp`` (the
+layers split into stages over ranks, ``parallel/pipeline_lm.py``), and
+the three model axes, ``ep`` (the experts of a mixture-of-experts FFN
+split over ranks, ``ops/moe.py``), ``sp`` (the sequence split over
+ranks, ``parallel/sequence.py``) and ``tp`` (heads and hidden units
+split over ranks, ``parallel/sharding.py``), one card a rank.
+:func:`make_mesh` builds the ``DeviceMesh`` every strategy uses:
 
 * data axes only: 2-D ``("dp", "fsdp")`` whenever ``dp > 1`` (FSDP
   replicates its shards over ``dp``, as the JAX mesh does, ``fsdp == 1``
@@ -16,11 +17,14 @@ builds the ``DeviceMesh`` every strategy uses:
   of one rank otherwise;
 * ``ep``, ``sp`` or ``tp`` above 1: 5-D ``("dp", "fsdp", "ep", "sp",
   "tp")``, in the JAX axis order (``tp`` innermost), so that rank ``r``
-  holds the mesh coordinate of JAX device ``r`` (``pp`` is 1).
+  holds the mesh coordinate of JAX device ``r`` (``pp`` is 1);
+* ``pp`` above 1: the 6-D mesh of every axis, ``("dp", "fsdp", "pp",
+  "ep", "sp", "tp")``, the JAX one.
 
-``pp`` above 1 raises, naming ROADMAP A10.3. The tokens are replicated
-over ``ep`` (the batch splits over the data axes only), so the ranks of
-one ``ep`` group read the same rows. The last mesh :func:`make_mesh`
+The tokens are replicated over ``pp``, ``ep``, ``sp`` and ``tp`` (the
+batch splits over the data axes only), so the stages of one pipeline,
+and the ranks of one ``ep`` group, read the same rows. The last mesh
+:func:`make_mesh`
 built is the current one (:func:`current_mesh`, or one set by
 :func:`set_current_mesh`): the loader takes a rank's rows from its data
 coordinate (:func:`data_rank`), sequence-parallel attention its ring
@@ -37,9 +41,8 @@ from typing import Optional, Tuple
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 
 AXES: Tuple[str, ...] = ("dp", "fsdp", "pp", "ep", "sp", "tp")
-#: the axes of the model-parallel mesh, in the JAX order
+#: the axes of the model-parallel mesh without ``pp``, in the JAX order
 MODEL_MESH_AXES: Tuple[str, ...] = ("dp", "fsdp", "ep", "sp", "tp")
-_UNPORTED = {"pp": "pipeline parallelism is not ported (ROADMAP A10.3)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +56,6 @@ class MeshSpec:
     ep: int = 1
     sp: int = 1
     tp: int = 1
-
-    def __post_init__(self):
-        for axis, why in _UNPORTED.items():
-            if getattr(self, axis) != 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis}={getattr(self, axis)}: {why}")
 
     def sizes(self) -> Tuple[int, ...]:
         return tuple(getattr(self, a) for a in AXES)
@@ -96,6 +93,8 @@ class MeshSpec:
     def mesh_shape(self) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
         """``(shape, dim names)`` of the ``DeviceMesh`` of a resolved
         spec (see the module docstring)."""
+        if self.pp > 1:
+            return self.sizes(), AXES
         if self.model_parallel():
             return (tuple(getattr(self, a) for a in MODEL_MESH_AXES),
                     MODEL_MESH_AXES)
@@ -109,7 +108,7 @@ class MeshSpec:
         """The dims of the mesh FSDP shards over (``fsdp``) and
         replicates over (``dp``, when above 1)."""
         _, names = self.mesh_shape()
-        if not self.model_parallel():
+        if not self.model_parallel() and self.pp == 1:
             return names
         return ("dp", "fsdp") if self.dp > 1 else ("fsdp",)
 
@@ -183,11 +182,11 @@ def data_axes() -> Tuple[str, ...]:
 def data_rank() -> Tuple[int, int]:
     """``(index, count)`` of this rank's share of the global batch: its
     ``(dp, fsdp)`` coordinate flattened, over ``dp * fsdp`` shares, so
-    ranks that differ only in ``sp`` or ``tp`` read the same rows
-    (the JAX batch splits over the data axes only). Without a current
-    mesh, the process rank and world."""
+    ranks that differ only in ``pp``, ``ep``, ``sp`` or ``tp`` read the
+    same rows (the JAX batch splits over the data axes only). Without a
+    current mesh, the process rank and world."""
     cur = current_mesh()
-    if cur is None or not cur[1].model_parallel():
+    if cur is None or not (cur[1].model_parallel() or cur[1].pp > 1):
         return dist.get_rank(), dist.get_world_size()
     mesh, spec = cur
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))

@@ -42,6 +42,13 @@ restore reads each rank's box back out of whatever boxes the writer's
 world cut, at any world size and mesh, and the JAX package reads the
 leaves whole.
 
+Under pipeline parallelism (``parallel.pipeline_lm.PipelineParallel``)
+a rank holds its stage's layers of GPT-2's stacked leaves, and their
+moments: the first rank of its stage's data replicas writes those
+layer rows of each stacked leaf, as boxes (``Slot`` of the stage's
+layer range), and rank 0 the replicated leaves (embeddings, ``ln_f``,
+counts). A restore reads each rank's layers back, at any stage count.
+
 The EMA shadow (``TrainState(..., ema=True)``) is the JAX state's
 ``ema_params`` tree: ``ema_params_...`` leaves in the params' slots and
 layouts, f32, written by rank 0. A checkpoint without them (a run from
@@ -198,6 +205,7 @@ def _plan(state: TrainState) -> List[_Leaf]:
     _, local, zero = interop.unwrap_optimizer(state.optimizer)
     sd = model.state_dict(keep_vars=True)
     rank0 = dist.get_rank() == 0
+    stage = getattr(model, "pipeline_stage", None)
     leaves: Dict[str, _Leaf] = {}
 
     def add(name, shape, dtype, boxes, writes):
@@ -208,10 +216,15 @@ def _plan(state: TrainState) -> List[_Leaf]:
         leaf.boxes.extend(boxes)
         leaf.writes = leaf.writes or (writes and bool(boxes))
 
-    def writer(t, replicated):
-        # a sharded tensor's first replica writes its rows; a replicated
-        # one is rank 0's (or, under ZeRO, its owner's) to write
-        return shard_box(t)[2] if isinstance(t, DTensor) else replicated
+    def writer(t, replicated, slot):
+        # a sharded tensor's first replica writes its rows; a pipeline
+        # stage's layers, its first data replica; a replicated one is
+        # rank 0's (or, under ZeRO, its owner's) to write
+        if isinstance(t, DTensor):
+            return shard_box(t)[2]
+        if stage is not None and slot.layer is not None:
+            return stage.writer
+        return replicated
 
     for key, slot in slots.items():
         t = sd[key]
@@ -225,7 +238,7 @@ def _plan(state: TrainState) -> List[_Leaf]:
 
             boxes = [_tensor_box(slot, lambda t=t: t, put, shape)]
         add(interop.leaf_name(slot.tree, *slot.path), shape, np.float32,
-            boxes, writer(t, rank0))
+            boxes, writer(t, rank0, slot))
 
     # moments: the parameters this rank's optimizer holds (all of them
     # unless ZeRO shards the optimizer over the ranks; under FSDP this
@@ -262,7 +275,7 @@ def _plan(state: TrainState) -> List[_Leaf]:
             else:
                 boxes = [_tensor_box(slot, get, put, shape)]
             add(name, shape, np.float32, boxes,
-                writer(p, rank0 if zero is None else True))
+                writer(p, rank0 if zero is None else True, slot))
 
     # state kept once per JAX leaf, whole and replicated: rank 0's
     for leaf in (getattr(local, "leaves", None) or ()) if layout.per_leaf \

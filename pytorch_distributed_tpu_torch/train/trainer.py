@@ -42,7 +42,9 @@ makes it. The metrics gain ``loss_scale`` (the new scale) and
 backward; a plain model in a process group of more than one rank has its
 summed gradients averaged by ``parallel.ddp.sync_grads`` after the
 microbatch loop (span ``train.grad_sync``), with the step's own q8
-error feedback.
+error feedback. A pipeline stage (``parallel.pipeline_lm.PipelineParallel``)
+carries ``data_grad_group``: its gradients are averaged over that group
+(its data replicas, one flat all-reduce) after the microbatch loop.
 ``build_train_step(..., ema_decay=d)`` (``0 <= d < 1``) moves
 ``state.ema_params`` (``TrainState(..., ema=True)``) to ``d * ema +
 (1 - d) * p`` in f32 after every step, a skipped fp16 step included, as
@@ -53,7 +55,8 @@ at most, times each wait for the next batch (``train.data_wait``), logs
 (and so synchronizes) every ``log_every`` steps, with the metrics
 averaged over the ranks of a process group and the samples a second
 over the logging window (``samples_per_s``: the leading dim of the
-batch's ``samples_axis`` leaf, times the ranks), raises
+batch's ``samples_axis`` leaf, times the data shares,
+``runtime.mesh.data_rank``), raises
 :class:`TrainingDiverged` after ``halt_on_nonfinite`` consecutive
 non-finite logged losses, and with an ``eval_step`` and ``eval_loader``
 evaluates after every epoch (``last_eval_metrics``: sample-weighted
@@ -124,6 +127,7 @@ from torch.nn.parallel import DistributedDataParallel
 from pytorch_distributed_tpu_torch.optim import _local
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime import tracing
+from pytorch_distributed_tpu_torch.runtime.mesh import data_rank
 from pytorch_distributed_tpu_torch.runtime.precision import GradScaler
 from pytorch_distributed_tpu_torch.runtime.prng import generator_for
 from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
@@ -208,6 +212,18 @@ def _grad_sync(model, grad_compression: Optional[str]):
     return sync
 
 
+def _average(grads, group) -> None:
+    """Average ``grads`` in place over ``group``, in one flat
+    all-reduce."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    flat = _flatten_dense_tensors(grads)
+    torch.distributed.all_reduce(flat, group=group)
+    flat.div_(torch.distributed.get_world_size(group))
+    for g, a in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(a)
+
+
 def _update_ema(state: TrainState, decay: float) -> None:
     from pytorch_distributed_tpu_torch.train.train_state import (
         trainable_params,
@@ -284,6 +300,12 @@ def build_train_step(
                 sums = {k: v * inv for k, v in sums.items()}
             if scaling:
                 scaler.unscale_grads(grads, state.scaler_state)
+            data_group = getattr(model, "data_grad_group", None)
+            if data_group is not None:
+                # a pipeline stage (parallel.PipelineParallel): the mean
+                # over its data replicas, never over the other stages
+                with tracing.span("train.grad_sync"):
+                    _average(grads, data_group)
             sp_group = getattr(model, "sequence_grad_group", None)
             if sp_group is not None:
                 # sequence shards: each sp rank's loss is its share of the
@@ -740,7 +762,9 @@ class Trainer:
                 with self._accounted("train.metric_fetch", "productive"):
                     values = _rank_mean(metrics)
                 now = time.perf_counter()
-                rate = samples * dist.get_world_size() / (now - t_last)
+                # each data share's rows once (a pipeline's stages, and
+                # the tp/sp/ep ranks of one share, read the same rows)
+                rate = samples * data_rank()[1] / (now - t_last)
                 dt = (now - t_last) / since_log
                 t_last, since_log, samples = now, 0, 0
                 self._check_finite(values, self.host_step)

@@ -192,9 +192,11 @@ def test_unported_strategies_and_axes_refuse():
     for cls in (parallel.DataParallel, parallel.ZeRO1, parallel.FSDP):
         with pytest.raises(RuntimeError, match="process group"):
             cls("cpu")
-    # tp and sp are ported (tests/test_torch_tp.py); pp is not
-    with pytest.raises(NotImplementedError, match="A10"):
-        MeshSpec(pp=2)
+    # tp and sp (tests/test_torch_tp.py) and pp
+    # (tests/test_torch_pipeline_lm.py) are ported
+    assert MeshSpec(pp=2).resolve(4) == MeshSpec(dp=2, pp=2)
+    assert MeshSpec(dp=2, pp=2).resolve(4).mesh_shape() == (
+        (2, 1, 2, 1, 1, 1), ("dp", "fsdp", "pp", "ep", "sp", "tp"))
     assert MeshSpec().resolve(4) == MeshSpec(dp=4)
     assert data_axes() == ("dp", "fsdp")
     with pytest.raises(ValueError):

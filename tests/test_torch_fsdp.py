@@ -148,12 +148,13 @@ def test_mesh_and_specs_resolve_as_the_jax_mesh(ranks):
         assert res["mesh"] == want
     with pytest.raises(ValueError):
         MeshSpec(dp=2, fsdp=2).resolve(2)
-    # tp, sp (tests/test_torch_tp.py) and ep (tests/test_torch_mixtral.py)
-    # are ported; pp is not
+    # tp, sp (tests/test_torch_tp.py), ep (tests/test_torch_mixtral.py)
+    # and pp (tests/test_torch_pipeline_lm.py) are ported
     assert MeshSpec(fsdp=2, ep=2).resolve(4).sizes() == JaxMeshSpec(
         fsdp=2, ep=2).resolve(4).sizes()
-    with pytest.raises(NotImplementedError, match="A10.3"):
-        MeshSpec(fsdp=2, pp=2)
+    for world in (4, 8):
+        assert MeshSpec(fsdp=2, pp=2).resolve(world).sizes() == JaxMeshSpec(
+            fsdp=2, pp=2).resolve(world).sizes()
 
 
 def test_batch_rows_equal_the_jax_loaders_rank_slice(ranks, monkeypatch):

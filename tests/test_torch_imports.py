@@ -11,7 +11,8 @@
   int8 gradient compression), the Llama FSDP recipe and the BERT
   recipe (fp16 with loss scaling, and with LoRA), the Llama recipe
   with Adafactor and the ResNet-50 recipe with the checkpoint lifecycle,
-  MFU and the profiler, and generates (beam,
+  MFU and the profiler, runs the host pipeline executor on one stage,
+  and generates (beam,
   speculative, an int4 model) on the CPU, in a fresh
   interpreter where ``jax``, ``flax``, ``optax`` and
   the JAX package ``pytorch_distributed_tpu`` cannot be imported at all
@@ -92,8 +93,19 @@ for mod in ("ops.flash_attention", "ops.kernel_build", "models.gpt2",
             "parallel.sequence", "parallel.sharding", "parallel.rules",
             "ops.moe", "models.mixtral", "models.vit",
             "recipes.mixtral_moe", "recipes.vit_imagenet", "models.t5",
-            "recipes.t5_seq2seq"):
+            "recipes.t5_seq2seq", "parallel.pipeline",
+            "parallel.pipeline_lm", "parallel.pipeline_schedule"):
     assert ptt.__name__ + "." + mod in names, mod
+assert ptt.StageLink is ptt.runtime.distributed.StageLink
+from pytorch_distributed_tpu_torch.parallel import pipeline_lm
+g = ptt.GPT2LMHead(ptt.GPT2Config.tiny(), device="cpu")
+g.init_weights(torch.Generator().manual_seed(0))
+stage, _ = pipeline_lm.host_stage_params(g, stage=0, num_stages=1)
+host = ptt.HostPipelineStep(
+    pipeline_lm.GPT2HostStagePrograms(stage, stage=0, num_stages=1),
+    stage=0, num_stages=1, num_microbatches=2,
+    optimizer=ptt.optim.SGD(stage, lr=0.1))
+assert host.step({"input_ids": np.ones((2, 8), np.int32)})["loss"] > 0
 model = ptt.LlamaForCausalLM(ptt.LlamaConfig.tiny(), device="cpu")
 model.init_weights(torch.Generator().manual_seed(0))
 engine = ptt.ServeEngine(model, ptt.EngineConfig(num_slots=2, max_len=32,

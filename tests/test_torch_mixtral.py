@@ -278,9 +278,19 @@ def test_mesh_ep_axis_follows_the_jax_order():
     for r in range(8):
         got = [int(i[0]) for i in np.nonzero(coords == r)]
         want = [int(i[0]) for i in np.nonzero(jax_coords == r)]
-        assert got == [want[0], want[1], want[3], want[4], want[5]], r
-    with pytest.raises(NotImplementedError, match="A10.3"):
-        MeshSpec(pp=2)
+        # the JAX coordinate without pp (want[2], 1 on this mesh)
+        assert got == want[:2] + want[3:], r
+    # with pp in the mesh, all six axes, in the JAX order
+    spec = MeshSpec(dp=-1, pp=2, ep=2).resolve(8)
+    shape, names = spec.mesh_shape()
+    assert names == ("dp", "fsdp", "pp", "ep", "sp", "tp")
+    jax_spec = JaxMeshSpec(dp=-1, pp=2, ep=2).resolve(8)
+    assert spec.sizes() == jax_spec.sizes()
+    coords = np.arange(8).reshape(shape)
+    jax_coords = np.arange(8).reshape(jax_spec.sizes())
+    for r in range(8):
+        assert ([int(i[0]) for i in np.nonzero(coords == r)]
+                == [int(i[0]) for i in np.nonzero(jax_coords == r)]), r
 
 
 # -- the recipe -------------------------------------------------------------

@@ -67,6 +67,7 @@ from pytorch_distributed_tpu_torch.train import (
     build_train_step,
     causal_lm_loss_fn,
 )
+from tests import torch_dp_workers, torch_pipeline_workers
 
 F32 = JaxPolicy(compute_dtype=jnp.float32)
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
@@ -318,10 +319,21 @@ def test_recipe_trains_on_cpu_and_refuses_the_unported():
     trainer = gpt2_recipe.main(base + ["--accum-steps", "2"])
     assert trainer.state.step == 2 and len(trainer.history) == 2
     assert all(np.isfinite(r["loss"]) for r in trainer.history)
-    for extra, item in ((["--strategy", "auto"], "A10"), (["--pp", "2"],
-                        "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            gpt2_recipe.main(base + extra)
+    with pytest.raises(NotImplementedError, match="A10"):
+        gpt2_recipe.main(base + ["--strategy", "auto"])
+    # --pp 2 trains: two stage processes over gloo, then --sample gathers
+    # the stages' layers on each (tests/test_torch_pipeline_lm.py holds
+    # the pipeline against the JAX package)
+    ranks = torch_dp_workers.spawn(
+        torch_pipeline_workers.world, 2,
+        [("pp", "recipe", (base + ["--pp", "2", "--backend", "gloo",
+                                   "--sample", "4"],))], timeout_s=180)
+    for res in ranks:
+        assert res["pp"]["step"] == 2 and len(res["pp"]["losses"]) == 2
+        assert all(np.isfinite(x) for x in res["pp"]["losses"])
+        assert np.isfinite(res["pp"]["eval"]["loss"])
+        assert np.asarray(res["pp"]["sample"]).shape == (2, 12)
+    assert ranks[0]["pp"] == ranks[1]["pp"]
     # --sample is ported (tests/test_torch_generation.py holds it)
     sampled = gpt2_recipe.main(base + ["--sample", "4"]).sample
     assert tuple(sampled.shape) == (2, 12)
