@@ -399,6 +399,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``pp_host_solo``, ``pp_host_stage0``, ``pp_host_stage1``,
    ``pp_gpipe_one_stage`` (B1-B3; B4 0 on each). The GPipe form over
    more than one stage needs a card a stage: ``scripts/port_pp_scale.py``.
+19. tensor parallelism, after phase 18: (19a) B4 at Llama-3-8B's
+   per-rank decode ticks at tp 2, 4 and 8 (16/4, 8/2, 4/1 heads of 128,
+   8 rows, 36 pages of 32) against ``stream`` and ``gather``, and B1-B3
+   at GPT-2-medium's per-rank shape at tp 2 (8 x 1024, 8 heads of 64,
+   causal, bf16) against their plain versions, each timed beside its
+   bound and SDPA. The tp paths run on four cards
+   (``scripts/port_tp_scale.py``): two gloo ranks on one card crash in
+   DTensor's functional all-gather of CUDA tensors, and NCCL takes one
+   rank a card.
 
 Serve, ResNet, 7a, train, 8a, 9, each path of 10, 11, 12, 13, 14, 15,
 16, 17 and 18 set all four kernel counts to 0 just before their run and
@@ -409,9 +418,9 @@ Output: a ``details`` JSON line (every check and serve number), a
 ``kernels`` JSON line (each kernel's ``launches`` summed over the paths,
 ``launches_by_path`` per path as read, for the flash kernels their
 numbers ``at_llama_shape``, ``at_bert_shape``, ``at_family_shapes``
-per dtype, ``at_sp_tp_shapes``, ``at_vit_shape`` and ``at_t5_shape``,
-for the paged kernel ``at_gpt2_shape`` at W=1 and W=5 and
-``at_family_shapes``), then the
+per dtype, ``at_sp_tp_shapes``, ``at_vit_shape``, ``at_t5_shape`` and
+``at_tp_shapes``, for the paged kernel ``at_gpt2_shape`` at W=1 and W=5,
+``at_family_shapes`` and ``at_tp_shapes``), then the
 card's name and power
 limit as ``nvidia-smi`` prints them, then the last line
 ``{"ok": true, "device": {...}}``.
@@ -7052,6 +7061,86 @@ def pp_phase(device, seed):
     return stats, by_path
 
 
+# -- 19. tensor parallelism for GPT-2 and for inference --------------------
+
+# (19a) B4 at Llama-3-8B's per-rank decode tick at tp 2, 4 and 8 (its 32
+# query and 8 kv heads over tp): phase 14's tick, 8 rows, 36 pages of 32
+TP_PAGED_SHAPES = tuple(
+    (f"llama3_8b_tp{t}", dict(B=8, Hq=32 // t, Hkv=8 // t, D=128, ps=32,
+                              n=36, max_len=1100))
+    for t in (2, 4, 8))
+# (19a) B1-B3 at GPT-2-medium's per-rank shape at tp 2: 8 x 1024, 8 of its
+# 16 heads of 64, causal, bf16
+TP_FLASH_SHAPE = ("gpt2_medium_tp2", dict(B=8, S=1024, T=1024, Hq=8, Hkv=8,
+                                          D=64))
+def _tp_paged(device, seed):
+    """(19a) B4 at ``TP_PAGED_SHAPES`` against ``stream`` and ``gather``
+    (bf16 and f32, bitwise over two launches), and at W = 1 its time
+    beside its bound, plain version and SDPA."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed + 19)
+    out = {}
+    for name, shape in TP_PAGED_SHAPES:
+        checks, same, inputs = _paged_checks(
+            gen, shape, family_paged_cases(shape, None), device,
+            label=f"{name} ")
+        t = _paged_times(*inputs["decode W=1"], device)
+        out[name] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in checks
+                            if c["case"] == f"{name} decode W=1"
+                            and c["dtype"] == "bfloat16"),
+            checks=checks, deterministic=same,
+            **{k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "bytes",
+                                 "flops")})
+        print(f"(19a) B4 {name} {shape}: {t['ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.5f} ({t['bound_by']}), plain "
+              f"{t['plain_ms']:.3f}, SDPA {t['library_ms']:.5f}")
+    return out
+
+
+def _tp_flash(device, seed):
+    """(19a) B1-B3 at ``TP_FLASH_SHAPE`` against their plain versions
+    (phase 3's limits), timed from CUDA graphs beside SDPA and the
+    bound."""
+    import torch
+
+    name, shape = TP_FLASH_SHAPE
+    gen = torch.Generator().manual_seed(seed + 19)
+    rows = _flash_check(gen, seed, name, shape, True, {}, "bfloat16", device)
+    bad = [c for c in rows if not c["ok"]]
+    if bad:
+        raise AssertionError(f"(19a) flash kernels disagree with plain: "
+                             f"{bad}")
+    worst = {r["what"]: r["max_abs_err"] for r in rows}
+    gen = torch.Generator().manual_seed(seed + 19)
+    records, details = _flash_times(gen, seed, shape, device, worst)
+    out = dict(records={r["name"]: {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")} for r in records}, details=details, checks=rows)
+    t = out["records"]
+    print(f"(19a) {name} {shape}: fwd {t['flash_fwd']['ms']:.4f} ms vs sdpa "
+          f"{t['flash_fwd']['library_ms']:.4f}, dq + dkv "
+          f"{t['flash_dq']['ms'] + t['flash_dkv']['ms']:.4f} ms vs sdpa "
+          f"backward {t['flash_dq']['library_ms']:.4f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(device, seed):
+    """Phase 19: B4 and B1-B3 at the TP per-rank shapes (19a). The tp
+    paths themselves run on four cards (``scripts/port_tp_scale.py``):
+    two gloo ranks on one card crash in DTensor's functional all-gather
+    of CUDA tensors (a SIGSEGV in ``_c10d_functional`` all_gather's
+    ``wait``), and NCCL takes one rank a card. Returns the stats."""
+    t0 = time.perf_counter()
+    stats = dict(paged=_tp_paged(device, seed), flash=_tp_flash(device, seed))
+    stats["wall_s"] = time.perf_counter() - t0
+    print(f"(19) phase 19 in {stats['wall_s']:.1f} s")
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7108,6 +7197,7 @@ def main(argv=None) -> int:
     mv_stats, mv_paths = moe_vit_phase(device, args.seed)
     t5_stats, t5_paths = t5_phase(device, args.seed)
     pp_stats, pp_paths = pp_phase(device, args.seed)
+    tp_stats = tp_phase(device, args.seed)
     zt = zstats["train"]
     print(f"GPT-2-medium width, {ZERO_LAYERS} layers, batch 8 x 1024: "
           f"ZeRO-1 + remat + chunked loss "
@@ -7183,6 +7273,11 @@ def main(argv=None) -> int:
             rec["name"]]
         # phase 17's T5-base cross-attention shape, bf16, key-padded
         rec["at_t5_shape"] = t5_stats["flash"]["records"][rec["name"]]
+        # phase 19's GPT-2-medium per-rank shape at tp 2, bf16 causal
+        rec["at_tp_shapes"] = tp_stats["flash"]["records"][rec["name"]]
+    # phase 19's Llama-3-8B per-rank decode ticks at tp 2, 4 and 8
+    record["at_tp_shapes"] = {name: {k: t[k] for k in keys}
+                              for name, t in tp_stats["paged"].items()}
 
     card = device_info()
     print(json.dumps({"details": dict(kernel=kdetails, flash=fdetails,
@@ -7194,7 +7289,7 @@ def main(argv=None) -> int:
                                       lifecycle=life_stats,
                                       family=fam_stats, sp_tp=sp_stats,
                                       moe_vit=mv_stats, t5=t5_stats,
-                                      pipeline=pp_stats)}))
+                                      pipeline=pp_stats, tp=tp_stats)}))
     print(json.dumps({"kernels": [record] + flash_records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,9 +28,11 @@ The other direction serves the checkpoints both packages read:
 :func:`gpt2_slots`, :func:`llama_slots`, :func:`neox_slots`,
 :func:`bert_slots`, :func:`resnet_slots` and
 :func:`model_slots` place every port tensor at its JAX ``TrainState``
-leaf (path, layer of a scan-stacked leaf, layout map; a Llama slot also
-maps any box of the port tensor, an FSDP or TP shard, to boxes of the
-JAX leaf), :func:`gpt2_params_to_jax`, :func:`llama_params_to_jax`,
+leaf (path, layer of a scan-stacked leaf, layout map; a Llama or GPT-2
+slot also maps any box of the port tensor, an FSDP or TP shard, to
+boxes of the JAX leaf: a TP GPT-2's fused qkv rows, grouped by rank,
+are head ranges of its ``[D, 3, H, hd]`` kernel),
+:func:`gpt2_params_to_jax`, :func:`llama_params_to_jax`,
 :func:`bert_params_to_jax` and
 :func:`resnet_params_to_jax` are the inverses of the converters above,
 and :func:`optimizer_layout` names the optax state (``mu``, ``nu``,
@@ -58,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import re
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -296,6 +299,10 @@ class Slot:
     perm: Optional[Tuple[int, ...]] = None
     jshape: Optional[Tuple[int, ...]] = None
     rows: Union[int, Tuple[int, ...]] = 1
+    # the JAX leaf's one-layer shape when ``jshape`` splits its axes
+    # (consecutive axes of ``jshape`` make one of it: GPT-2's heads as
+    # ``(ways, H / ways)``); None when ``jshape`` is the leaf's own
+    leaf: Optional[Tuple[int, ...]] = None
 
     def groups(self) -> List[Tuple[int, ...]]:
         """The JAX axes (of ``perm``'s order) that fold into each port
@@ -335,6 +342,7 @@ class Slot:
         per_dim = [_flat_segments(lo, lo + n, [js[i] for i in g])
                    for lo, n, g in zip(starts, sizes, groups)]
         lead = () if self.layer is None else (self.layer,)
+        merged = self._leaf_axes()
         out = []
         for combo in itertools.product(*per_dim):
             start, stop = [0] * len(js), list(js)
@@ -345,105 +353,164 @@ class Slot:
                     start[axis], stop[axis] = alo, ahi
                     shape.append(ahi - alo)
             pshape = tuple(hi - lo for lo, hi in ranges)
+            fine = tuple(b - a for a, b in zip(start, stop))
+            start, stop = _merge_box(start, stop, js, merged)
+            box = tuple(b - a for a, b in zip(start, stop))
             out.append((
                 tuple(ranges), lead + tuple(start),
                 tuple(x + 1 for x in lead) + tuple(stop),
-                lambda x, shape=tuple(shape): x.reshape(shape).transpose(inv),
-                lambda y, pshape=pshape: y.transpose(perm).reshape(pshape),
+                lambda x, shape=tuple(shape), box=box:
+                    x.reshape(shape).transpose(inv).reshape(box),
+                lambda y, pshape=pshape, fine=fine:
+                    y.reshape(fine).transpose(perm).reshape(pshape),
             ))
         return out
 
+    def _leaf_axes(self) -> List[Tuple[int, ...]]:
+        """The axes of ``jshape`` that make each axis of the leaf (one
+        each unless ``leaf`` splits them)."""
+        js = self.jshape
+        if self.leaf is None:
+            return [(i,) for i in range(len(js))]
+        out, i = [], 0
+        for n in self.leaf:
+            group, size = [], 1
+            while i < len(js) and (not group or size < n):
+                group.append(i)
+                size *= js[i]
+                i += 1
+            if size != n:
+                raise ValueError(f"{js} does not split {self.leaf}")
+            out.append(tuple(group))
+        if i != len(js):
+            raise ValueError(f"{js} does not split {self.leaf}")
+        return out
+
+
+def _merge_box(start, stop, js, merged):
+    """A box of the split axes ``js`` as a box of the leaf's axes
+    (``merged``: the split axes of each): each leaf axis's range runs
+    from the flat index of its split axes' starts to that of their last
+    entries, which is a box when the split ranges are whole inside a
+    partial one (as :func:`_flat_segments` cuts them)."""
+    out_start, out_stop = [], []
+    for group in merged:
+        lo = hi = 0
+        for i in group:
+            lo = lo * js[i] + start[i]
+            hi = hi * js[i] + stop[i] - 1
+        n = math.prod(stop[i] - start[i] for i in group)
+        if hi + 1 - lo != n:
+            raise ValueError(f"a box {start}..{stop} of {js} cuts across "
+                             f"the merged axes {group}")
+        out_start.append(lo)
+        out_stop.append(hi + 1)
+    return out_start, out_stop
+
 
 def _flat_segments(a: int, b: int, dims):
-    """``[a, b)`` of a dim that folds the axes ``dims`` (one or two,
-    outermost first) as ``[(lo, hi, per-axis (lo, hi))]`` pieces, each a
-    box of the axes: whole runs of the outer axis, and partial ones at
-    the ends."""
+    """``[a, b)`` of a dim that folds the axes ``dims`` (outermost first)
+    as ``[(lo, hi, per-axis (lo, hi))]`` pieces, each a box of the axes:
+    whole runs of the outer axis, and partial ones at the ends (split
+    the same way over the inner axes)."""
     if len(dims) == 1:
         return [(a, b, [(a, b)])]
-    n1 = dims[1]
+    inner = math.prod(dims[1:])
     out = []
     while a < b:
-        h, r = divmod(a, n1)
-        if r or b - a < n1:
-            end = min(b, (h + 1) * n1)
-            out.append((a, end, [(h, h + 1), (r, r + end - a)]))
+        h, r = divmod(a, inner)
+        if r or b - a < inner:
+            end = min(b, (h + 1) * inner)
+            for lo, hi, rs in _flat_segments(r, r + end - a, dims[1:]):
+                out.append((h * inner + lo, h * inner + hi,
+                            [(h, h + 1)] + rs))
         else:
-            end = (b // n1) * n1
-            out.append((a, end, [(h, end // n1), (0, n1)]))
+            end = (b // inner) * inner
+            out.append((a, end, [(h, end // inner)]
+                        + [(0, n) for n in dims[1:]]))
         a = end
     return out
 
 
-def _permuted(tree, path, layer, depth, jshape, perm, rows=1) -> Slot:
+def _permuted(tree, path, layer, depth, jshape, perm, rows=1,
+              leaf=None) -> Slot:
     """A :class:`Slot` whose maps are a transpose by ``perm`` and a
     reshape: port ``[prod(row axes), prod(the rest)]`` (or, ``rows`` a
-    tuple, one port dim per group of axes)."""
+    tuple, one port dim per group of axes). ``leaf``: the leaf's own
+    one-layer shape when ``jshape`` splits its axes."""
     inv = tuple(int(i) for i in np.argsort(perm))
     probe = Slot(tree, path, layer, depth, _same, _same, perm=tuple(perm),
                  jshape=tuple(jshape), rows=rows)
     pshape = tuple(int(np.prod([jshape[i] for i in g]))
                    for g in probe.groups() if len(g))
+    out_shape = tuple(jshape) if leaf is None else tuple(leaf)
     return Slot(
         tree, path, layer, depth,
-        lambda w: w.reshape([jshape[i] for i in perm]).transpose(inv),
-        lambda k: k.transpose(perm).reshape(pshape),
-        perm=tuple(perm), jshape=tuple(jshape), rows=rows)
+        lambda w: w.reshape([jshape[i] for i in perm]).transpose(
+            inv).reshape(out_shape),
+        lambda k: k.reshape(jshape).transpose(perm).reshape(pshape),
+        perm=tuple(perm), jshape=tuple(jshape), rows=rows,
+        leaf=None if leaf is None else tuple(leaf))
 
 
 def _same(a):
     return a
 
 
-def gpt2_slots(cfg, layers: Optional[Tuple[int, int]] = None
-               ) -> Dict[str, Slot]:
+def gpt2_slots(cfg, layers: Optional[Tuple[int, int]] = None,
+               qkv_ways: int = 1) -> Dict[str, Slot]:
     """``{port name: Slot}`` for ``GPT2LMHead``: the scan-stacked JAX
     layout (``blocks/block/...`` with a leading ``[L]``), the one the
     JAX recipe trains. ``layers=(start, stop)`` gives a pipeline stage's:
-    its ``blocks.{i}`` are layers ``start + i`` of the stack."""
-    D, H = cfg.hidden_size, cfg.num_heads
-    L, hd = cfg.num_layers, cfg.hidden_size // cfg.num_heads
-    top = {
-        "wte.weight": ("wte", "embedding"), "wpe.weight": ("wpe", "embedding"),
-        "ln_f.weight": ("ln_f", "scale"), "ln_f.bias": ("ln_f", "bias"),
+    its ``blocks.{i}`` are layers ``start + i`` of the stack.
+    ``qkv_ways``: the model's grouping of the fused qkv rows
+    (``GPT2LMHead.qkv_ways``): ``attn_qkv.weight`` ``[3 * H * hd, D]``
+    in the ``(ways, 3, H / ways, hd)`` order is the ``[D, 3, H, hd]``
+    kernel with its heads split ``(ways, H / ways)``, so a rank's rows
+    are a head range of it. Every slot maps any box of its tensor (a TP
+    shard's rows or columns) to boxes of the leaf."""
+    D, H, V = cfg.hidden_size, cfg.num_heads, cfg.vocab_size
+    L, hd, I = cfg.num_layers, cfg.head_dim, cfg.intermediate_size
+    t = qkv_ways
+    slots = {
+        "wte.weight": _permuted("params", ("wte", "embedding"), None, 0,
+                                (V, D), (0, 1)),
+        "wpe.weight": _permuted("params", ("wpe", "embedding"), None, 0,
+                                (cfg.n_positions, D), (0, 1)),
+        "ln_f.weight": _permuted("params", ("ln_f", "scale"), None, 0,
+                                 (D,), (0,)),
+        "ln_f.bias": _permuted("params", ("ln_f", "bias"), None, 0, (D,),
+                               (0,)),
     }
-    slots = {k: Slot("params", p, None, 0, _same, _same)
-             for k, p in top.items()}
-    T = lambda a: a.T  # noqa: E731 - [out, in] <-> [in, out]
+    # (module, leaf, jshape, perm, rows, leaf shape when split)
     per_layer = {
-        "ln1.weight": ("ln1", "scale", _same, _same),
-        "ln1.bias": ("ln1", "bias", _same, _same),
-        "ln2.weight": ("ln2", "scale", _same, _same),
-        "ln2.bias": ("ln2", "bias", _same, _same),
-        "attn_qkv.weight": ("attn_qkv", "kernel",
-                            lambda w: w.T.reshape(D, 3, H, hd),
-                            lambda k: k.reshape(D, -1).T),
-        "attn_qkv.bias": ("attn_qkv", "bias",
-                          lambda b: b.reshape(3, H, hd),
-                          lambda b: b.reshape(-1)),
-        "attn_out.weight": ("attn_out", "kernel",
-                            lambda w: w.T.reshape(H, hd, D),
-                            lambda k: k.reshape(-1, D).T),
-        "attn_out.bias": ("attn_out", "bias", _same, _same),
-        "mlp_up.weight": ("mlp_up", "kernel", T, T),
-        "mlp_up.bias": ("mlp_up", "bias", _same, _same),
-        "mlp_down.weight": ("mlp_down", "kernel", T, T),
-        "mlp_down.bias": ("mlp_down", "bias", _same, _same),
+        "ln1.weight": ("ln1", "scale", (D,), (0,), 1, None),
+        "ln1.bias": ("ln1", "bias", (D,), (0,), 1, None),
+        "ln2.weight": ("ln2", "scale", (D,), (0,), 1, None),
+        "ln2.bias": ("ln2", "bias", (D,), (0,), 1, None),
+        "attn_qkv.weight": ("attn_qkv", "kernel", (D, 3, t, H // t, hd),
+                            (2, 1, 3, 4, 0), 4, (D, 3, H, hd)),
+        "attn_qkv.bias": ("attn_qkv", "bias", (3, t, H // t, hd),
+                          (1, 0, 2, 3), 4, (3, H, hd)),
+        "attn_out.weight": ("attn_out", "kernel", (H, hd, D), (2, 0, 1), 1,
+                            None),
+        "attn_out.bias": ("attn_out", "bias", (D,), (0,), 1, None),
+        "mlp_up.weight": ("mlp_up", "kernel", (D, I), (1, 0), 1, None),
+        "mlp_up.bias": ("mlp_up", "bias", (I,), (0,), 1, None),
+        "mlp_down.weight": ("mlp_down", "kernel", (I, D), (1, 0), 1, None),
+        "mlp_down.bias": ("mlp_down", "bias", (D,), (0,), 1, None),
     }
     if cfg.moe_experts > 0:   # every block's FFN a mixture of experts
         for name in ("mlp_up", "mlp_down"):
             del per_layer[f"{name}.weight"], per_layer[f"{name}.bias"]
-        per_layer.update({
-            "moe.router.weight": ("moe", "router/kernel", T, T),
-            "moe.w_in": ("moe", "w_in", _same, _same),
-            "moe.w_out": ("moe", "w_out", _same, _same),
-        })
+        per_layer.update({k: v + (None,) for k, v in _moe_per_layer(
+            D, cfg.moe_experts, I, swiglu=False).items()})
     start, stop = layers or (0, L)
     for i in range(start, stop):
-        for sub, (mod, leaf, fwd, inv) in per_layer.items():
-            slots[f"blocks.{i - start}.{sub}"] = Slot(
+        for sub, (mod, leaf, js, perm, rows, whole) in per_layer.items():
+            slots[f"blocks.{i - start}.{sub}"] = _permuted(
                 "params", ("blocks", "block", mod, *leaf.split("/")), i, L,
-                fwd, inv)
+                js, perm, rows, whole)
     return slots
 
 
@@ -865,7 +932,8 @@ def model_slots(model) -> Dict[str, Slot]:
     if isinstance(model, GPT2LMHead):
         stage = getattr(model, "pipeline_stage", None)
         slots = gpt2_slots(model.config,
-                           None if stage is None else stage.layers)
+                           None if stage is None else stage.layers,
+                           model.qkv_ways)
     elif isinstance(model, LlamaForCausalLM):
         slots = llama_slots(model.config)
     elif isinstance(model, NeoXForCausalLM):
@@ -1012,14 +1080,17 @@ class OptimizerLayout:
 
 def unwrap_optimizer(optimizer):
     """(clipped?, the optimizer that holds this rank's state, the
-    ``ZeroRedundancyOptimizer`` around it or None)."""
+    ``ZeroRedundancyOptimizer`` or ``parallel.ZeroShards`` around it or
+    None)."""
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
     from pytorch_distributed_tpu_torch.optim import _ClippedOptimizer
+    from pytorch_distributed_tpu_torch.parallel.strategies import ZeroShards
 
     clipped = isinstance(optimizer, _ClippedOptimizer)
     inner = optimizer.optimizer if clipped else optimizer
-    zero = inner if isinstance(inner, ZeroRedundancyOptimizer) else None
+    zero = inner if isinstance(inner, (ZeroRedundancyOptimizer,
+                                       ZeroShards)) else None
     return clipped, (zero.optim if zero is not None else inner), zero
 
 
@@ -1137,6 +1208,10 @@ def geometries(model) -> Dict[str, Geometry]:
     two equal)."""
     base = getattr(model, "module", model)
     base = getattr(base, "wrapped_model", base)
+    if getattr(base, "qkv_ways", 1) > 1:
+        raise NotImplementedError(
+            "a tensor-parallel GPT-2 (its fused qkv rows grouped by rank) "
+            "is not quantized or adapted (ROADMAP A10.1)")
     slots = model_slots(base)
     shapes = logical_shapes(base)
     out = {}

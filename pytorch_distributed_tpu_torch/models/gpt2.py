@@ -16,6 +16,24 @@ the attention weights) draws its masks from the ``generator`` the
 caller passes, so a step's masks depend on its seed alone. With
 ``config.remat`` each block runs under ``torch.utils.checkpoint``
 (``models/scan.py``), its generator replayed in the recompute.
+
+Under tensor parallelism (``gpt2_partition_rules``, applied by
+``parallel.DataParallel``, ``ZeRO1``, ``FSDP`` or ``PipelineParallel``
+with ``tp > 1``) each rank holds ``H / tp`` heads of the fused qkv
+projection (column-parallel) and of ``attn_out`` (row-parallel), a
+``1 / tp`` share of the MLP's hidden units, and the token embedding
+sharded on hidden. The JAX rule shards the heads *inside* the fused
+``[D, 3, H, hd]`` kernel, so a rank's q, k and v rows are three row
+ranges of the ``(3, H, hd)`` order; the model therefore orders the rows
+``(ways, 3, H / ways, hd)`` (:attr:`GPT2LMHead.qkv_ways`, set to ``tp``
+before the TP plan runs; ``(3, H, hd)`` at 1), so that each rank's rows
+are one contiguous chunk and its local projection reads as ``(3,
+H / tp, hd)``. ``interop.gpt2_slots`` carries that order, so the JAX
+leaf, the checkpoints and the converters see the ``[D, 3, H, hd]``
+kernel at every ``tp``. The block reads its head count off the
+projection's output, the caches hold the rank's own heads, and the tied
+head multiplies by the whole table (gathered, differentiably, from the
+hidden shards).
 """
 
 from __future__ import annotations
@@ -40,6 +58,7 @@ from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
     resolve_device,
 )
+from pytorch_distributed_tpu_torch.runtime.mesh import shard_box, whole_tensor
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 
 # flax's truncated_normal draws in [-2, 2] and divides by the std of that
@@ -101,17 +120,21 @@ class GPT2Config:
         )
 
 
-class Dense(nn.Module):
+class Dense(nn.Linear):
     """``y = x W^T + b``: W ``[out, in]`` and b kept in the policy's
-    param dtype, both cast to its compute dtype for the product."""
+    param dtype, both cast to its compute dtype for the product (an
+    ``nn.Linear``, so the tensor-parallel styles take it; its weight is
+    left for ``init_weights`` to draw, its bias zero)."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  policy: Policy, device):
-        super().__init__()
-        kw = dict(device=device, dtype=policy.param_dtype)
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, **kw))
-        self.bias = nn.Parameter(torch.zeros(out_features, **kw))
+        super().__init__(in_features, out_features, device=device,
+                         dtype=policy.param_dtype)
         self.compute_dtype = policy.compute_dtype
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.bias.zero_()
 
     def forward(self, x):
         cd = self.compute_dtype
@@ -172,10 +195,11 @@ class _F32Logits(torch.autograd.Function):
 
 def tied_logits(x, wte, compute_dtype):
     """[B, S, D] hidden -> [B, S, V] f32 logits through the tied
-    embedding, multiplied in ``compute_dtype``."""
+    embedding, multiplied in ``compute_dtype`` (a table sharded on
+    hidden is gathered whole first, differentiably)."""
     B, S, D = x.shape
     x = x.to(compute_dtype).reshape(B * S, D)
-    w = wte.to(compute_dtype)
+    w = whole_tensor(wte.to(compute_dtype))
     if compute_dtype == torch.float32:
         logits = x @ w.t()
     else:
@@ -200,6 +224,8 @@ class GPT2Block(nn.Module):
         else:
             self.mlp_up = Dense(D, cfg.intermediate_size, **kw)
             self.mlp_down = Dense(cfg.intermediate_size, D, **kw)
+        # (rank, ways, process group) of the tp axis; the strategies set it
+        self.tp = (0, 1, None)
 
     def forward(self, x, segment_ids, *, train: bool, generator,
                 attn_impl: Optional[str] = None, layer_cache=None,
@@ -210,8 +236,9 @@ class GPT2Block(nn.Module):
         FFN)."""
         cfg = self.cfg
         B, S, D = x.shape
-        H, hd = cfg.num_heads, cfg.head_dim
-        qkv = self.attn_qkv(self.ln1(x)).view(B, S, 3, H, hd)
+        # this rank's heads: all of them, or H / tp under tensor
+        # parallelism (its rows of the fused projection are (3, H/tp, hd))
+        qkv = self.attn_qkv(self.ln1(x)).view(B, S, 3, -1, cfg.head_dim)
         # strided views of one tensor: the flash kernels read them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if layer_cache is not None:
@@ -224,7 +251,7 @@ class GPT2Block(nn.Module):
                 q, k, v, causal=True, segment_ids=segment_ids,
                 impl=attn_impl
             )
-        attn = self.attn_out(attn.reshape(B, S, D))
+        attn = self.attn_out(attn.reshape(B, S, -1))
         x = x + dropout(attn, cfg.dropout_rate, train, generator)
         aux = None
         if cfg.moe_experts > 0:
@@ -247,6 +274,8 @@ class GPT2LMHead(nn.Module):
         device = resolve_device(device)
         self.config = config
         self.policy = policy
+        # the fused qkv rows' grouping: (qkv_ways, 3, H / qkv_ways, hd)
+        self.qkv_ways = 1
         D = config.hidden_size
         kw = dict(device=device, dtype=policy.param_dtype)
         self.wte = nn.Embedding(config.vocab_size, D, **kw)
@@ -262,13 +291,52 @@ class GPT2LMHead(nn.Module):
     def device(self) -> torch.device:
         return self.ln_f.weight.device
 
+    def set_qkv_ways(self, ways: int) -> None:
+        """Order the fused qkv rows for ``ways`` tensor-parallel ranks
+        (``(ways, 3, H / ways, hd)``; the strategies call it with ``tp``
+        before the TP plan), moving the rows of weights already drawn."""
+        if self.config.num_heads % ways:
+            raise ValueError(f"{self.config.num_heads} heads do not divide "
+                             f"over tp {ways}")
+        if ways == self.qkv_ways:
+            return
+        old = qkv_order(self.config, self.qkv_ways)
+        new = qkv_order(self.config, ways)
+        with torch.no_grad():
+            for block in self.blocks:
+                for p in (block.attn_qkv.weight, block.attn_qkv.bias):
+                    if p.is_meta:
+                        continue
+                    base = torch.empty_like(p)
+                    base[old.to(p.device)] = p
+                    p.copy_(base[new.to(p.device)])
+        self.qkv_ways = ways
+
+    def tp_rows(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """A whole tensor of the ``(3, H, hd)`` order (a draw, a
+        world-1 state_dict's entry) in this model's order of ``name``'s
+        rows: the fused qkv's regrouped for :attr:`qkv_ways`."""
+        if self.qkv_ways == 1 or ".attn_qkv." not in f".{name}":
+            return full
+        return full[qkv_order(self.config, self.qkv_ways).to(full.device)]
+
+    def whole_rows(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`tp_rows`: a whole tensor of this model's
+        order in the ``(3, H, hd)`` one."""
+        if self.qkv_ways == 1 or ".attn_qkv." not in f".{name}":
+            return full
+        order = qkv_order(self.config, self.qkv_ways).to(full.device)
+        return full[torch.argsort(order)]
+
     def init_cache(self, batch: int, length: int):
         """Zeroed per-layer dense caches ``[batch, length, H, hd]`` in the
         compute dtype (int8 payloads and f32 scales with
-        ``kv_cache_quantize="int8"``)."""
+        ``kv_cache_quantize="int8"``); under tensor parallelism ``H`` is
+        this rank's heads."""
         cfg = self.config
         return [
-            init_layer_cache(batch, length, cfg.num_heads, cfg.head_dim,
+            init_layer_cache(batch, length, cfg.num_heads // self.qkv_ways,
+                             cfg.head_dim,
                              dtype=self.policy.compute_dtype,
                              device=self.device,
                              quantize=cfg.kv_cache_quantize)
@@ -281,6 +349,11 @@ class GPT2LMHead(nn.Module):
         Dense kernel lecun-normal (truncated at 2 std, variance
         1/fan_in), embeddings normal with variance 1/hidden_size, biases
         zero, LayerNorm scales one.
+
+        Each tensor is drawn whole and a parameter sharded by tensor
+        parallelism (or FSDP) keeps its own box of the draw, the fused
+        qkv's rows in the model's order (:meth:`tp_rows`): the weights are
+        the same at every ``tp``.
 
         A pipeline stage (``pipeline_stage`` set by
         ``parallel.pipeline_lm.PipelineParallel``: its ``blocks`` are
@@ -316,10 +389,14 @@ class GPT2LMHead(nn.Module):
                 draw /= math.sqrt(shape[1]) * _TRUNC_STD
             if p is None:
                 continue   # a layer of an earlier stage: drawn, dropped
+            local, offsets, _ = shard_box(p)
             if isinstance(draw, float):
-                p.fill_(draw)
+                local.fill_(draw)
             else:
-                p.copy_(draw)
+                draw = self.tp_rows(name, draw)
+                box = tuple(slice(o, o + n)
+                            for o, n in zip(offsets, local.shape))
+                local.copy_(draw[box])
         return self
 
     def forward(
@@ -421,13 +498,21 @@ class GPT2LMHead(nn.Module):
         return (out, aux) if return_aux else out
 
 
+def qkv_order(cfg: GPT2Config, ways: int) -> torch.Tensor:
+    """Row index of the fused qkv grouped for ``ways`` ranks: row ``i``
+    of the ``(ways, 3, H / ways, hd)`` order is row ``order[i]`` of the
+    ``(3, H, hd)`` one (the identity at ``ways == 1``)."""
+    H, hd = cfg.num_heads, cfg.head_dim
+    idx = torch.arange(3 * H * hd).view(3, ways, H // ways, hd)
+    return idx.permute(1, 0, 2, 3).reshape(-1)
+
+
 def gpt2_partition_rules():
     """Megatron TP over the JAX GPT-2's leaves: the fused qkv kernel
     ``[hidden, 3, heads, head_dim]`` and its bias on heads, attn_out on
     its input heads, the MLP on its hidden dim, the token embedding on
     hidden, and the mixture-of-experts FFNs over ``ep`` with their hidden
-    dim over ``tp`` (a rule table: the GPT-2 recipe's ``--tp`` is ROADMAP
-    A10.1)."""
+    dim over ``tp``."""
     from pytorch_distributed_tpu_torch.parallel.rules import (
         TensorRule,
         engine_rules,

@@ -65,7 +65,11 @@ from pytorch_distributed_tpu_torch.runtime.device import (
     resolve_device,
 )
 from pytorch_distributed_tpu_torch.runtime.distributed import sum_grad
-from pytorch_distributed_tpu_torch.runtime.mesh import shard_box
+from pytorch_distributed_tpu_torch.runtime.mesh import (
+    shard_box,
+    sharded_over,
+    whole_tensor,
+)
 from pytorch_distributed_tpu_torch.runtime.precision import Policy
 
 #: per-layer (k, v) buffers: dense [B, T, Hkv, D] or a page pool
@@ -297,27 +301,30 @@ class LlamaBlock(nn.Module):
         return x + y, aux
 
 
+def _local_kv_index(cfg: LlamaConfig, rank: int, hq: int):
+    """``(first, n)`` of the contiguous kv heads query heads ``[rank *
+    hq, (rank + 1) * hq)`` read, or their per-query-head list when they
+    are no such run."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    idx = [(rank * hq + i) // group for i in range(hq)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if hq % n == 0 and idx == [first + i // (hq // n) for i in range(hq)]:
+        return first, n
+    return idx
+
+
 def local_kv_heads(k, v, cfg: LlamaConfig, rank: int, hq: int):
     """The kv heads that query heads ``[rank * hq, (rank + 1) * hq)`` use
     (query head ``i`` reads kv head ``i // G``, ``G = H / Hkv``), from
     k/v ``[B, S, Hkv, D]`` holding every kv head: a contiguous slice when
     the rank's queries fall in whole groups (or within one), else each
     query head's own kv head, gathered (``G = 1`` locally)."""
-    group = cfg.num_heads // cfg.num_kv_heads
-    idx = [(rank * hq + i) // group for i in range(hq)]
-    first, n = idx[0], idx[-1] - idx[0] + 1
-    if hq % n == 0 and idx == [first + i // (hq // n) for i in range(hq)]:
+    sel = _local_kv_index(cfg, rank, hq)
+    if isinstance(sel, tuple):
+        first, n = sel
         return k[:, :, first:first + n], v[:, :, first:first + n]
-    sel = torch.tensor(idx, device=k.device)
+    sel = torch.tensor(sel, device=k.device)
     return k.index_select(2, sel), v.index_select(2, sel)
-
-
-def _whole(w: torch.Tensor) -> torch.Tensor:
-    """A tensor-parallel weight gathered whole (differentiably); a plain
-    one as it is."""
-    from torch.distributed.tensor import DTensor
-
-    return w.full_tensor() if isinstance(w, DTensor) else w
 
 
 class LlamaForCausalLM(nn.Module):
@@ -377,14 +384,30 @@ class LlamaForCausalLM(nn.Module):
             del full
         return self
 
+    def local_kv_heads(self) -> int:
+        """The kv heads this rank's caches hold: all of them, ``Hkv / tp``
+        when tensor parallelism shards k/v, or the ones its query heads
+        read when k/v stay whole (:func:`local_kv_heads`)."""
+        cfg = self.config
+        rank, ways, _ = self.layers[0].tp if len(self.layers) else (0, 1,
+                                                                    None)
+        if ways == 1:
+            return cfg.num_kv_heads
+        if sharded_over(self.layers[0].k.weight, "tp"):
+            return cfg.num_kv_heads // ways
+        sel = _local_kv_index(cfg, rank, cfg.num_heads // ways)
+        return sel[1] if isinstance(sel, tuple) else len(sel)
+
     def init_cache(self, batch: int, length: int) -> KVCache:
         """Zeroed per-layer (k, v) buffers [batch, length, Hkv, D] in the
         compute dtype (with ``kv_cache_quantize="int8"``: int8 payloads
-        and f32 per-token scales). The serving pool calls it with batch =
-        page frames and length = page size."""
+        and f32 per-token scales); under tensor parallelism ``Hkv`` is
+        this rank's (:meth:`local_kv_heads`). The serving pool calls it
+        with batch = page frames and length = page size."""
         cfg = self.config
         return [
-            init_layer_cache(batch, length, cfg.num_kv_heads, cfg.head_dim,
+            init_layer_cache(batch, length, self.local_kv_heads(),
+                             cfg.head_dim,
                              dtype=self.policy.compute_dtype,
                              device=self.device,
                              quantize=cfg.kv_cache_quantize)
@@ -490,7 +513,7 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is not None:
             logits = self.lm_head(x)
         else:   # tied: x E^T in the compute dtype, as flax's Embed.attend
-            logits = F.linear(x.to(cd), _whole(self.embed.weight).to(cd))
+            logits = F.linear(x.to(cd), whole_tensor(self.embed.weight).to(cd))
         logits = logits.to(self.policy.output_dtype)
         if decode:
             return logits, cache

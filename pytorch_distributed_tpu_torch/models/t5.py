@@ -61,7 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_distributed_tpu_torch.models.gpt2 import dropout
-from pytorch_distributed_tpu_torch.models.llama import Linear, _whole
+from pytorch_distributed_tpu_torch.models.llama import Linear
 from pytorch_distributed_tpu_torch.models.scan import remat_call
 from pytorch_distributed_tpu_torch.ops.attention import (
     attention,
@@ -72,7 +72,7 @@ from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
     resolve_device,
 )
-from pytorch_distributed_tpu_torch.runtime.mesh import shard_box
+from pytorch_distributed_tpu_torch.runtime.mesh import shard_box, whole_tensor
 from pytorch_distributed_tpu_torch.runtime.precision import (
     Policy,
     current_policy,
@@ -475,7 +475,7 @@ class T5ForConditionalGeneration(nn.Module):
         # compute dtype, the product in the param dtype (shared.attend)
         x = x * torch.tensor(cfg.d_model ** -0.5, dtype=x.dtype)
         pd = policy.param_dtype
-        logits = F.linear(x.to(pd), _whole(self.shared.weight).to(pd))
+        logits = F.linear(x.to(pd), whole_tensor(self.shared.weight).to(pd))
         return logits.to(policy.output_dtype)
 
     def forward(self, input_ids=None, decoder_input_ids=None, *,

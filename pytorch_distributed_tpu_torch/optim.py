@@ -78,7 +78,28 @@ def _param_groups(params, weight_decay: float,
     """Parameters -> torch param groups; with ``no_decay`` (which needs a
     module, for the names) the matching ones get weight decay 0. Param
     groups given as dicts (as ``ZeroRedundancyOptimizer`` builds its
-    per-rank optimizer) pass through."""
+    per-rank optimizer) pass through. A group that mixes ``DTensor``
+    parameters with plain ones (a tensor-parallel pipeline stage: its
+    norms and positions stay plain) is split in two, since torch's
+    multi-tensor step takes one kind a call."""
+    return _split_dtensor_groups(_groups(params, weight_decay, no_decay))
+
+
+def _split_dtensor_groups(groups):
+    from torch.distributed.tensor import DTensor
+
+    out = []
+    for g in groups:
+        kinds = [[p for p in g["params"] if isinstance(p, DTensor) == k]
+                 for k in (True, False)]
+        if all(kinds):
+            out += [dict(g, params=k) for k in kinds]
+        else:
+            out.append(g)
+    return out
+
+
+def _groups(params, weight_decay: float, no_decay: Optional[Sequence[str]]):
     if not isinstance(params, torch.nn.Module):
         params = list(params)
         if params and isinstance(params[0], dict):

@@ -47,10 +47,12 @@ from pytorch_distributed_tpu_torch.parallel.strategies import (
     FSDP,
     DataParallel,
     ZeRO1,
+    ZeroShards,
     tp_plan,
 )
 
-__all__ = ["DataParallel", "ZeRO1", "FSDP", "tp_plan", "compress_hook",
+__all__ = ["DataParallel", "ZeRO1", "ZeroShards", "FSDP", "tp_plan",
+           "compress_hook",
            "no_sync", "sync_grads", "pipeline_forward",
            "split_microbatches", "merge_microbatches", "PartitionSpec", "TensorRule",
            "compile_rule", "engine_rules", "max_divisible_tp",

@@ -27,9 +27,13 @@ Two forms, as in the JAX package:
 
 Blocks run with dropout off inside the pipeline, as in the JAX package.
 The embed/``ln_f``/tied-head math mirrors ``GPT2LMHead.forward``
-(``models/gpt2.py``). ``pp`` with tensor parallelism (the JAX
-``_PipelineRules``) is ROADMAP A10.1: ``extra_rules`` at ``tp > 1``
-raise.
+(``models/gpt2.py``). With ``tp > 1`` (the JAX ``_PipelineRules``: the
+stage dim and the TP spec both kept) each stage's layers, and the
+replicated embeddings, are TP-sharded by ``extra_rules`` over the mesh's
+``tp`` dim: the blocks' all-reduces run over ``tp`` inside each tick
+while the hand-offs run over ``pp`` in the same order on every stage.
+The host executor stays at tp 1 (``HostPipelineStep`` refuses sharded
+stages).
 """
 
 from __future__ import annotations
@@ -217,8 +221,10 @@ class PipelineParallel:
     this stage's layers and allocates only them: no rank holds another
     stage's layers. Then ``init_weights`` draws the whole model's weights
     (``models/gpt2.py``), or a checkpoint restores them. Its gradients
-    are averaged over the data axes only. ``extra_rules`` (the JAX
-    strategy's TP rules) at ``tp > 1`` raise (ROADMAP A10.1)."""
+    are averaged over the data axes only. At ``tp > 1`` the
+    ``extra_rules`` (``gpt2_partition_rules()``) shard the stage over
+    the mesh's ``tp`` dim as ``parallel.DataParallel`` shards a whole
+    model."""
 
     def __init__(self, device: DeviceLike = None, *,
                  mesh_spec: MeshSpec = MeshSpec(dp=1, pp=-1),
@@ -234,11 +240,11 @@ class PipelineParallel:
                 "runtime.distributed.init_process_group() first")
         self.device = resolve_device(device)
         self.spec = mesh_spec.resolve(dist.get_world_size())
-        if self.spec.tp > 1:
-            raise NotImplementedError(
-                f"pp with tp={self.spec.tp}: GPT-2's tensor parallelism "
-                "composed with the stage layout (the JAX _PipelineRules) is "
-                "not ported (ROADMAP A10.1)")
+        if self.spec.tp > 1 and extra_rules is None:
+            raise ValueError(
+                f"tp={self.spec.tp} needs the model's partition rules "
+                "(extra_rules=gpt2_partition_rules())")
+        self.rules = extra_rules
         if self.spec.ep > 1 or self.spec.sp > 1:
             raise ValueError(
                 f"{self.spec}: the pipelined GPT-2 runs dense blocks on "
@@ -261,14 +267,21 @@ class PipelineParallel:
         per = L // self.num_stages
         start = self.stage * per
         model.blocks = nn.ModuleList(list(model.blocks)[start:start + per])
-        if any(p.is_meta for p in model.parameters()):
-            model.to_empty(device=self.device)
-        else:
-            model.to(self.device)
         model.pipeline_stage = StageLayout(
             self.stage, self.num_stages, start, start + per, L,
             self.group if self.num_stages > 1 else None,
             writer=data_rank()[0] == 0)
+        if self.spec.tp > 1:
+            from pytorch_distributed_tpu_torch.parallel.strategies import (
+                apply_tp,
+            )
+
+            apply_tp(model, model.blocks, self.rules, self.spec,
+                     self.mesh["tp"])
+        if any(p.is_meta for p in model.parameters()):
+            model.to_empty(device=self.device)
+        else:
+            model.to(self.device)
         if self.num_stages > 1:
             # the global norm counts each stage's layers once
             for p in model.blocks.parameters():
@@ -301,20 +314,25 @@ class PipelineParallel:
 @torch.no_grad()
 def gather_stages(model) -> torch.nn.Module:
     """A whole ``GPT2LMHead`` on every stage from the stages' layers,
-    gathered over the ``pp`` group (the recipe's closing ``--sample``)."""
+    gathered over the ``pp`` group (and each TP-sharded tensor over
+    ``tp`` first, its rows back in the whole model's order): the
+    recipe's closing ``--sample``."""
     from pytorch_distributed_tpu_torch.models.gpt2 import GPT2LMHead
+    from pytorch_distributed_tpu_torch.runtime.mesh import whole_tensor
 
     layout = getattr(model, "pipeline_stage", None)
     if layout is None:
         return model
     whole = GPT2LMHead(model.config, device=model.device,
                        policy=model.policy)
-    own = dict(model.named_parameters())
+    own = {n: model.whole_rows(n, whole_tensor(p))
+           for n, p in model.named_parameters()}
     for name, p in whole.named_parameters():
         if not name.startswith("blocks."):
             p.copy_(own[name])
     per = layout.stop - layout.start
-    for name, p in model.blocks.named_parameters():
+    for name, _ in model.blocks.named_parameters():
+        p = own[f"blocks.{name}"]
         i, sub = name.split(".", 1)
         parts = [torch.empty_like(p) for _ in range(layout.num_stages)]
         if layout.num_stages > 1:

@@ -518,6 +518,15 @@ class HostPipelineStep:
         if num_stages > 1 and act_template is None:
             raise ValueError("num_stages > 1 needs an act_template buffer")
         _check_elementwise(optimizer)
+        from torch.distributed.tensor import DTensor
+
+        if any(isinstance(p, DTensor) for p in getattr(programs, "params",
+                                                       ())):
+            raise NotImplementedError(
+                "the host pipeline executor runs whole (tp 1) stages: "
+                "tensor parallelism composes with pp in the GPipe form "
+                "(parallel.pipeline_lm.PipelineParallel), as the JAX "
+                "executor has no tp either")
         self.stage = stage
         self.num_stages = num_stages
         self.num_microbatches = num_microbatches

@@ -197,13 +197,14 @@ def _port_dim_of_axis(slot, jshape: Tuple[int, ...], axis: int, ways: int,
     JAX axis ``axis`` of one layer's array (``jshape``); raises when
     there is none (the axis is not the outermost non-trivial axis folded
     into one port dim)."""
-    if slot.perm is not None:
+    if slot.perm is not None and slot.leaf is None:
         for dim, group in enumerate(slot.groups()):
             if axis in group:
                 lead = group[:list(group).index(axis)]
                 if all(jshape[a] == 1 for a in lead):
                     return dim
     else:   # send an index array through the slot's map and compare
+        # (a slot whose ``jshape`` splits the leaf's axes: GPT-2's qkv)
         idx = np.arange(math.prod(jshape)).reshape(jshape)
         port = slot.from_jax(idx)
         want = np.sort(np.take(idx, range(jshape[axis] // ways),

@@ -64,7 +64,14 @@ experts of every mixture-of-experts layer (:func:`place_experts`, a
 ``DTensor`` FSDP2 shards further over ``fsdp``), the tokens replicated.
 :class:`DataParallel` on a mesh with ``ep`` or ``tp`` above 1 is this
 at ``fsdp == 1``: the JAX ``DataParallel(extra_rules=...)``.
-:class:`ZeRO1` takes no model axis (ROADMAP A10.1).
+:class:`ZeRO1` on such a mesh wraps the model as :class:`DataParallel`
+does (the parameters TP-sharded and replicated over ``dp``, never
+dp-sharded, their gradients averaged over ``dp``) and splits the
+optimizer state over ``dp`` (:class:`ZeroShards`): each ``dp`` rank
+keeps the moments of about ``1 / dp`` of its TP shards, steps those and
+broadcasts them over its ``dp`` group, as the JAX ``ZeRO1`` with
+``extra_rules`` splits each TP shard's moments over ``dp``. A GPT-2's
+fused qkv rows are grouped by rank first (``GPT2LMHead.set_qkv_ways``).
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from pytorch_distributed_tpu_torch.data.loader import rank_slice
+from pytorch_distributed_tpu_torch.optim import _local
 from pytorch_distributed_tpu_torch.runtime import distributed as dist
 from pytorch_distributed_tpu_torch.runtime.device import (
     DeviceLike,
@@ -230,6 +238,21 @@ def set_moe_data_group(model: torch.nn.Module, group) -> None:
             mod.data_group = group
 
 
+def apply_tp(model: torch.nn.Module, blocks, rules, spec: MeshSpec,
+             tp_mesh) -> None:
+    """The TP plan over ``tp_mesh`` (and the tables of
+    :func:`place_tables`), a GPT-2's fused qkv rows grouped by rank
+    first, and each of ``blocks`` told its ``(rank, ways, group)``."""
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    if hasattr(model, "set_qkv_ways"):
+        model.set_qkv_ways(spec.tp)
+    parallelize_module(model, tp_mesh, tp_plan(model, rules, spec))
+    place_tables(model, rules, spec, tp_mesh)
+    for block in blocks:
+        block.tp = (tp_mesh.get_local_rank(), spec.tp, tp_mesh.get_group())
+
+
 def _shard_model(model: torch.nn.Module, spec: MeshSpec, mesh, shard_mesh,
                  rules) -> torch.nn.Module:
     """:meth:`FSDP.wrap`'s body: the TP plan over ``tp`` (and the
@@ -246,14 +269,7 @@ def _shard_model(model: torch.nn.Module, spec: MeshSpec, mesh, shard_mesh,
         if blocks is None:
             blocks = model.blocks
     if spec.tp > 1:
-        from torch.distributed.tensor.parallel import parallelize_module
-
-        tp_mesh = mesh["tp"]
-        parallelize_module(model, tp_mesh, tp_plan(model, rules, spec))
-        place_tables(model, rules, spec, tp_mesh)
-        for block in blocks:
-            block.tp = (tp_mesh.get_local_rank(), spec.tp,
-                        tp_mesh.get_group())
+        apply_tp(model, blocks, rules, spec, mesh["tp"])
     place_experts(model, rules, spec, mesh)
     data = tuple(a for a in ("dp", "fsdp") if getattr(spec, a) > 1)
     if data:
@@ -367,23 +383,89 @@ class DataParallel:
 
 class ZeRO1(DataParallel):
     """DDP (:meth:`wrap`) with the optimizer state sharded over the
-    ranks (:meth:`optimizer`)."""
+    ranks (:meth:`optimizer`); on a mesh with a model axis, the model
+    sharded as :class:`DataParallel` shards it and the state split over
+    ``dp`` (the module docstring)."""
 
     def optimizer(self, params, optimizer_class=None, **defaults):
         """``ZeroRedundancyOptimizer`` over ``params`` (a module or its
         parameters), each rank's shard an ``optimizer_class`` (the port's
-        ``AdamW`` unless given) built with ``defaults``. Clip by the
-        global norm around it (``optim.clip_grad_norm(zero, max_norm)``),
-        never around its shard."""
+        ``AdamW`` unless given) built with ``defaults``; on a model-
+        parallel mesh a :class:`ZeroShards` over the ``dp`` group, built
+        after :meth:`wrap` on the sharded parameters. Clip by the global
+        norm around it (``optim.clip_grad_norm(zero, max_norm)``), never
+        around its shard."""
         from torch.distributed.optim import ZeroRedundancyOptimizer
 
         from pytorch_distributed_tpu_torch.optim import AdamW
 
         if isinstance(params, torch.nn.Module):
             params = params.parameters()
+        params = list(params)
+        if self.model_parallel:
+            from torch.distributed.tensor import DTensor
+
+            if not any(isinstance(p, DTensor) for p in params):
+                raise ValueError(
+                    "ZeRO1 on a model-parallel mesh: build the optimizer "
+                    "after wrap(model), on its sharded parameters")
+            return ZeroShards(params, optimizer_class or AdamW,
+                              self.mesh["dp"].get_group(), **defaults)
         return ZeroRedundancyOptimizer(
-            list(params), optimizer_class=optimizer_class or AdamW,
-            **defaults)
+            params, optimizer_class=optimizer_class or AdamW, **defaults)
+
+
+class ZeroShards:
+    """ZeRO-1 over a data group for parameters a model axis shards (TP
+    ``DTensor``s, or plain ones): every parameter belongs to one rank of
+    ``group`` (the largest first, each to the rank with the fewest
+    elements so far, as ``ZeroRedundancyOptimizer`` partitions), which
+    keeps its optimizer state in ``optim`` (an ``optimizer_class`` over
+    its own parameters), steps it, and broadcasts this rank's shard of
+    it to the group. The gradients must already be the group's mean
+    (the strategy's wrap averages them over ``dp``). ``param_groups``
+    holds every parameter, so a clip around it takes the global norm."""
+
+    def __init__(self, params, optimizer_class, group, **defaults):
+        self.group = group
+        self.params = [p for p in params if p.requires_grad]
+        n = torch.distributed.get_world_size(group)
+        me = torch.distributed.get_rank(group)
+        loads = [0] * n
+        self.owner: Dict[int, int] = {}
+        for p in sorted(self.params, key=lambda p: _local(p).numel(),
+                        reverse=True):
+            r = loads.index(min(loads))
+            self.owner[id(p)] = r
+            loads[r] += _local(p).numel()
+        owned = [p for p in self.params if self.owner[id(p)] == me]
+        if not owned:
+            raise ValueError(
+                f"{len(self.params)} parameters over {n} data ranks: rank "
+                f"{me} would own none")
+        self.optim = optimizer_class(owned, **defaults)
+        self._src = [torch.distributed.get_global_rank(group, r)
+                     for r in range(n)]
+        self.param_groups = [{"params": self.params}]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """Step this rank's parameters, then every rank's shard of each
+        parameter from its owner over ``group``."""
+        loss = self.optim.step(closure)
+        works = [torch.distributed.broadcast(
+            _local(p), src=self._src[self.owner[id(p)]], group=self.group,
+            async_op=True) for p in self.params]
+        for w in works:
+            w.wait()
+        return loss
 
 
 class FSDP(DataParallel):

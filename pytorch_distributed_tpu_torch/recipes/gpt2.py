@@ -36,6 +36,17 @@ decode through ``generation.generate``), logged as ids or, with
 ``--dp`` the data-parallel width the world must hold (-1: every rank),
 as in the JAX recipe.
 
+``--tp M`` shards every block over M ranks as the JAX recipe's
+``gpt2_partition_rules`` do (the fused qkv and the MLP's up projection
+column-parallel, ``attn_out`` and the down projection row-parallel, the
+token embedding on hidden; ``models/gpt2.py``), under ``--strategy
+zero1`` (the moments of each TP shard split over ``dp``:
+``parallel.ZeroShards``) or ``dp``, on the JAX recipe's ``dp x tp x pp``
+mesh: under ``torchrun`` the world is ``dp x tp x pp``, each rank draws
+its own box of the seeded weights, the ``tp`` ranks of a data share
+read the same rows, and the eval and ``--sample`` run on the sharded
+model.
+
 ``--pp N`` pipelines the layers over N stages, one rank each, as the
 JAX recipe's GPipe form (``parallel.pipeline_lm.PipelineParallel`` with
 ``pipelined_causal_lm_loss_fn``): each rank allocates its stage's
@@ -44,11 +55,12 @@ stages in ``max(accum_steps, 2 * N)`` microbatches (``--accum-steps``
 then counts as 1), the blocks run with dropout off, the gradients are
 averaged over the data ranks and clipped by the norm over every stage,
 and the eval runs through the pipelined forward; ``--sample`` gathers
-the stages' layers into a whole model on every rank first. Under
-``torchrun`` the world is ``dp x pp``; ``--pp`` with ``--vocab-chunk``
-or ``--pack`` raises, as in the JAX recipe. ``--strategy auto`` raises
-(ROADMAP A10.6: the planner), and so does ``--tp`` above 1 (ROADMAP
-A10.1: GPT-2's tensor parallelism, with or without pipelines).
+the stages' layers into a whole model on every rank first. With
+``--tp`` each stage's layers are TP-sharded as above. Under ``torchrun``
+the world is ``dp x tp x pp``; ``--pp`` with ``--vocab-chunk`` or
+``--pack`` raises, as in the JAX recipe. ``--strategy auto`` raises
+(ROADMAP A10.6: the planner), and so does ``--strategy single`` with
+``--tp`` above 1.
 """
 
 from __future__ import annotations
@@ -130,7 +142,7 @@ def parse_args(argv=None):
                    default="zero1")
     p.add_argument("--pp", type=int, default=1, help="pipeline stages")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (above 1: ROADMAP A10.1)")
+                   help="tensor-parallel ways")
     p.add_argument("--remat", action="store_true",
                    help="recompute block activations in the backward")
     p.add_argument("--remat-policy", choices=("full", "dots",
@@ -165,11 +177,9 @@ def main(argv=None) -> Trainer:
         raise SystemExit(
             "--pack is not combinable with --pp (the pipelined loss "
             "refuses packed batches)")
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: GPT-2's tensor parallelism (its fused qkv "
-            "sharded on heads, under DDP or ZeRO-1) is not ported "
-            "(ROADMAP A10.1)")
+    if args.tp > 1 and args.strategy == "single":
+        raise SystemExit("--tp needs a process group: --strategy zero1 or "
+                         "dp")
     if args.pack and not args.text_file:
         raise SystemExit("--pack needs --text-file (documents to pack)")
     seed_all(args.seed)
@@ -234,8 +244,8 @@ def _train(args, device) -> Trainer:
         cfg = dataclasses.replace(cfg, remat=True,
                                   remat_policy=args.remat_policy)
     seq_len = min(args.seq_len, cfg.n_positions)
-    # the JAX recipe's mesh is dp x tp x pp (tp above 1 refused: A10.1)
-    mesh_spec = MeshSpec(dp=args.dp, pp=args.pp)
+    # the JAX recipe's mesh: dp x tp x pp
+    mesh_spec = MeshSpec(dp=args.dp, tp=args.tp, pp=args.pp)
     mesh_spec.resolve(dist.get_world_size() if dist.is_initialized() else 1)
     cfg, ds, eval_ds, tokenizer = _datasets(args, cfg, seq_len)
     policy = Policy.train()
@@ -243,18 +253,8 @@ def _train(args, device) -> Trainer:
     if args.pp > 1:
         return _train_pipelined(args, device, cfg, mesh_spec, policy, gen,
                                 ds, eval_ds, tokenizer, seq_len)
-    model = GPT2LMHead(cfg, device=device, policy=policy)
-    model.init_weights(gen)
-    net = model
-    if args.strategy == "zero1":
-        strategy = ZeRO1(device)
-        optimizer = strategy.optimizer(model, AdamW, lr=args.lr,
-                                       weight_decay=ADAMW_WEIGHT_DECAY)
-        net = strategy.wrap(model)
-    else:
-        optimizer = AdamW(model, lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY)
-        if args.strategy == "dp":
-            net = DataParallel(device).wrap(model)
+    model, net, optimizer = _build(args, device, cfg, mesh_spec, policy,
+                                   gen)
     optimizer = clip_grad_norm(optimizer, 1.0)
     trainer = Trainer(
         TrainState(net, optimizer, policy=policy),
@@ -275,11 +275,39 @@ def _train(args, device) -> Trainer:
     trainer.tokenizer = tokenizer   # the corpus's BPE, or None
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("GPT-2 %s: %d params on %s, batch %d x seq %d, accum %d, "
-                "%s over %d rank(s), remat %s, vocab chunk %s", args.size,
-                n_params, device, args.batch_size, seq_len, args.accum_steps,
-                args.strategy, dist.get_world_size(),
-                cfg.remat_policy if cfg.remat else "off", args.vocab_chunk)
+                "%s over %d rank(s) (tp %d), remat %s, vocab chunk %s",
+                args.size, n_params, device, args.batch_size, seq_len,
+                args.accum_steps, args.strategy, dist.get_world_size(),
+                args.tp, cfg.remat_policy if cfg.remat else "off",
+                args.vocab_chunk)
     return _fit_and_sample(trainer, model, eval_ds, args, device, tokenizer)
+
+
+def _build(args, device, cfg, mesh_spec, policy, gen):
+    """``(model, net, optimizer)``: the seeded model, the module the
+    step runs (DDP's wrapper, or the TP-sharded model itself) and the
+    optimizer of ``--strategy``."""
+    kw = dict(lr=args.lr, weight_decay=ADAMW_WEIGHT_DECAY)
+    if args.tp > 1:
+        # each rank allocates and draws its own box of the weights
+        strategy = (ZeRO1 if args.strategy == "zero1" else DataParallel)(
+            device, mesh_spec=mesh_spec, extra_rules=gpt2_partition_rules())
+        model = strategy.wrap(GPT2LMHead(cfg, device="meta", policy=policy))
+        model.to_empty(device=device)
+        model.init_weights(gen)
+        optimizer = (strategy.optimizer(model, AdamW, **kw)
+                     if args.strategy == "zero1" else AdamW(model, **kw))
+        return model, model, optimizer
+    model = GPT2LMHead(cfg, device=device, policy=policy)
+    model.init_weights(gen)
+    if args.strategy == "zero1":
+        strategy = ZeRO1(device)
+        optimizer = strategy.optimizer(model, AdamW, **kw)
+        return model, strategy.wrap(model), optimizer
+    optimizer = AdamW(model, **kw)
+    if args.strategy == "dp":
+        return model, DataParallel(device).wrap(model), optimizer
+    return model, model, optimizer
 
 
 def _fit_and_sample(trainer, model, eval_ds, args, device, tokenizer):

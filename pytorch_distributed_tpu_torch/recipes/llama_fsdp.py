@@ -35,12 +35,15 @@ checkpoint first, and on SIGTERM checkpoints and exits ``EX_TEMPFAIL``
 (75). ``--device cpu`` runs the plain PyTorch path on the CPU (at
 ``--size tiny``; gloo). ``--tp N`` shards the blocks Megatron-style over
 a ``tp`` mesh axis (``llama_partition_rules``) under FSDP over ``fsdp``;
+``--tp`` also runs under ``--strategy dp`` (the TP shards replicated
+over ``dp``) and ``zero1`` (their moments split over ``dp``,
+``parallel.ZeroShards``), at ``--fsdp 1``.
 ``--sp N`` splits each row's sequence over an ``sp`` axis (the state
 replicated over it: the 8B AdamW state, ~128 GB whole, fits a card only
 sharded over ``fsdp`` beside it), attention
 running as ``--sp-mode ring`` (the default, as in the JAX recipe) or
-``ulysses`` while ``fit`` runs (``parallel.sequence_parallel``). Both
-need ``--strategy fsdp`` (``dp`` and ``zero1`` raise naming ROADMAP
+``ulysses`` while ``fit`` runs (``parallel.sequence_parallel``); it
+needs ``--strategy fsdp`` (``dp`` and ``zero1`` raise naming ROADMAP
 A10.1, as does ``--optimizer adafactor`` with ``--tp``); ``--strategy
 auto`` raises naming A10.6 and ``--optimizer adafactor`` with
 ``--strategy zero1`` (its leaves split over the ranks) A4.
@@ -123,11 +126,10 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if (args.tp > 1 or args.sp > 1) and args.strategy in ("dp", "zero1"):
+    if args.sp > 1 and args.strategy in ("dp", "zero1"):
         raise NotImplementedError(
-            f"--tp/--sp with --strategy {args.strategy}: tensor and "
-            "sequence parallelism run under --strategy fsdp in the port "
-            "(DDP over DTensor parameters is ROADMAP A10.1)")
+            f"--sp with --strategy {args.strategy}: sequence parallelism "
+            "runs under --strategy fsdp in the port (ROADMAP A10.1)")
     if args.tp > 1 and args.optimizer == "adafactor":
         raise NotImplementedError(
             "--optimizer adafactor with --tp: its factored statistics "
@@ -160,11 +162,11 @@ def main(argv=None) -> Trainer:
 def build_model(cfg: LlamaConfig, strategy, device, seed: int,
                 policy: Policy):
     """``(model, net)``: the model with weights from ``seed`` and the
-    module the step runs (the DDP wrapper, or under FSDP the sharded
-    model itself). Under FSDP the model is made on the meta device,
-    sharded, then each rank fills its own rows."""
+    module the step runs (the DDP wrapper, or under FSDP or a model axis
+    the sharded model itself). Then the model is made on the meta
+    device, sharded, and each rank fills its own rows."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    if isinstance(strategy, FSDP):
+    if isinstance(strategy, FSDP) or strategy.model_parallel:
         model = LlamaForCausalLM(cfg, device="meta", policy=policy)
         strategy.wrap(model)
         model.to_empty(device=device)
@@ -203,11 +205,14 @@ def _train(args, device) -> Trainer:
                                          sp=args.sp, tp=args.tp),
                         extra_rules=llama_partition_rules())
     else:
-        MeshSpec(dp=args.dp, fsdp=args.fsdp).resolve(dist.get_world_size())
+        spec = MeshSpec(dp=args.dp, fsdp=args.fsdp, tp=args.tp)
+        spec.resolve(dist.get_world_size())
         if args.fsdp != 1:
             raise SystemExit(f"--fsdp {args.fsdp} needs --strategy fsdp")
         strategy = (ZeRO1 if args.strategy == "zero1" else DataParallel)(
-            device)
+            device, **(dict(mesh_spec=spec,
+                            extra_rules=llama_partition_rules())
+                       if args.tp > 1 else {}))
     model, net = build_model(cfg, strategy, device, args.seed, policy)
     optimizer = build_optimizer(args.optimizer, model, strategy, args.lr)
     n = (args.steps_per_epoch or 50) * args.batch_size

@@ -29,8 +29,8 @@ model is built on the meta device and each rank draws its own box of the
 seeded weights. The closing evaluation serves drop-free
 (``capacity_factor=None`` on the same weights): the bounded-capacity
 dispatch could drop a row's tokens depending on which rows share the
-batch. ``--eval-rows 0`` skips it; under ``--tp`` it raises (TP in
-``generate``, ROADMAP A10.1). ``--ckpt-dir`` checkpoints after every
+batch; under ``--tp`` it decodes on the sharded model, each rank's
+cache holding its own kv heads. ``--eval-rows 0`` skips it. ``--ckpt-dir`` checkpoints after every
 epoch in the format both packages read and resumes; ``--remat`` and
 ``--vocab-chunk`` are the Llama recipe's. ``--device cpu`` runs on the
 CPU (gloo).
@@ -129,10 +129,6 @@ def main(argv=None) -> Trainer:
     """Train, then score the greedy continuation; returns the ``Trainer``
     (``trainer.successor`` holds the exact- and token-match rates)."""
     args = parse_args(argv)
-    if args.tp > 1 and args.eval_rows:
-        raise NotImplementedError(
-            "--tp with the closing generate: tensor parallelism in "
-            "generate is not ported (ROADMAP A10.1); pass --eval-rows 0")
     seed_all(args.seed)
     device = dist.rank_device(args.device)
     own_group = not dist.is_initialized()

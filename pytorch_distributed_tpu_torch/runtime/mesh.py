@@ -200,7 +200,8 @@ def is_shard(placement) -> bool:
     return not (placement.is_replicate() or placement.is_partial())
 
 
-def shard_box(t) -> Tuple[object, Tuple[int, ...], bool]:
+def shard_box(t, free: Tuple[str, ...] = ()
+              ) -> Tuple[object, Tuple[int, ...], bool]:
     """``(local, offsets, writer)`` of a tensor: a plain one is its own
     local part at offset 0 of every dim; a ``DTensor`` (FSDP's and TP's
     parameters, gradients and moments) holds the box of the global
@@ -210,7 +211,8 @@ def shard_box(t) -> Tuple[object, Tuple[int, ...], bool]:
     at coordinate 0 of every mesh dim the tensor is replicated over,
     and of every dim of the current mesh that its own mesh leaves out
     (a norm's scale, sharded over ``fsdp`` alone, is held alike by every
-    ``tp`` and ``sp`` rank)."""
+    ``tp`` and ``sp`` rank), the mesh dims named in ``free`` aside (a
+    ZeRO-1 owner's ``dp``, a pipeline stage's ``pp``)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset,
@@ -219,8 +221,9 @@ def shard_box(t) -> Tuple[object, Tuple[int, ...], bool]:
     if not isinstance(t, DTensor):
         return t, (0,) * t.dim(), True
     mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
-    writer = all(c == 0 for c, pl in zip(coord, t.placements)
-                 if not is_shard(pl))
+    names = mesh.mesh_dim_names or (None,) * len(coord)
+    writer = all(c == 0 for c, pl, name in zip(coord, t.placements, names)
+                 if not is_shard(pl) and name not in free)
     cur = current_mesh()
     if cur is not None:
         own = set(mesh.mesh_dim_names or ())
@@ -228,7 +231,7 @@ def shard_box(t) -> Tuple[object, Tuple[int, ...], bool]:
         writer = writer and all(
             c == 0 for name, c in zip(root.mesh_dim_names,
                                       root.get_coordinate())
-            if name not in own)
+            if name not in own and name not in free)
     local = t.to_local()
     shape, offsets = compute_local_shape_and_global_offset(
         tuple(t.shape), mesh, t.placements)
@@ -250,3 +253,21 @@ def row_shard(t) -> Tuple[object, int, bool]:
             f"(local {tuple(local.shape)} at {offsets}): this caller reads "
             "whole rows (ROADMAP A10.1)")
     return local, (offsets[0] if offsets else 0), writer
+
+
+def whole_tensor(t):
+    """A ``DTensor`` gathered whole (differentiably: the backward keeps
+    this rank's part of the gradient); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def sharded_over(t, axis: str) -> bool:
+    """Whether ``t`` is a ``DTensor`` cut over the mesh dim ``axis``."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return False
+    names = t.device_mesh.mesh_dim_names or ()
+    return axis in names and is_shard(t.placements[names.index(axis)])

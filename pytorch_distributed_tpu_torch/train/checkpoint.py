@@ -26,7 +26,10 @@ boxes the manifest records as any other shard, with no gather. Then
 rank 0 merges the ranks' manifests, writes the COMMIT marker and swings
 the directory into place, between barriers of the process group. A
 restore reads, on each rank, the parameters whole and the moments of
-the parameters its optimizer now holds, at any world size.
+the parameters its optimizer now holds, at any world size. On a
+model-parallel mesh (``parallel.ZeroShards``) the parameters are TP
+shards and each rank writes their boxes as below, and a moment's boxes
+are written by the data rank that owns it.
 
 Under FSDP every parameter and both its moments are DTensors, and a
 rank holds a box of each: rows of dim 0, and under tensor parallelism
@@ -216,13 +219,16 @@ def _plan(state: TrainState) -> List[_Leaf]:
         leaf.boxes.extend(boxes)
         leaf.writes = leaf.writes or (writes and bool(boxes))
 
-    def writer(t, replicated, slot):
+    def writer(t, replicated, slot, free=()):
         # a sharded tensor's first replica writes its rows; a pipeline
         # stage's layers, its first data replica; a replicated one is
         # rank 0's (or, under ZeRO, its owner's) to write
+        staged = stage is not None and slot.layer is not None
         if isinstance(t, DTensor):
-            return shard_box(t)[2]
-        if stage is not None and slot.layer is not None:
+            if staged:
+                return stage.writer and shard_box(t, free + ("pp",))[2]
+            return shard_box(t, free)[2]
+        if staged:
             return stage.writer
         return replicated
 
@@ -274,8 +280,10 @@ def _plan(state: TrainState) -> List[_Leaf]:
                 boxes = _shard_boxes(slot, p, get)
             else:
                 boxes = [_tensor_box(slot, get, put, shape)]
+            # under ZeRO the owner writes (a TP shard's, over ``dp``)
             add(name, shape, np.float32, boxes,
-                writer(p, rank0 if zero is None else True, slot))
+                writer(p, rank0 if zero is None else True, slot,
+                       () if zero is None else ("dp",)))
 
     # state kept once per JAX leaf, whole and replicated: rank 0's
     for leaf in (getattr(local, "leaves", None) or ()) if layout.per_leaf \
@@ -304,7 +312,7 @@ def _plan(state: TrainState) -> List[_Leaf]:
 
     for p_name, shadow in (state.ema_params or {}).items():
         slot = slots.get(p_name)
-        if slot is None or slot.perm is not None:
+        if slot is None or isinstance(shadow, DTensor):
             raise NotImplementedError(
                 f"ema_params: no whole-leaf JAX slot for {p_name!r} (EMA "
                 "checkpoints cover unsharded models; ROADMAP A5)")

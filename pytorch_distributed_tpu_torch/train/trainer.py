@@ -214,9 +214,10 @@ def _grad_sync(model, grad_compression: Optional[str]):
 
 def _average(grads, group) -> None:
     """Average ``grads`` in place over ``group``, in one flat
-    all-reduce."""
+    all-reduce (a ``DTensor`` gradient's local part)."""
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+    grads = [_local(g) for g in grads]
     flat = _flatten_dense_tensors(grads)
     torch.distributed.all_reduce(flat, group=group)
     flat.div_(torch.distributed.get_world_size(group))

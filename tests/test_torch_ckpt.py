@@ -73,7 +73,7 @@ from pytorch_distributed_tpu_torch.train.ckpt_io import (
     checkpoint_step,
     load_checkpoint,
 )
-from tests.torch_parity import assert_equal
+from tests.torch_parity import assert_equal, torch_threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -444,9 +444,11 @@ def test_resnet_recipe_checkpoints_and_resumes(tmp_path):
     argv = ["--device", "cpu", "--image-size", "32", "--batch-size", "4",
             "--steps-per-epoch", "2", "--log-every", "1", "--lr", "0.01",
             "--ckpt-dir", str(tmp_path)]
-    first = resnet50_imagenet.main(argv + ["--epochs", "1"])
-    assert first.state.step == 2 and verify_checkpoint(str(tmp_path)) == []
-    second = resnet50_imagenet.main(argv + ["--epochs", "2"])
+    with torch_threads():
+        first = resnet50_imagenet.main(argv + ["--epochs", "1"])
+        assert first.state.step == 2
+        assert verify_checkpoint(str(tmp_path)) == []
+        second = resnet50_imagenet.main(argv + ["--epochs", "2"])
     assert [r["step"] for r in second.history] == [3, 4]
     assert checkpoint_step(str(tmp_path)) == 4
     assert load_sampler_cursor(str(tmp_path)) == {"step": 4, "epoch": 2,

@@ -103,10 +103,15 @@ def test_text_file_trains(tmp_path, pack):
 
 
 def test_tp_flag_refuses_naming_a10_1():
-    """The JAX recipe's ``--tp`` (``recipes/gpt2_zero1.py``) is taken, and
-    above 1 refused by name: GPT-2's tensor parallelism is ROADMAP
-    A10.1."""
+    """The JAX recipe's ``--tp`` (``recipes/gpt2_zero1.py``) is taken; it
+    trains under ``zero1`` and ``dp`` on a ``dp x tp x pp`` world
+    (tests/test_torch_gpt2_tp.py), so what it refuses now is a world
+    that cannot hold the mesh and ``--strategy single``, which has no
+    process group."""
     args = recipe.parse_args(["--tp", "1"])
     assert args.tp == 1
-    with pytest.raises(NotImplementedError, match="A10.1"):
+    with pytest.raises(ValueError, match="not divisible"):
         recipe.main(["--device", "cpu", "--size", "tiny", "--tp", "2"])
+    with pytest.raises(SystemExit, match="process group"):
+        recipe.main(["--device", "cpu", "--size", "tiny", "--tp", "2",
+                     "--strategy", "single"])

@@ -16,8 +16,8 @@ recipe's flags, at ``--device cpu --size tiny``:
 * ``--optimizer adafactor`` trains under ``fsdp`` and ``dp`` (with
   ``--backend gloo``);
 * the flags the port does not have raise naming their ROADMAP item
-  (``--optimizer adafactor`` only with ``--strategy zero1``; ``--tp`` and
-  ``--sp`` with the data-parallel strategies or Adafactor).
+  (``--optimizer adafactor`` only with ``--strategy zero1``; ``--sp``
+  with the data-parallel strategies, ``--tp`` with Adafactor).
 """
 
 import numpy as np
@@ -71,9 +71,10 @@ def test_other_strategies_train(strategy):
 
 
 @pytest.mark.parametrize("flags, item", [
-    # --tp and --sp train under fsdp (tests/test_torch_sequence.py); the
-    # data-parallel strategies and Adafactor do not take them
-    (["--tp", "2", "--strategy", "dp"], "A10"),
+    # --tp and --sp train under fsdp (tests/test_torch_sequence.py), --tp
+    # under dp and zero1 too (tests/test_torch_gpt2_tp.py); the
+    # data-parallel strategies do not take --sp, nor Adafactor --tp
+    (["--sp", "2", "--strategy", "dp"], "A10"),
     (["--sp", "2", "--strategy", "zero1"], "A10"),
     (["--tp", "2", "--optimizer", "adafactor"], "A10"),
     (["--strategy", "auto"], "A10"),

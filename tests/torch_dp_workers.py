@@ -164,18 +164,37 @@ def gpt2_recipe(rank, world, port, argv, out):
     _run(rank, out, body)
 
 
+def _args_from_file(rank, world, port, target, path, out):
+    """A spawned rank's entry: ``target``'s arguments read from ``path``
+    (:func:`spawn`)."""
+    import pickle
+
+    with open(path, "rb") as f:
+        args = pickle.load(f)
+    target(rank, world, port, *args, out)
+
+
 def spawn(target, world, *args, timeout_s=180.0):
     """Run ``target(rank, world, port, *args, out)`` on ``world`` spawned
     ranks; returns their results by rank. A rank that fails, or a world
     that outlives ``timeout_s``, fails the caller (the processes are
-    killed, never left running)."""
+    killed, never left running). The arguments reach the ranks through
+    a temporary file: passed to the processes themselves, a payload
+    larger than a pipe's buffer would make each start wait for the one
+    before it to finish its imports."""
     import multiprocessing as mp
+    import pickle
     import queue
+    import tempfile
 
     port = _free_port()
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    procs = [ctx.Process(target=target, args=(r, world, port, *args, out))
+    fd, path = tempfile.mkstemp(suffix=".pkl")
+    with os.fdopen(fd, "wb") as f:
+        pickle.dump(args, f)
+    procs = [ctx.Process(target=_args_from_file,
+                         args=(r, world, port, target, path, out))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -198,7 +217,22 @@ def spawn(target, world, *args, timeout_s=180.0):
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
+        os.unlink(path)
     return [results[r] for r in range(world)]
+
+
+def spawn_worlds(*worlds, timeout_s=180.0, meanwhile=None):
+    """:func:`spawn` of each ``(target, world, *args)`` at once (their
+    ranks' imports overlap); their results, in order, and with
+    ``meanwhile`` its result last: it runs in this thread while the
+    worlds do (a test's own reference computation)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        futures = [pool.submit(spawn, *w, timeout_s=timeout_s)
+                   for w in worlds]
+        extra = [meanwhile()] if meanwhile is not None else []
+        return [f.result() for f in futures] + extra
 
 
 def in_process(target, *args):

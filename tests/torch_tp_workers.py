@@ -91,15 +91,17 @@ def collectives(rank, world, port, rows, out):
 
 
 def load_full(model, state_dict) -> None:
-    """Copy whole tensors (``state_dict``, the port's names) into a model
-    whose parameters may be sharded: each rank its own box."""
+    """Copy whole tensors (``state_dict``, the port's names, a world-1
+    model's layout) into a model whose parameters may be sharded: each
+    rank its own box, a TP GPT-2's fused qkv rows in its order."""
     from pytorch_distributed_tpu_torch.runtime.mesh import shard_box
 
+    rows = getattr(model, "tp_rows", lambda name, t: t)
     with torch.no_grad():
         for name, p in model.named_parameters():
             local, offsets, _ = shard_box(p)
             box = tuple(slice(o, o + n) for o, n in zip(offsets, local.shape))
-            local.copy_(state_dict[name][box].to(local.dtype))
+            local.copy_(rows(name, state_dict[name])[box].to(local.dtype))
 
 
 def _tp_model(cfg, spec, params, policy):
